@@ -8,7 +8,10 @@ points run on the CUDA card unless the caller passes ``device="cpu"``.
 Ported so far: the flagship training step, ``AutoDist(...).function(loss_fn,
 params, optimizer, accumulation_steps=k)`` under the ``AllReduce`` strategy on
 one card, with the fused LM-head loss in hand-written Hopper kernels
-(:mod:`autodist_tpu_torch.ops.fused_xent`). ``ROADMAP.md`` lists what is next.
+(:mod:`autodist_tpu_torch.ops.fused_xent`); and its long-context form
+(``python -m autodist_tpu_torch.examples.long_context_lm``): flash attention
+in hand-written Hopper kernels (:mod:`autodist_tpu_torch.ops.flash_attention`)
+with rematerialized blocks. ``ROADMAP.md`` lists what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist

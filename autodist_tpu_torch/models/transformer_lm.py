@@ -21,8 +21,10 @@ What the port keeps from flax, since each changes the numbers:
   cast back.
 - The embedding table is cast to the compute dtype before the gather.
 
-Only ``attention_impl="dot"`` and the training (non-decode) path are ported;
-the rest raise ``NotImplementedError``.
+Ported: the training (non-decode) path with ``attention_impl`` "dot",
+"flash" (:mod:`autodist_tpu_torch.ops.flash_attention`) or "blockwise"
+(:mod:`autodist_tpu_torch.ops.blockwise_attention`), and ``remat``. "ring",
+"ulysses" and decode raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -32,11 +34,14 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 from torch.func import functional_call
 
 from autodist_tpu_torch.models.common import (EMBEDDING, HEAD_KERNEL,
                                               fused_lm_head_nll, lm_head_logits)
+from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
+from autodist_tpu_torch.ops.flash_attention import flash_attention
 from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
@@ -142,8 +147,17 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype)
 
     def forward(self, x, mask):
+        cfg = self.cfg
         q, k, v = self.query(x), self.key(x), self.value(x)
-        return self.out(dot_product_attention(q, k, v, mask, self.cfg.dtype))
+        if cfg.attention_impl == "flash":
+            ctx = flash_attention(q, k, v, causal=True)
+        elif cfg.attention_impl == "blockwise":
+            # The O(L)-memory path without kernels (the JAX package's choice
+            # where its flash kernel cannot compile).
+            ctx = blockwise_attention(q, k, v, causal=True)
+        else:
+            ctx = dot_product_attention(q, k, v, mask, cfg.dtype)
+        return self.out(ctx)
 
 
 class Block(nn.Module):
@@ -167,12 +181,11 @@ class TransformerLM(nn.Module):
 
     def __init__(self, config: TransformerLMConfig):
         super().__init__()
-        if config.attention_impl != "dot":
+        if config.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={config.attention_impl!r} is not ported yet "
-                f"(ROADMAP.md, port queue); use 'dot'")
-        if config.remat:
-            raise NotImplementedError("remat is not ported yet")
+                f"(ROADMAP.md, port queue: sequence parallelism); use 'dot', "
+                f"'flash' or 'blockwise'")
         self.config = cfg = config
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype)
         self.pos_embed = _param(cfg.max_len, cfg.d_model)
@@ -193,9 +206,13 @@ class TransformerLM(nn.Module):
         length = tokens.shape[1]
         pos = self.pos_embed[pos_offset:pos_offset + length]
         x = self.embed(tokens) + pos[None].to(cfg.dtype)
-        mask = causal_mask(length, cfg.dtype, device=x.device)
+        # Only dot attention reads the [L, L] mask; flash and blockwise mask
+        # by position.
+        mask = (causal_mask(length, cfg.dtype, device=x.device)
+                if cfg.attention_impl == "dot" else None)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block_{i}")(x, mask)
+            block = getattr(self, f"block_{i}")
+            x = _checkpointed(block, x, mask) if cfg.remat else block(x, mask)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -211,6 +228,19 @@ class TransformerLM(nn.Module):
         if not self.config.tied_output:
             names.insert(0, "embed/embedding")
         return names
+
+
+def _checkpointed(block: Block, x, mask):
+    """``block(x, mask)`` with its activations recomputed in the backward
+    pass (flax's ``nn.remat``). The block's parameters enter the checkpointed
+    function as explicit inputs: :func:`apply` swaps them in only while
+    ``functional_call`` runs, and the backward's replay comes after it."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (x, mask))
+
+    return torch.utils.checkpoint.checkpoint(run, x, *tensors, use_reentrant=False)
 
 
 def apply(model: TransformerLM, params: Dict[str, torch.Tensor], tokens, **kwargs):

@@ -19,7 +19,8 @@ from typing import Dict, Iterable, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = {"fused_xent": _CSRC / "fused_xent.cu"}
+SOURCES = {"fused_xent": _CSRC / "fused_xent.cu",
+           "flash_attention": _CSRC / "flash_attention.cu"}
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,4 +1,4 @@
-"""FLOPs and MFU accounting (the port's copy of ``autodist_tpu/utils/flops.py:75-98``,
+"""FLOPs and MFU accounting (the port's copy of ``autodist_tpu/utils/flops.py:75-119``,
 with the peak of the port's card)."""
 
 from typing import Optional
@@ -26,3 +26,17 @@ def mfu(flops_per_sec: Optional[float],
     if not flops_per_sec:
         return None
     return flops_per_sec / peak
+
+
+def report_mfu(flops_per_step: Optional[float], steps_per_sec: Optional[float],
+               label: str = "mfu", peak: float = H100_PEAK_BF16_FLOPS) -> Optional[float]:
+    """Print the JAX package's MFU line, ``<label> <pct>% (<TFLOP/s>, <GFLOP/step>)``,
+    against ``peak``; returns the MFU fraction. Call it only for a run on
+    the card: a CPU rate over the card's peak is no device metric."""
+    if not flops_per_step or not steps_per_sec:
+        return None
+    value = mfu(flops_per_step * steps_per_sec, peak)
+    print(f"{label} {100.0 * value:.2f}% "
+          f"({flops_per_step * steps_per_sec / 1e12:.1f} TFLOP/s, "
+          f"{flops_per_step / 1e9:.2f} GFLOP/step)")
+    return value

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: build its CUDA kernels, hold each against
 its plain version on the card, and train the flagship TransformerLM through
-the port's entry points on one card.
+the port's entry points on one card, at seq 256 and at seq 8,192.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,30 @@ exits non-zero without them, or when any phase fails. Phases:
    Then tokens/s and MFU over 6 more steps, and a ``torch.profiler``
    window over 3 more: the device's busy time per step, its idle share of
    the wall time, and the top kernels.
-5. One JSON line of per-kernel numbers, then the result line.
+5. Each flash-attention kernel against its plain version on the same
+   inputs: bf16 q/k/v/dO [B, L, 8, 64], B = 2 at a ragged L = 1,000 causal
+   and not causal, with ring offsets (q_offset 1,024; and k_offset 300, where
+   the first 300 query rows see no key, with f32 gradient outputs), and
+   B = 1 at L = 8,192. Tolerance, as the JAX attention tests loosen for bf16
+   products: out and lse within 0.01 absolute, dq/dk/dv within 0.05 of the
+   largest reference entry. Then each kernel is timed at the long-context
+   shape (B = 8, L = 8,192, H = 8, hd = 64, causal) beside its plain
+   version, its bound and a library yardstick the port never calls
+   (``F.scaled_dot_product_attention(is_causal=True)``, and that call's
+   backward for dK/dV and dQ together).
+6. The long-context entry point (``autodist_tpu_torch.examples.long_context_lm``)
+   at full width: d512 x 6 layers, 8 heads, d_ff 2048, vocab 32,000, seq =
+   max_len = 8,192, flash attention, every block rematerialized, untied
+   fused head, bf16 activations, f32 params, ``AllReduce``, Adam 1e-3. The
+   batch is cut to 8 sequences (65,536 tokens a step) from the example's
+   default 48. First, on B = 2, L = 1,024, the flash model's loss is held
+   against the dot model's with the same weights (rtol 1e-2: bf16). Then 3
+   counted steps (launch counts set to 0 just before, read just after; all
+   six kernels must have launched, all losses finite), the entry point's
+   own ``main`` for tokens/s and MFU over 4 steady steps with peak memory,
+   and a profiler window over 2 steps.
+7. One JSON line of per-kernel numbers (all six kernels), then the result
+   line.
 """
 
 import collections
@@ -53,6 +76,11 @@ LSE_ATOL = 0.01
 GRAD_RTOL_OF_MAX = 0.05
 STEADY_STEPS = 6                  # steps timed for throughput after the counted run
 PROFILE_STEPS = 3                 # steps traced after those
+
+# Long-context slice: flash attention at the example's sequence length.
+LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
+OUT_ATOL = 0.01                   # flash out and lse
+LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
 
 
 def log(msg: str) -> None:
@@ -164,7 +192,7 @@ def time_kernels(fx, dev):
     return rows
 
 
-def main_path(fx, dev):
+def main_path(kernels, dev):
     """Phase 4: the flagship training step through the port's entry points."""
     from autodist_tpu_torch import AllReduce, AutoDist
     from autodist_tpu_torch.models import transformer_lm as tlm
@@ -195,20 +223,12 @@ def main_path(fx, dev):
                        example_batch=batches[0], accumulation_steps=accum)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in fx.KERNELS:
-        k.launches = 0
-    losses, times = [], []
-    for batch in batches:
-        t0 = time.perf_counter()
-        losses.append(float(step(batch)))       # float() waits for the step
-        times.append(time.perf_counter() - t0)
-    launches = {k.__name__: k.launches for k in fx.KERNELS}
+    losses, times, launches = counted_steps(step, batches, kernels)
     log(f"main path: losses {losses}; step seconds {times}")
     log(f"main path: kernel launches {launches}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name, count in launches.items()
+               if count == 0 and name.startswith("xent_")]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
 
@@ -228,10 +248,27 @@ def main_path(fx, dev):
     return launches
 
 
-def profile_steps(step, batches):
-    """Phase 4b: a torch.profiler window over steady steps of the main path:
-    device busy time per step (the union of kernel intervals), the device's
-    idle share of the wall time, and the kernels that take the most."""
+def counted_steps(step, batches, kernels):
+    """One step per batch with every launch count set to 0 just before and
+    read just after: ``(losses, step seconds, {kernel: launches})``. Fails
+    on a non-finite loss."""
+    for k in kernels:
+        k.launches = 0
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))       # float() waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return losses, times, launches
+
+
+def profile_steps(step, batches, label="profile"):
+    """A torch.profiler window over steady steps of a main path: device busy
+    time per step (the union of kernel intervals), the device's idle share
+    of the wall time, the port's kernels and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,7 +282,7 @@ def profile_steps(step, batches):
                and not getattr(e, "is_user_annotation", False)]
     n = len(batches)
     if not kernels:
-        log("profile: the profiler recorded no device time; busy and idle share "
+        log(f"{label}: the profiler recorded no device time; busy and idle share "
             "not measured")
         return
     busy_us, end = 0.0, float("-inf")
@@ -257,12 +294,156 @@ def profile_steps(step, batches):
     for e in kernels:
         per_name[e.name] += e.time_range.elapsed_us()
     head_us = sum(us for name, us in per_name.items() if "xent_" in name)
-    log(f"profile: {n} steps, {1e3 * wall / n:.3f} ms/step wall with the profiler on; "
+    flash_us = sum(us for name, us in per_name.items() if "flash_" in name)
+    log(f"{label}: {n} steps, {1e3 * wall / n:.3f} ms/step wall with the profiler on; "
         f"device busy {busy_us / n / 1e3:.3f} ms/step, idle share "
         f"{1 - busy_us / 1e6 / wall:.3f}; {len(kernels) // n} kernels/step; "
-        f"fused-head kernels {head_us / n / 1e3:.3f} ms/step")
-    for name, us in per_name.most_common(8):
-        log(f"profile:   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+        f"fused-head kernels {head_us / n / 1e3:.3f} ms/step, flash kernels "
+        f"{flash_us / n / 1e3:.3f} ms/step")
+    for name, us in per_name.most_common(10):
+        log(f"{label}:   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+
+
+def flash_inputs(b, lq, lk, gen, dev):
+    """bf16 q [b, lq, 8, 64], k/v [b, lk, 8, 64] and dO like q."""
+    def draw(length, std=1.0):
+        return (torch.randn(b, length, LC_HEADS, HEAD_DIM, generator=gen) * std).to(
+            dev, torch.bfloat16)
+    return draw(lq), draw(lk), draw(lk), draw(lq, 0.1)
+
+
+def check_flash(fa, dev):
+    """Phase 5a: every flash kernel against its plain version; max abs errors."""
+    gen = torch.Generator().manual_seed(2)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    cases = [  # (b, lq, lk, causal, q_offset, k_offset, backward out_dtype)
+        (2, 1000, 1000, True, 0, 0, None),
+        (2, 1000, 1000, False, 0, 0, None),
+        (2, 1000, 1000, True, 1024, 0, None),
+        (2, 1000, 1000, True, 0, 300, torch.float32),
+        (1, LC_SEQ, LC_SEQ, True, 0, 0, None),
+    ]
+    for b, lq, lk, causal, qo, ko, out_dtype in cases:
+        q, k, v, do = flash_inputs(b, lq, lk, gen, dev)
+        out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
+        dd = fa.prepare_backward_q_side(out, do)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
+        ref = fa.flash_backward_plain(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        e_out = (out.float() - ref_out.float()).abs().max().item()
+        e_lse = (lse - ref_lse).abs().max().item()
+        e = {name: ((got.float() - want.float()).abs().max().item(),
+                    want.float().abs().max().item())
+             for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                                     ("dv", dv, ref[2]))}
+        if out_dtype is not None and any(t.dtype != out_dtype for t in (dq, dk, dv)):
+            raise AssertionError("flash backward ignored out_dtype")
+        log(f"check flash b={b} lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko}) "
+            f"out_dtype={out_dtype}: out {e_out:.3g}; lse {e_lse:.3g}; "
+            + "; ".join(f"{n} {err:.3g} (max {m:.3g})" for n, (err, m) in e.items()))
+        ok = (math.isfinite(e_out) and e_out <= OUT_ATOL and math.isfinite(e_lse)
+              and e_lse <= OUT_ATOL and all(math.isfinite(err) and err <= GRAD_RTOL_OF_MAX * m
+                                            for err, m in e.values()))
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain version at b={b} "
+                                 f"lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko})")
+        errs["flash_fwd"] = max(errs["flash_fwd"], e_out, e_lse)
+        errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], e["dk"][0], e["dv"][0])
+        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e["dq"][0])
+    return errs
+
+
+def time_flash(fa, dev):
+    """Phase 5b: each flash kernel at the long-context shape, causal, as the
+    main path calls it, beside its plain version, its bound and the library
+    call computing the same function."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(3)
+    b, length = LC_BATCH, LC_SEQ
+    q, k, v, do = flash_inputs(b, length, length, gen, dev)
+    out, lse = fa.flash_fwd(q, k, v)
+    dd = fa.prepare_backward_q_side(out, do)
+    # Tensor-core FLOPs over the causal half of the scores: 2 products in the
+    # forward (S, PV), 4 in dK/dV (S, dP, dV, dK), 3 in dQ (S, dP, dQ).
+    pairs = length * (length + 1) / 2
+    per_product = 2.0 * b * LC_HEADS * pairs * HEAD_DIM
+    act = b * length * LC_HEADS * HEAD_DIM * 2          # one bf16 [B, L, H, 64]
+    row = b * LC_HEADS * length * 4                     # one f32 [B*H, L]
+    rows = {
+        "flash_fwd": dict(ms=time_ms(lambda: fa.flash_fwd(q, k, v), 10),
+                          plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v), 1),
+                          bound=bound(4 * act + row, 2 * per_product)),
+        "flash_bwd_dkdv": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd), 5),
+            bound=bound(4 * act + 2 * row + 2 * act, 4 * per_product)),
+        "flash_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 5),
+            bound=bound(4 * act + 2 * row + act, 3 * per_product)),
+    }
+    # One plain call computes dq, dk and dv together: its time stands for both.
+    plain_bwd = time_ms(lambda: fa.flash_backward_plain(q, k, v, do, lse, dd), 1)
+    # The yardstick: PyTorch's fused attention on the same tensors ([B, H, L, D] views).
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    rows["flash_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
+                                                  retain_graph=True), 5)
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        rows[name].update(plain_ms=plain_bwd, library_ms=lib_bwd)
+    for name, r in rows.items():
+        log(f"time {name} B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
+    return rows
+
+
+def long_context_path(kernels, dev):
+    """Phase 6: long-context training through the port's entry point."""
+    from autodist_tpu_torch.examples import long_context_lm as lc
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    argv = ["--seq_len", str(LC_SEQ), "--batch_size", str(LC_BATCH), "--device", str(dev)]
+    cfg, step, batch = lc.build(lc.parse_args(argv))
+    log(f"long context: {cfg}")
+
+    # Reference on a small input: flash (kernels) vs dot attention, same weights.
+    params = step.get_state().params
+    small = {k: torch.as_tensor(a).to(dev)
+             for k, a in tlm.synthetic_batch(cfg, 2, min(1024, LC_SEQ), seed=98).items()}
+    dot_cfg = dataclasses.replace(cfg, attention_impl="dot", remat=False)
+    with torch.no_grad():
+        flash = float(tlm.make_loss_fn(tlm.TransformerLM(cfg))(params, small))
+        dot = float(tlm.make_loss_fn(tlm.TransformerLM(dot_cfg))(params, small))
+    log(f"long-context reference: flash loss {flash:.6f} vs dot loss {dot:.6f}")
+    if not (math.isfinite(flash) and abs(flash - dot) <= 1e-2 * abs(dot)):
+        raise AssertionError("flash-attention loss disagrees with dot attention")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = counted_steps(step, [batch] * LC_COUNTED, kernels)
+    tokens = batch["tokens"].shape[0] * LC_SEQ
+    log(f"long context: losses {losses}; step seconds {times}")
+    log(f"long context: kernel launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"long-context path never launched {missing}")
+
+    # The entry point's own run: one warm-up step, then LC_STEADY timed ones.
+    torch.cuda.reset_peak_memory_stats()
+    rate = lc.main(argv + ["--steps", str(LC_STEADY)])
+    flops = transformer_flops_per_token(D, 6, 2048, V, LC_SEQ) * tokens
+    log(f"long context: {rate:.1f} tokens/s over {LC_STEADY} steady steps "
+        f"({tokens} tokens/step, {1e3 * tokens / rate:.3f} ms/step), MFU "
+        f"{mfu(flops * rate / tokens):.4f} of 989 TFLOP/s (full score matrix counted); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(step, [batch] * LC_PROFILE, label="long-context profile")
+    return launches
 
 
 def main() -> int:
@@ -271,6 +452,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from autodist_tpu_torch.ops import _build
+    from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_xent as fx
 
     card = card_line()
@@ -292,19 +474,35 @@ def main() -> int:
 
     errs = check_kernels(fx, dev)
     timing = time_kernels(fx, dev)
-    launches = main_path(fx, dev)
+    errs.update(check_flash(fa, dev))
+    timing.update(time_flash(fa, dev))
+    every = fx.KERNELS + fa.KERNELS
+    by_phase = {"flagship": main_path(every, dev),
+                "long_context": long_context_path(every, dev)}
 
-    source = "autodist_tpu_torch/ops/csrc/fused_xent.cu"
-    replaces = {"xent_fwd": "autodist_tpu/ops/fused_xent.py:192",
-                "xent_dh": "autodist_tpu/ops/fused_xent.py:287",
-                "xent_dwdb": "autodist_tpu/ops/fused_xent.py:305"}
-    kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces[name], "launches": launches[name],
+    # Each kernel's main path: the flagship for the fused head, the
+    # long-context run for flash attention.
+    sites = {
+        "xent_fwd": ("fused_xent", "autodist_tpu/ops/fused_xent.py:192", "flagship"),
+        "xent_dh": ("fused_xent", "autodist_tpu/ops/fused_xent.py:287", "flagship"),
+        "xent_dwdb": ("fused_xent", "autodist_tpu/ops/fused_xent.py:305", "flagship"),
+        "flash_fwd": ("flash_attention", "autodist_tpu/ops/flash_attention.py:144",
+                      "long_context"),
+        "flash_bwd_dkdv": ("flash_attention", "autodist_tpu/ops/flash_attention.py:332",
+                           "long_context"),
+        "flash_bwd_dq": ("flash_attention", "autodist_tpu/ops/flash_attention.py:355",
+                         "long_context"),
+    }
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"autodist_tpu_torch/ops/csrc/{src}.cu",
+                "replaces": replaces, "launches": by_phase[phase][name],
+                "launches_by_phase": {p: counts[name] for p, counts in by_phase.items()},
                 "max_abs_err": errs[name], "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"],
                 "bound_ms": timing[name]["bound"][0],
                 "bound_by": timing[name]["bound"][1],
-                "library_ms": timing[name]["library_ms"]} for name in replaces]
+                "library_ms": timing[name]["library_ms"]}
+               for name, (src, replaces, phase) in sites.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

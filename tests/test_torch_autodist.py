@@ -44,11 +44,12 @@ def _jax_params(tied):
     return jax.device_get(jlm.init_params(cfg, jax.random.PRNGKey(1))[1])
 
 
-def _models(tied):
+def _models(tied, attention_impl="dot", remat=False):
+    extra = dict(attention_impl=attention_impl, remat=remat)
     jcfg = jlm.TransformerLMConfig(**SMALL, tied_output=tied, fused_head=True,
-                                   dtype=jnp.float32)
+                                   dtype=jnp.float32, **extra)
     tcfg = tlm.TransformerLMConfig(**SMALL, tied_output=tied, fused_head=True,
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, **extra)
     return jlm.TransformerLM(jcfg), _jax_params(tied), tlm.TransformerLM(tcfg)
 
 
@@ -94,8 +95,12 @@ def _run_torch(tmodel, jparams, batches):
     return losses, to_jax_params(step.get_state().params), step
 
 
-def test_training_tracks_jax_with_accumulation():
-    jmodel, jparams, tmodel = _models(tied=False)
+@pytest.mark.parametrize("attention_impl,remat", [("dot", False), ("flash", True)])
+def test_training_tracks_jax_with_accumulation(attention_impl, remat):
+    """Three Adam steps with 2-way accumulation: the flagship step, and its
+    long-context form (flash attention, rematerialized blocks)."""
+    jmodel, jparams, tmodel = _models(tied=False, attention_impl=attention_impl,
+                                      remat=remat)
     batches = _batches()
     want_losses, want_params = _run_jax(jmodel, jparams, batches)
     got_losses, got_params, step = _run_torch(tmodel, jparams, batches)
@@ -128,6 +133,32 @@ def test_accumulation_equals_full_batch():
     assert runs[0][0] == pytest.approx(runs[1][0], rel=1e-6)
     for key, value in runs[0][1].items():
         torch.testing.assert_close(runs[1][1][key], value, rtol=1e-5, atol=1e-6)
+
+
+def test_long_context_entry_point_runs_on_the_host(capsys):
+    """``python -m autodist_tpu_torch.examples.long_context_lm`` at a tiny size
+    with ``--device cpu``: flash (the default), remat and the fused head
+    through AutoDist.function; it prints the result line, no device metric,
+    and refuses sequence parallelism."""
+    from autodist_tpu_torch.examples import long_context_lm
+
+    rate = long_context_lm.main(["--device", "cpu", "--seq_len", "32", "--batch_size", "2",
+                                 "--d_model", "64", "--n_layers", "1", "--vocab", "128",
+                                 "--steps", "1"])
+    out = capsys.readouterr().out
+    assert rate > 0
+    assert "long-context seq=32 bs=2 attention=flash remat=True" in out
+    assert "final loss" in out and "mfu not measured" in out
+    with pytest.raises(NotImplementedError, match="ring"):
+        long_context_lm.main(["--device", "cpu", "--seq_axis", "2"])
+    args = long_context_lm.parse_args([])
+    assert (args.seq_len, args.d_model, args.n_layers, args.vocab) == (8192, 512, 6, 32_000)
+    cfg, _, batch = long_context_lm.build(long_context_lm.parse_args(
+        ["--device", "cpu", "--seq_len", "4096", "--n_layers", "1", "--vocab", "64",
+         "--d_model", "64", "--no_remat", "--attention", "blockwise"]))
+    assert batch["tokens"].shape == (393_216 // 4096, 4097)
+    assert (cfg.remat, cfg.attention_impl, cfg.fused_head, cfg.tied_output) == \
+        (False, "blockwise", True, False)
 
 
 def test_batch_split_errors():

@@ -20,6 +20,7 @@ import torch
 from autodist_tpu.models import transformer_lm as jlm
 from autodist_tpu_torch import from_jax_params, to_jax_params
 from autodist_tpu_torch.models import transformer_lm as tlm
+from autodist_tpu_torch.ops import flash_attention as tfa
 
 SMALL = dict(vocab_size=512, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_len=32)
 ACT = dict(rtol=1e-4, atol=1e-5)
@@ -33,13 +34,14 @@ def _jax_params(tied):
     return jax.device_get(jlm.init_params(cfg, jax.random.PRNGKey(3))[1])
 
 
-def _pair(tied, fused_head, dtype="f32"):
+def _pair(tied, fused_head, dtype="f32", **extra):
+    """``extra``: further config fields, the same on both sides."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     jcfg = jlm.TransformerLMConfig(**SMALL, tied_output=tied, fused_head=fused_head,
-                                   dtype=jdt)
+                                   dtype=jdt, **extra)
     tcfg = tlm.TransformerLMConfig(**SMALL, tied_output=tied, fused_head=fused_head,
-                                   dtype=tdt)
+                                   dtype=tdt, **extra)
     jparams = _jax_params(tied)
     return (jlm.TransformerLM(jcfg), jparams, tlm.TransformerLM(tcfg),
             from_jax_params(jparams))
@@ -75,6 +77,54 @@ def test_loss_matches_flax(tied, fused_head, with_mask):
     want = jlm.make_loss_fn(jmodel)(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     got = tlm.make_loss_fn(tmodel)(tparams, {k: torch.tensor(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["flash", "blockwise"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_attention_impls_and_remat_match_flax(impl, remat):
+    """The long-context paths: flash (its kernels' plain versions here, the
+    Pallas kernels in interpret mode on the JAX side) and blockwise attention,
+    each with and without rematerialized blocks. Loss to rtol 1e-5, every
+    parameter gradient to rtol 1e-4 (atol 1e-6 for entries near zero: two
+    f32 summation orders)."""
+    jmodel, jparams, tmodel, tparams = _pair(False, fused_head=False,
+                                             attention_impl=impl, remat=remat)
+    batch = _batch(True, seed=1)
+    want_loss, want_grads = jax.value_and_grad(jlm.make_loss_fn(jmodel))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
+    loss = tlm.make_loss_fn(tmodel)(leaves, {k: torch.tensor(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    got = to_jax_params(dict(zip(leaves, grads)))
+    want = dict(jax.tree_util.tree_leaves_with_path(want_grads))
+    for path, value in jax.tree_util.tree_leaves_with_path(got):
+        np.testing.assert_allclose(value, np.asarray(want[path]), rtol=1e-4, atol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_remat_recomputes_blocks_in_backward(monkeypatch):
+    """remat replays each block in the backward pass, after apply's
+    functional_call has put the meta parameters back: the replay must read
+    the real ones. The flash forward runs once per layer in the forward
+    pass and once more per layer in the replay."""
+    _, _, tmodel, tparams = _pair(False, fused_head=False, attention_impl="flash",
+                                  remat=True)
+    calls = []
+    real_fwd = tfa.flash_fwd
+
+    def counting_fwd(q, *args, **kwargs):
+        calls.append(q.device.type)
+        return real_fwd(q, *args, **kwargs)
+
+    monkeypatch.setattr(tfa, "flash_fwd", counting_fwd)
+    leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
+    batch = {k: torch.tensor(v) for k, v in _batch(False).items()}
+    loss = tlm.make_loss_fn(tmodel)(leaves, batch)
+    assert len(calls) == SMALL["n_layers"]
+    loss.backward()
+    assert calls == ["cpu"] * (2 * SMALL["n_layers"])
+    assert all(v.grad is not None and v.grad.abs().sum() > 0 for v in leaves.values())
 
 
 def test_bf16_loss_tracks_flax():
@@ -147,8 +197,8 @@ def test_init_params_matches_flax_shapes_and_scales():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="flash"):
-        tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL, attention_impl="flash"))
+    with pytest.raises(NotImplementedError, match="ring"):
+        tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL, attention_impl="ring"))
     with pytest.raises(ValueError, match="attention_impl"):
         tlm.TransformerLMConfig(**SMALL, attention_impl="nope")
     model = tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL))
