@@ -12,11 +12,11 @@ exits non-zero without them, or when any phase fails. Phases:
 2. Build every kernel source of the port into ``build/`` (timed).
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
-   and without a bias, ragged N and V (1,000 x 31,999), and the main path's
-   own shape (8,192 x 32,000, "dv", no bias). Tolerance, for bf16 operands
-   and another summation order (the JAX tests loosen by the same amounts):
-   lse within 0.01 absolute; dh, dw and db within 0.05 of the largest
-   reference entry. Then each kernel is timed at the flagship micro-batch
+   and without a bias, ragged N and V (1,000 x 31,999), and the main paths'
+   own shapes ("dv", no bias, V = 32,000): N = 8,192 (the flagship
+   micro-batch here) and 65,536 (the long-context step). Tolerance: lse
+   within 0.01 absolute; dh, dw and db within TILE_RTOL in every tile (see
+   ``worst_tile``). Then each kernel is timed at the flagship micro-batch
    (N = 98,304) beside its plain version, the one PyTorch call computing
    the same function where there is one, and its bound.
 4. The flagship at full width (d512 x 6 layers, 8 heads, d_ff 2048, vocab
@@ -33,9 +33,9 @@ exits non-zero without them, or when any phase fails. Phases:
    inputs: bf16 q/k/v/dO [B, L, 8, 64], B = 2 at a ragged L = 1,000 causal
    and not causal, with ring offsets (q_offset 1,024; and k_offset 300, where
    the first 300 query rows see no key, with f32 gradient outputs), and
-   B = 1 at L = 8,192. Tolerance, as the JAX attention tests loosen for bf16
-   products: out and lse within 0.01 absolute, dq/dk/dv within 0.05 of the
-   largest reference entry. Then each kernel is timed at the long-context
+   the long-context path's own shape, B = 8 at L = 8,192, causal.
+   Tolerance: lse within FLASH_LSE_ATOL absolute; out, dq, dk and dv within
+   TILE_RTOL in every tile. Then each kernel is timed at the long-context
    shape (B = 8, L = 8,192, H = 8, hd = 64, causal) beside its plain
    version, its bound and a library yardstick the port never calls
    (``F.scaled_dot_product_attention(is_causal=True)``, and that call's
@@ -73,13 +73,20 @@ D, V = 512, 32000
 MAIN_MICRO_ROWS = 32 * 256        # rows the main path's head sees per micro-batch
 FLAGSHIP_ROWS = 384 * 256         # the JAX flagship's micro-batch (bench.py)
 LSE_ATOL = 0.01
-GRAD_RTOL_OF_MAX = 0.05
+# Every output is held tile by tile: ||got - want|| / ||want|| over each
+# 64-long tile of the dimension a kernel's block owns (rows, keys or vocab
+# columns), split by batch and head, at most TILE_RTOL. The kernels and their
+# plain versions round the same operands to bf16, so what is left is another
+# f32 summation order and one bf16 rounding of the stored result (2^-9
+# relative). A tile left unwritten, zeroed or unscaled reads about 1.
+TILE = 64
+TILE_RTOL = 1e-2
 STEADY_STEPS = 6                  # steps timed for throughput after the counted run
 PROFILE_STEPS = 3                 # steps traced after those
 
 # Long-context slice: flash attention at the example's sequence length.
 LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
-OUT_ATOL = 0.01                   # flash out and lse
+FLASH_LSE_ATOL = 1e-3
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
 
 
@@ -126,7 +133,7 @@ def check_kernels(fx, dev):
     gen = torch.Generator().manual_seed(0)
     errs = {"xent_fwd": 0.0, "xent_dh": 0.0, "xent_dwdb": 0.0}
     cases = [(1000, V - 1, layout, bias) for layout in ("dv", "vd") for bias in (True, False)]
-    cases.append((MAIN_MICRO_ROWS, V, "dv", False))
+    cases += [(MAIN_MICRO_ROWS, V, "dv", False), (LC_BATCH * LC_SEQ, V, "dv", False)]
     for n, v, layout, bias in cases:
         h, w, b, g = inputs(n, v, layout, bias, gen, dev)
         lse = fx.xent_fwd(h, w, b, layout)
@@ -136,14 +143,14 @@ def check_kernels(fx, dev):
         ref_lse = fx.matmul_logsumexp_plain(h, w, b, layout)
         ref_dh, ref_dw, ref_db = fx.lse_backward_plain(h, w, b, lse, g, layout)
         e_lse = (lse - ref_lse).abs().max().item()
-        e = {name: ((got.float() - want.float()).abs().max().item(),
-                    want.float().abs().max().item())
-             for name, got, want in (("dh", dh, ref_dh), ("dw", dw, ref_dw),
-                                     ("db", db, ref_db))}
+        v_dim = 0 if layout == "vd" else 1
+        e = {name: compare(got, want, dim)
+             for name, got, want, dim in (("dh", dh, ref_dh, 0), ("dw", dw, ref_dw, v_dim),
+                                          ("db", db, ref_db, 0))}
         log(f"check n={n} v={v} layout={layout} bias={bias}: lse {e_lse:.3g}; "
-            + "; ".join(f"{k} {err:.3g} (max {m:.3g})" for k, (err, m) in e.items()))
+            + "; ".join(f"{k} {describe(c)}" for k, c in e.items()))
         ok = math.isfinite(e_lse) and e_lse <= LSE_ATOL and all(
-            math.isfinite(err) and err <= GRAD_RTOL_OF_MAX * m for err, m in e.values())
+            c[2] <= TILE_RTOL for c in e.values())
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version at n={n} "
                                  f"v={v} layout={layout} bias={bias}")
@@ -151,6 +158,36 @@ def check_kernels(fx, dev):
         errs["xent_dh"] = max(errs["xent_dh"], e["dh"][0])
         errs["xent_dwdb"] = max(errs["xent_dwdb"], e["dw"][0], e["db"][0])
     return errs
+
+
+def worst_tile(got, want, dim):
+    """The largest ``||got - want|| / ||want||`` over tiles of TILE entries
+    along ``dim`` (the dimension a kernel block owns). A tile spans the last
+    dimension (the head or model width) and is split by every other one
+    (batch, head), so one wrong block shows however small its share of the
+    whole. A tile whose reference is 0 must come out 0 (inf otherwise)."""
+    def norms(x):
+        x = x.float().movedim(dim, 0)
+        if x.dim() == 1:
+            x = x[:, None]
+        x = torch.cat([x, x.new_zeros(-x.shape[0] % TILE, *x.shape[1:])])
+        x = x.reshape(-1, TILE, *x.shape[1:])
+        return torch.linalg.vector_norm(x, dim=(1, -1))
+    err, ref = norms(got.float() - want.float()), norms(want)
+    ratio = torch.where(ref > 0, err / ref.clamp(min=1e-30),
+                        torch.where(err > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
+def compare(got, want, dim):
+    """``(max |got - want|, max |want|, worst tile ratio)``; NaN counts as inf."""
+    diff = (got.float() - want.float()).abs().max().item()
+    worst = worst_tile(got, want, dim)
+    return diff, want.float().abs().max().item(), worst if math.isfinite(worst) else math.inf
+
+
+def describe(c):
+    return f"{c[0]:.3g} (max {c[1]:.3g}, worst tile {c[2]:.3g})"
 
 
 def time_kernels(fx, dev):
@@ -321,7 +358,7 @@ def check_flash(fa, dev):
         (2, 1000, 1000, False, 0, 0, None),
         (2, 1000, 1000, True, 1024, 0, None),
         (2, 1000, 1000, True, 0, 300, torch.float32),
-        (1, LC_SEQ, LC_SEQ, True, 0, 0, None),
+        (LC_BATCH, LC_SEQ, LC_SEQ, True, 0, 0, None),
     ]
     for b, lq, lk, causal, qo, ko, out_dtype in cases:
         q, k, v, do = flash_inputs(b, lq, lk, gen, dev)
@@ -332,24 +369,23 @@ def check_flash(fa, dev):
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
         ref = fa.flash_backward_plain(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
-        e_out = (out.float() - ref_out.float()).abs().max().item()
         e_lse = (lse - ref_lse).abs().max().item()
-        e = {name: ((got.float() - want.float()).abs().max().item(),
-                    want.float().abs().max().item())
-             for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
-                                     ("dv", dv, ref[2]))}
+        # Forward and dQ blocks own query rows, dK/dV blocks keys: dim 1 of
+        # [B, L, H, 64] either way.
+        e = {name: compare(got, want, 1)
+             for name, got, want in (("out", out, ref_out), ("dq", dq, ref[0]),
+                                     ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
         if out_dtype is not None and any(t.dtype != out_dtype for t in (dq, dk, dv)):
             raise AssertionError("flash backward ignored out_dtype")
         log(f"check flash b={b} lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko}) "
-            f"out_dtype={out_dtype}: out {e_out:.3g}; lse {e_lse:.3g}; "
-            + "; ".join(f"{n} {err:.3g} (max {m:.3g})" for n, (err, m) in e.items()))
-        ok = (math.isfinite(e_out) and e_out <= OUT_ATOL and math.isfinite(e_lse)
-              and e_lse <= OUT_ATOL and all(math.isfinite(err) and err <= GRAD_RTOL_OF_MAX * m
-                                            for err, m in e.values()))
+            f"out_dtype={out_dtype}: lse {e_lse:.3g}; "
+            + "; ".join(f"{n} {describe(c)}" for n, c in e.items()))
+        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
+              and all(c[2] <= TILE_RTOL for c in e.values()))
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version at b={b} "
                                  f"lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko})")
-        errs["flash_fwd"] = max(errs["flash_fwd"], e_out, e_lse)
+        errs["flash_fwd"] = max(errs["flash_fwd"], e["out"][0], e_lse)
         errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], e["dk"][0], e["dv"][0])
         errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e["dq"][0])
     return errs

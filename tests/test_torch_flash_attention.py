@@ -157,7 +157,7 @@ def test_flash_gradients_match_jax(causal):
         return jnp.sum(jfa.flash_attention(q, k, v, causal=causal, q_block=32,
                                            k_block=32) ** 2)
 
-    want = jax.grad(f, argnums=(0, 1, 2))(*_j(q, k, v))
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*_j(q, k, v))
     ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
     (tfa.flash_attention(*ts, causal=causal) ** 2).sum().backward()
     for t, w, name in zip(ts, want, "qkv"):

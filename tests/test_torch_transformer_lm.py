@@ -90,7 +90,8 @@ def test_attention_impls_and_remat_match_flax(impl, remat):
     jmodel, jparams, tmodel, tparams = _pair(False, fused_head=False,
                                              attention_impl=impl, remat=remat)
     batch = _batch(True, seed=1)
-    want_loss, want_grads = jax.value_and_grad(jlm.make_loss_fn(jmodel))(
+    # Jitted: the Pallas interpreter runs eagerly at about twice the time.
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jlm.make_loss_fn(jmodel)))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
     loss = tlm.make_loss_fn(tmodel)(leaves, {k: torch.tensor(v) for k, v in batch.items()})
