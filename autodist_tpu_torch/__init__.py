@@ -11,7 +11,10 @@ one card, with the fused LM-head loss in hand-written Hopper kernels
 (:mod:`autodist_tpu_torch.ops.fused_xent`); and its long-context form
 (``python -m autodist_tpu_torch.examples.long_context_lm``): flash attention
 in hand-written Hopper kernels (:mod:`autodist_tpu_torch.ops.flash_attention`)
-with rematerialized blocks. ``ROADMAP.md`` lists what is next.
+with rematerialized blocks; and sequence parallelism over k cards
+(``SequenceParallel`` with :mod:`autodist_tpu_torch.parallel.sequence`):
+ring attention whose local step is the flash carry kernel. ``ROADMAP.md``
+lists what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist
@@ -19,8 +22,8 @@ from autodist_tpu_torch.models.transformer_lm import (TransformerLM,
                                                       TransformerLMConfig)
 from autodist_tpu_torch.params import from_jax_params, to_jax_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.strategy import AllReduce, StrategyBuilder
+from autodist_tpu_torch.strategy import AllReduce, SequenceParallel, StrategyBuilder
 
-__all__ = ["AutoDist", "AllReduce", "ResourceSpec", "StrategyBuilder",
-           "TransformerLM", "TransformerLMConfig", "from_jax_params",
-           "to_jax_params"]
+__all__ = ["AutoDist", "AllReduce", "ResourceSpec", "SequenceParallel",
+           "StrategyBuilder", "TransformerLM", "TransformerLMConfig",
+           "from_jax_params", "to_jax_params"]

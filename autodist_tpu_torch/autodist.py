@@ -1,8 +1,10 @@
 """User API: the AutoDist class (``autodist_tpu/autodist.py:44,184-287,363-400``).
 
 Ported so far: the synchronous single-node path, ``AutoDist(resource spec,
-builder)`` -> ``create_distributed_session`` or ``function``. Async PS,
-cluster launch and autotuning raise ``NotImplementedError``.
+builder)`` -> ``create_distributed_session`` or ``function``, and the
+sequence-parallel session built on it
+(:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`).
+Async PS, cluster launch and autotuning raise ``NotImplementedError``.
 """
 
 from typing import Callable, Mapping, Optional, Sequence, Union
@@ -12,7 +14,7 @@ import torch
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel.plan import ShardingPlan
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.runner import DistributedRunner
+from autodist_tpu_torch.runner import DistributedRunner, step_function
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
 from autodist_tpu_torch.utils.device import resolve_device
@@ -27,10 +29,11 @@ class AutoDist:
                  device: Union[str, torch.device, None] = None):
         """``resource_spec_file``: a YAML path, inline YAML text or a parsed
         :class:`ResourceSpec`; or ``resource_info=`` as a dict; neither gives
-        the local default. ``strategy_builder`` defaults to ``AllReduce()``,
-        the only builder ported so far (the JAX package defaults to
-        ``PSLoadBalancing``). ``device`` defaults to ``cuda:0`` and raises
-        ``RuntimeError`` when CUDA is absent; pass ``"cpu"`` to run on the host."""
+        the local default. ``strategy_builder`` defaults to ``AllReduce()``
+        (the JAX package defaults to ``PSLoadBalancing``, not ported yet).
+        ``device`` defaults to ``cuda:$LOCAL_RANK`` (``cuda:0`` outside
+        torchrun) and raises ``RuntimeError`` when CUDA is absent; pass
+        ``"cpu"`` to run on the host."""
         if isinstance(strategy_builder, str):
             raise NotImplementedError("autotuning is not ported yet")
         self.device = resolve_device(device)
@@ -103,13 +106,4 @@ class AutoDist:
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names,
             accumulation_steps=accumulation_steps, batch_size=batch_size)
-        state = runner.init(params)
-
-        def step(batch):
-            _, loss = runner.run(state, batch)
-            return loss
-
-        step.runner = runner
-        step.get_state = lambda: state
-        step.evaluate = lambda batch, fn=None: runner.evaluate(state, batch, fn)
-        return step
+        return step_function(runner, params)

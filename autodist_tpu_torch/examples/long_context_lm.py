@@ -1,9 +1,17 @@
-"""Long-context LM training on one card: flash attention + remat + fused head
-(counterpart of ``examples/long_context_lm.py``).
+"""Long-context LM training: flash attention + remat + fused head on one
+card, or sequence parallelism with ring attention over k cards (counterpart
+of ``examples/long_context_lm.py``).
 
     python -m autodist_tpu_torch.examples.long_context_lm --seq_len 8192
+    # the sequence sharded over k cards, one process each (ring attention):
+    torchrun --standalone --nproc_per_node 2 \\
+        -m autodist_tpu_torch.examples.long_context_lm --seq_axis 2
     # a tiny run on the host, through the kernels' plain versions:
     python -m autodist_tpu_torch.examples.long_context_lm --device cpu \\
+        --seq_len 64 --batch_size 2 --d_model 64 --n_layers 1 --vocab 256 --steps 2
+    # the same sharded over two host processes (gloo):
+    torchrun --standalone --nproc_per_node 2 \\
+        -m autodist_tpu_torch.examples.long_context_lm --seq_axis 2 --device cpu \\
         --seq_len 64 --batch_size 2 --d_model 64 --n_layers 1 --vocab 256 --steps 2
 
 It trains the flagship architecture (d_model 512, 6 layers, 8 heads, d_ff
@@ -15,9 +23,13 @@ card and f32 on the host; parameters are f32.
 
 - ``--attention auto`` (the default) is flash: the port's Hopper kernels on
   the card, their plain versions on the host.
-- ``--seq_axis k`` with k > 1 (sequence parallelism, ring attention across
-  shards) is not ported yet and raises ``NotImplementedError``.
-- ``--device`` defaults to the card (``cuda:0``).
+- ``--seq_axis k`` with k > 1 trains through ``SequenceParallel(seq_axis_size=k)``
+  and ``create_sequence_parallel_session``: each of k processes holds a
+  1/k shard of every sequence and attention is ring attention across them
+  (the Hopper carry kernel on the card). It takes no ``--attention`` other
+  than ``auto``. Only rank 0 prints.
+- ``--device`` defaults to the card (``cuda:$LOCAL_RANK`` under torchrun,
+  else ``cuda:0``).
 
 The speed figures in the JAX example's docstring were measured on a TPU v5e
 and are not this port's; ``PERF.md`` records the card's.
@@ -30,8 +42,12 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from autodist_tpu_torch import AllReduce, AutoDist
+import torch.distributed as dist
+
+from autodist_tpu_torch import AllReduce, AutoDist, SequenceParallel
 from autodist_tpu_torch.models import transformer_lm
+from autodist_tpu_torch.parallel.sequence import create_sequence_parallel_session
+from autodist_tpu_torch.runner import step_function
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -50,12 +66,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--attention", default="auto",
                         choices=["auto", "flash", "blockwise", "dot"])
     parser.add_argument("--seq_axis", type=int, default=0,
-                        help=">1 would shard the sequence over that many cards "
-                             "(ring attention): not ported yet")
+                        help=">1 shards the sequence over that many processes, one "
+                             "per card (ring attention); launch with torchrun")
     parser.add_argument("--no_remat", action="store_true")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda:0; 'cpu' for the host)")
-    return parser.parse_args(argv)
+                        help="torch device (default: cuda:$LOCAL_RANK or cuda:0; "
+                             "'cpu' for the host)")
+    args = parser.parse_args(argv)
+    if args.seq_axis > 1 and args.attention != "auto":
+        parser.error(f"--seq_axis {args.seq_axis} shards the sequence and runs ring "
+                     f"attention across shards; it cannot honor --attention "
+                     f"{args.attention} (drop the flag)")
+    return args
 
 
 def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig, Callable,
@@ -63,13 +85,12 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
     """``(config, step, batch)``: the model config, the ``AutoDist.function``
     training step (``step(batch) -> loss``) with fresh weights from seed 0,
     and the synthetic batch the example trains on."""
-    if args.seq_axis > 1:
-        raise NotImplementedError(
-            f"--seq_axis {args.seq_axis}: sequence parallelism (ring attention "
-            f"across cards) is not ported yet; it is the ring slice of ROADMAP.md's "
-            f"port queue")
     device = resolve_device(args.device)
-    attention = "flash" if args.attention == "auto" else args.attention
+    sequence_parallel = args.seq_axis > 1
+    if sequence_parallel:
+        attention = "ring"
+    else:
+        attention = "flash" if args.attention == "auto" else args.attention
     batch_size = args.batch_size or max(1, 393_216 // args.seq_len)
     cfg = transformer_lm.TransformerLMConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=8,
@@ -80,10 +101,18 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
     batch = transformer_lm.synthetic_batch(cfg, batch_size=batch_size,
                                            seq_len=args.seq_len)
-    ad = AutoDist(resource_info=ONE_CARD, strategy_builder=AllReduce(), device=device)
-    step = ad.function(transformer_lm.make_loss_fn(model), params,
-                       lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
-                       example_batch=batch)
+    optimizer = lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8)  # noqa: E731
+    if sequence_parallel:
+        cards = {"nodes": [{"address": "localhost", "gpus": list(range(args.seq_axis))}]}
+        ad = AutoDist(resource_info=cards,
+                      strategy_builder=SequenceParallel(seq_axis_size=args.seq_axis),
+                      device=device)
+        step = step_function(create_sequence_parallel_session(ad, model, params, optimizer),
+                             params)
+    else:
+        ad = AutoDist(resource_info=ONE_CARD, strategy_builder=AllReduce(), device=device)
+        step = ad.function(transformer_lm.make_loss_fn(model), params, optimizer,
+                           example_batch=batch)
     return cfg, step, batch
 
 
@@ -104,6 +133,8 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
 
     tokens_per_step = batch_size * seq_len
     rate = tokens_per_step * args.steps / dt
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return rate
     print(f"long-context seq={seq_len} bs={batch_size} "
           f"attention={cfg.attention_impl} remat={cfg.remat} "
           f"(mesh={dict(step.runner.plan.mesh_axes)}): final loss {final:.4f}, "
@@ -111,11 +142,17 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     fpt = flops_util.transformer_flops_per_token(
         cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.vocab_size, seq_len)
     if device.type == "cuda":
-        flops_util.report_mfu(fpt * tokens_per_step, rate / tokens_per_step)
+        # Per card: each of the mesh's cards does its share of the step.
+        flops_util.report_mfu(fpt * tokens_per_step / step.runner.plan.num_devices,
+                              rate / tokens_per_step)
     else:
         print("mfu not measured: the run was on the host, not the card")
     return rate
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

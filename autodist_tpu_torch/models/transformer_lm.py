@@ -22,9 +22,13 @@ What the port keeps from flax, since each changes the numbers:
 - The embedding table is cast to the compute dtype before the gather.
 
 Ported: the training (non-decode) path with ``attention_impl`` "dot",
-"flash" (:mod:`autodist_tpu_torch.ops.flash_attention`) or "blockwise"
-(:mod:`autodist_tpu_torch.ops.blockwise_attention`), and ``remat``. "ring",
-"ulysses" and decode raise ``NotImplementedError``.
+"flash" (:mod:`autodist_tpu_torch.ops.flash_attention`), "blockwise"
+(:mod:`autodist_tpu_torch.ops.blockwise_attention`) or "ring"
+(:mod:`autodist_tpu_torch.parallel.ring_attention`, over the ``seq_group``
+that ``forward`` is given: the sequence-parallel loss of
+:mod:`autodist_tpu_torch.parallel.sequence` passes its group; None is a
+ring of one), and ``remat``. "ulysses" and decode raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -42,6 +46,7 @@ from autodist_tpu_torch.models.common import (EMBEDDING, HEAD_KERNEL,
                                               fused_lm_head_nll, lm_head_logits)
 from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
 from autodist_tpu_torch.ops.flash_attention import flash_attention
+from autodist_tpu_torch.parallel.ring_attention import ring_attention
 from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
@@ -146,10 +151,14 @@ class MultiHeadAttention(nn.Module):
             self.add_module(name, Dense((cfg.d_model,), (cfg.n_heads, hd), cfg.dtype))
         self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, seq_group=None):
         cfg = self.cfg
         q, k, v = self.query(x), self.key(x), self.value(x)
-        if cfg.attention_impl == "flash":
+        if cfg.attention_impl == "ring":
+            # x is this rank's shard of the sequence: the ring masks by
+            # global position, so no local mask is read.
+            ctx = ring_attention(q, k, v, causal=True, group=seq_group)
+        elif cfg.attention_impl == "flash":
             ctx = flash_attention(q, k, v, causal=True)
         elif cfg.attention_impl == "blockwise":
             # The O(L)-memory path without kernels (the JAX package's choice
@@ -169,8 +178,8 @@ class Block(nn.Module):
         self.mlp_in = Dense((cfg.d_model,), (cfg.d_ff,), cfg.dtype)
         self.mlp_out = Dense((cfg.d_ff,), (cfg.d_model,), cfg.dtype)
 
-    def forward(self, x, mask):
-        x = x + self.attn(self.ln_attn(x), mask)
+    def forward(self, x, mask, seq_group=None):
+        x = x + self.attn(self.ln_attn(x), mask, seq_group)
         h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -181,11 +190,10 @@ class TransformerLM(nn.Module):
 
     def __init__(self, config: TransformerLMConfig):
         super().__init__()
-        if config.attention_impl in ("ring", "ulysses"):
+        if config.attention_impl == "ulysses":
             raise NotImplementedError(
-                f"attention_impl={config.attention_impl!r} is not ported yet "
-                f"(ROADMAP.md, port queue: sequence parallelism); use 'dot', "
-                f"'flash' or 'blockwise'")
+                "attention_impl='ulysses' is not ported yet (ROADMAP.md, port queue: "
+                "Ulysses sequence parallelism); use 'ring', 'dot', 'flash' or 'blockwise'")
         self.config = cfg = config
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype)
         self.pos_embed = _param(cfg.max_len, cfg.d_model)
@@ -196,23 +204,25 @@ class TransformerLM(nn.Module):
             self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg.dtype)
 
     def forward(self, tokens, pos_offset: int = 0, return_hidden: bool = False,
-                decode: bool = False):
+                decode: bool = False, seq_group=None):
         """``tokens`` int ``[B, L]`` -> logits ``[B, L, V]`` in the compute
         dtype, or the final hidden states ``[B, L, D]`` with
-        ``return_hidden`` (the fused-head loss owns the projection)."""
+        ``return_hidden`` (the fused-head loss owns the projection).
+        ``pos_offset`` is the global position of the first token and
+        ``seq_group`` the ring of ``attention_impl="ring"``."""
         if decode:
             raise NotImplementedError("decode (KV-cache) mode is not ported yet")
         cfg = self.config
         length = tokens.shape[1]
         pos = self.pos_embed[pos_offset:pos_offset + length]
         x = self.embed(tokens) + pos[None].to(cfg.dtype)
-        # Only dot attention reads the [L, L] mask; flash and blockwise mask
-        # by position.
+        # Only dot attention reads the [L, L] mask; the others mask by position.
         mask = (causal_mask(length, cfg.dtype, device=x.device)
                 if cfg.attention_impl == "dot" else None)
         for i in range(cfg.n_layers):
             block = getattr(self, f"block_{i}")
-            x = _checkpointed(block, x, mask) if cfg.remat else block(x, mask)
+            x = (_checkpointed(block, x, mask, seq_group) if cfg.remat
+                 else block(x, mask, seq_group))
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -230,15 +240,16 @@ class TransformerLM(nn.Module):
         return names
 
 
-def _checkpointed(block: Block, x, mask):
-    """``block(x, mask)`` with its activations recomputed in the backward
-    pass (flax's ``nn.remat``). The block's parameters enter the checkpointed
-    function as explicit inputs: :func:`apply` swaps them in only while
-    ``functional_call`` runs, and the backward's replay comes after it."""
+def _checkpointed(block: Block, x, mask, seq_group=None):
+    """``block(x, mask, seq_group)`` with its activations recomputed in the
+    backward pass (flax's ``nn.remat``). The block's parameters enter the
+    checkpointed function as explicit inputs: :func:`apply` swaps them in
+    only while ``functional_call`` runs, and the backward's replay comes
+    after it. The replay runs the ring again, on every rank together."""
     names, tensors = zip(*block.named_parameters())
 
     def run(x, *tensors):
-        return functional_call(block, dict(zip(names, tensors)), (x, mask))
+        return functional_call(block, dict(zip(names, tensors)), (x, mask, seq_group))
 
     return torch.utils.checkpoint.checkpoint(run, x, *tensors, use_reentrant=False)
 
@@ -289,9 +300,10 @@ def init_params(config: TransformerLMConfig, seed: int = 0,
 
 
 def fused_head_nll(model: TransformerLM, params, inputs, targets,
-                   pos_offset: int = 0) -> torch.Tensor:
+                   pos_offset: int = 0, seq_group=None) -> torch.Tensor:
     """Per-token NLL ``[B, T]`` through the fused head and loss kernels."""
-    h = apply(model, params, inputs, pos_offset=pos_offset, return_hidden=True)
+    h = apply(model, params, inputs, pos_offset=pos_offset, return_hidden=True,
+              seq_group=seq_group)
     return fused_lm_head_nll(h, params, targets, tied=model.config.tied_output)
 
 

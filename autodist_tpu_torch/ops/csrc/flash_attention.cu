@@ -1,16 +1,20 @@
-// Flash attention kernels for Hopper (sm_90a): the causal forward and the
-// two backward kernels, over q/k/v read in place as [B, L, H, 64] bf16.
+// Flash attention kernels for Hopper (sm_90a): the causal forward, its
+// carry form (ring attention's local step) and the two backward kernels,
+// over q/k/v read in place as [B, L, H, 64] bf16.
 //
 // Replaces the Pallas TPU kernels of autodist_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel       <- _flash_kernel           (flash_attention.py:77, pallas_call :144)
 //   flash_bwd_dkdv_kernel  <- _flash_bwd_dkdv_kernel  (flash_attention.py:199, pallas_call :332)
 //   flash_bwd_dq_kernel    <- _flash_bwd_dq_kernel    (flash_attention.py:241, pallas_call :355)
+//   flash_fwd_carry_kernel <- _flash_carry_kernel     (flash_attention.py:387, pallas_call :480)
 //
 // What bounds them: operations. At B = 8, H = 8, L = 8,192, hd = 64 the
 // causal forward does 2*B*H*L^2*hd FLOPs (two products over half the score
 // matrix; 0.56 ms at the card's dense bf16 peak), dK/dV 4*B*H*L^2*hd (S, dP,
 // dV and dK recomputed or accumulated), dQ 3*B*H*L^2*hd, against 0.1 ms or
-// less of input reads each.
+// less of input reads each. The carry kernel does the forward's products and
+// also reads and writes the f32 carry (134 MB of acc each way at that shape,
+// 0.04 ms per direction at 3.35 TB/s): still bound by operations.
 //
 // Design, and how it differs from the TPU kernels:
 // - The TPU grid runs in order and carries the online-softmax state (or the
@@ -250,21 +254,22 @@ __device__ __forceinline__ int key_end(int q0, int lq, int lk, int causal, int q
 
 // ------------------------------------------------------------------ forward
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int H, int lq, int lk, int causal, int q_off, int k_off, float scale) {
-  __shared__ __align__(128) unsigned char smem[5 * TILE_BYTES];  // 45 KB: static is enough
+// The online softmax of the block's 64 query rows [q0, q0 + 64) of one head
+// over the key tiles they need, shared by the forward and the carry kernel.
+// smem holds 5 tiles (Q, two K and two V buffers). m, l and o come in with
+// the state before the walk and leave with the state after it; l is this
+// thread's partial denominator over its columns, which the caller sums over
+// the quad (lanes 4r .. 4r + 3 share rows).
+__device__ __forceinline__ void attend_key_tiles(unsigned char* smem, const bf16* __restrict__ qb,
+                                                 const bf16* __restrict__ kb,
+                                                 const bf16* __restrict__ vb, int q0, int lq,
+                                                 int lk, int stride, int causal, int q_off,
+                                                 int k_off, float scale, float (&m)[2],
+                                                 float (&l)[2], float (&o)[8][4]) {
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + TILE;      // [2][TILE]
   bf16* vs = ks + 2 * TILE;  // [2][TILE]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int stride = H * HD;
-  const bf16* qb = q + (size_t(b) * lq * H + h) * HD;
-  const bf16* kb = k + (size_t(b) * lk * H + h) * HD;
-  const bf16* vb = v + (size_t(b) * lk * H + h) * HD;
   const int k_end = key_end(q0, lq, lk, causal, q_off, k_off);
   const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
 
@@ -277,9 +282,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0 and row0 + 8
   const int col = (lane % 4) * 2;              // and columns col, col + 1 of each n-tile
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[8][4];
-  zero(o);
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait_all();
     __syncthreads();  // tile t has landed; every warp is done with tile t - 1
@@ -321,13 +323,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        // A masked score never adds, whatever the running max (a carried-in
+        // m of NEG_INF included): p is 0, not exp(0).
         const float x = s[nt][e];
         const float p = x <= NEG_INF * 0.5f ? 0.f : __expf(x - mx[e >> 1]);
         s[nt][e] = p;
         psum[e >> 1] += p;
         o[nt][e] *= corr[e >> 1];
       }
-    // Per-thread partial denominators: the quad's four are summed at the end.
     l[0] = l[0] * corr[0] + psum[0];
     l[1] = l[1] * corr[1] + psum[1];
     unsigned pa[4][4];
@@ -335,13 +338,40 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_ab(o, pa, vs + (t & 1) * TILE, lane);
   }
   cp_async_wait_all();
+}
 
-  bf16* ob = out + (size_t(b) * lq * H + h) * HD;
-  float inv[2];
+// Sum the quad's four partial denominators: every lane of the quad gets the row's l.
+__device__ __forceinline__ void quad_sum(float (&l)[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int H, int lq, int lk, int causal, int q_off, int k_off, float scale) {
+  __shared__ __align__(128) unsigned char smem[5 * TILE_BYTES];  // 45 KB: static is enough
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int stride = H * HD;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[8][4];
+  zero(o);
+  attend_key_tiles(smem, q + (size_t(b) * lq * H + h) * HD, k + (size_t(b) * lk * H + h) * HD,
+                   v + (size_t(b) * lk * H + h) * HD, q0, lq, lk, stride, causal, q_off, k_off,
+                   scale, m, l, o);
+  quad_sum(l);
+
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int col = (lane % 4) * 2;
+  bf16* ob = out + (size_t(b) * lq * H + h) * HD;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const float safe = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / safe;
     const int row = row0 + 8 * i;
@@ -356,6 +386,65 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<__nv_bfloat162*>(ob + size_t(row) * stride + nt * 8 + col) =
           __floats2bfloat162_rn(o[nt][2 * i] * inv[i], o[nt][2 * i + 1] * inv[i]);
   }
+}
+
+// -------------------------------------------------------------------- carry
+
+// Ring attention's local step: the forward's walk, with the online-softmax
+// state (acc, m, l) read from the carry (fresh when acc_in is null) and
+// written back unnormalized, so the next ring step (or finalize) continues
+// it. acc is f32 [B, H, Lq, 64], m and l f32 [B * H, Lq], the JAX carry
+// layout. The block owns its 64 rows: a block whose causal key range is
+// empty (n_tiles 0) writes its carry rows back unchanged, bit for bit. The
+// carried l enters once per row, in the quad's lane 0, since the walk keeps
+// per-lane partial denominators. The carry is not updated in place: the
+// wrapper allocates the outputs, and the carry given stays as it was.
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_carry_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ acc_in,
+                       const float* __restrict__ m_in, const float* __restrict__ l_in,
+                       float* __restrict__ acc_out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int H, int lq, int lk, int causal, int q_off,
+                       int k_off, float scale) {
+  __shared__ __align__(128) unsigned char smem[5 * TILE_BYTES];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int col = (lane % 4) * 2;
+  const size_t acc_head = size_t(bh) * lq * HD;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[8][4];
+  zero(o);
+  if (acc_in != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= lq) continue;
+      m[i] = m_in[size_t(bh) * lq + row];
+      if (lane % 4 == 0) l[i] = l_in[size_t(bh) * lq + row];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(acc_in + acc_head + size_t(row) * HD + nt * 8 + col);
+        o[nt][2 * i] = x.x;
+        o[nt][2 * i + 1] = x.y;
+      }
+    }
+  }
+  attend_key_tiles(smem, q + (size_t(b) * lq * H + h) * HD, k + (size_t(b) * lk * H + h) * HD,
+                   v + (size_t(b) * lk * H + h) * HD, q0, lq, lk, H * HD, causal, q_off, k_off,
+                   scale, m, l, o);
+  quad_sum(l);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (lane % 4 == 0 && row < lq) {
+      m_out[size_t(bh) * lq + row] = m[i];
+      l_out[size_t(bh) * lq + row] = l[i];
+    }
+  }
+  store_rows(acc_out + acc_head, o, q0 + warp * 16, lq, HD, 1.f, lane);
 }
 
 // -------------------------------------------------------------------- dK/dV
@@ -601,6 +690,23 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), lse, h, lq, lk, causal, q_off, k_off, 1.f / sqrtf(float(HD)));
+  return int(cudaGetLastError());
+}
+
+// acc_in, m_in and l_in are all null (no carry: the walk starts fresh) or
+// all set; acc f32 [b, h, lq, d], m and l f32 [b*h, lq].
+extern "C" int flash_fwd_carry(const void* q, const void* k, const void* v, const float* acc_in,
+                               const float* m_in, const float* l_in, float* acc_out,
+                               float* m_out, float* l_out, int b, int h, int lq, int lk, int d,
+                               int causal, int q_off, int k_off, void* stream) {
+  if (!args_ok(b, h, lq, lk, d) || (acc_in == nullptr) != (m_in == nullptr) ||
+      (acc_in == nullptr) != (l_in == nullptr))
+    return int(cudaErrorInvalidValue);
+  flash_fwd_carry_kernel<<<dim3((lq + BQ - 1) / BQ, b * h), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      acc_in, m_in, l_in, acc_out, m_out, l_out, h, lq, lk, causal, q_off, k_off,
+      1.f / sqrtf(float(HD)));
   return int(cudaGetLastError());
 }
 

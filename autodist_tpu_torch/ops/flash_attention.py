@@ -1,12 +1,16 @@
 """Flash attention: causal attention over ``[B, L, H, D]`` with the ``[L, L]``
 score matrix never in device memory, forward and backward.
 
-Counterpart of ``autodist_tpu/ops/flash_attention.py``. Three hand-written
+Counterpart of ``autodist_tpu/ops/flash_attention.py``. Four hand-written
 Hopper kernels (``csrc/flash_attention.cu``), one per Pallas kernel of the
 JAX package, each behind a wrapper that counts its launches:
 
 - :func:`flash_fwd` (replaces ``_flash_kernel``): ``out`` and the per-row
   logsumexp ``lse``;
+- :func:`flash_fwd_carry` (replaces ``_flash_carry_kernel``): the same walk
+  with the online-softmax state ``(acc, m, l)`` carried in and out
+  unnormalized, ring attention's local step
+  (:func:`flash_attention_with_carry`);
 - :func:`flash_bwd_dkdv` (replaces ``_flash_bwd_dkdv_kernel``): dK and dV,
   with p and ds recomputed per block from the saved lse;
 - :func:`flash_bwd_dq` (replaces ``_flash_bwd_dq_kernel``): dQ.
@@ -15,15 +19,19 @@ The row term ``D_i = rowsum(dO * O)`` is plain torch
 (:func:`prepare_backward_q_side`), as it is XLA in the JAX package.
 
 A wrapper given CPU tensors computes the kernels' plain versions
-(:func:`flash_forward_plain`, :func:`flash_backward_plain`); given CUDA
+(:func:`flash_forward_plain`, :func:`flash_forward_carry_plain`,
+:func:`flash_backward_plain`); given CUDA
 tensors it launches the kernel or raises, with no fallback. The kernels take
 bf16 q/k/v read in place as ``[B, L, H, 64]``; lse and D are plain f32
 ``[B * H, Lq]`` (the TPU's ``[bh, n_q, bq]`` planes and 128-lane scratch are
-VMEM layout machinery and have no counterpart here).
+VMEM layout machinery and have no counterpart here). The carry keeps the JAX
+layout: acc f32 ``[B, H, Lq, 64]``, m and l f32 ``[B, H, Lq]``, the layout of
+:func:`autodist_tpu_torch.ops.blockwise_attention.blockwise_attention_with_carry`,
+so ``finalize`` takes either.
 
 The global offsets ``q_offset``/``k_offset`` and the backward's ``out_dtype``
-override are kept for ring attention, whose local step reuses the backward
-kernels with f32 outputs.
+override serve ring attention, whose backward reuses the two backward kernels
+with f32 outputs.
 """
 
 import ctypes
@@ -70,18 +78,23 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ plain versions
 
-def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
-                        k_offset: int = 0, k_block: int = PLAIN_K_BLOCK):
-    """Plain version of the forward kernel: ``(out, lse)`` with out
-    ``[B, Lq, H, D]`` in q's dtype and lse f32 ``[B * H, Lq]``, by an online
-    softmax over key blocks. Products in f32 of the operands as stored, p
-    rounded to v's dtype before its product, as in the kernel."""
+def flash_forward_carry_plain(q, k, v, carry=None, causal: bool = True, q_offset: int = 0,
+                              k_offset: int = 0, k_block: int = PLAIN_K_BLOCK):
+    """Plain version of the carry kernel: the online softmax over key blocks,
+    starting from ``carry = (acc, m, l)`` (acc ``[B, H, Lq, D]``, m and l
+    ``[B, H, Lq]``, f32) or from nothing, and returning that state
+    unnormalized. Products in f32 of the operands as stored, p rounded to v's
+    dtype before its product, as in the kernels."""
     b, lq, lk, h, d = _dims(q, k, v)
     scale = 1.0 / (d ** 0.5)
     qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
-    acc = torch.zeros((b, h, lq, d), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, lq, 1), dtype=torch.float32, device=q.device)
+    if carry is None:
+        acc = torch.zeros((b, h, lq, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, lq, 1), dtype=torch.float32, device=q.device)
+    else:
+        acc = carry[0].float()
+        m, l = (x.float()[..., None] for x in carry[1:])
     for start in range(0, lk, k_block):
         stop = min(lk, start + k_block)
         scores = scale * (qt @ kt[:, :, start:stop].transpose(-1, -2))
@@ -94,9 +107,18 @@ def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
         l = l * correction + p.sum(dim=-1, keepdim=True)
         acc = acc * correction + p.to(v.dtype).float() @ vt[:, :, start:stop]
         m = m_new
+    return acc, m[..., 0], l[..., 0]
+
+
+def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
+                        k_offset: int = 0, k_block: int = PLAIN_K_BLOCK):
+    """Plain version of the forward kernel: ``(out, lse)`` with out
+    ``[B, Lq, H, D]`` in q's dtype and lse f32 ``[B * H, Lq]``: the carry's
+    walk from nothing, normalized."""
+    acc, m, l = flash_forward_carry_plain(q, k, v, None, causal, q_offset, k_offset, k_block)
     l = torch.clamp(l, min=1e-30)
-    out = (acc / l).transpose(1, 2).to(q.dtype)
-    lse = (m + torch.log(l)).reshape(b * h, lq)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(-1, q.shape[1])
     return out, lse
 
 
@@ -151,9 +173,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.flash_fwd_carry.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkdv, lib.flash_bwd_dq):
+    for fn in (lib.flash_fwd, lib.flash_fwd_carry, lib.flash_bwd_dkdv, lib.flash_bwd_dq):
         fn.restype = ctypes.c_int
     return lib
 
@@ -219,6 +242,42 @@ def flash_fwd(q, k, v, causal: bool = True, q_offset: int = 0, k_offset: int = 0
     return out, lse
 
 
+def _check_carry(carry, b, h, lq, d, device):
+    """What the carry kernel takes: f32 acc ``[B, H, Lq, 64]`` and m, l
+    ``[B, H, Lq]``, contiguous and 16-byte aligned, on q's card."""
+    shapes = ((b, h, lq, d), (b, h, lq), (b, h, lq))
+    for name, t, shape in zip(("acc", "m", "l"), carry, shapes):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"carry {name} must be f32 {list(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"carry {name} must be contiguous, 16-byte aligned and on "
+                             f"q's device {device}")
+
+
+def flash_fwd_carry(q, k, v, carry=None, causal: bool = True, q_offset: int = 0,
+                    k_offset: int = 0):
+    """``(acc, m, l)`` after attending q to k/v from ``carry`` (or from
+    nothing). CUDA: the carry kernel (replaces ``_flash_carry_kernel``),
+    which writes a fresh carry and leaves the one given unchanged; CPU:
+    :func:`flash_forward_carry_plain`."""
+    if q.device.type == "cpu":
+        return flash_forward_carry_plain(q, k, v, carry, causal, q_offset, k_offset)
+    b, lq, lk, h, d = _check_kernel_args(q, k, v)
+    if carry is not None:
+        _check_carry(carry, b, h, lq, d, q.device)
+    acc = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    carry_in = [t.data_ptr() for t in carry] if carry is not None else [None] * 3
+    with torch.cuda.device(q.device):
+        _launch(_lib().flash_fwd_carry, q.data_ptr(), k.data_ptr(), v.data_ptr(), *carry_in,
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, lq, lk, d, int(causal),
+                q_offset, k_offset, _stream())
+    flash_fwd_carry.launches += 1
+    return acc, m, l
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
                    k_offset: int = 0, out_dtype: Optional[torch.dtype] = None):
     """``(dk, dv)``. CUDA: the dK/dV kernel (replaces
@@ -258,9 +317,10 @@ def flash_bwd_dq(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
 
 
 flash_fwd.launches = 0
+flash_fwd_carry.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
-KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+KERNELS = (flash_fwd, flash_fwd_carry, flash_bwd_dkdv, flash_bwd_dq)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -292,3 +352,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     64-row tiles sized to shared memory and registers) and its ``interpret``
     flag a Pallas mode; neither has a counterpart."""
     return _FlashAttention.apply(q, k, v, causal)
+
+
+def flash_attention_with_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               carry=None, *, causal: bool = True, q_offset: int = 0,
+                               k_offset: int = 0):
+    """Ring attention's local step: ``(acc, m, l)`` carried in and out, acc
+    f32 ``[B, H, Lq, D]`` unnormalized and m, l f32 ``[B, H, Lq]``, the
+    layout of ``blockwise_attention_with_carry``; normalize with
+    ``blockwise_attention.finalize`` after the last step. Not differentiable:
+    ring attention's custom backward reuses the backward kernels. As in
+    :func:`flash_attention`, the JAX signature's ``q_block``/``k_block`` and
+    ``interpret`` have no counterpart."""
+    return flash_fwd_carry(q, k, v, carry, causal, q_offset, k_offset)

@@ -1,6 +1,8 @@
 """Mesh shape resolution (``autodist_tpu/parallel/mesh.py:26-65``). The port
-records the named mesh in the strategy; placing devices on it is the
-collective-communication slice's work."""
+records the named mesh in the strategy and runs one process per device: a
+``seq`` axis of k > 1 is the process group of k ranks that
+:mod:`autodist_tpu_torch.parallel.sequence` joins. Data axes over more than
+one device are not ported yet."""
 
 import collections
 import math

@@ -2,12 +2,14 @@
 (``autodist_tpu/parallel/plan.py:77-130``).
 
 Ported so far: replicated parameters under the AllReduce synchronizer, whose
-gradient sum is the implicit all-reduce of data parallelism. PS
-synchronizers and partitioned parameters raise ``NotImplementedError``.
+gradient sum is the implicit all-reduce of data parallelism, over a mesh
+that may carry a ``seq`` axis (sequence parallelism). PS synchronizers and
+partitioned parameters raise ``NotImplementedError``.
 """
 
 import collections
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 from autodist_tpu_torch import const
@@ -75,8 +77,17 @@ class ShardingPlan:
 
     @property
     def dp_size(self) -> int:
+        """Data replicas: the data axes only, not ``seq``."""
         return (self.mesh_axes.get(const.MESH_AXIS_DATA, 1)
                 * self.mesh_axes.get(const.MESH_AXIS_REDUCE, 1))
+
+    @property
+    def seq_size(self) -> int:
+        return self.mesh_axes.get(const.MESH_AXIS_SEQ, 1)
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.mesh_axes.values())
 
     @property
     def has_compression(self) -> bool:

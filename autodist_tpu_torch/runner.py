@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel import synchronization
@@ -64,9 +65,13 @@ class DistributedRunner:
     def __init__(self, compiled_strategy, model_spec: ModelSpec, loss_fn: Callable,
                  optimizer: Callable, device: torch.device,
                  plan: Optional[ShardingPlan] = None, accumulation_steps: int = 1,
-                 batch_size: Optional[int] = None):
+                 batch_size: Optional[int] = None,
+                 seq_group: Optional[dist.ProcessGroup] = None):
         """``optimizer`` is a factory: ``optimizer(list_of_params)`` returns a
-        ``torch.optim.Optimizer`` (``lambda p: torch.optim.Adam(p, lr=1e-3)``)."""
+        ``torch.optim.Optimizer`` (``lambda p: torch.optim.Adam(p, lr=1e-3)``).
+        ``seq_group`` is the process group of the mesh's ``seq`` axis when it
+        has more than one rank. Every rank of the mesh runs its own runner:
+        the process group's world size must be the mesh's device count."""
         if accumulation_steps < 1:
             raise ValueError("accumulation_steps must be >= 1")
         self.plan = plan if plan is not None \
@@ -79,7 +84,12 @@ class DistributedRunner:
         self._batch_size = batch_size
         self._dp = self.plan.dp_size
         self._grad_fn = synchronization.make_grad_fn(
-            self.plan, model_spec, self._dp, loss_fn)
+            self.plan, model_spec, self._dp, loss_fn, seq_group=seq_group)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != self.plan.num_devices:
+            raise RuntimeError(f"the mesh {dict(self.plan.mesh_axes)} has "
+                               f"{self.plan.num_devices} devices but {world} processes "
+                               f"run it (one process per device)")
 
     # ------------------------------------------------------------------- state
     def init(self, params: Dict[str, torch.Tensor]) -> TrainState:
@@ -201,3 +211,20 @@ class DistributedRunner:
                           if isinstance(l, MicroBatched) else l, batch)
         with torch.no_grad():
             return fn(state.params, self.shard_batch(batch, accumulation=1))
+
+
+def step_function(runner: DistributedRunner, params: Dict[str, torch.Tensor]) -> Callable:
+    """``step(batch) -> loss`` over ``runner``, carrying the training state
+    inside, started from ``params``; ``step.runner``, ``step.get_state()`` and
+    ``step.evaluate(batch, fn=None)`` expose it (what ``AutoDist.function``
+    returns)."""
+    state = runner.init(params)
+
+    def step(batch):
+        _, loss = runner.run(state, batch)
+        return loss
+
+    step.runner = runner
+    step.get_state = lambda: state
+    step.evaluate = lambda batch, fn=None: runner.evaluate(state, batch, fn)
+    return step

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: build its CUDA kernels, hold each against
 its plain version on the card, and train the flagship TransformerLM through
-the port's entry points on one card, at seq 256 and at seq 8,192.
+the port's entry points on one card, at seq 256, at seq 8,192, and at seq
+8,192 through the sequence-parallel path (a ring of one card).
 
     python3 chip_smoke.py
 
@@ -51,7 +52,33 @@ exits non-zero without them, or when any phase fails. Phases:
    six kernels must have launched, all losses finite), the entry point's
    own ``main`` for tokens/s and MFU over 4 steady steps with peak memory,
    and a profiler window over 2 steps.
-7. One JSON line of per-kernel numbers (all six kernels), then the result
+7. The flash carry kernel (ring attention's local step) against its plain
+   version: ragged L = 1,000 with no carry in, a past shard with a carry in
+   (q_offset 1,024, k_offset 0), a diagonal step with a carry in, a step
+   whose first 300 rows see no key (those rows' carry must come out bit
+   for bit as it went in), and the path's own shapes, B = 8 at L_local =
+   8,192 (the one-card ring) and 2,048 (with a carry in). Tolerance: acc and
+   l within TILE_RTOL in every tile of rows, m within FLASH_LSE_ATOL. Then
+   the ring's arithmetic on one card: B = 8, L = 8,192 split into 4 shards,
+   the forward ring schedule with the carry kernel, the backward schedule
+   with the dK/dV and dQ kernels (offsets, f32 outputs) summed as the ring
+   sums them, against ``flash_forward_plain``/``flash_backward_plain`` on the
+   whole sequence, tile by tile (lse within FLASH_LSE_ATOL). Then the carry
+   kernel is timed at B = 8, L = 8,192 as the one-card ring calls it (no
+   carry in) beside its plain version, its bound and
+   ``F.scaled_dot_product_attention(is_causal=True)``, which lacks the
+   carry merge.
+8. Sequence-parallel training at full width (d512 x 6 layers, 8 heads, d_ff
+   2048, vocab 32,000, seq = max_len = 8,192, B = 8, ring attention, every
+   block rematerialized, untied fused head, bf16 activations, f32 params,
+   Adam 1e-3) through ``create_sequence_parallel_session(AutoDist(
+   resource_info=ONE_CARD, strategy_builder=SequenceParallel(seq_axis_size=1)),
+   ...)``. First, on B = 2, L = 1,024, the ring model's loss is held against
+   the flash model's with the same weights (rtol 1e-2). Then 3 counted
+   steps (every kernel but ``flash_fwd`` must launch, ``flash_fwd`` never;
+   all losses finite), tokens/s and MFU over 4 steady steps with peak
+   memory, and a profiler window over 2 steps.
+9. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
 
@@ -88,6 +115,7 @@ PROFILE_STEPS = 3                 # steps traced after those
 LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
 FLASH_LSE_ATOL = 1e-3
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
+RING_SHARDS = 4                   # shards of the ring replay on one card
 
 
 def log(msg: str) -> None:
@@ -466,7 +494,8 @@ def long_context_path(kernels, dev):
     log(f"long context: losses {losses}; step seconds {times}")
     log(f"long context: kernel launches {launches}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name, count in launches.items()
+               if count == 0 and name != "flash_fwd_carry"]
     if missing:
         raise AssertionError(f"long-context path never launched {missing}")
 
@@ -479,6 +508,201 @@ def long_context_path(kernels, dev):
         f"{mfu(flops * rate / tokens):.4f} of 989 TFLOP/s (full score matrix counted); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profile_steps(step, [batch] * LC_PROFILE, label="long-context profile")
+    return launches
+
+
+def carry_case(fa, q, k, v, carry, qo, ko):
+    """The carry kernel and its plain version on the same inputs; returns
+    ``(worst tile of acc, of l, max |m - m_ref|, kernel's (acc, m, l))``."""
+    got = fa.flash_fwd_carry(q, k, v, carry, True, qo, ko)
+    torch.cuda.synchronize()
+    want = fa.flash_forward_carry_plain(q, k, v, carry, True, qo, ko)
+    e_acc = compare(got[0], want[0], 2)
+    e_l = compare(got[2][..., None], want[2][..., None], 2)
+    e_m = (got[1] - want[1]).abs().max().item()
+    return e_acc, e_l, e_m, got
+
+
+def check_carry(fa, dev):
+    """Phase 7a: the carry kernel against its plain version; max abs error."""
+    gen = torch.Generator().manual_seed(4)
+    err = 0.0
+    q, k, v, _ = flash_inputs(2, 1000, 1000, gen, dev)
+    _, k_prev, v_prev, _ = flash_inputs(2, 1000, 1000, gen, dev)
+    # A carry as the ring hands it on: this shard's diagonal step (and, for
+    # the diagonal case, a past shard's step) done by the plain version.
+    diag = fa.flash_forward_carry_plain(q, k, v, None, True, 1024, 1024)
+    past = fa.flash_forward_carry_plain(q, k_prev, v_prev, None, True, 1024, 0)
+    cases = [  # (label, q, k, v, carry, q_offset, k_offset)
+        ("ragged, no carry", q, k, v, None, 0, 0),
+        ("past shard, carry in", q, k_prev, v_prev, diag, 1024, 0),
+        ("diagonal, carry in", q, k, v, past, 1024, 1024),
+        ("rows 0-299 see no key, carry in", q, k, v, diag, 0, 300),
+    ]
+    for b, length, carry in ((LC_BATCH, LC_SEQ, False),
+                             (LC_BATCH, LC_SEQ // RING_SHARDS, True)):
+        qb, kb, vb, _ = flash_inputs(b, length, length, gen, dev)
+        cin = fa.flash_forward_carry_plain(qb, kb, vb, None, True, length, length) \
+            if carry else None
+        cases.append((f"path shape B={b} L={length}", qb, kb, vb, cin,
+                      length if carry else 0, 0))
+    for label, q_, k_, v_, cin, qo, ko in cases:
+        e_acc, e_l, e_m, got = carry_case(fa, q_, k_, v_, cin, qo, ko)
+        log(f"check flash carry {label} b={q_.shape[0]} L={q_.shape[1]} offsets=({qo}, {ko}): "
+            f"acc {describe(e_acc)}; l {describe(e_l)}; m {e_m:.3g}")
+        ok = (e_acc[2] <= TILE_RTOL and e_l[2] <= TILE_RTOL and math.isfinite(e_m)
+              and e_m <= FLASH_LSE_ATOL)
+        if label.startswith("rows 0-299"):
+            same = all(torch.equal(g[:, :, :300], c[:, :, :300]) for g, c in zip(got, cin))
+            log(f"check flash carry: rows without a key carried through bit-equal: {same}")
+            ok = ok and same
+        if not ok:
+            raise AssertionError(f"carry kernel disagrees with its plain version: {label}")
+        err = max(err, e_acc[0], e_l[0], e_m)
+    return {"flash_fwd_carry": err}
+
+
+def check_ring_replay(fa, dev):
+    """Phase 7b: the ring's arithmetic on one card. B = 8, L = 8,192 in 4
+    shards: the forward ring schedule chains the carry kernel, the backward
+    schedule sums the f32 dK/dV and dQ kernels' parts as the ring does;
+    out, lse, dq, dk and dv against the plain versions on the whole sequence."""
+    gen = torch.Generator().manual_seed(5)
+    n, length = RING_SHARDS, LC_SEQ
+    ll = length // n
+    q, k, v, do = flash_inputs(LC_BATCH, length, length, gen, dev)
+    shard = [slice(r * ll, (r + 1) * ll) for r in range(n)]
+    qs, ks, vs, dos = ([x[:, s].contiguous() for s in shard] for x in (q, k, v, do))
+    outs, lses = [], []
+    for r in range(n):
+        carry = None
+        for step in range(n):                        # ring order, causal steps only
+            src = (r - step) % n
+            if step == 0 or src <= r:
+                carry = fa.flash_fwd_carry(qs[r], ks[src], vs[src], carry, True, r * ll, src * ll)
+        acc, m, l = carry
+        l = l.clamp(min=1e-30)
+        outs.append((acc / l[..., None]).transpose(1, 2).to(torch.bfloat16).contiguous())
+        lses.append((m + torch.log(l)).reshape(-1, ll))
+    f32 = torch.float32
+    dq = [torch.zeros(x.shape, dtype=f32, device=dev) for x in qs]
+    dk = [torch.zeros(x.shape, dtype=f32, device=dev) for x in ks]
+    dv = [torch.zeros(x.shape, dtype=f32, device=dev) for x in vs]
+    for src in range(n):                             # K/V shard src travels r = src .. n-1
+        for r in range(src, n):
+            dd = fa.prepare_backward_q_side(outs[r], dos[r])
+            a, b = fa.flash_bwd_dkdv(qs[r], ks[src], vs[src], dos[r], lses[r], dd, True,
+                                     r * ll, src * ll, f32)
+            dk[src] += a
+            dv[src] += b
+            dq[r] += fa.flash_bwd_dq(qs[r], ks[src], vs[src], dos[r], lses[r], dd, True,
+                                     r * ll, src * ll, f32)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v)
+    ref_dd = fa.prepare_backward_q_side(ref_out, do)
+    ref = fa.flash_backward_plain(q, k, v, do, ref_lse, ref_dd, out_dtype=f32)
+    lse = torch.cat(lses, dim=1)
+    e_lse = (lse - ref_lse).abs().max().item()
+    e = {name: compare(torch.cat(got, dim=1), want, 1)
+         for name, got, want in (("out", outs, ref_out), ("dq", dq, ref[0]),
+                                 ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+    log(f"check ring replay B={LC_BATCH} L={length} in {n} shards: lse {e_lse:.3g}; "
+        + "; ".join(f"{name} {describe(c)}" for name, c in e.items()))
+    if not (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
+            and all(c[2] <= TILE_RTOL for c in e.values())):
+        raise AssertionError("the ring replay disagrees with the whole-sequence plain versions")
+    return max(e_lse, e["out"][0])
+
+
+def time_carry(fa, dev):
+    """Phase 7c: the carry kernel at B = 8, L = 8,192 as the one-card ring
+    calls it (no carry in), beside its plain version, its bound and SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(6)
+    b, length = LC_BATCH, LC_SEQ
+    q, k, v, _ = flash_inputs(b, length, length, gen, dev)
+    pairs = length * (length + 1) / 2
+    per_product = 2.0 * b * LC_HEADS * pairs * HEAD_DIM
+    act = b * length * LC_HEADS * HEAD_DIM * 2
+    acc = b * LC_HEADS * length * HEAD_DIM * 4          # f32 [B, H, L, 64]
+    row = b * LC_HEADS * length * 4
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    r = dict(ms=time_ms(lambda: fa.flash_fwd_carry(q, k, v), 10),
+             plain_ms=time_ms(lambda: fa.flash_forward_carry_plain(q, k, v), 1),
+             library_ms=time_ms(
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10),
+             bound=bound(3 * act + acc + 2 * row, 2 * per_product))
+    carry = fa.flash_fwd_carry(q, k, v)
+    with_carry = time_ms(lambda: fa.flash_fwd_carry(q, k, v, carry), 10)
+    log(f"time flash_fwd_carry B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}, no carry in: "
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library (SDPA, no carry "
+        f"merge) {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); "
+        f"with a carry in {with_carry:.3f} ms; the forward kernel "
+        f"{time_ms(lambda: fa.flash_fwd(q, k, v), 10):.3f} ms in the same run")
+    return {"flash_fwd_carry": r}
+
+
+def sequence_parallel_path(kernels, dev):
+    """Phase 8: sequence-parallel training through the port's session, a
+    ring of one card."""
+    from autodist_tpu_torch import AutoDist, SequenceParallel
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.parallel.sequence import (create_sequence_parallel_session,
+                                                      make_sequence_parallel_loss_fn)
+    from autodist_tpu_torch.runner import step_function
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=LC_HEADS, n_layers=6,
+                                  d_ff=2048, max_len=LC_SEQ, dtype=torch.bfloat16,
+                                  remat=True, attention_impl="ring", fused_head=True,
+                                  tied_output=False)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    log(f"sequence parallel: {cfg}")
+
+    # Reference on a small input: the ring model vs the flash model, same weights.
+    small = {k: torch.as_tensor(a).to(dev)
+             for k, a in tlm.synthetic_batch(cfg, 2, min(1024, LC_SEQ), seed=97).items()}
+    flash_model = tlm.TransformerLM(dataclasses.replace(cfg, attention_impl="flash"))
+    with torch.no_grad():
+        ring = float(make_sequence_parallel_loss_fn(model)(params, small))
+        flash = float(tlm.make_loss_fn(flash_model)(params, small))
+    log(f"sequence-parallel reference: ring loss {ring:.6f} vs flash loss {flash:.6f}")
+    if not (math.isfinite(ring) and abs(ring - flash) <= 1e-2 * abs(flash)):
+        raise AssertionError("ring-attention loss disagrees with flash attention")
+
+    ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
+                  strategy_builder=SequenceParallel(seq_axis_size=1), device=dev)
+    runner = create_sequence_parallel_session(
+        ad, model, params, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
+    step = step_function(runner, params)
+    batch = tlm.synthetic_batch(cfg, LC_BATCH, LC_SEQ)
+    log(f"sequence parallel: mesh {dict(runner.plan.mesh_axes)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = counted_steps(step, [batch] * LC_COUNTED, kernels)
+    log(f"sequence parallel: losses {losses}; step seconds {times}")
+    log(f"sequence parallel: kernel launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    missing = [name for name, count in launches.items() if count == 0 and name != "flash_fwd"]
+    if missing or launches["flash_fwd"]:
+        raise AssertionError(f"sequence-parallel path: never launched {missing}; "
+                             f"flash_fwd launched {launches['flash_fwd']} times")
+
+    tokens = LC_BATCH * LC_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    float(step(batch))
+    t0 = time.perf_counter()
+    for _ in range(LC_STEADY):
+        loss = step(batch)
+    float(loss)
+    per_step = (time.perf_counter() - t0) / LC_STEADY
+    flops = transformer_flops_per_token(D, 6, 2048, V, LC_SEQ) * tokens
+    log(f"sequence parallel: {tokens / per_step:.1f} tokens/s over {LC_STEADY} steady steps "
+        f"({tokens} tokens/step, {1e3 * per_step:.3f} ms/step), MFU "
+        f"{mfu(flops / per_step):.4f} of 989 TFLOP/s (full score matrix counted); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(step, [batch] * LC_PROFILE, label="sequence-parallel profile")
     return launches
 
 
@@ -512,33 +736,43 @@ def main() -> int:
     timing = time_kernels(fx, dev)
     errs.update(check_flash(fa, dev))
     timing.update(time_flash(fa, dev))
+    errs.update(check_carry(fa, dev))
+    ring_err = check_ring_replay(fa, dev)
+    errs["flash_fwd_carry"] = max(errs["flash_fwd_carry"], ring_err)
+    timing.update(time_carry(fa, dev))
     every = fx.KERNELS + fa.KERNELS
     by_phase = {"flagship": main_path(every, dev),
-                "long_context": long_context_path(every, dev)}
+                "long_context": long_context_path(every, dev),
+                "sequence_parallel": sequence_parallel_path(every, dev)}
 
     # Each kernel's main path: the flagship for the fused head, the
-    # long-context run for flash attention.
+    # long-context run for flash attention, the sequence-parallel run for
+    # the carry. Keyed by the name in the JSON line, with the wrapper's name.
     sites = {
-        "xent_fwd": ("fused_xent", "autodist_tpu/ops/fused_xent.py:192", "flagship"),
-        "xent_dh": ("fused_xent", "autodist_tpu/ops/fused_xent.py:287", "flagship"),
-        "xent_dwdb": ("fused_xent", "autodist_tpu/ops/fused_xent.py:305", "flagship"),
-        "flash_fwd": ("flash_attention", "autodist_tpu/ops/flash_attention.py:144",
-                      "long_context"),
-        "flash_bwd_dkdv": ("flash_attention", "autodist_tpu/ops/flash_attention.py:332",
-                           "long_context"),
-        "flash_bwd_dq": ("flash_attention", "autodist_tpu/ops/flash_attention.py:355",
-                         "long_context"),
+        "xent_fwd": ("xent_fwd", "fused_xent", "autodist_tpu/ops/fused_xent.py:192",
+                     "flagship"),
+        "xent_dh": ("xent_dh", "fused_xent", "autodist_tpu/ops/fused_xent.py:287", "flagship"),
+        "xent_dwdb": ("xent_dwdb", "fused_xent", "autodist_tpu/ops/fused_xent.py:305",
+                      "flagship"),
+        "flash_fwd": ("flash_fwd", "flash_attention",
+                      "autodist_tpu/ops/flash_attention.py:144", "long_context"),
+        "flash_bwd_dkdv": ("flash_bwd_dkdv", "flash_attention",
+                           "autodist_tpu/ops/flash_attention.py:332", "long_context"),
+        "flash_bwd_dq": ("flash_bwd_dq", "flash_attention",
+                         "autodist_tpu/ops/flash_attention.py:355", "long_context"),
+        "flash_carry": ("flash_fwd_carry", "flash_attention",
+                        "autodist_tpu/ops/flash_attention.py:480", "sequence_parallel"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"autodist_tpu_torch/ops/csrc/{src}.cu",
-                "replaces": replaces, "launches": by_phase[phase][name],
-                "launches_by_phase": {p: counts[name] for p, counts in by_phase.items()},
-                "max_abs_err": errs[name], "ms": timing[name]["ms"],
-                "plain_ms": timing[name]["plain_ms"],
-                "bound_ms": timing[name]["bound"][0],
-                "bound_by": timing[name]["bound"][1],
-                "library_ms": timing[name]["library_ms"]}
-               for name, (src, replaces, phase) in sites.items()]
+                "replaces": replaces, "launches": by_phase[phase][fn],
+                "launches_by_phase": {p: counts[fn] for p, counts in by_phase.items()},
+                "max_abs_err": errs[fn], "ms": timing[fn]["ms"],
+                "plain_ms": timing[fn]["plain_ms"],
+                "bound_ms": timing[fn]["bound"][0],
+                "bound_by": timing[fn]["bound"][1],
+                "library_ms": timing[fn]["library_ms"]}
+               for name, (fn, src, replaces, phase) in sites.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -138,8 +138,9 @@ def test_accumulation_equals_full_batch():
 def test_long_context_entry_point_runs_on_the_host(capsys):
     """``python -m autodist_tpu_torch.examples.long_context_lm`` at a tiny size
     with ``--device cpu``: flash (the default), remat and the fused head
-    through AutoDist.function; it prints the result line, no device metric,
-    and refuses sequence parallelism."""
+    through AutoDist.function; it prints the result line and no device
+    metric. ``--seq_axis 2`` takes no other attention, and in a process
+    without a group of 2 ranks it raises instead of running alone."""
     from autodist_tpu_torch.examples import long_context_lm
 
     rate = long_context_lm.main(["--device", "cpu", "--seq_len", "32", "--batch_size", "2",
@@ -149,8 +150,12 @@ def test_long_context_entry_point_runs_on_the_host(capsys):
     assert rate > 0
     assert "long-context seq=32 bs=2 attention=flash remat=True" in out
     assert "final loss" in out and "mfu not measured" in out
-    with pytest.raises(NotImplementedError, match="ring"):
-        long_context_lm.main(["--device", "cpu", "--seq_axis", "2"])
+    with pytest.raises(SystemExit):
+        long_context_lm.parse_args(["--seq_axis", "2", "--attention", "flash"])
+    assert "cannot honor --attention flash" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="seq axis has 2 ranks but the seq group has 1"):
+        long_context_lm.main(["--device", "cpu", "--seq_axis", "2", "--seq_len", "32",
+                              "--d_model", "64", "--n_layers", "1", "--vocab", "128"])
     args = long_context_lm.parse_args([])
     assert (args.seq_len, args.d_model, args.n_layers, args.vocab) == (8192, 512, 6, 32_000)
     cfg, _, batch = long_context_lm.build(long_context_lm.parse_args(

@@ -198,8 +198,15 @@ def test_init_params_matches_flax_shapes_and_scales():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ring"):
-        tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL, attention_impl="ring"))
+    """Ulysses and decode raise; ring is ported, and without a group it is a
+    ring of one rank: the flash model's logits."""
+    with pytest.raises(NotImplementedError, match="ulysses"):
+        tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL, attention_impl="ulysses"))
+    _, _, ring, tparams = _pair(False, fused_head=False, attention_impl="ring")
+    _, _, flash, _ = _pair(False, fused_head=False, attention_impl="flash")
+    tokens = torch.tensor(_batch(False)["tokens"][:, :-1]).long()
+    torch.testing.assert_close(tlm.apply(ring, tparams, tokens, pos_offset=3),
+                               tlm.apply(flash, tparams, tokens, pos_offset=3))
     with pytest.raises(ValueError, match="attention_impl"):
         tlm.TransformerLMConfig(**SMALL, attention_impl="nope")
     model = tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL))
