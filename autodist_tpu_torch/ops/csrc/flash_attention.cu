@@ -8,39 +8,60 @@
 //   flash_bwd_dq_kernel    <- _flash_bwd_dq_kernel    (flash_attention.py:241, pallas_call :355)
 //   flash_fwd_carry_kernel <- _flash_carry_kernel     (flash_attention.py:387, pallas_call :480)
 //
-// What bounds them: operations. At B = 8, H = 8, L = 8,192, hd = 64 the
-// causal forward does 2*B*H*L^2*hd FLOPs (two products over half the score
-// matrix; 0.56 ms at the card's dense bf16 peak), dK/dV 4*B*H*L^2*hd (S, dP,
-// dV and dK recomputed or accumulated), dQ 3*B*H*L^2*hd, against 0.1 ms or
-// less of input reads each. The carry kernel does the forward's products and
-// also reads and writes the f32 carry (134 MB of acc each way at that shape,
-// 0.04 ms per direction at 3.35 TB/s): still bound by operations.
+// What bounds the forward (and the carry kernel, which runs the same walk):
+// two units, about equally. At B = 8, H = 8, L = 8,192, hd = 64, causal, it
+// does 2*B*H*L^2*hd tensor-core FLOPs (two products over half the score
+// matrix: 0.556 ms at the card's 989 TFLOP/s dense bf16) and one exp per
+// score, 2.15e9 of them (0.55 ms at the special-function unit's 3.9 T/s,
+// 1/256 of the tensor rate), against 0.1 ms of input reads (the carry adds
+// 134 MB of f32 acc each way, 0.04 ms per direction at 3.35 TB/s). Run one
+// after the other, the two units give a floor near 1.1 ms; overlapped, near
+// 0.56 ms.
 //
-// Design, and how it differs from the TPU kernels:
-// - The TPU grid runs in order and carries the online-softmax state (or the
-//   dK/dV/dQ accumulators) across grid steps in VMEM scratch. Hopper's
-//   blocks run in no order, so the sequential loop moves inside one block:
-//   forward and dQ give each block 64 query rows of one (batch, head) that
-//   walk the key tiles up to the diagonal; dK/dV gives each block 64 keys
-//   that walk the query tiles from the diagonal to the end. The causal skip
-//   is a loop bound, not a per-step predicate. No reduction crosses blocks:
-//   no atomics, and the same bits from run to run.
-// - Each of the block's 4 warps owns 16 rows. Products are mma.sync
-//   m16n8k16 bf16 x bf16 -> f32 with operands from shared memory through
-//   ldmatrix; the score tile stays in registers, where the online softmax
-//   (forward) or p and ds (backward) are computed and re-packed as the bf16
-//   A operand of the next product without a trip through shared memory.
-// - The next key (or query) tile is copied with cp.async into a second
-//   buffer while the current one computes. Shared-memory rows are padded to
-//   144 bytes so that ldmatrix rows fall on distinct banks.
-// - q/k/v/dO are read in their [B, L, H, 64] layout (row stride H*64): no
-//   transposed copies. lse and D are plain f32 [B*H, Lq]. Rows past the
-//   sequence end are zero-filled on load and never stored.
-// - Arithmetic follows the Pallas kernels: scale = 1/sqrt(64) applied in f32
-//   to the f32 product; masked scores are NEG_INF and p = 0 at or below
-//   NEG_INF/2; out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)); p and
-//   ds are rounded to bf16 only as product operands. No TMA or wgmma yet.
+// Forward design (flash_fwd_kernel, flash_fwd_carry_kernel; forward_walk):
+// - A block owns 192 query rows of one (batch, head) and walks the key tiles
+//   they need, 128 keys a tile, from the diagonal down (the tiles that need
+//   a mask come first, the causal skip is a loop bound). Hopper's blocks
+//   run in no order, so the TPU grid's sequential key axis is this loop; no
+//   reduction crosses blocks and the bits are the same from run to run.
+// - Warp specialisation: warpgroup 0 is the producer; one of its threads
+//   issues every copy, and setmaxnreg hands its registers to the three
+//   consumer warpgroups (64 query rows each; 160 registers a thread). Two
+//   consumers (128 rows, 240 registers) ran slower on an H100.
+// - TMA: q, k and v are read in place through 4-D tensor maps over
+//   [B, L, H, 64] (one 64-wide bf16 row is 128 bytes: 128-byte swizzle).
+//   Q is loaded once; K and V pass through a ring of FWD_STAGES stages with
+//   full and empty mbarriers, so the producer keeps copies in flight while
+//   the consumers compute. Rows past the sequence end arrive zero-filled.
+// - wgmma: S = Q K^T is m64n128k16 with both operands in shared memory
+//   (K-major); O += P V is m64n64k16 with P from registers (the score
+//   accumulator re-packed as bf16 in place: wgmma's accumulator layout per
+//   warp is mma.sync's) and V from shared memory as an MN-major operand.
+//   No shared-memory traffic through the register file, and Q is not
+//   reloaded per tile.
+// - Ping-pong: named barriers pass the turn to issue products round robin
+//   among the consumers, so one warpgroup's products (Q K^T of its next
+//   tile and P V of its last, issued together) run on the tensor cores while
+//   the others compute their softmax on the exponential unit: the overlap
+//   the floor above asks for. Within a warpgroup the softmax of the next
+//   tile starts as soon as its scores land, beside its own P V.
+// - Softmax: scale * log2(e) folds into one FFMA before ex2; m is kept in
+//   the JAX units (the max of the scaled scores, natural log) and only the
+//   tiles that cross the diagonal or the sequence end are masked.
+//
+// The backward kernels (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) keep
+// the first design: each block owns 64 query rows (dQ) or 64 keys (dK/dV)
+// and walks the other side; each of its 4 warps owns 16 rows; products are
+// mma.sync m16n8k16 with operands from shared memory through ldmatrix,
+// the next tile double-buffered with cp.async into 144-byte padded rows.
+//
+// Arithmetic follows the Pallas kernels: scale = 1/sqrt(64) in f32 on the f32
+// product; masked scores are NEG_INF and p = 0 at or below NEG_INF/2;
+// out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)); p and ds are
+// rounded to bf16 only as product operands. q/k/v/dO are read in their
+// [B, L, H, 64] layout; lse and D are plain f32 [B*H, Lq].
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,10 +72,10 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int HD = 64;        // head width: the flagship's d_model 512 / 8 heads
-constexpr int BQ = 64;        // query rows per block, 16 per warp
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // 4 warps
-constexpr int LD = HD + 8;    // shared-memory row stride in bf16 (144 bytes)
+constexpr int BQ = 64;        // backward: query rows per block, 16 per warp
+constexpr int BK = 64;        // backward: keys per tile
+constexpr int THREADS = 128;  // backward: 4 warps
+constexpr int LD = HD + 8;    // backward: shared-memory row stride in bf16 (144 bytes)
 constexpr int TILE = 64 * LD; // elements of one [64][LD] tile
 constexpr size_t TILE_BYTES = size_t(TILE) * 2;
 constexpr float NEG_INF = -1e30f;
@@ -194,11 +215,12 @@ __device__ __forceinline__ void mma_ab(float (&acc)[8][4], const unsigned (&p)[4
   }
 }
 
-// An f32 accumulator tile [16 x 64] (8 n-tiles) -> the bf16 A fragments of
-// the product that contracts over its 64 columns.
-__device__ __forceinline__ void to_a(unsigned (&p)[4][4], const float (&s)[8][4]) {
+// An f32 accumulator tile [16 x 16 KC] (2 KC n-tiles) -> the bf16 A
+// fragments of the product that contracts over its columns.
+template <int KC>
+__device__ __forceinline__ void to_a(unsigned (&p)[KC][4], const float (&s)[2 * KC][4]) {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+  for (int kc = 0; kc < KC; ++kc) {
     p[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
     p[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
     p[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
@@ -254,90 +276,184 @@ __device__ __forceinline__ int key_end(int q0, int lq, int lk, int causal, int q
 
 // ------------------------------------------------------------------ forward
 
-// The online softmax of the block's 64 query rows [q0, q0 + 64) of one head
-// over the key tiles they need, shared by the forward and the carry kernel.
-// smem holds 5 tiles (Q, two K and two V buffers). m, l and o come in with
-// the state before the walk and leave with the state after it; l is this
-// thread's partial denominator over its columns, which the caller sums over
-// the quad (lanes 4r .. 4r + 3 share rows).
-__device__ __forceinline__ void attend_key_tiles(unsigned char* smem, const bf16* __restrict__ qb,
-                                                 const bf16* __restrict__ kb,
-                                                 const bf16* __restrict__ vb, int q0, int lq,
-                                                 int lk, int stride, int causal, int q_off,
-                                                 int k_off, float scale, float (&m)[2],
-                                                 float (&l)[2], float (&o)[8][4]) {
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + TILE;      // [2][TILE]
-  bf16* vs = ks + 2 * TILE;  // [2][TILE]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k_end = key_end(q0, lq, lk, causal, q_off, k_off);
-  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+constexpr int NC = 3;                // consumer warpgroups, 64 query rows each
+constexpr int FWD_BM = 64 * NC;      // query rows per block
+constexpr int FWD_BN = 128;          // keys per tile
+constexpr int FWD_STAGES = 3;        // K/V ring depth
+constexpr int FWD_THREADS = 128 * (1 + NC);  // the producer warpgroup and the consumers
+// setmaxnreg: what the producer gives up, the consumers take (65,536 a block).
+constexpr int PRODUCER_REGS = 32;
+constexpr int CONSUMER_REGS = 160;
+static_assert(128 * PRODUCER_REGS + 128 * NC * CONSUMER_REGS <= 65536, "register file");
+constexpr unsigned Q_PART_BYTES = 64 * HD * 2;       // one consumer's Q rows
+constexpr unsigned KV_BYTES = FWD_BN * HD * 2;       // one K or V tile
+constexpr float SCALE = 0.125f;                      // 1/sqrt(HD), a power of two
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MASKED = NEG_INF / SCALE;            // the raw score that scales to NEG_INF
+// Consumers' empty-barrier arrivals: lane 0 of each of their warps.
+constexpr unsigned CONSUMER_WARPS = 4 * NC;
 
-  load_tile(qs, qb, q0, lq, stride);
-  if (n_tiles > 0) {
-    load_tile(ks, kb, 0, lk, stride);
-    load_tile(vs, vb, 0, lk, stride);
-  }
-  cp_async_commit();
+// 128-byte-swizzled tiles (TMA writes them; wgmma reads them) must start on
+// 1024-byte boundaries: one swizzle atom is 8 rows of 128 bytes.
+struct FwdSmem {
+  alignas(1024) bf16 q[NC][64 * HD];
+  alignas(1024) bf16 k[FWD_STAGES][FWD_BN * HD];
+  alignas(1024) bf16 v[FWD_STAGES][FWD_BN * HD];
+  uint64_t q_full;
+  uint64_t k_full[FWD_STAGES], v_full[FWD_STAGES];
+  uint64_t k_empty[FWD_STAGES], v_empty[FWD_STAGES];
+};
+constexpr size_t FWD_SMEM = sizeof(FwdSmem) + 1024;  // + room to align the base
 
-  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0 and row0 + 8
-  const int col = (lane % 4) * 2;              // and columns col, col + 1 of each n-tile
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
-    if (t + 1 < n_tiles) {
-      load_tile(ks + ((t + 1) & 1) * TILE, kb, (t + 1) * BK, lk, stride);
-      load_tile(vs + ((t + 1) & 1) * TILE, vb, (t + 1) * BK, lk, stride);
-      cp_async_commit();
-    }
-    const int k0 = t * BK;
-    float s[8][4];
-    zero(s);
-    {
-      unsigned qa[4][4];
-      load_a(qa, qs, warp * 16, lane);
-      mma_abt(s, qa, ks + (t & 1) * TILE, lane);
-    }
-    const bool need_mask = k0 + BK > lk || (causal && k_off + k0 + BK - 1 > q_off + q0);
-    float mx[2] = {m[0], m[1]};
+// What both forward kernels take besides the tensor maps of q, k and v.
+// The forward writes out/lse; the carry kernel reads acc_in/m_in/l_in (all
+// null: a fresh walk) and writes acc_out/m_out/l_out.
+struct FwdParams {
+  int h, lq, lk, causal, q_off, k_off;
+  bf16* out;
+  float* lse;
+  const float* acc_in;
+  const float* m_in;
+  const float* l_in;
+  float* acc_out;
+  float* m_out;
+  float* l_out;
+};
+
+// --------------------------------------------- mbarriers, TMA, named barriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One box of a 4-D tensor map (coordinates innermost first) -> dst; the
+// bytes land on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// Named barriers 1 .. NC order the consumer warpgroups round robin: consumer
+// c waits on barrier 1 + c (its own thread and the one before it, 256 in
+// all) and then releases barrier 1 + (c + 1) % NC.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// -------------------------------------------------------------------- wgmma
+
+// Descriptor of a 128-byte-swizzled operand in shared memory: rows of 128
+// bytes, 8-row groups 1024 bytes apart (SBO). The same for the K-major Q and
+// K tiles (a 16-wide k step adds 32 bytes to the start) and the MN-major V
+// tile (a 16-key k step adds 2048 bytes; LBO, the stride between 64-wide
+// MN atoms, is unused at N = 64).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale;
-        if (need_mask && invalid(row0 + 8 * (e >> 1), k0 + nt * 8 + col + (e & 1), lq, lk,
-                                 causal, q_off, k_off))
-          x = NEG_INF;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2], psum[2] = {0.f, 0.f};
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+// The same for register A operands, which wgmma reads until its group completes.
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[N][4]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = __expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // A masked score never adds, whatever the running max (a carried-in
-        // m of NEG_INF included): p is 0, not exp(0).
-        const float x = s[nt][e];
-        const float p = x <= NEG_INF * 0.5f ? 0.f : __expf(x - mx[e >> 1]);
-        s[nt][e] = p;
-        psum[e >> 1] += p;
-        o[nt][e] *= corr[e >> 1];
-      }
-    l[0] = l[0] * corr[0] + psum[0];
-    l[1] = l[1] * corr[1] + psum[1];
-    unsigned pa[4][4];
-    to_a(pa, s);
-    mma_ab(o, pa, vs + (t & 1) * TILE, lane);
-  }
-  cp_async_wait_all();
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+#define ACC4(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+// s[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared
+// memory; `accumulate` 0 overwrites s. s[nt][e] is the mma.sync C layout of
+// n-tile nt for this warp's 16 rows.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&s)[16][4], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC4(s, 0), ACC4(s, 1), ACC4(s, 2), ACC4(s, 3), ACC4(s, 4), ACC4(s, 5), ACC4(s, 6),
+        ACC4(s, 7), ACC4(s, 8), ACC4(s, 9), ACC4(s, 10), ACC4(s, 11), ACC4(s, 12),
+        ACC4(s, 13), ACC4(s, 14), ACC4(s, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// o[64 x 64] += P[64 x 16] . V[16 x 64], P as bf16 A fragments in
+// registers (the mma.sync A layout per warp), V MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&o)[8][4], const unsigned (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC4(o, 0), ACC4(o, 1), ACC4(o, 2), ACC4(o, 3), ACC4(o, 4), ACC4(o, 5), ACC4(o, 6),
+        ACC4(o, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC4
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Sum the quad's four partial denominators: every lane of the quad gets the row's l.
@@ -349,43 +465,277 @@ __device__ __forceinline__ void quad_sum(float (&l)[2]) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int H, int lq, int lk, int causal, int q_off, int k_off, float scale) {
-  __shared__ __align__(128) unsigned char smem[5 * TILE_BYTES];  // 45 KB: static is enough
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int stride = H * HD;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[8][4];
-  zero(o);
-  attend_key_tiles(smem, q + (size_t(b) * lq * H + h) * HD, k + (size_t(b) * lk * H + h) * HD,
-                   v + (size_t(b) * lk * H + h) * HD, q0, lq, lk, stride, causal, q_off, k_off,
-                   scale, m, l, o);
-  quad_sum(l);
+// The online softmax of tile scores s (raw, unscaled; this thread's rows
+// row0 and row0 + 8, keys k0 + 8 nt + col (+1)): mask if asked, update m
+// (JAX units) and the partial l, leave p in s and the factor that rescales
+// the accumulator in corr.
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool need_mask, int row0, int k0,
+                                             int col, const FwdParams& p) {
+  if (need_mask) {
+    // Each row sees the tile's keys below a limit: the sequence end, and
+    // with causal masking its own position.
+    int limit[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      limit[i] = p.lk - k0 - col;
+      if (p.causal) limit[i] = min(limit[i], p.q_off - p.k_off + row0 + 8 * i + 1 - k0 - col);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nt * 8 + (e & 1) >= limit[e >> 1]) s[nt][e] = MASKED;
+  }
+  float mx[2] = {MASKED, MASKED};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+  float mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // SCALE is a power of two: max(s) * SCALE is the max of the scaled scores.
+    const float m_new = fmaxf(m[i], mx[i] * SCALE);
+    corr[i] = ex2((m[i] - m_new) * LOG2E);
+    // A row with no visible key yet keeps m at NEG_INF: its masked scores
+    // must give p = 0, not exp(0), whatever the carried state.
+    mc[i] = m_new <= NEG_INF * 0.5f ? 0.f : m_new * LOG2E;
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(fmaf(s[nt][e], SCALE * LOG2E, -mc[e >> 1]));
+      s[nt][e] = pe;
+      psum[e >> 1] += pe;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+}
 
-  const int row0 = q0 + warp * 16 + lane / 4;
+__device__ __forceinline__ void rescale(float (&o)[8][4], const float (&corr)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+}
+
+// S = Q K^T of one key tile (4 k steps over the head width).
+__device__ __forceinline__ void issue_qk(float (&s)[16][4], uint64_t dq, const bf16* k_tile) {
+  const uint64_t dk = sw128_desc(k_tile);
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) wgmma_m64n128k16_ss(s, dq + 2 * kc, dk + 2 * kc, kc);
+}
+// O += P V of one key tile (8 k steps over its keys; 2048 bytes each).
+__device__ __forceinline__ void issue_pv(float (&o)[8][4], const unsigned (&pa)[8][4],
+                                         const bf16* v_tile) {
+  const uint64_t dv = sw128_desc(v_tile);
+#pragma unroll
+  for (int kc = 0; kc < FWD_BN / 16; ++kc) wgmma_m64n64k16_rs(o, pa[kc], dv + 128 * kc);
+}
+
+// One consumer warpgroup (c = 0 or 1: rows q0 + 64c .. + 63) over the
+// block's n_tiles key tiles, from the last down. Each round issues, in its
+// turn, Q K^T of the next tile and P V of the last one as two groups; the
+// softmax of the next tile runs as soon as its scores land, beside this
+// warpgroup's P V and the other warpgroup's products. The accumulator is
+// rescaled just before the P V that follows, when no product writes it.
+// The first round has no P V and the last no Q K^T; every wgmma sits on a
+// path that all of the warpgroup takes, so none is serialized.
+__device__ __forceinline__ void consume_key_tiles(FwdSmem& sm, int c, int q0, int n_tiles,
+                                                  const FwdParams& p, float (&m)[2],
+                                                  float (&l)[2], float (&o)[8][4]) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int qc = q0 + 64 * c;
+  const int row0 = qc + warp * 16 + lane / 4;
   const int col = (lane % 4) * 2;
-  bf16* ob = out + (size_t(b) * lq * H + h) * HD;
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float safe = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / safe;
-    const int row = row0 + 8 * i;
-    if (lane % 4 == 0 && row < lq) lse[size_t(bh) * lq + row] = m[i] + logf(safe);
+  const int my_turn = 1 + c, their_turn = 1 + (c + 1) % NC;
+  const uint64_t dq = sw128_desc(sm.q[c]);
+  float s[16][4], corr[2];
+  unsigned pa[8][4];  // P of the last tile, bf16 A fragments
+  auto softmax = [&](int i) {
+    const int k0 = (n_tiles - 1 - i) * FWD_BN;
+    const bool need_mask = k0 + FWD_BN > p.lk ||
+                           (p.causal && p.k_off + k0 + FWD_BN - 1 > p.q_off + qc);
+    softmax_tile(s, m, l, corr, need_mask, row0, k0, col, p);
+  };
+  mbar_wait(&sm.q_full, 0);
+  if (c == NC - 1) named_arrive(1);  // consumer 0 goes first
+
+  mbar_wait(&sm.k_full[0], 0);
+  named_sync(my_turn);
+  wgmma_fence();
+  issue_qk(s, dq, sm.k[0]);
+  wgmma_commit();
+  named_arrive(their_turn);
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (lane == 0) mbar_arrive(&sm.k_empty[0]);
+  softmax(0);
+  to_a(pa, s);
+
+  int stage = 0, parity = 0;  // the last tile's
+  for (int i = 1; i < n_tiles; ++i) {
+    const int next = stage + 1 == FWD_STAGES ? 0 : stage + 1;
+    const int next_parity = next == 0 ? parity ^ 1 : parity;
+    rescale(o, corr);
+    mbar_wait(&sm.k_full[next], next_parity);
+    mbar_wait(&sm.v_full[stage], parity);
+    named_sync(my_turn);
+    fence_regs(o);
+    wgmma_fence();
+    issue_qk(s, dq, sm.k[next]);
+    wgmma_commit();
+    issue_pv(o, pa, sm.v[stage]);
+    wgmma_commit();
+    named_arrive(their_turn);
+    wgmma_wait<1>();  // the scores
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&sm.k_empty[next]);
+    softmax(i);
+    wgmma_wait<0>();  // P V
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(&sm.v_empty[stage]);
+    to_a(pa, s);
+    stage = next;
+    parity = next_parity;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= lq) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(ob + size_t(row) * stride + nt * 8 + col) =
-          __floats2bfloat162_rn(o[nt][2 * i] * inv[i], o[nt][2 * i + 1] * inv[i]);
+
+  rescale(o, corr);
+  mbar_wait(&sm.v_full[stage], parity);
+  named_sync(my_turn);
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv(o, pa, sm.v[stage]);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+  // The last consumer's last round has no round of consumer 0's left to release.
+  if (c != NC - 1) named_arrive(their_turn);
+  if (lane == 0) mbar_arrive(&sm.v_empty[stage]);
+}
+
+// The walk both forward kernels run; CARRY selects the carry kernel's
+// prologue (the carry read in) and epilogue (acc, m, l written back
+// unnormalized) over the forward's (out and lse). In the carry, a block
+// whose causal key range is empty runs no tile and writes its carry rows
+// back bit for bit; the carried l enters once per row, in the quad's lane
+// 0, since the walk keeps per-lane partial denominators.
+template <bool CARRY>
+__device__ __forceinline__ void forward_walk(const CUtensorMap* qm, const CUtensorMap* km,
+                                             const CUtensorMap* vm, const FwdParams& p) {
+  extern __shared__ unsigned char fwd_smem[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+      (reinterpret_cast<uintptr_t>(fwd_smem) + 1023) & ~uintptr_t(1023));
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BM;  // the longest causal rows start first
+  const int bh = blockIdx.y, b = bh / p.h, h = bh % p.h;
+  const int k_end = p.causal ? min(p.lk, p.q_off - p.k_off + min(q0 + FWD_BM, p.lq)) : p.lk;
+  const int n_tiles = k_end > 0 ? (k_end + FWD_BN - 1) / FWD_BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], CONSUMER_WARPS);
+      mbar_init(&sm.v_empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy, in the consumers' order.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      // Only consumers with a row inside the sequence get their Q rows.
+      const int q_parts = min(NC, (p.lq - q0 + 63) / 64);
+      mbar_expect_tx(&sm.q_full, q_parts * Q_PART_BYTES);
+      for (int c = 0; c < q_parts; ++c) tma_load(sm.q[c], qm, &sm.q_full, 0, h, q0 + 64 * c, b);
+      int stage = 0, parity = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (n_tiles - 1 - i) * FWD_BN;
+        mbar_wait(&sm.k_empty[stage], parity ^ 1);
+        mbar_expect_tx(&sm.k_full[stage], KV_BYTES);
+        tma_load(sm.k[stage], km, &sm.k_full[stage], 0, h, k0, b);
+        mbar_wait(&sm.v_empty[stage], parity ^ 1);
+        mbar_expect_tx(&sm.v_full[stage], KV_BYTES);
+        tma_load(sm.v[stage], vm, &sm.v_full[stage], 0, h, k0, b);
+        if (++stage == FWD_STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int row0 = q0 + 64 * c + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+    const int col = (lane % 4) * 2;
+    const size_t acc_head = size_t(bh) * p.lq * HD;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[8][4];
+    zero(o);
+    if (CARRY && p.acc_in != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (row >= p.lq) continue;
+        m[i] = p.m_in[size_t(bh) * p.lq + row];
+        if (lane % 4 == 0) l[i] = p.l_in[size_t(bh) * p.lq + row];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 x = *reinterpret_cast<const float2*>(p.acc_in + acc_head +
+                                                            size_t(row) * HD + nt * 8 + col);
+          o[nt][2 * i] = x.x;
+          o[nt][2 * i + 1] = x.y;
+        }
+      }
+    }
+    if (n_tiles > 0) consume_key_tiles(sm, c, q0, n_tiles, p, m, l, o);
+    quad_sum(l);
+
+    if (CARRY) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (lane % 4 == 0 && row < p.lq) {
+          p.m_out[size_t(bh) * p.lq + row] = m[i];
+          p.l_out[size_t(bh) * p.lq + row] = l[i];
+        }
+      }
+      store_rows(p.acc_out + acc_head, o, q0 + 64 * c + warp * 16, p.lq, HD, 1.f, lane);
+    } else {
+      const int stride = p.h * HD;
+      bf16* ob = p.out + (size_t(b) * p.lq * p.h + h) * HD;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float safe = fmaxf(l[i], 1e-30f);
+        const int row = row0 + 8 * i;
+        if (lane % 4 == 0 && row < p.lq) p.lse[size_t(bh) * p.lq + row] = m[i] + logf(safe);
+        if (row >= p.lq) continue;
+        const float inv = 1.f / safe;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(ob + size_t(row) * stride + nt * 8 + col) =
+              __floats2bfloat162_rn(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                 const __grid_constant__ CUtensorMap vm, const FwdParams p) {
+  forward_walk<false>(&qm, &km, &vm, p);
 }
 
 // -------------------------------------------------------------------- carry
@@ -394,57 +744,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // state (acc, m, l) read from the carry (fresh when acc_in is null) and
 // written back unnormalized, so the next ring step (or finalize) continues
 // it. acc is f32 [B, H, Lq, 64], m and l f32 [B * H, Lq], the JAX carry
-// layout. The block owns its 64 rows: a block whose causal key range is
-// empty (n_tiles 0) writes its carry rows back unchanged, bit for bit. The
-// carried l enters once per row, in the quad's lane 0, since the walk keeps
-// per-lane partial denominators. The carry is not updated in place: the
-// wrapper allocates the outputs, and the carry given stays as it was.
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_carry_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ acc_in,
-                       const float* __restrict__ m_in, const float* __restrict__ l_in,
-                       float* __restrict__ acc_out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int H, int lq, int lk, int causal, int q_off,
-                       int k_off, float scale) {
-  __shared__ __align__(128) unsigned char smem[5 * TILE_BYTES];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int row0 = q0 + warp * 16 + lane / 4;
-  const int col = (lane % 4) * 2;
-  const size_t acc_head = size_t(bh) * lq * HD;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[8][4];
-  zero(o);
-  if (acc_in != nullptr) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + 8 * i;
-      if (row >= lq) continue;
-      m[i] = m_in[size_t(bh) * lq + row];
-      if (lane % 4 == 0) l[i] = l_in[size_t(bh) * lq + row];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float2 x =
-            *reinterpret_cast<const float2*>(acc_in + acc_head + size_t(row) * HD + nt * 8 + col);
-        o[nt][2 * i] = x.x;
-        o[nt][2 * i + 1] = x.y;
-      }
-    }
-  }
-  attend_key_tiles(smem, q + (size_t(b) * lq * H + h) * HD, k + (size_t(b) * lk * H + h) * HD,
-                   v + (size_t(b) * lk * H + h) * HD, q0, lq, lk, H * HD, causal, q_off, k_off,
-                   scale, m, l, o);
-  quad_sum(l);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (lane % 4 == 0 && row < lq) {
-      m_out[size_t(bh) * lq + row] = m[i];
-      l_out[size_t(bh) * lq + row] = l[i];
-    }
-  }
-  store_rows(acc_out + acc_head, o, q0 + warp * 16, lq, HD, 1.f, lane);
+// layout. The carry is not updated in place: the wrapper allocates the
+// outputs, and the carry given stays as it was.
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_carry_kernel(const __grid_constant__ CUtensorMap qm,
+                       const __grid_constant__ CUtensorMap km,
+                       const __grid_constant__ CUtensorMap vm, const FwdParams p) {
+  forward_walk<true>(&qm, &km, &vm, p);
 }
 
 // -------------------------------------------------------------------- dK/dV
@@ -640,6 +946,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + (size_t(b) * lq * H + h) * HD, dqa, q0 + warp * 16, lq, stride, scale, lane);
 }
 
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -649,6 +956,64 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 // non-empty sequences, and a grid that fits (b*h on the grid's y axis).
 bool args_ok(int b, int h, int lq, int lk, int d) {
   return d == HD && b > 0 && h > 0 && lq > 0 && lk > 0 && b * h <= 65535;
+}
+
+// cuTensorMapEncodeTiled is a driver call; it is fetched through the runtime
+// so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a bf16 [b, l, h, 64] tensor read in place (dimensions
+// innermost first: 64, h, l, b) whose box is `rows` rows of one (batch,
+// head), 128-byte swizzled; rows past l read as zeros.
+bool head_map(CUtensorMap* map, const void* base, int b, int l, int h, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = HD * sizeof(bf16);
+  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(h), cuuint64_t(l), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * h, row_bytes * h * l};
+  const cuuint32_t box[4] = {cuuint32_t(HD), 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Both forward kernels: tensor maps of q (64-row boxes, one per consumer)
+// and k, v (FWD_BN-row boxes), then one block per 128 query rows.
+template <typename Kernel>
+int launch_fwd(Kernel kernel, const void* q, const void* k, const void* v, const FwdParams& p,
+               int b, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!head_map(&qm, q, b, p.lq, p.h, 64) || !head_map(&km, k, b, p.lk, p.h, FWD_BN) ||
+      !head_map(&vm, v, b, p.lk, p.h, FWD_BN))
+    return int(cudaErrorInvalidValue);
+  const cudaError_t err = set_smem(kernel, FWD_SMEM);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3((p.lq + FWD_BM - 1) / FWD_BM, b * p.h), FWD_THREADS, FWD_SMEM, stream>>>(qm, km,
+                                                                                       vm, p);
+  return int(cudaGetLastError());
 }
 
 template <typename OutT>
@@ -677,21 +1042,29 @@ int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, co
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each returns a cudaError_t (0 on
-// success; cudaErrorInvalidValue for arguments args_ok refuses). q, dout:
-// bf16 [b, lq, h, d]; k, v: bf16 [b, lk, h, d]; lse, dd: f32 [b*h, lq]; all
-// contiguous and 16-byte aligned. out is bf16 like q; dq/dk/dv are bf16, or
-// f32 with out_f32.
+// success; cudaErrorInvalidValue for arguments args_ok refuses, or when a
+// tensor map cannot be encoded). q, dout: bf16 [b, lq, h, d]; k, v: bf16
+// [b, lk, h, d]; lse, dd: f32 [b*h, lq]; all contiguous and 16-byte
+// aligned. out is bf16 like q; dq/dk/dv are bf16, or f32 with out_f32.
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                          int b, int h, int lq, int lk, int d, int causal, int q_off, int k_off,
                          void* stream) {
   if (!args_ok(b, h, lq, lk, d)) return int(cudaErrorInvalidValue);
-  flash_fwd_kernel<<<dim3((lq + BQ - 1) / BQ, b * h), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, h, lq, lk, causal, q_off, k_off, 1.f / sqrtf(float(HD)));
-  return int(cudaGetLastError());
+  FwdParams p{};
+  p.h = h;
+  p.lq = lq;
+  p.lk = lk;
+  p.causal = causal;
+  p.q_off = q_off;
+  p.k_off = k_off;
+  p.out = static_cast<bf16*>(out);
+  p.lse = lse;
+  return launch_fwd(flash_fwd_kernel, q, k, v, p, b, static_cast<cudaStream_t>(stream));
 }
+
+// Dynamic shared memory a forward block asks for (both forward kernels).
+extern "C" int flash_fwd_smem_bytes() { return int(FWD_SMEM); }
 
 // acc_in, m_in and l_in are all null (no carry: the walk starts fresh) or
 // all set; acc f32 [b, h, lq, d], m and l f32 [b*h, lq].
@@ -702,12 +1075,20 @@ extern "C" int flash_fwd_carry(const void* q, const void* k, const void* v, cons
   if (!args_ok(b, h, lq, lk, d) || (acc_in == nullptr) != (m_in == nullptr) ||
       (acc_in == nullptr) != (l_in == nullptr))
     return int(cudaErrorInvalidValue);
-  flash_fwd_carry_kernel<<<dim3((lq + BQ - 1) / BQ, b * h), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      acc_in, m_in, l_in, acc_out, m_out, l_out, h, lq, lk, causal, q_off, k_off,
-      1.f / sqrtf(float(HD)));
-  return int(cudaGetLastError());
+  FwdParams p{};
+  p.h = h;
+  p.lq = lq;
+  p.lk = lk;
+  p.causal = causal;
+  p.q_off = q_off;
+  p.k_off = k_off;
+  p.acc_in = acc_in;
+  p.m_in = m_in;
+  p.l_in = l_in;
+  p.acc_out = acc_out;
+  p.m_out = m_out;
+  p.l_out = l_out;
+  return launch_fwd(flash_fwd_carry_kernel, q, k, v, p, b, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,

@@ -176,15 +176,18 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_carry.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-    for fn in (lib.flash_fwd, lib.flash_fwd_carry, lib.flash_bwd_dkdv, lib.flash_bwd_dq):
+    lib.flash_fwd_smem_bytes.argtypes = []
+    for fn in (lib.flash_fwd, lib.flash_fwd_carry, lib.flash_bwd_dkdv, lib.flash_bwd_dq,
+               lib.flash_fwd_smem_bytes):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_kernel_args(q, k, v, do=None, lse=None, dd=None):
     """What the kernels take: bf16 q/k/v (and dO like q) with head width 64,
-    contiguous and 16-byte aligned; f32 ``[B * H, Lq]`` lse and dd; all on
-    q's card."""
+    contiguous and 16-byte aligned (the forward reads q/k/v through TMA
+    tensor maps, which need it); f32 ``[B * H, Lq]`` lse and dd; all on q's
+    card."""
     b, lq, lk, h, d = _dims(q, k, v)
     if 0 in (b, lq, lk, h):
         raise ValueError(f"the flash kernels take no empty dimension: q {tuple(q.shape)}, "
@@ -348,8 +351,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Flash attention over ``[B, L, H, D]`` tensors, differentiable in q, k
     and v; returns ``[B, Lq, H, D]`` in q's dtype. The JAX signature's
-    ``q_block``/``k_block`` are TPU tiling controls (the kernels here use
-    64-row tiles sized to shared memory and registers) and its ``interpret``
+    ``q_block``/``k_block`` are TPU tiling controls (the kernels here size
+    their tiles to shared memory and registers: the forward 192 query rows
+    a block over 128-key tiles, the backward 64 by 64) and its ``interpret``
     flag a Pallas mode; neither has a counterpart."""
     return _FlashAttention.apply(q, k, v, causal)
 

@@ -10,7 +10,10 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a) and ``nvcc``;
 exits non-zero without them, or when any phase fails. Phases:
 
 1. The card's name and power limit (``nvidia-smi``), TF32 off.
-2. Build every kernel source of the port into ``build/`` (timed).
+2. Build every kernel source of the port into ``build/`` (timed); print
+   each kernel's registers, barriers, stack and spills from ``-Xptxas -v``,
+   any ptxas warning (a serialized wgmma), and the forward kernels'
+   dynamic shared memory.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
    and without a bias, ragged N and V (1,000 x 31,999), and the main paths'
@@ -33,12 +36,15 @@ exits non-zero without them, or when any phase fails. Phases:
 5. Each flash-attention kernel against its plain version on the same
    inputs: bf16 q/k/v/dO [B, L, 8, 64], B = 2 at a ragged L = 1,000 causal
    and not causal, with ring offsets (q_offset 1,024; and k_offset 300, where
-   the first 300 query rows see no key, with f32 gradient outputs), and
+   the first 300 query rows see no key, with f32 gradient outputs), the
+   forward's tiling edges (L = 129, 193 and 8,191, causal and not: one row
+   past a 128- and a 192-row block, one short of the path's length), and
    the long-context path's own shape, B = 8 at L = 8,192, causal.
    Tolerance: lse within FLASH_LSE_ATOL absolute; out, dq, dk and dv within
    TILE_RTOL in every tile. Then each kernel is timed at the long-context
    shape (B = 8, L = 8,192, H = 8, hd = 64, causal) beside its plain
-   version, its bound and a library yardstick the port never calls
+   version, its bound (with the TFLOP/s reached and the share of the bound)
+   and a library yardstick the port never calls
    (``F.scaled_dot_product_attention(is_causal=True)``, and that call's
    backward for dK/dV and dQ together).
 6. The long-context entry point (``autodist_tpu_torch.examples.long_context_lm``)
@@ -54,9 +60,12 @@ exits non-zero without them, or when any phase fails. Phases:
    and a profiler window over 2 steps.
 7. The flash carry kernel (ring attention's local step) against its plain
    version: ragged L = 1,000 with no carry in, a past shard with a carry in
-   (q_offset 1,024, k_offset 0), a diagonal step with a carry in, a step
-   whose first 300 rows see no key (those rows' carry must come out bit
-   for bit as it went in), and the path's own shapes, B = 8 at L_local =
+   (q_offset 1,024, k_offset 0), a diagonal step with a carry in, steps
+   whose first 100, 150, 200 or 300 rows see no key (the block that holds
+   the boundary is part pass-through, the boundary in each consumer
+   warpgroup's rows in turn; those rows' carry must come out bit for bit as
+   it went in), the tiling edges L = 129, 193 and 8,191 (causal and not,
+   and with a carry in), and the path's own shapes, B = 8 at L_local =
    8,192 (the one-card ring) and 2,048 (with a carry in). Tolerance: acc and
    l within TILE_RTOL in every tile of rows, m within FLASH_LSE_ATOL. Then
    the ring's arithmetic on one card: B = 8, L = 8,192 split into 4 shards,
@@ -116,6 +125,12 @@ LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
 FLASH_LSE_ATOL = 1e-3
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
 RING_SHARDS = 4                   # shards of the ring replay on one card
+# The forward kernels' blocks hold 192 query rows, 64 per consumer
+# warpgroup; their key tiles 128 keys. Lengths one past a 128- and a
+# 192-row block and one short of the long-context length, and k_offsets
+# whose first visible row falls in each consumer's rows of a block.
+EDGE_LENGTHS = (129, 193, LC_SEQ - 1)
+EDGE_K_OFFSETS = (100, 150, 200, 300)
 
 
 def log(msg: str) -> None:
@@ -127,6 +142,25 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(build_log: str):
+    """One line per kernel instantiation from ``-Xptxas -v``: its name,
+    registers, barriers, static shared memory, stack and spills; and every
+    ptxas warning (a serialized wgmma among them)."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line:
+            mangled = line.split("for ", 1)[1].strip()
+            kernel = next((k for k in ("flash_fwd_carry_kernel", "flash_fwd_kernel",
+                                       "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                                       "xent_fwd_kernel", "xent_dh_kernel", "xent_dwdb_kernel")
+                           if k in mangled), mangled)
+            frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
+            used = lines[i + 2].split("Used", 1)[-1].strip() if i + 2 < len(lines) else ""
+            yield f"{kernel}: {used}; {frame}"
+        elif "Performance Loss" in line or "warning" in line.lower():
+            yield line.strip()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -145,6 +179,14 @@ def time_ms(fn, reps: int) -> float:
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def rate(r) -> str:
+    """A timed row's achieved tensor-core TFLOP/s and the share of its bound
+    reached (bound / time); stored in the row for the JSON line too."""
+    r["tflops"] = r["flops"] / (r["ms"] * 1e-3) / 1e12
+    r["bound_share"] = r["bound"][0] / r["ms"]
+    return f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the bound"
 
 
 def inputs(n, v, layout, bias, gen, dev):
@@ -229,14 +271,15 @@ def time_kernels(fx, dev):
     in_bytes = n * D * 2 + D * V * 4
     ops = 2.0 * n * D * V
     rows = {
-        "xent_fwd": dict(ms=time_ms(lambda: fx.xent_fwd(h, w, None), 3),
+        "xent_fwd": dict(flops=ops, ms=time_ms(lambda: fx.xent_fwd(h, w, None), 3),
                          plain_ms=time_ms(lambda: fx.matmul_logsumexp_plain(h, w, None), 1),
                          library_ms=time_ms(
                              lambda: torch.logsumexp(h @ w.to(h.dtype), -1), 3),
                          bound=bound(in_bytes + n * 4, ops)),
-        "xent_dh": dict(ms=time_ms(lambda: fx.xent_dh(h, w, None, lse, g), 3),
+        "xent_dh": dict(flops=2 * ops, ms=time_ms(lambda: fx.xent_dh(h, w, None, lse, g), 3),
                         bound=bound(in_bytes + 2 * n * 4 + n * D * 2, 2 * ops)),
-        "xent_dwdb": dict(ms=time_ms(lambda: fx.xent_dwdb(h, w, None, lse, g), 3),
+        "xent_dwdb": dict(flops=2 * ops,
+                          ms=time_ms(lambda: fx.xent_dwdb(h, w, None, lse, g), 3),
                           bound=bound(in_bytes + 2 * n * 4 + D * V * 4 + V * 4, 2 * ops)),
     }
     # One plain call computes dh, dw and db together: its time stands for both.
@@ -244,9 +287,9 @@ def time_kernels(fx, dev):
     rows["xent_dh"].update(plain_ms=plain_bwd, library_ms=None)
     rows["xent_dwdb"].update(plain_ms=plain_bwd, library_ms=None)
     for name, r in rows.items():
-        log(f"time {name} N={n}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']} ms, bound {r['bound'][0]:.3f} ms "
-            f"({r['bound'][1]})")
+        log(f"time {name} N={n}: kernel {r['ms']:.3f} ms ({rate(r)}), plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound'][0]:.3f} ms ({r['bound'][1]})")
     # The main path's own micro-batch, for the step-time breakdown.
     m = MAIN_MICRO_ROWS
     hm, lm, gm = h[:m], lse[:m], torch.full((m,), 1.0 / m, device=dev)
@@ -388,6 +431,10 @@ def check_flash(fa, dev):
         (2, 1000, 1000, True, 0, 300, torch.float32),
         (LC_BATCH, LC_SEQ, LC_SEQ, True, 0, 0, None),
     ]
+    # The forward's tiling edges: one row past a 128-row and a 192-row block
+    # (the last block's rows end in its second or its first consumer), and
+    # one row short of the long-context length.
+    cases += [(2, n, n, causal, 0, 0, None) for n in EDGE_LENGTHS for causal in (True, False)]
     for b, lq, lk, causal, qo, ko, out_dtype in cases:
         q, k, v, do = flash_inputs(b, lq, lk, gen, dev)
         out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
@@ -437,14 +484,14 @@ def time_flash(fa, dev):
     act = b * length * LC_HEADS * HEAD_DIM * 2          # one bf16 [B, L, H, 64]
     row = b * LC_HEADS * length * 4                     # one f32 [B*H, L]
     rows = {
-        "flash_fwd": dict(ms=time_ms(lambda: fa.flash_fwd(q, k, v), 10),
+        "flash_fwd": dict(flops=2 * per_product, ms=time_ms(lambda: fa.flash_fwd(q, k, v), 10),
                           plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v), 1),
                           bound=bound(4 * act + row, 2 * per_product)),
         "flash_bwd_dkdv": dict(
-            ms=time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd), 5),
+            flops=4 * per_product, ms=time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd), 5),
             bound=bound(4 * act + 2 * row + 2 * act, 4 * per_product)),
         "flash_bwd_dq": dict(
-            ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 5),
+            flops=3 * per_product, ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 5),
             bound=bound(4 * act + 2 * row + act, 3 * per_product)),
     }
     # One plain call computes dq, dk and dv together: its time stands for both.
@@ -460,8 +507,8 @@ def time_flash(fa, dev):
         rows[name].update(plain_ms=plain_bwd, library_ms=lib_bwd)
     for name, r in rows.items():
         log(f"time {name} B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}: kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-            f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
+            f"{r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
     return rows
 
 
@@ -511,12 +558,12 @@ def long_context_path(kernels, dev):
     return launches
 
 
-def carry_case(fa, q, k, v, carry, qo, ko):
+def carry_case(fa, q, k, v, carry, qo, ko, causal=True):
     """The carry kernel and its plain version on the same inputs; returns
     ``(worst tile of acc, of l, max |m - m_ref|, kernel's (acc, m, l))``."""
-    got = fa.flash_fwd_carry(q, k, v, carry, True, qo, ko)
+    got = fa.flash_fwd_carry(q, k, v, carry, causal, qo, ko)
     torch.cuda.synchronize()
-    want = fa.flash_forward_carry_plain(q, k, v, carry, True, qo, ko)
+    want = fa.flash_forward_carry_plain(q, k, v, carry, causal, qo, ko)
     e_acc = compare(got[0], want[0], 2)
     e_l = compare(got[2][..., None], want[2][..., None], 2)
     e_m = (got[1] - want[1]).abs().max().item()
@@ -533,28 +580,39 @@ def check_carry(fa, dev):
     # the diagonal case, a past shard's step) done by the plain version.
     diag = fa.flash_forward_carry_plain(q, k, v, None, True, 1024, 1024)
     past = fa.flash_forward_carry_plain(q, k_prev, v_prev, None, True, 1024, 0)
-    cases = [  # (label, q, k, v, carry, q_offset, k_offset)
-        ("ragged, no carry", q, k, v, None, 0, 0),
-        ("past shard, carry in", q, k_prev, v_prev, diag, 1024, 0),
-        ("diagonal, carry in", q, k, v, past, 1024, 1024),
-        ("rows 0-299 see no key, carry in", q, k, v, diag, 0, 300),
+    cases = [  # (label, q, k, v, carry, q_offset, k_offset, causal)
+        ("ragged, no carry", q, k, v, None, 0, 0, True),
+        ("past shard, carry in", q, k_prev, v_prev, diag, 1024, 0, True),
+        ("diagonal, carry in", q, k, v, past, 1024, 1024, True),
     ]
+    # Rows 0 .. ko - 1 see no key; the block holding row ko is part
+    # pass-through, with the boundary in each consumer's rows in turn.
+    cases += [(f"rows 0-{ko - 1} see no key, carry in", q, k, v, diag, 0, ko, True)
+              for ko in EDGE_K_OFFSETS]
+    for n in EDGE_LENGTHS:
+        qe, ke, ve, _ = flash_inputs(2, n, n, gen, dev)
+        for causal in (True, False):
+            cases.append((f"edge, no carry, causal={causal}", qe, ke, ve, None, 0, 0, causal))
+        cin = fa.flash_forward_carry_plain(qe, ke, ve, None, True, n, n)
+        cases.append(("edge, carry in, causal=False", qe, ke, ve, cin, n, 0, False))
     for b, length, carry in ((LC_BATCH, LC_SEQ, False),
                              (LC_BATCH, LC_SEQ // RING_SHARDS, True)):
         qb, kb, vb, _ = flash_inputs(b, length, length, gen, dev)
         cin = fa.flash_forward_carry_plain(qb, kb, vb, None, True, length, length) \
             if carry else None
         cases.append((f"path shape B={b} L={length}", qb, kb, vb, cin,
-                      length if carry else 0, 0))
-    for label, q_, k_, v_, cin, qo, ko in cases:
-        e_acc, e_l, e_m, got = carry_case(fa, q_, k_, v_, cin, qo, ko)
+                      length if carry else 0, 0, True))
+    for label, q_, k_, v_, cin, qo, ko, causal in cases:
+        e_acc, e_l, e_m, got = carry_case(fa, q_, k_, v_, cin, qo, ko, causal)
         log(f"check flash carry {label} b={q_.shape[0]} L={q_.shape[1]} offsets=({qo}, {ko}): "
             f"acc {describe(e_acc)}; l {describe(e_l)}; m {e_m:.3g}")
         ok = (e_acc[2] <= TILE_RTOL and e_l[2] <= TILE_RTOL and math.isfinite(e_m)
               and e_m <= FLASH_LSE_ATOL)
-        if label.startswith("rows 0-299"):
-            same = all(torch.equal(g[:, :, :300], c[:, :, :300]) for g, c in zip(got, cin))
-            log(f"check flash carry: rows without a key carried through bit-equal: {same}")
+        blind = ko - qo if causal and cin is not None else 0   # rows that see no key
+        if blind > 0:
+            same = all(torch.equal(g[:, :, :blind], c[:, :, :blind]) for g, c in zip(got, cin))
+            log(f"check flash carry: rows 0-{blind - 1} without a key carried through "
+                f"bit-equal: {same}")
             ok = ok and same
         if not ok:
             raise AssertionError(f"carry kernel disagrees with its plain version: {label}")
@@ -628,7 +686,7 @@ def time_carry(fa, dev):
     acc = b * LC_HEADS * length * HEAD_DIM * 4          # f32 [B, H, L, 64]
     row = b * LC_HEADS * length * 4
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    r = dict(ms=time_ms(lambda: fa.flash_fwd_carry(q, k, v), 10),
+    r = dict(flops=2 * per_product, ms=time_ms(lambda: fa.flash_fwd_carry(q, k, v), 10),
              plain_ms=time_ms(lambda: fa.flash_forward_carry_plain(q, k, v), 1),
              library_ms=time_ms(
                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10),
@@ -636,8 +694,9 @@ def time_carry(fa, dev):
     carry = fa.flash_fwd_carry(q, k, v)
     with_carry = time_ms(lambda: fa.flash_fwd_carry(q, k, v, carry), 10)
     log(f"time flash_fwd_carry B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}, no carry in: "
-        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library (SDPA, no carry "
-        f"merge) {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); "
+        f"kernel {r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library (SDPA, "
+        f"no carry merge) {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+        f"({r['bound'][1]}); "
         f"with a carry in {with_carry:.3f} ms; the forward kernel "
         f"{time_ms(lambda: fa.flash_fwd(q, k, v), 10):.3f} ms in the same run")
     return {"flash_fwd_carry": r}
@@ -728,9 +787,10 @@ def main() -> int:
     built = _build.build()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name in built:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(_build.build_log(name)):
+            log(f"ptxas {name}: {line}")
+    log(f"flash forward kernels: {fa._lib().flash_fwd_smem_bytes()} bytes of dynamic shared "
+        "memory a block")
 
     errs = check_kernels(fx, dev)
     timing = time_kernels(fx, dev)
@@ -771,7 +831,8 @@ def main() -> int:
                 "plain_ms": timing[fn]["plain_ms"],
                 "bound_ms": timing[fn]["bound"][0],
                 "bound_by": timing[fn]["bound"][1],
-                "library_ms": timing[fn]["library_ms"]}
+                "library_ms": timing[fn]["library_ms"],
+                "tflops": timing[fn]["tflops"], "bound_share": timing[fn]["bound_share"]}
                for name, (fn, src, replaces, phase) in sites.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -116,6 +116,32 @@ def test_flash_forward_offsets_match_jax(q_offset, k_offset):
         assert (lse.reshape(B, H, L)[:, :, :k_offset] <= tbw.NEG_INF * 0.5).all()
 
 
+@pytest.mark.parametrize("l,causal,k_offset", [(129, True, 0), (129, False, 0),
+                                               (193, True, 0), (256, True, 200)])
+def test_flash_forward_at_kernel_tiling_edges_matches_jax(l, causal, k_offset):
+    """The plain forward, the CUDA forward's oracle, at the edges of that
+    kernel's tiling (192 query rows a block, 64 per consumer warpgroup, 128
+    keys a tile): L one row past a 128- and a 192-row block, and k_offset
+    200, where rows 0-199 see no key and the boundary falls inside a block.
+    out and lse against the JAX Pallas forward (no offset) or the Pallas
+    carry kernel from nothing, finalized (k_offset), in interpret mode."""
+    q, k, v = _qkv(11, l=l)
+    out, lse = tfa.flash_forward_plain(*_t(q, k, v), causal=causal, k_offset=k_offset)
+    if k_offset == 0:
+        want, want_lse = jfa._flash_forward(*_j(q, k, v), causal, 32, 32, True)
+        want_lse = np.asarray(want_lse).reshape(B * H, -1)[:, :l]
+    else:
+        acc, m, l_ = jfa.flash_attention_with_carry(*_j(q, k, v), None, causal=causal,
+                                                    k_offset=k_offset, q_block=32,
+                                                    k_block=32)
+        want = jnp.swapaxes(jbw.finalize(acc, m, l_), 1, 2)  # [B, H, L, D] -> [B, L, H, D]
+        want_lse = np.asarray(m + jnp.log(jnp.maximum(l_, 1e-30))).reshape(B * H, -1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **OUT)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-6, atol=2e-5)
+    if k_offset:
+        assert not out[:, :k_offset].any()
+
+
 @pytest.mark.parametrize("q_offset,k_offset,out_dtype",
                          [(0, 0, None), (64, 0, torch.float32), (0, 32, torch.float32)])
 def test_flash_backward_plain_matches_jax(q_offset, k_offset, out_dtype):

@@ -188,6 +188,48 @@ def test_carry_matches_jax_over_two_ring_steps(reference):
                                np.asarray(jbw.finalize(*want)), **CARRY)
 
 
+@pytest.mark.parametrize("reference", ["flash", "blockwise"])
+@pytest.mark.parametrize("l,causal,k_offset", [(129, True, 0), (129, False, 0), (256, True, 200)])
+def test_carry_matches_jax_at_kernel_tiling_edges(reference, l, causal, k_offset):
+    """The plain carry step, the CUDA carry kernel's oracle, at the edges of
+    that kernel's tiling (192 query rows a block, 64 per consumer
+    warpgroup, 128 keys a tile): L = 129, one row past a 128-row block,
+    from nothing; and a step at k_offset 200 with a carry in (this shard's
+    diagonal step), where rows 0-199 see no key and the boundary falls
+    inside a block (in a 128-row block, in its second warpgroup's rows).
+    (acc, m, l) against the JAX Pallas carry kernel (interpret mode) and
+    its blockwise carry; rows without a key come through bit for bit."""
+    import importlib
+
+    import jax.numpy as jnp
+
+    jbw = importlib.import_module("autodist_tpu.ops.blockwise_attention")
+    jfa = importlib.import_module("autodist_tpu.ops.flash_attention")
+
+    rng = np.random.RandomState(1)
+    q, k1, v1, k2, v2 = (rng.randn(2, l, 2, 8).astype(np.float32) for _ in range(5))
+    j = [jnp.asarray(x) for x in (q, k1, v1, k2, v2)]
+    t = [torch.tensor(x) for x in (q, k1, v1, k2, v2)]
+    if reference == "flash":
+        step = lambda qq, kk, vv, c, ko: jfa.flash_attention_with_carry(  # noqa: E731
+            qq, kk, vv, c, causal=causal, k_offset=ko, q_block=32, k_block=32)
+    else:
+        step = lambda qq, kk, vv, c, ko: jbw.blockwise_attention_with_carry(  # noqa: E731
+            qq, kk, vv, c, causal=causal, block_size=32, k_offset=ko)
+    carry, want = None, None
+    if k_offset:
+        carry = tfa.flash_forward_carry_plain(t[0], t[1], t[2], None, causal)
+        want = step(j[0], j[1], j[2], None, 0)
+    got = tfa.flash_forward_carry_plain(t[0], t[3], t[4], carry, causal, 0, k_offset)
+    want = step(j[0], j[3], j[4], want, k_offset)
+    for a, b, name in zip(got, want, ("acc", "m", "l")):
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **CARRY)
+    if k_offset:
+        for a, b in zip(got, carry):
+            assert torch.equal(a[:, :, :k_offset], b[:, :, :k_offset])
+
+
 def test_carry_passes_rows_without_keys_through_unchanged():
     """A step whose keys all lie in the queries' future leaves the carry
     bit for bit as it was (the kernel's pass-through blocks), and a step
