@@ -3,9 +3,11 @@ plain C interface, loaded with ``ctypes``.
 
 Each source under ``ops/csrc/`` becomes ``build/lib<name>-<digest>.so`` at the
 checkout's root (``build/`` is git-ignored), compiled for Hopper
-(``sm_90a``) at first use. The digest covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as built. Nothing is
-compiled at import time: the CPU-only test machines have no ``nvcc``.
+(``sm_90a``) at first use. The digest covers the source, the headers beside
+it (``*.cuh``, such as ``hopper.cuh``, which both sources include) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as built. Nothing is compiled at import time: the CPU-only test
+machines have no ``nvcc``.
 """
 
 import ctypes
@@ -38,9 +40,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    source = SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

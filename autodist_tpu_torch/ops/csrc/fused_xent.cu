@@ -1,64 +1,496 @@
 // Fused LM-head softmax cross-entropy kernels for Hopper (sm_90a).
 //
 // lse[n] = logsumexp_v(h[n] . w[:, v] + b[v]) and its gradient, with the
-// [N, V] logits never written to device memory: each [BM, TN] logits tile
-// lives in shared memory only and is reduced on the fly (forward) or
-// recomputed from the saved lse (backward).
+// [N, V] logits never written to device memory: each logits tile lives in
+// registers (forward, dh) or shared memory (dw/db) only and is reduced on
+// the fly (forward) or recomputed from the saved lse (backward).
 //
 // Replaces the Pallas TPU kernels of autodist_tpu/ops/fused_xent.py:
 //   xent_fwd_kernel  <- _fwd_kernel   (fused_xent.py:90, pallas_call :192)
 //   xent_dh_kernel   <- _dh_kernel    (fused_xent.py:215, pallas_call :287)
 //   xent_dwdb_kernel <- _dwdb_kernel  (fused_xent.py:237, pallas_call :305)
+// and, beside them, xent_pack_kernel, which is no TPU kernel: the JAX
+// kernels cast each w block in VMEM (`w_ref[...].astype(h_ref.dtype)`).
 //
 // What bounds them: operations. At the flagship micro-batch (N = 98,304,
 // D = 512, V = 32,000) the forward is one [N,D]x[D,V] product (3.2 TFLOP)
 // against 0.17 GB of inputs, and each backward kernel recomputes the logits
 // and does one more product of the same size (6.4 TFLOP); all three sit far
-// above the card's ~295 FLOP/byte ridge.
+// above the card's ~295 FLOP/byte ridge. Every row block streams all of w,
+// so the next limit is L2 -> SM traffic: (row blocks) x 32.8 MB of bf16 w.
 //
-// Design, and how it differs from the TPU kernels:
-// - The TPU grid runs in order, so the Pallas kernels carry (m, l) and the
-//   dh / dw accumulators across grid steps in VMEM scratch. Hopper's blocks
-//   run in no order, so the sequential loop moves inside one block: the
-//   forward and dh kernels give each block one stripe of BM rows that walks
-//   every vocab tile; the dw/db kernel gives each block one tile of TN_COL
-//   vocab columns that walks every row stripe. No cross-block reduction.
-// - Shared memory holds the block's bf16 h stripe (or w tile) for the whole
-//   loop, the bf16 w tile (or h stripe) of the current step, and the f32
-//   logits tile. The dh and dw accumulators live in registers as WMMA
-//   fragments (128 floats a thread at D = 512).
-// - In the forward and dh kernels every block streams all of w through
-//   shared memory, so the w tile copy is what the products wait on. It is
-//   asynchronous (cp.async into an f32 staging buffer): the copy of tile
-//   t + 1 is in flight while tile t's products and softmax run.
-// - w is read in its stored layout ([D,V] "dv" or [V,D] "vd") and dtype
-//   (f32) and cast to bf16 per tile in shared memory; no cast or transposed
-//   copy of the table is made in device memory.
-// - Every load is bounds-checked: vocab lanes >= V read w = 0 and get logit
-//   -inf; rows >= N read h = 0 and contribute exactly 0 to dw and db, whatever
-//   the bias (the TPU reads undefined memory there and masks afterwards).
-// - Products are bf16 x bf16 with f32 accumulation on the tensor cores
-//   (WMMA 16x16x16); softmax statistics are f32. No TMA or wgmma yet.
+// Common to all: the TPU grid runs in order, so the Pallas kernels carry
+// (m, l) and the dh / dw accumulators across grid steps in VMEM scratch.
+// Hopper's blocks run in no order, so the sequential loop moves inside one
+// block: the forward and dh kernels give each block one stripe of rows that
+// walks every vocab tile; the dw/db kernel gives each block one tile of
+// TN_COL vocab columns that walks every row stripe. No cross-block reduction.
+//
+// Forward and dh design (xent_fwd_kernel, xent_dh_kernel):
+// - The pack: xent_pack_kernel writes w once a call as bf16 in its stored
+//   layout ([D, V] "dv" or [V, D] "vd"), the "dv" rows padded to a multiple
+//   of 8 columns (zeros) so that TMA's 16-byte global stride holds at any V.
+//   The walk then reads half the bytes of the f32 table and converts nothing.
+// - Warp specialisation, as the flash forward walk (flash_attention.cu):
+//   warpgroup 0 is the producer, one of its threads issuing every copy
+//   (setmaxnreg hands its registers to the consumers); warpgroups 1 and 2
+//   consume. TMA reads h (2-D tensor map, 64-column boxes of 128 bytes,
+//   128-byte swizzle) once a block, rows past N zero-filled and never
+//   written; w streams through a ring of 64-deep d chunks with full and
+//   empty mbarriers. Columns past V (TMA's zero fill, or the pack's pad)
+//   are masked to -inf in the forward and give p = 0 in dh.
+// - wgmma with both operands in shared memory, f32 accumulators in
+//   registers: no fragment reloads through the register file. "vd" chunks
+//   ([vocab][64 d]) are K-major for h . w and MN-major for P . w^T; "dv"
+//   chunks ([64 d][vocab]) the other way round, so one instruction set
+//   serves both layouts with no transposed copy. An MN-major operand wider
+//   than 64 is 64-wide atoms LBO apart (sw128_desc's second form).
+// - Forward: 128 rows a block, 64 per consumer; vocab tiles of 128 columns
+//   (the scores are 64 registers a thread, one m64n128k16 a k step). Both
+//   consumers read each w chunk (4 ring stages of 16 KB); the
+//   running max and sum are kept per lane, starting from NEG_BIG's finite
+//   max so that no lane computes exp(-inf - (-inf)), and merged over the
+//   quad once at the end. The softmax of tile t - 1 runs in pieces between
+//   the chunk issues of tile t, so the exponentials overlap the products.
+// - dh: the [64, 512] f32 dh tile is 256 registers a thread for one
+//   warpgroup, over the 255 limit, so the two consumers split the model
+//   width: consumer c owns dh columns [256c, 256c + 256) (128 registers)
+//   and reads only the d chunks of its half. For a 64-column vocab tile
+//   each computes the partial scores over its half of d; the halves are
+//   exchanged through shared memory (named barrier 1) so that each finishes
+//   the scores of 32 vocab columns, writes bf16 g*p into a swizzled [64, 64]
+//   P tile, and after named barrier 2 both issue P . w^T from shared memory
+//   into their own dh columns (m64n256k16: the four d chunks of a half lie
+//   8 KB apart). The ring holds two tiles (16 chunks of 8 KB), so tile t + 1
+//   loads while tile t computes. This split computes the scores once, where
+//   a split over vocab columns would give each consumer m64n32 products, and
+//   a split over rows needs 128 rows of f32 dh in registers. Its cost: the
+//   scores (m64n64, waited for before the softmax) and the exchange do not
+//   overlap the products, so dh stays further from its bound than the
+//   forward.
+// - Rows >= N of the stripe arrive as zeros, are excluded from the softmax
+//   sums' use (p = 0) and are not written.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+constexpr int KERNEL_D = 512;          // the one model width instantiated
+constexpr int KC = KERNEL_D / 64;      // 64-wide d chunks (one swizzled 128-byte row each)
+constexpr float NEG_BIG = -1e30f;      // initial running max: finite, so exp(m - m_new) is never NaN
+constexpr float LOG2E = 1.4426950408889634f;
+
+// --------------------------------------------------------------------- pack
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// w (f32, rows x cols, row stride cols) -> wp (bf16, rows x cols_p, cols_p
+// >= cols), the pad columns zero. Eight values a step where the rows keep
+// 16-byte alignment, else one.
+__global__ void xent_pack_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int rows,
+                                 int cols, int cols_p, int vec) {
+  const size_t stride = size_t(gridDim.x) * blockDim.x;
+  const size_t first = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {  // cols == cols_p, a multiple of 8, w 16-byte aligned
+    const size_t total = size_t(rows) * cols / 8;
+    for (size_t i = first; i < total; i += stride) {
+      const float4 a = reinterpret_cast<const float4*>(w)[2 * i];
+      const float4 c = reinterpret_cast<const float4*>(w)[2 * i + 1];
+      reinterpret_cast<uint4*>(wp)[i] =
+          make_uint4(bf16x2_bits(a.x, a.y), bf16x2_bits(a.z, a.w), bf16x2_bits(c.x, c.y),
+                     bf16x2_bits(c.z, c.w));
+    }
+  } else {
+    const size_t total = size_t(rows) * cols_p;
+    for (size_t i = first; i < total; i += stride) {
+      const int r = int(i / cols_p), c = int(i % cols_p);
+      wp[i] = __float2bfloat16(c < cols ? w[size_t(r) * cols + c] : 0.f);
+    }
+  }
+}
+
+// Columns of the packed "dv" table: V rounded up to a multiple of 8.
+inline int packed_cols(int v) { return (v + 7) / 8 * 8; }
+
+template <typename T>
+__device__ __forceinline__ T& align1024(unsigned char* raw) {
+  return *reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// ------------------------------------------------------------------ forward
+
+constexpr int FWD_BM = 128;            // rows a block: two consumers of 64
+constexpr int FWD_TN = 128;            // vocab columns a tile
+constexpr int FWD_STAGES = 4;          // w ring, in d chunks of a tile
+constexpr int FWD_THREADS = 384;       // the producer warpgroup and two consumers
+constexpr unsigned FWD_H_BYTES = FWD_BM * KERNEL_D * 2;
+constexpr unsigned FWD_CHUNK_BYTES = FWD_TN * 64 * 2;
+// setmaxnreg: what the producer gives up, the consumers take (65,536 a block).
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
+
+struct FwdSmem {
+  alignas(1024) bf16 h[KC][FWD_BM * 64];         // [d chunk][row][64 d], swizzled
+  alignas(1024) bf16 w[FWD_STAGES][FWD_TN * 64]; // vd: [vocab][64 d]; dv: [2][64 d][64 vocab]
+  uint64_t h_full, full[FWD_STAGES], empty[FWD_STAGES];
+};
+constexpr size_t FWD_SMEM = sizeof(FwdSmem) + 1024;  // + room to align the base
+static_assert(FWD_SMEM <= 232448, "over the 227 KB a block may use");
+
+// One piece of the online logsumexp of the scores x of vocab tile v0 (this
+// thread's rows r and r + 8; columns v0 + 8 nt + col (+1)). Piece 0 adds
+// the bias, masks columns >= v and moves the per-lane max (rescaling l);
+// pieces 1-4 take the exponentials of n-tiles 4(p-1) .. 4p - 1.
+__device__ __forceinline__ void lse_piece(int piece, float (&x)[16][4], float (&m)[2],
+                                          float (&l)[2], float (&mc)[2], int v0, int col, int v,
+                                          const float* __restrict__ b) {
+  if (piece == 0) {
+    if (v0 + FWD_TN <= v) {
+      if (b != nullptr) {
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(b + v0 + 8 * nt + col);
+          x[nt][0] += bb.x;
+          x[nt][1] += bb.y;
+          x[nt][2] += bb.x;
+          x[nt][3] += bb.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int vv = v0 + 8 * nt + col + (e & 1);
+          x[nt][e] = vv < v ? x[nt][e] + (b != nullptr ? b[vv] : 0.f) : -INFINITY;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], x[nt][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] *= ex2((m[i] - mx[i]) * LOG2E);
+      m[i] = mx[i];
+      mc[i] = mx[i] * LOG2E;
+    }
+  } else {
+#pragma unroll
+    for (int nt = 4 * (piece - 1); nt < 4 * piece; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += ex2(fmaf(x[nt][e], LOG2E, -mc[e >> 1]));
+  }
+}
+
+template <bool VD>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+xent_fwd_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__ CUtensorMap wm,
+                const float* __restrict__ b, float* __restrict__ lse, int n, int v) {
+  extern __shared__ unsigned char fwd_raw[];
+  FwdSmem& sm = align1024<FwdSmem>(fwd_raw);
+  const int n0 = blockIdx.x * FWD_BM;
+  const int n_tiles = (v + FWD_TN - 1) / FWD_TN;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.h_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.h_full, FWD_H_BYTES);
+      for (int j = 0; j < KC; ++j) tma_load(sm.h[j], &hm, &sm.h_full, 64 * j, n0);
+      int stage = 0, parity = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int j = 0; j < KC; ++j) {
+          mbar_wait(&sm.empty[stage], parity ^ 1);
+          mbar_expect_tx(&sm.full[stage], FWD_CHUNK_BYTES);
+          if (VD) {
+            tma_load(sm.w[stage], &wm, &sm.full[stage], 64 * j, t * FWD_TN);
+          } else {
+            tma_load(sm.w[stage], &wm, &sm.full[stage], t * FWD_TN, 64 * j);
+            tma_load(sm.w[stage] + 64 * 64, &wm, &sm.full[stage], t * FWD_TN + 64, 64 * j);
+          }
+          if (++stage == FWD_STAGES) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int col = (lane % 4) * 2;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, mc[2];
+  float s[16][4], x[16][4];
+  int stage = 0, parity = 0;
+  mbar_wait(&sm.h_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      mbar_wait(&sm.full[stage], parity);
+      const uint64_t da = sw128_desc(sm.h[j] + c * 64 * 64);
+      const uint64_t db = sw128_desc(sm.w[stage]);
+      const uint64_t db_mn = sw128_desc(sm.w[stage], 8192);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (VD)
+          wgmma_m64n128k16_ss<0>(s, da + 2 * kk, db + 2 * kk, j | kk);
+        else  // MN-major: two 64-column halves, 8 KB apart
+          wgmma_m64n128k16_ss<1>(s, da + 2 * kk, db_mn + 128 * kk, j | kk);
+      }
+      wgmma_commit();
+      // The last tile's softmax, a piece at a time, while these products run.
+      if (t > 0 && j <= 4) lse_piece(j, x, m, l, mc, (t - 1) * FWD_TN, col, v, b);
+      if (j > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&sm.empty[stage == 0 ? FWD_STAGES - 1 : stage - 1]);
+      }
+      if (++stage == FWD_STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&sm.empty[stage == 0 ? FWD_STAGES - 1 : stage - 1]);
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[nt][e] = s[nt][e];
+  }
+#pragma unroll
+  for (int p = 0; p <= 4; ++p) lse_piece(p, x, m, l, mc, (n_tiles - 1) * FWD_TN, col, v, b);
+
+  // Merge the quad's per-lane (m, l) into the row's lse.
+  const int row0 = n0 + 64 * c + warp * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mm = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, 2));
+    float ll = l[i] * ex2((m[i] - mm) * LOG2E);
+    ll += __shfl_xor_sync(0xffffffffu, ll, 1);
+    ll += __shfl_xor_sync(0xffffffffu, ll, 2);
+    const int row = row0 + 8 * i;
+    if (lane % 4 == 0 && row < n) lse[row] = mm + logf(fmaxf(ll, 1e-30f));
+  }
+}
+
+// ----------------------------------------------------------------------- dh
+
+constexpr int DH_BM = 64;              // rows a block
+constexpr int DH_TN = 64;              // vocab columns a tile
+constexpr int DH_SLOTS = 2 * KC;       // the w ring: two tiles of d chunks
+constexpr int DH_THREADS = 384;
+constexpr unsigned DH_H_BYTES = DH_BM * KERNEL_D * 2;
+constexpr unsigned DH_CHUNK_BYTES = DH_TN * 64 * 2;
+
+struct DhSmem {
+  alignas(1024) bf16 h[KC][DH_BM * 64];       // [d chunk][row][64 d], swizzled
+  alignas(1024) bf16 w[DH_SLOTS][DH_TN * 64]; // vd: [64 vocab][64 d]; dv: [64 d][64 vocab]
+  alignas(1024) bf16 p[DH_BM * 64];           // g * softmax, [row][64 vocab], swizzled
+  float x[2][16][128];                        // partial scores handed to the other consumer
+  uint64_t h_full, full[DH_SLOTS], empty[DH_SLOTS];
+};
+constexpr size_t DH_SMEM = sizeof(DhSmem) + 1024;
+static_assert(DH_SMEM <= 232448, "over the 227 KB a block may use");
+
+// Consumer c's half of a dh tile step after its partial scores s (over its
+// d half, all 64 vocab columns of tile v0) have landed: hand the other
+// consumer the columns it finishes, finish columns [32c, 32c + 32), and
+// write g * p for them into the P tile. c picks values by select, so every
+// register index stays a constant and no branch depends on the consumer;
+// s, which the next tile's wgmma writes, is only read.
+__device__ __forceinline__ void dh_scores_to_p(DhSmem& sm, const float (&s)[8][4], int c,
+                                               int tid, int r, int col, int v0, int v,
+                                               const float* __restrict__ b,
+                                               const float (&row_lse)[2],
+                                               const float (&row_g)[2]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) sm.x[c][k][tid] = c ? s[k / 4][k % 4] : s[4 + k / 4][k % 4];
+  named_sync(1);
+  float z[4][4];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    z[k / 4][k % 4] = (c ? s[4 + k / 4][k % 4] : s[k / 4][k % 4]) + sm.x[1 - c][k][tid];
+  unsigned char* pbase = reinterpret_cast<unsigned char*>(sm.p);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int kcol = 32 * c + 8 * q + col;  // vocab column in the tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int vv = v0 + kcol + e;
+        const float y = z[q][2 * i + e] + (b != nullptr && vv < v ? b[vv] : 0.f);
+        pv[e] = vv < v ? row_g[i] * ex2(fmaf(y, LOG2E, -row_lse[i] * LOG2E)) : 0.f;
+      }
+      const int rr = r + 8 * i;
+      // 128-byte swizzle: 16-byte unit u of row rr sits at unit u ^ (rr % 8).
+      const int off = rr * 128 + (((kcol >> 3) ^ (rr & 7)) << 4) + (kcol & 7) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(pbase + off) = __floats2bfloat162_rn(pv[0], pv[1]);
+    }
+  }
+  fence_proxy_async();  // the P stores, visible to wgmma
+  named_sync(2);
+}
+
+// dh[n] = sum_v g[n] * softmax(h w + b)[n, v] * w[:, v], logits recomputed
+// from the saved lse.
+template <bool VD>
+__global__ void __launch_bounds__(DH_THREADS, 1)
+xent_dh_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__ CUtensorMap wm,
+               const float* __restrict__ b, const float* __restrict__ lse,
+               const float* __restrict__ g, bf16* __restrict__ dh, int n, int v) {
+  extern __shared__ unsigned char dh_raw[];
+  DhSmem& sm = align1024<DhSmem>(dh_raw);
+  const int n0 = blockIdx.x * DH_BM;
+  const int n_tiles = (v + DH_TN - 1) / DH_TN;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.h_full, 1);
+    for (int s = 0; s < DH_SLOTS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4);  // lane 0 of each warp of the chunk's consumer
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.h_full, DH_H_BYTES);
+      for (int j = 0; j < KC; ++j) tma_load(sm.h[j], &hm, &sm.h_full, 64 * j, n0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int parity = (t >> 1) & 1;
+        for (int j = 0; j < KC; ++j) {
+          const int slot = (t & 1) * KC + j;
+          mbar_wait(&sm.empty[slot], parity ^ 1);
+          mbar_expect_tx(&sm.full[slot], DH_CHUNK_BYTES);
+          if (VD)
+            tma_load(sm.w[slot], &wm, &sm.full[slot], 64 * j, t * DH_TN);
+          else
+            tma_load(sm.w[slot], &wm, &sm.full[slot], t * DH_TN, 64 * j);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int col = (lane % 4) * 2;
+  const int r = warp * 16 + lane / 4;  // this thread's rows of the stripe: r, r + 8
+  float row_lse[2], row_g[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = n0 + r + 8 * i < n;
+    row_lse[i] = ok ? lse[n0 + r + 8 * i] : 0.f;
+    row_g[i] = ok ? g[n0 + r + 8 * i] : 0.f;  // g = 0: rows past n give p = 0
+  }
+  float acc[32][4];  // dh columns 256c + 8nt + col (+1)
+#pragma unroll
+  for (int nt = 0; nt < 32; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float s[8][4];
+  mbar_wait(&sm.h_full, 0);
+  const uint64_t dp = sw128_desc(sm.p);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot0 = (t & 1) * KC + 4 * c;  // this consumer's d chunks of tile t
+    const int parity = (t >> 1) & 1;
+    // Partial scores over this consumer's half of d, queued behind the
+    // last tile's P . w^T.
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mbar_wait(&sm.full[slot0 + q], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint64_t da = sw128_desc(sm.h[4 * c + q]);
+      const uint64_t db = sw128_desc(sm.w[slot0 + q]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (VD)
+          wgmma_m64n64k16_ss<0>(s, da + 2 * kk, db + 2 * kk, q | kk);
+        else
+          wgmma_m64n64k16_ss<1>(s, da + 2 * kk, db + 128 * kk, q | kk);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(acc);
+    if (t > 0 && lane == 0) {  // the last tile's chunks: its P . w^T is done
+      const int prev = ((t - 1) & 1) * KC + 4 * c;
+      for (int q = 0; q < 4; ++q) mbar_arrive(&sm.empty[prev + q]);
+    }
+    dh_scores_to_p(sm, s, c, tid, r, col, t * DH_TN, v, b, row_lse, row_g);
+    // dh[:, this half] += P . w^T: k runs over the tile's 64 vocab columns.
+    // The four d chunks lie 8 KB apart: "vd" as MN atoms LBO apart, "dv" as
+    // 256 K-major rows in 8-row groups 1024 bytes apart.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (VD)
+        wgmma_m64n256k16_ss<1>(acc, dp + 2 * kk, sw128_desc(sm.w[slot0], 8192) + 128 * kk, 1);
+      else
+        wgmma_m64n256k16_ss<0>(acc, dp + 2 * kk, sw128_desc(sm.w[slot0]) + 2 * kk, 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue: bf16 dh; rows >= n are not written.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = n0 + r + 8 * i;
+    if (row >= n) continue;
+    bf16* out = dh + size_t(row) * KERNEL_D + 256 * c + col;
+#pragma unroll
+    for (int nt = 0; nt < 32; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
+          __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- dwdb tiles
+
+// The dw/db kernel keeps the first design: WMMA 16x16x16 from shared memory.
 constexpr int BM = 64;        // rows of h per stripe
-constexpr int TN_ROW = 32;    // vocab columns per step of the forward and dh kernels
 constexpr int TN_COL = 64;    // vocab columns per block of the dw/db kernel
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr float NEG_BIG = -1e30f;  // initial running max: finite, so exp(m - m_new) is never NaN
 
 // Shared-memory tiles for TN vocab columns. Row strides are padded by 16
 // bytes (8 bf16 / 4 f32) so that WMMA fragment loads do not all land on one
@@ -72,43 +504,28 @@ struct Tiles {
   static constexpr int S_LD = TN + 4;          // f32 logits tile [BM][S_LD]
   static constexpr int P_LD = TN + 8;          // bf16 g*softmax tile [BM][P_LD]
   static constexpr size_t H_BYTES = size_t(BM) * H_LD * 2;
-  static constexpr size_t F_BYTES = size_t(W_ROWS) * W_COLS * 4;  // f32 staging, unpadded
   static constexpr size_t W_BYTES = size_t(W_ROWS) * W_LD * 2;
   static constexpr size_t S_BYTES = size_t(BM) * S_LD * 4;
   static constexpr size_t P_BYTES = size_t(BM) * P_LD * 2;
   static constexpr size_t E_BYTES = size_t(WARPS) * 16 * 16 * 4;  // per-warp epilogue stage
-  static_assert(H_BYTES % 128 == 0 && F_BYTES % 128 == 0 && W_BYTES % 128 == 0 &&
-                S_BYTES % 128 == 0 && P_BYTES % 128 == 0, "regions must stay aligned");
+  static_assert(H_BYTES % 128 == 0 && W_BYTES % 128 == 0 && S_BYTES % 128 == 0 &&
+                P_BYTES % 128 == 0, "regions must stay aligned");
 };
 
-// Dynamic shared memory of each kernel, region by region in that order.
+// Dynamic shared memory of the dw/db kernel, region by region in that order.
 template <int D, bool VD>
 struct Smem {
-  typedef Tiles<D, VD, TN_ROW> R;
   typedef Tiles<D, VD, TN_COL> C;
-  static constexpr size_t FWD = R::H_BYTES + R::F_BYTES + R::W_BYTES + R::S_BYTES;
-  static constexpr size_t DH = FWD + R::P_BYTES + R::E_BYTES;
   static constexpr size_t RED_BYTES = size_t(THREADS / TN_COL) * TN_COL * 4;  // db partials
   static constexpr size_t DWDB = C::H_BYTES + C::W_BYTES + C::S_BYTES + C::P_BYTES +
                                  C::E_BYTES + RED_BYTES + size_t(2) * BM * 4;
-  static_assert(DH <= 232448 && DWDB <= 232448, "over the 227 KB a block may use");
+  static_assert(DWDB <= 232448, "over the 227 KB a block may use");
 };
-
-// ------------------------------------------------------------ copies to smem
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // Asynchronous global -> shared copies. `bytes` below the copy size
 // zero-fills the rest of the destination; 0 reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -133,61 +550,6 @@ __device__ __forceinline__ void copy_h_stripe(bf16* hs, const bf16* __restrict__
     const int c = (i % CHUNKS) * 8;
     const bool ok = n0 + r < n;
     cp_async16(hs + r * (D + 8) + c, ok ? h + size_t(n0 + r) * D + c : h, ok ? 16 : 0);
-  }
-}
-
-// Vocab columns [v0, v0 + TN) of w, in its stored layout and dtype -> the
-// f32 staging buffer fs ([D][TN] for dv, [TN][D] for vd), asynchronously.
-// Lanes >= v are zero-filled. With `vec` (w 16-byte aligned, and vd or
-// v % 4 == 0) the copies are 4-float chunks, none of which straddles v;
-// otherwise single floats. Neighbouring threads copy neighbouring addresses.
-template <int D, bool VD, int TN>
-__device__ __forceinline__ void copy_w_tile(float* fs, const float* __restrict__ w, int v0,
-                                            int v, bool vec) {
-  constexpr int COLS = Tiles<D, VD, TN>::W_COLS;
-  constexpr int ELEMS = D * TN;
-  static_assert(ELEMS % (4 * THREADS) == 0, "whole chunks per thread");
-  if (vec) {
-#pragma unroll
-    for (int k = 0; k < ELEMS / 4 / THREADS; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const int r = i / (COLS / 4);
-      const int c = (i % (COLS / 4)) * 4;
-      const int vv = VD ? v0 + r : v0 + c;  // vocab index of the chunk's first lane
-      const bool ok = vv < v;
-      const float* src = VD ? w + size_t(vv) * D + c : w + size_t(r) * v + vv;
-      cp_async16(fs + r * COLS + c, ok ? src : w, ok ? 16 : 0);
-    }
-  } else {
-#pragma unroll 8
-    for (int k = 0; k < ELEMS / THREADS; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const int r = i / COLS;
-      const int c = i % COLS;
-      const int vv = VD ? v0 + r : v0 + c;
-      const bool ok = vv < v;
-      const float* src = VD ? w + size_t(vv) * D + c : w + size_t(r) * v + vv;
-      cp_async4(fs + r * COLS + c, ok ? src : w, ok ? 4 : 0);
-    }
-  }
-}
-
-// f32 staging fs -> bf16 w tile ws (padded rows), four values a step.
-template <int D, bool VD, int TN>
-__device__ __forceinline__ void convert_w_tile(bf16* ws, const float* fs) {
-  typedef Tiles<D, VD, TN> T;
-#pragma unroll
-  for (int k = 0; k < D * TN / 4 / THREADS; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int r = i / (T::W_COLS / 4);
-    const int c = (i % (T::W_COLS / 4)) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(fs + r * T::W_COLS + c);
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<unsigned*>(&lo);
-    packed.y = *reinterpret_cast<unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(ws + r * T::W_LD + c) = packed;
   }
 }
 
@@ -239,156 +601,6 @@ __device__ __forceinline__ void logits_tile(const bf16* hs, const bf16* ws, floa
   for (int j = 0; j < CF; ++j)
     wmma::store_matrix_sync(ss + r * T::S_LD + c0 + 16 * j, acc[j], T::S_LD,
                             wmma::mem_row_major);
-}
-
-// ------------------------------------------------------------------ forward
-
-template <int D, bool VD>
-__global__ void __launch_bounds__(THREADS, 1)
-xent_fwd_kernel(const bf16* __restrict__ h, const float* __restrict__ w,
-                const float* __restrict__ b, float* __restrict__ lse, int n, int v,
-                int vec) {
-  typedef Tiles<D, VD, TN_ROW> T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  float* fs = reinterpret_cast<float*>(smem + T::H_BYTES);
-  bf16* ws = reinterpret_cast<bf16*>(smem + T::H_BYTES + T::F_BYTES);
-  float* ss = reinterpret_cast<float*>(smem + T::H_BYTES + T::F_BYTES + T::W_BYTES);
-
-  const int n0 = blockIdx.x * BM;
-  copy_h_stripe<D>(hs, h, n0, n);
-  copy_w_tile<D, VD, TN_ROW>(fs, w, 0, v, vec);
-  cp_async_commit();
-  // Four consecutive lanes share one row; lane `seg` takes columns seg, seg+4, ...
-  const int row = threadIdx.x / 4;
-  const int seg = threadIdx.x % 4;
-  float m = NEG_BIG, l = 0.f;
-  for (int v0 = 0; v0 < v; v0 += TN_ROW) {
-    cp_async_wait_all();
-    __syncthreads();  // fs holds tile v0; the previous step's readers of ws and ss are done
-    convert_w_tile<D, VD, TN_ROW>(ws, fs);
-    __syncthreads();  // ws is ready and fs free: start the next tile's copy
-    if (v0 + TN_ROW < v) {
-      copy_w_tile<D, VD, TN_ROW>(fs, w, v0 + TN_ROW, v, vec);
-      cp_async_commit();
-    }
-    logits_tile<D, VD, TN_ROW>(hs, ws, ss);
-    __syncthreads();
-    float x[TN_ROW / 4];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < TN_ROW / 4; ++i) {
-      const int col = seg + 4 * i;
-      const int vv = v0 + col;
-      const float s = vv < v ? ss[row * T::S_LD + col] + (b ? b[vv] : 0.f) : -INFINITY;
-      x[i] = s;
-      tmax = fmaxf(tmax, s);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < TN_ROW / 4; ++i) psum += __expf(x[i] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * __expf(m - m_new) + psum;
-    m = m_new;
-  }
-  if (seg == 0 && n0 + row < n) lse[n0 + row] = m + logf(fmaxf(l, 1e-30f));
-}
-
-// ----------------------------------------------------------------------- dh
-
-// dh[n] = sum_v g[n] * softmax(h w + b)[n, v] * w[:, v], logits recomputed
-// from the saved lse. Warp k accumulates rows 16*(k/2) .. +16 and model
-// columns (D/2)*(k%2) .. +D/2 of the block's [BM, D] result in registers.
-template <int D, bool VD>
-__global__ void __launch_bounds__(THREADS, 1)
-xent_dh_kernel(const bf16* __restrict__ h, const float* __restrict__ w,
-               const float* __restrict__ b, const float* __restrict__ lse,
-               const float* __restrict__ g, bf16* __restrict__ dh, int n, int v, int vec) {
-  typedef Tiles<D, VD, TN_ROW> T;
-  // B operand of P . w^T: element (vocab k, model d). vd stores it at ws[k][d]
-  // (row major), dv at ws[d][k] (column major).
-  typedef typename std::conditional<VD, wmma::row_major, wmma::col_major>::type WtLayout;
-  constexpr int NF = D / 32;  // accumulator fragments per warp
-  static_assert(D % 32 == 0, "D must be a multiple of 32");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  float* fs = reinterpret_cast<float*>(smem + T::H_BYTES);
-  bf16* ws = reinterpret_cast<bf16*>(smem + T::H_BYTES + T::F_BYTES);
-  float* ss = reinterpret_cast<float*>(smem + T::H_BYTES + T::F_BYTES + T::W_BYTES);
-  bf16* ps = reinterpret_cast<bf16*>(smem + Smem<D, VD>::FWD);
-  float* stage = reinterpret_cast<float*>(smem + Smem<D, VD>::FWD + T::P_BYTES);
-
-  const int n0 = blockIdx.x * BM;
-  copy_h_stripe<D>(hs, h, n0, n);
-  copy_w_tile<D, VD, TN_ROW>(fs, w, 0, v, vec);
-  cp_async_commit();
-  const int row = threadIdx.x / 4;
-  const int seg = threadIdx.x % 4;
-  const bool row_ok = n0 + row < n;
-  const float row_lse = row_ok ? lse[n0 + row] : 0.f;
-  const float row_g = row_ok ? g[n0 + row] : 0.f;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = (warp / 2) * 16;
-  const int c0 = (warp % 2) * (D / 2);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, WtLayout> bt;
-
-  for (int v0 = 0; v0 < v; v0 += TN_ROW) {
-    cp_async_wait_all();
-    __syncthreads();  // fs holds tile v0; the previous step's readers of ws, ss, ps are done
-    convert_w_tile<D, VD, TN_ROW>(ws, fs);
-    __syncthreads();
-    if (v0 + TN_ROW < v) {
-      copy_w_tile<D, VD, TN_ROW>(fs, w, v0 + TN_ROW, v, vec);
-      cp_async_commit();
-    }
-    logits_tile<D, VD, TN_ROW>(hs, ws, ss);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TN_ROW / 4; ++i) {
-      const int col = seg + 4 * i;
-      const int vv = v0 + col;
-      float p = 0.f;
-      if (row_ok && vv < v)
-        p = __expf(ss[row * T::S_LD + col] + (b ? b[vv] : 0.f) - row_lse) * row_g;
-      ps[row * T::P_LD + col] = __float2bfloat16(p);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TN_ROW; kk += 16) {
-      wmma::load_matrix_sync(a, ps + r * T::P_LD + kk, T::P_LD);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const int c = c0 + 16 * f;
-        const bf16* bp = VD ? ws + kk * T::W_LD + c : ws + c * T::W_LD + kk;
-        wmma::load_matrix_sync(bt, bp, T::W_LD);
-        wmma::mma_sync(acc[f], a, bt, acc[f]);
-      }
-    }
-  }
-
-  // Epilogue: each fragment goes through the warp's 16x16 f32 stage and out
-  // as bf16; rows >= n are not written.
-  float* st = stage + warp * 256;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int rr = n0 + r + e / 16;
-      if (rr < n) dh[size_t(rr) * D + c0 + 16 * f + e % 16] = __float2bfloat16(st[e]);
-    }
-    __syncwarp();
-  }
 }
 
 // ---------------------------------------------------------------------- dwdb
@@ -510,37 +722,47 @@ xent_dwdb_kernel(const bf16* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
-}
+// ---------------------------------------------------------------- launchers
 
-// 4-float copies of w need a 16-byte aligned table whose rows (dv: v floats)
-// keep that alignment.
-bool vec_ok(const float* w, int v, bool vd) {
-  return reinterpret_cast<uintptr_t>(w) % 16 == 0 && (vd || v % 4 == 0);
-}
-
-template <int D, bool VD>
-int launch_fwd(const bf16* h, const float* w, const float* b, float* lse, int n, int v,
-               cudaStream_t stream) {
-  auto kernel = xent_fwd_kernel<D, VD>;
-  cudaError_t err = set_smem(kernel, Smem<D, VD>::FWD);
-  if (err != cudaSuccess) return int(err);
-  kernel<<<(n + BM - 1) / BM, THREADS, Smem<D, VD>::FWD, stream>>>(h, w, b, lse, n, v,
-                                                                   vec_ok(w, v, VD));
+int launch_pack(const float* w, bf16* wp, int d, int v, bool vd, cudaStream_t stream) {
+  const int rows = vd ? v : d, cols = vd ? d : v, cols_p = vd ? d : packed_cols(v);
+  const bool vec = cols == cols_p && cols % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const size_t work = size_t(rows) * cols_p / (vec ? 8 : 1);
+  const int blocks = int(std::min<size_t>((work + 255) / 256, 132 * 16));
+  xent_pack_kernel<<<blocks, 256, 0, stream>>>(w, wp, rows, cols, cols_p, vec);
   return int(cudaGetLastError());
 }
 
-template <int D, bool VD>
-int launch_dh(const bf16* h, const float* w, const float* b, const float* lse,
-              const float* g, bf16* dh, int n, int v, cudaStream_t stream) {
-  auto kernel = xent_dh_kernel<D, VD>;
-  cudaError_t err = set_smem(kernel, Smem<D, VD>::DH);
+// Tensor maps of h (box: `rows` rows of 64 columns) and of the packed table
+// (box: tn vocab rows of 64 d for vd, 64 d rows of 64 vocab for dv).
+bool maps(CUtensorMap* hm, CUtensorMap* wm, const void* h, const void* wp, int n, int v, bool vd,
+          int rows, int tn) {
+  return matrix_map(hm, h, n, KERNEL_D, rows) &&
+         (vd ? matrix_map(wm, wp, v, KERNEL_D, tn)
+             : matrix_map(wm, wp, KERNEL_D, packed_cols(v), 64));
+}
+
+template <bool VD>
+int launch_fwd(const void* h, const void* wp, const float* b, float* lse, int n, int v,
+               cudaStream_t stream) {
+  CUtensorMap hm, wm;
+  if (!maps(&hm, &wm, h, wp, n, v, VD, FWD_BM, FWD_TN)) return int(cudaErrorInvalidValue);
+  auto kernel = xent_fwd_kernel<VD>;
+  const cudaError_t err = set_smem(kernel, FWD_SMEM);
   if (err != cudaSuccess) return int(err);
-  kernel<<<(n + BM - 1) / BM, THREADS, Smem<D, VD>::DH, stream>>>(h, w, b, lse, g, dh, n,
-                                                                  v, vec_ok(w, v, VD));
+  kernel<<<(n + FWD_BM - 1) / FWD_BM, FWD_THREADS, FWD_SMEM, stream>>>(hm, wm, b, lse, n, v);
+  return int(cudaGetLastError());
+}
+
+template <bool VD>
+int launch_dh(const void* h, const void* wp, const float* b, const float* lse, const float* g,
+              bf16* dh, int n, int v, cudaStream_t stream) {
+  CUtensorMap hm, wm;
+  if (!maps(&hm, &wm, h, wp, n, v, VD, DH_BM, DH_TN)) return int(cudaErrorInvalidValue);
+  auto kernel = xent_dh_kernel<VD>;
+  const cudaError_t err = set_smem(kernel, DH_SMEM);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<(n + DH_BM - 1) / DH_BM, DH_THREADS, DH_SMEM, stream>>>(hm, wm, b, lse, g, dh, n, v);
   return int(cudaGetLastError());
 }
 
@@ -556,43 +778,50 @@ int launch_dwdb(const bf16* h, const float* w, const float* b, const float* lse,
 }
 
 // What every entry point takes: d = 512 (the only width instantiated), a
-// non-empty problem and a 16-byte aligned h (its rows are copied in 16-byte
-// chunks).
-bool args_ok(const void* h, int n, int d, int v) {
-  return d == 512 && n > 0 && v > 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+// non-empty problem, a 16-byte aligned h (TMA and the 16-byte row copies),
+// and an 8-byte aligned bias (read two columns at a time).
+bool args_ok(const void* h, const float* b, int n, int d, int v) {
+  return d == KERNEL_D && n > 0 && v > 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 8 == 0;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each returns a cudaError_t (0 on
-// success; cudaErrorInvalidValue for arguments args_ok refuses). h is bf16
-// [n, d]; w is f32 [d, v] (w_vd == 0) or [v, d] (w_vd == 1); b is f32 [v] or
-// null; lse and g are f32 [n].
+// success; cudaErrorInvalidValue for arguments args_ok refuses, or when a
+// tensor map cannot be encoded). h is bf16 [n, d]; w is f32 [d, v]
+// (w_vd == 0) or [v, d] (w_vd == 1); wp is w packed by xent_pack_w: bf16
+// [d, v rounded up to a multiple of 8] or [v, d], 16-byte aligned; b is f32
+// [v] or null; lse and g are f32 [n].
 
-extern "C" int xent_fwd(const void* h, const float* w, const float* b, float* lse, int n,
-                        int d, int v, int w_vd, void* stream) {
-  if (!args_ok(h, n, d, v)) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* hh = static_cast<const bf16*>(h);
-  return w_vd ? launch_fwd<512, true>(hh, w, b, lse, n, v, s)
-              : launch_fwd<512, false>(hh, w, b, lse, n, v, s);
+extern "C" int xent_pack_w(const float* w, void* wp, int d, int v, int w_vd, void* stream) {
+  if (d != KERNEL_D || v <= 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return int(cudaErrorInvalidValue);
+  return launch_pack(w, static_cast<bf16*>(wp), d, v, w_vd != 0,
+                     static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int xent_dh(const void* h, const float* w, const float* b, const float* lse,
-                       const float* g, void* dh, int n, int d, int v, int w_vd,
-                       void* stream) {
-  if (!args_ok(h, n, d, v)) return int(cudaErrorInvalidValue);
+extern "C" int xent_fwd(const void* h, const void* wp, const float* b, float* lse, int n, int d,
+                        int v, int w_vd, void* stream) {
+  if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* hh = static_cast<const bf16*>(h);
+  return w_vd ? launch_fwd<true>(h, wp, b, lse, n, v, s)
+              : launch_fwd<false>(h, wp, b, lse, n, v, s);
+}
+
+extern "C" int xent_dh(const void* h, const void* wp, const float* b, const float* lse,
+                       const float* g, void* dh, int n, int d, int v, int w_vd, void* stream) {
+  if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* out = static_cast<bf16*>(dh);
-  return w_vd ? launch_dh<512, true>(hh, w, b, lse, g, out, n, v, s)
-              : launch_dh<512, false>(hh, w, b, lse, g, out, n, v, s);
+  return w_vd ? launch_dh<true>(h, wp, b, lse, g, out, n, v, s)
+              : launch_dh<false>(h, wp, b, lse, g, out, n, v, s);
 }
 
 extern "C" int xent_dwdb(const void* h, const float* w, const float* b, const float* lse,
                          const float* g, float* dw, float* db, int n, int d, int v,
                          int w_vd, void* stream) {
-  if (!args_ok(h, n, d, v)) return int(cudaErrorInvalidValue);
+  if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* hh = static_cast<const bf16*>(h);
   return w_vd ? launch_dwdb<512, true>(hh, w, b, lse, g, dw, db, n, v, s)

@@ -9,15 +9,18 @@ kernel of the JAX package; the true-logit term is a cheap gather left to
 plain torch, as the JAX package leaves it to XLA.
 
 ``w`` is taken in either layout, ``[D, V]`` (``w_layout="dv"``, a dense
-kernel) or ``[V, D]`` (``"vd"``, an embedding table), and in its stored dtype;
-the kernels cast it to the activation dtype per tile, and ``dw`` comes back
-in the stored layout and dtype.
+kernel) or ``[V, D]`` (``"vd"``, an embedding table), and in its stored dtype.
+The forward and dh kernels read it as packed by a fourth kernel
+(:func:`xent_pack_w`): rounded to bf16 once a call, in the stored layout,
+``"dv"`` rows padded to :func:`packed_cols` columns; the dw/db kernel casts
+it per tile. ``dw`` comes back in the stored layout and dtype.
 
 Each kernel has a wrapper (:func:`xent_fwd`, :func:`xent_dh`,
-:func:`xent_dwdb`) that counts its launches in a ``launches`` attribute.
-A wrapper given CPU tensors computes the kernel's plain version
-(:func:`matmul_logsumexp_plain`, :func:`lse_backward_plain`); given CUDA
-tensors it launches the kernel or raises, with no fallback.
+:func:`xent_dwdb`, :func:`xent_pack_w`) that counts its launches in a
+``launches`` attribute. A wrapper given CPU tensors computes the kernel's
+plain version (:func:`matmul_logsumexp_plain`, :func:`lse_backward_plain`,
+:func:`pack_w_plain`); given CUDA tensors it launches the kernel or raises,
+with no fallback.
 """
 
 import ctypes
@@ -33,6 +36,9 @@ from autodist_tpu_torch.ops import _build
 PLAIN_V_CHUNK = 4096
 # The only model width the kernels are instantiated for (csrc/fused_xent.cu).
 KERNEL_D = 512
+# The packed "dv" table's rows are padded to a multiple of this many columns:
+# TMA reads rows whose byte stride is a multiple of 16.
+PACK_COLS = 8
 
 
 def _w_vd(w_layout: str) -> bool:
@@ -65,6 +71,21 @@ def _logits_chunk(hf, w, b, vd, v0, v1, dtype):
     if b is not None:
         logits = logits + b[v0:v1]
     return logits, wc
+
+
+def packed_cols(v: int) -> int:
+    """Columns of the packed ``"dv"`` table: ``v`` rounded up to
+    :data:`PACK_COLS` (``packed_cols`` in ``csrc/fused_xent.cu``)."""
+    return -(-v // PACK_COLS) * PACK_COLS
+
+
+def pack_w_plain(w, w_layout: str = "dv") -> torch.Tensor:
+    """Plain version of the pack kernel: w rounded to bf16 in its stored
+    layout; ``"dv"`` rows padded with zeros to :func:`packed_cols` columns."""
+    wp = w.to(torch.bfloat16)
+    if _w_vd(w_layout):
+        return wp.contiguous()
+    return torch.nn.functional.pad(wp, (0, packed_cols(w.shape[1]) - w.shape[1])).contiguous()
 
 
 def matmul_logsumexp_plain(h, w, b=None, w_layout: str = "dv",
@@ -117,18 +138,19 @@ def lse_backward_plain(h, w, b, lse, g, w_layout: str = "dv",
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_xent")
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.xent_pack_w.argtypes = [p, p, i, i, i, p]
     lib.xent_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.xent_dh.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.xent_dwdb.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    for fn in (lib.xent_fwd, lib.xent_dh, lib.xent_dwdb):
+    for fn in (lib.xent_pack_w, lib.xent_fwd, lib.xent_dh, lib.xent_dwdb):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_kernel_args(h, w, b, vd: bool, *vectors) -> Tuple[int, int, int]:
     """What the kernels take: bf16 ``h [N, 512]`` (16-byte aligned), f32 ``w``
-    in either layout, optional f32 ``b [V]``, f32 ``[N]`` vectors; all
-    contiguous, on h's card."""
+    in either layout, optional f32 ``b [V]`` (8-byte aligned), f32 ``[N]``
+    vectors; all contiguous, on h's card."""
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError("h and w must be 2-D")
     n, d, v = _dims(h, w, vd)
@@ -152,6 +174,9 @@ def _check_kernel_args(h, w, b, vd: bool, *vectors) -> Tuple[int, int, int]:
     if h.data_ptr() % 16:
         raise ValueError("the fused-xent kernels copy h in 16-byte chunks: its "
                          "data must be 16-byte aligned")
+    if b is not None and b.data_ptr() % 8:
+        raise ValueError("the fused-xent kernels read b two columns at a time: its "
+                         "data must be 8-byte aligned")
     return n, d, v
 
 
@@ -165,33 +190,60 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
 
 
+def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
+    """w as the forward and dh kernels read it: bf16 in its stored layout,
+    ``"dv"`` rows padded with zeros to :func:`packed_cols` columns. CUDA: the
+    pack kernel (no TPU counterpart: the Pallas kernels cast each block in
+    VMEM); CPU: :func:`pack_w_plain`."""
+    vd = _w_vd(w_layout)
+    if w.device.type == "cpu":
+        return pack_w_plain(w, w_layout)
+    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"the pack kernel takes a contiguous f32 2-D table, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    v, d = tuple(w.shape) if vd else tuple(w.shape[::-1])
+    if d != KERNEL_D:
+        raise ValueError(f"the fused-xent kernels are built for D = {KERNEL_D}, "
+                         f"got D = {d}")
+    shape = (v, d) if vd else (d, packed_cols(v))
+    wp = torch.empty(shape, dtype=torch.bfloat16, device=w.device)
+    with torch.cuda.device(w.device):
+        _launch(_lib().xent_pack_w, _ptr(w), _ptr(wp), d, v, int(vd),
+                torch.cuda.current_stream().cuda_stream)
+    xent_pack_w.launches += 1
+    return wp
+
+
 def xent_fwd(h, w, b, w_layout: str = "dv") -> torch.Tensor:
-    """f32 ``[N]`` ``logsumexp(h @ w + b)``. CUDA: the forward kernel
-    (replaces ``_fwd_kernel``); CPU: :func:`matmul_logsumexp_plain`."""
+    """f32 ``[N]`` ``logsumexp(h @ w + b)``. CUDA: the pack, then the
+    forward kernel (replaces ``_fwd_kernel``); CPU:
+    :func:`matmul_logsumexp_plain`."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
         return matmul_logsumexp_plain(h, w, b, w_layout)
     n, d, v = _check_kernel_args(h, w, b, vd)
     lse = torch.empty((n,), dtype=torch.float32, device=h.device)
     if n:
+        wp = xent_pack_w(w, w_layout)
         with torch.cuda.device(h.device):
-            _launch(_lib().xent_fwd, _ptr(h), _ptr(w), _ptr(b), _ptr(lse), n, d, v,
+            _launch(_lib().xent_fwd, _ptr(h), _ptr(wp), _ptr(b), _ptr(lse), n, d, v,
                     int(vd), torch.cuda.current_stream().cuda_stream)
         xent_fwd.launches += 1
     return lse
 
 
 def xent_dh(h, w, b, lse, g, w_layout: str = "dv") -> torch.Tensor:
-    """``dh`` of ``sum(g * lse)`` in h's dtype. CUDA: the dh kernel
-    (replaces ``_dh_kernel``); CPU: :func:`lse_backward_plain`."""
+    """``dh`` of ``sum(g * lse)`` in h's dtype. CUDA: the pack, then the dh
+    kernel (replaces ``_dh_kernel``); CPU: :func:`lse_backward_plain`."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
         return lse_backward_plain(h, w, b, lse, g, w_layout)[0]
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     dh = torch.empty((n, d), dtype=h.dtype, device=h.device)
     if n:
+        wp = xent_pack_w(w, w_layout)
         with torch.cuda.device(h.device):
-            _launch(_lib().xent_dh, _ptr(h), _ptr(w), _ptr(b), _ptr(lse), _ptr(g),
+            _launch(_lib().xent_dh, _ptr(h), _ptr(wp), _ptr(b), _ptr(lse), _ptr(g),
                     _ptr(dh), n, d, v, int(vd),
                     torch.cuda.current_stream().cuda_stream)
         xent_dh.launches += 1
@@ -219,9 +271,11 @@ def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv"):
     return dw, db
 
 
+xent_pack_w.launches = 0
 xent_fwd.launches = 0
 xent_dh.launches = 0
 xent_dwdb.launches = 0
+# The kernels that replace a TPU kernel; the pack runs beside them.
 KERNELS = (xent_fwd, xent_dh, xent_dwdb)
 
 

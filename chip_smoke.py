@@ -16,13 +16,19 @@ exits non-zero without them, or when any phase fails. Phases:
    dynamic shared memory.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
-   and without a bias, ragged N and V (1,000 x 31,999), and the main paths'
-   own shapes ("dv", no bias, V = 32,000): N = 8,192 (the flagship
-   micro-batch here) and 65,536 (the long-context step). Tolerance: lse
-   within 0.01 absolute; dh, dw and db within TILE_RTOL in every tile (see
-   ``worst_tile``). Then each kernel is timed at the flagship micro-batch
-   (N = 98,304) beside its plain version, the one PyTorch call computing
-   the same function where there is one, and its bound.
+   and without a bias, ragged N and V (1,000 x 31,999), the forward and dh
+   kernels' tiling edges (``XENT_EDGES``: N one short of and one past the
+   forward's 128-row and dh's 64-row blocks, V one past the forward's
+   128-column and dh's 64-column vocab tiles, every such V odd, so the
+   packed "dv" table is padded), and the main paths' own shapes ("dv", no
+   bias, V = 32,000): N = 8,192 (the flagship micro-batch here) and 65,536
+   (the long-context step). The pack kernel must equal its plain version
+   bit for bit. Tolerance: lse within 0.01 absolute; dh, dw and db within
+   TILE_RTOL in every tile (see ``worst_tile``). Then each kernel is timed
+   at the flagship micro-batch (N = 98,304) beside its plain version, the
+   one PyTorch call computing the same function where there is one, and its
+   bound, with the TFLOP/s reached and the share of the bound; and the pack
+   beside its bytes' bound.
 4. The flagship at full width (d512 x 6 layers, 8 heads, d_ff 2048, vocab
    32,000, seq 256, untied fused head, bf16 activations, f32 params) through
    ``AutoDist(resource_info=..., strategy_builder=AllReduce()).function``
@@ -131,6 +137,10 @@ RING_SHARDS = 4                   # shards of the ring replay on one card
 # whose first visible row falls in each consumer's rows of a block.
 EDGE_LENGTHS = (129, 193, LC_SEQ - 1)
 EDGE_K_OFFSETS = (100, 150, 200, 300)
+# The fused-head forward's blocks hold 128 rows and walk 128-column vocab
+# tiles, dh's 64 rows and 64-column tiles: (N, V) one short of or one past
+# each, every V odd (the packed "dv" table's row stride is padded to 8).
+XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
 
 
 def log(msg: str) -> None:
@@ -154,7 +164,8 @@ def ptxas_summary(build_log: str):
             mangled = line.split("for ", 1)[1].strip()
             kernel = next((k for k in ("flash_fwd_carry_kernel", "flash_fwd_kernel",
                                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                                       "xent_fwd_kernel", "xent_dh_kernel", "xent_dwdb_kernel")
+                                       "xent_fwd_kernel", "xent_dh_kernel", "xent_dwdb_kernel",
+                                       "xent_pack_kernel")
                            if k in mangled), mangled)
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             used = lines[i + 2].split("Used", 1)[-1].strip() if i + 2 < len(lines) else ""
@@ -203,9 +214,16 @@ def check_kernels(fx, dev):
     gen = torch.Generator().manual_seed(0)
     errs = {"xent_fwd": 0.0, "xent_dh": 0.0, "xent_dwdb": 0.0}
     cases = [(1000, V - 1, layout, bias) for layout in ("dv", "vd") for bias in (True, False)]
+    cases += [(n, v, layout, bias) for n, v in XENT_EDGES for layout in ("dv", "vd")
+              for bias in (True, False)]
     cases += [(MAIN_MICRO_ROWS, V, "dv", False), (LC_BATCH * LC_SEQ, V, "dv", False)]
     for n, v, layout, bias in cases:
         h, w, b, g = inputs(n, v, layout, bias, gen, dev)
+        packed = fx.xent_pack_w(w, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(packed, fx.pack_w_plain(w, layout)):
+            raise AssertionError(f"the pack kernel disagrees with its plain version at v={v} "
+                                 f"layout={layout}")
         lse = fx.xent_fwd(h, w, b, layout)
         dh = fx.xent_dh(h, w, b, lse, g, layout)
         dw, db = fx.xent_dwdb(h, w, b, lse, g, layout)
@@ -290,6 +308,12 @@ def time_kernels(fx, dev):
         log(f"time {name} N={n}: kernel {r['ms']:.3f} ms ({rate(r)}), plain "
             f"{r['plain_ms']:.3f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound'][0]:.3f} ms ({r['bound'][1]})")
+    # The pack runs inside the forward's and dh's wrappers, so their times
+    # above include it: f32 w read once, bf16 w written once.
+    pack_ms = time_ms(lambda: fx.xent_pack_w(w), 10)
+    log(f"time xent_pack_w D={D} V={V} (dv): {pack_ms:.3f} ms, plain "
+        f"{time_ms(lambda: fx.pack_w_plain(w), 10):.3f} ms, bound "
+        f"{bound(D * V * 6, 0)[0]:.3f} ms (bytes)")
     # The main path's own micro-batch, for the step-time breakdown.
     m = MAIN_MICRO_ROWS
     hm, lm, gm = h[:m], lse[:m], torch.full((m,), 1.0 / m, device=dev)
@@ -800,7 +824,9 @@ def main() -> int:
     ring_err = check_ring_replay(fa, dev)
     errs["flash_fwd_carry"] = max(errs["flash_fwd_carry"], ring_err)
     timing.update(time_carry(fa, dev))
-    every = fx.KERNELS + fa.KERNELS
+    # The pack is counted with them (it runs in the forward's and dh's
+    # wrappers), but it replaces no TPU kernel and has no row in the JSON line.
+    every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
     by_phase = {"flagship": main_path(every, dev),
                 "long_context": long_context_path(every, dev),
                 "sequence_parallel": sequence_parallel_path(every, dev)}

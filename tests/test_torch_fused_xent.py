@@ -52,7 +52,11 @@ def _torch_lse_and_grads(h, w, b, layout, coef):
     return lse.detach().numpy(), [t.grad.numpy() for t in ts if t is not None]
 
 
-@pytest.mark.parametrize("n,d,v", [(256, 128, 512), (200, 128, 384), (64, 64, 129)])
+# The last two: the kernels' width, N one short of the forward's 128-row block
+# with V one past its 128-column vocab tile, and N one past dh's 64-row block
+# with V one past its 64-column tile (both V odd: the packed "dv" table pads).
+@pytest.mark.parametrize("n,d,v", [(256, 128, 512), (200, 128, 384), (64, 64, 129),
+                                   (127, 512, 129), (65, 512, 65)])
 def test_lse_matches_jax(n, d, v):
     h, w, b = _data(n, d, v)
     want = jfx.matmul_logsumexp(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), 128, 256)
@@ -81,6 +85,46 @@ def test_grads_match_jax(layout, bias):
     for got, want in zip(grads_t, grads_j):
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, **GRAD)
+
+
+# The CUDA kernels' tiling edges at their one width, D = 512: the forward's
+# blocks hold 128 rows and walk 128-column vocab tiles, dh's 64 rows and
+# 64-column tiles; V odd is the packed "dv" table's padded stride.
+@pytest.mark.parametrize("n,v,layout,bias", [(127, 129, "dv", True), (129, 129, "vd", False),
+                                             (63, 65, "vd", True), (65, 65, "dv", False)])
+def test_grads_at_kernel_tiling_edges_match_jax(n, v, layout, bias):
+    h, w, b = _data(n, 512, v, seed=21)
+    w = _stored(w, layout)
+    b = b if bias else None
+    coef = np.random.RandomState(22).rand(n).astype(np.float32) * 0.01
+    lse_j, grads_j = _jax_lse_and_grads(h, w, b, layout, coef)
+    lse_t, grads_t = _torch_lse_and_grads(h, w, b, layout, coef)
+    np.testing.assert_allclose(lse_t, lse_j, **VAL)
+    assert len(grads_t) == len(grads_j)
+    for got, want in zip(grads_t, grads_j):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **GRAD)
+
+
+@pytest.mark.parametrize("layout", ["dv", "vd"])
+def test_pack_w_plain_matches_jax_cast(layout):
+    """The pack's plain version: w rounded to bf16 as the JAX kernels round
+    each block (``w_ref[...].astype(h_ref.dtype)``), in its stored layout;
+    "dv" rows padded with zeros to a multiple of 8 columns."""
+    v = 131
+    _, w, _ = _data(4, 512, v, seed=23)
+    w = _stored(w, layout)
+    got = tfx.pack_w_plain(torch.tensor(w), layout)
+    want = np.asarray(jnp.asarray(w).astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    if layout == "vd":
+        assert tuple(got.shape) == (v, 512)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        assert tuple(got.shape) == (512, tfx.packed_cols(v)) == (512, 136)
+        np.testing.assert_array_equal(got[:, :v].float().numpy(), want)
+        assert not got[:, v:].float().any()
+    assert tfx.packed_cols(136) == 136 and tfx.packed_cols(1) == 8
 
 
 def test_large_bias_with_padding_rows_matches_jax():
@@ -137,12 +181,14 @@ def test_plain_versions_chunk_invariant(layout):
 
 def test_cpu_wrappers_take_the_plain_versions_and_count_no_launch():
     h, w, b = (torch.tensor(x) for x in _data(32, 16, 40, seed=13))
-    before = [k.launches for k in tfx.KERNELS]
+    before = [k.launches for k in (*tfx.KERNELS, tfx.xent_pack_w)]
     lse = tfx.xent_fwd(h, w, b)
     g = torch.ones(32)
     dh = tfx.xent_dh(h, w, b, lse, g)
     dw, db = tfx.xent_dwdb(h, w, b, lse, g)
-    assert [k.launches for k in tfx.KERNELS] == before
+    wp = tfx.xent_pack_w(w)
+    assert [k.launches for k in (*tfx.KERNELS, tfx.xent_pack_w)] == before
+    assert wp.dtype == torch.bfloat16 and tuple(wp.shape) == (16, 40)
     assert dh.shape == h.shape and dw.shape == w.shape and db.shape == b.shape
 
 
