@@ -49,11 +49,67 @@
 //   the JAX units (the max of the scaled scores, natural log) and only the
 //   tiles that cross the diagonal or the sequence end are masked.
 //
-// The backward kernels (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) keep
-// the first design: each block owns 64 query rows (dQ) or 64 keys (dK/dV)
-// and walks the other side; each of its 4 warps owns 16 rows; products are
-// mma.sync m16n8k16 with operands from shared memory through ldmatrix,
-// the next tile double-buffered with cp.async into 144-byte padded rows.
+// What bounds the backward pair: the same two units. dK/dV does four
+// products over the causal half of the scores (S^T, dP^T, dV, dK: 1.112 ms
+// at the shape above) and dQ three (S, dP, dQ: 0.834 ms); each recomputes
+// p, one exp a score (0.55 ms), and ds = p (dP - D), and rounds p and ds to
+// bf16 as product operands. On an H100 neither unit alone holds them:
+// builds with the score products cut to a quarter, or without the exp,
+// ran only a little faster. What holds them is each consumer's chain from
+// its scores through p, ds and the bf16 packs to its accumulating
+// products, which the two (dK/dV) or three (dQ) consumers that fit in the
+// register file hide only in part.
+//
+// Backward design (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel), the
+// forward's means with the roles mirrored:
+// - Warp specialisation and TMA as in the forward: warpgroup 0 produces
+//   (setmaxnreg hands its registers to the consumers), each consumer
+//   warpgroup owns 64 rows of the block's side and walks 64-row tiles of
+//   the other side through a ring of BWD_STAGES stages (full and empty
+//   mbarriers). q, k, v and dO are read in place through 4-D tensor maps
+//   with 64-row boxes; rows past the sequence end arrive zero-filled.
+// - dQ: a block owns 192 query rows (three consumers; their Q and dO rows
+//   are loaded once, their lse and D read once into registers) and streams
+//   the K and V tiles they see, from the diagonal down. S = Q K^T and
+//   dP = dO V^T are m64n64k16 with both operands in shared memory
+//   (K-major); dQ += dS K takes dS from registers (re-packed as bf16 in
+//   place, as the forward's P) and the K tile as an MN-major operand. V's
+//   stage is released when dP lands, K's when dS K has run. Two consumers
+//   with Q and dO as register operands ran slower; three have no room for
+//   them.
+// - dK/dV: a block owns 128 keys (two consumers; K and V loaded once and
+//   read into registers as A fragments) and streams the Q, dO, lse and D
+//   tiles of the queries that see them, from the diagonal to the end. The
+//   consumers compute the transposed scores S^T = K Q^T and dP^T = V dO^T
+//   (A from registers, which halves their shared-memory reads), so that
+//   P^T and dS^T sit in the accumulator layout of a register A operand for
+//   dV += P^T dO and dK += dS^T Q, dO and Q MN-major from the stage. lse
+//   and D are f32 [B*H, Lq] rows whose length in bytes need not be a
+//   multiple of 16, so no TMA map takes them: the producer's first warp
+//   copies each tile's 64 values with cp.async and counts them on the
+//   stage's full barrier (cp.async.mbarrier.arrive.noinc). A thread reads
+//   the lse and D of its accumulator columns from the stage. dK and dV (32
+//   f32 registers a thread each) stay in registers for the whole walk.
+// - Ping-pong and pipelining as in the forward: the consumers take turns
+//   (named barriers) to issue three commit groups, the next tile's scores,
+//   its dP and the last tile's accumulating product(s); p is computed as
+//   soon as the scores land and ds as soon as dP does, beside that
+//   warpgroup's accumulating products and the other consumers' products.
+//   Every mbarrier wait comes before a turn's wgmma_fence, and no wgmma
+//   register is written under a branch, so ptxas serializes no wgmma.
+// - Grid: the block along the sequence is x, (batch, head) y. Blocks start
+//   in order of their linear index, so the blocks running at once share
+//   one or two heads, whose tiles stay in L2; with (batch, head) as x, the
+//   longest walks of every head first, both kernels ran slower.
+// - p = exp2(s * scale * log2(e) - lse * log2(e)), one FFMA before ex2.
+//   Only the tiles that cross the diagonal or a sequence end are masked,
+//   by a select after the exponential (p = 0 exactly, whatever lse is: a
+//   row that sees no key has lse near NEG_INF). Pad query rows in dK/dV
+//   lie only in masked tiles; pad keys in dK/dV and pad rows in dQ are
+//   computed and never stored. A dQ block whose rows see no key, and a
+//   dK/dV block whose keys no query sees, run no tile and write zeros.
+// - No atomics: every output row is written by the one block that owns it,
+//   so the bits are the same from run to run.
 //
 // Arithmetic follows the Pallas kernels: scale = 1/sqrt(64) in f32 on the f32
 // product; masked scores are NEG_INF and p = 0 at or below NEG_INF/2;
@@ -71,148 +127,17 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int HD = 64;        // head width: the flagship's d_model 512 / 8 heads
-constexpr int BQ = 64;        // backward: query rows per block, 16 per warp
-constexpr int BK = 64;        // backward: keys per tile
-constexpr int THREADS = 128;  // backward: 4 warps
-constexpr int LD = HD + 8;    // backward: shared-memory row stride in bf16 (144 bytes)
-constexpr int TILE = 64 * LD; // elements of one [64][LD] tile
-constexpr size_t TILE_BYTES = size_t(TILE) * 2;
 constexpr float NEG_INF = -1e30f;
-static_assert(BQ == 64 && BK == 64, "the tile helpers assume 64-row tiles");
 
-// dK/dV: K, V, two Q and two dO buffers, two lse and two D rows.
-constexpr size_t DKDV_SMEM = 6 * TILE_BYTES + 4 * BQ * sizeof(float);
-// dQ: Q, dO, two K and two V buffers.
-constexpr size_t DQ_SMEM = 6 * TILE_BYTES;
-
-// ------------------------------------------------------------ copies to smem
-
-// Asynchronous global -> shared copies; `bytes` 0 reads nothing and
-// zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + 64) of one head's [L, 64] slice (row stride `stride`
-// elements) -> tile, asynchronously; rows >= n are zeros.
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ base, int r0,
-                                          int n, int stride) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int j = 0; j < 64 * CHUNKS / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(tile + r * LD + c, ok ? base + size_t(r0 + r) * stride + c : base, ok ? 16 : 0);
-  }
-}
-
-// f32 entries [r0, r0 + 64) of `row` -> dst, asynchronously; entries >= n
-// are zeros. Threads t0 .. t0 + 63 take one entry each.
-__device__ __forceinline__ void load_row(float* dst, const float* __restrict__ row, int r0,
-                                         int n, int t0) {
-  const int i = threadIdx.x - t0;
-  if (i >= 0 && i < 64) {
-    const bool ok = r0 + i < n;
-    cp_async4(dst + i, ok ? row + r0 + i : row, ok ? 4 : 0);
-  }
-}
-
-// -------------------------------------------------------- tensor-core pieces
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-// d[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// This lane's row address for an x4 ldmatrix of the 16x16 block at (row0,
-// col0) of a tile, the four 8x8 matrices taken as (rows 0-7, cols 0-7),
-// (8-15, 0-7), (0-7, 8-15), (8-15, 8-15): the A operand's order, and, with
-// .trans, the B operands of two n-tiles from a [k][n] tile.
-__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int row0, int col0, int lane) {
-  return tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col0 + (lane >> 4) * 8;
-}
-// The same for the order (0-7, 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15):
-// the B operands of two n-tiles from an [n][k] tile, without .trans.
-__device__ __forceinline__ const bf16* b_addr(const bf16* tile, int row0, int col0, int lane) {
-  return tile + (row0 + (lane & 7) + (lane >> 4) * 8) * LD + col0 + ((lane >> 3) & 1) * 8;
-}
-
-// A operand: rows row0 .. row0 + 15 of a tile, all 64 columns (4 k-chunks).
-__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* tile, int row0,
-                                       int lane) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) ldmatrix_x4(a[kc], a_addr(tile, row0, kc * 16, lane));
-}
-
-// acc[16 x 64] += A[16 x 64] . Bt^T, where Bt is a [64 n][64 k] tile (the
-// keys, or the queries, in their stored layout): the score-shaped products.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const unsigned (&a)[4][4],
-                                        const bf16* bt, int lane) {
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      unsigned b[4];
-      ldmatrix_x4(b, b_addr(bt, np * 16, kc * 16, lane));
-      mma_bf16(acc[2 * np], a[kc], b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a[kc], b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x 64] += P[16 x 64] . Bm, where Bm is a [64 k][64 n] tile (V, dO, Q
-// or K in their stored layout) and P is held as bf16 A fragments.
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const unsigned (&p)[4][4],
-                                       const bf16* bm, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, a_addr(bm, kc * 16, np * 16, lane));
-      mma_bf16(acc[2 * np], p[kc], b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], p[kc], b[2], b[3]);
-    }
-  }
-}
-
-// An f32 accumulator tile [16 x 16 KC] (2 KC n-tiles) -> the bf16 A
-// fragments of the product that contracts over its columns.
+// An f32 accumulator tile [64 x 16 KC] (2 KC n-tiles of 8 columns) -> the
+// bf16 A fragments of the product that contracts over its columns
+// (wgmma's accumulator layout per warp is the mma.sync C layout, its
+// register A operand the mma.sync A layout).
 template <int KC>
 __device__ __forceinline__ void to_a(unsigned (&p)[KC][4], const float (&s)[2 * KC][4]) {
 #pragma unroll
@@ -256,18 +181,6 @@ __device__ __forceinline__ void store_rows(float* base, const float (&acc)[8][4]
       *reinterpret_cast<float2*>(base + size_t(row) * stride + nt * 8 + (lane % 4) * 2) =
           make_float2(acc[nt][2 * i] * mul, acc[nt][2 * i + 1] * mul);
   }
-}
-
-// Is the score of query qp (local) and key kp (local) masked?
-__device__ __forceinline__ bool invalid(int qp, int kp, int lq, int lk, int causal, int q_off,
-                                        int k_off) {
-  return qp >= lq || kp >= lk || (causal && k_off + kp > q_off + qp);
-}
-
-// Keys a block of query rows [q0, q0 + 64) needs: [0, end).
-__device__ __forceinline__ int key_end(int q0, int lq, int lk, int causal, int q_off,
-                                       int k_off) {
-  return causal ? min(lk, q_off - k_off + min(q0 + BQ, lq)) : lk;
 }
 
 // ------------------------------------------------------------------ forward
@@ -617,199 +530,541 @@ flash_fwd_carry_kernel(const __grid_constant__ CUtensorMap qm,
   forward_walk<true>(&qm, &km, &vm, p);
 }
 
-// -------------------------------------------------------------------- dK/dV
+// ----------------------------------------------------------------- backward
 
-// One block per 64 keys of one (batch, head), walking the query tiles from
-// the diagonal to the end. Warp w owns keys k0 + 16w .. +16 and computes the
-// transposed score tile S^T = K Q^T, so that P^T and dS^T come out as the A
-// operands of dV += P^T dO and dK += dS^T Q.
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ dd,
-                      OutT* __restrict__ dk, OutT* __restrict__ dv, int H, int lq, int lk,
-                      int causal, int q_off, int k_off, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + TILE;
-  bf16* qs = vs + TILE;      // [2][TILE]
-  bf16* dos = qs + 2 * TILE; // [2][TILE]
-  float* ls = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][BQ] lse
-  float* ds_ = ls + 2 * BQ;                               // [2][BQ] D
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int stride = H * HD;
-  const bf16* qb = q + (size_t(b) * lq * H + h) * HD;
-  const bf16* dob = dout + (size_t(b) * lq * H + h) * HD;
-  const bf16* kb = k + (size_t(b) * lk * H + h) * HD;
-  const bf16* vb = v + (size_t(b) * lk * H + h) * HD;
-  const float* lrow = lse + size_t(bh) * lq;
-  const float* drow = dd + size_t(bh) * lq;
-  // The first query that sees key k0; tiles before its own see none of this block's keys.
-  const int t0 = causal ? max(0, k_off - q_off + k0) / BQ : 0;
-  const int n_q_tiles = (lq + BQ - 1) / BQ;
+// Every backward tile holds 64 rows of one head (one 8 KB TMA box): a
+// consumer's own rows and each streamed tile of keys (dQ) or queries (dK/dV).
+constexpr int BT = 64;
+constexpr unsigned TILE_BYTES = BT * HD * 2;
+constexpr int BWD_STAGES = 4;  // ring depth of the streamed tiles
 
-  load_tile(ks, kb, k0, lk, stride);
-  load_tile(vs, vb, k0, lk, stride);
-  if (t0 < n_q_tiles) {
-    load_tile(qs, qb, t0 * BQ, lq, stride);
-    load_tile(dos, dob, t0 * BQ, lq, stride);
-    load_row(ls, lrow, t0 * BQ, lq, 0);
-    load_row(ds_, drow, t0 * BQ, lq, 64);
+// dQ: three consumers (as the forward) of 64 query rows; S, dP and dQ are
+// 32 f32 registers a thread each, beside dS of the last tile, in 160.
+constexpr int DQ_NC = 3;
+constexpr int DQ_BM = BT * DQ_NC;
+constexpr int DQ_THREADS = 128 * (1 + DQ_NC);
+constexpr int DQ_PRODUCER_REGS = 32;
+constexpr int DQ_CONSUMER_REGS = 160;
+static_assert(128 * DQ_PRODUCER_REGS + 128 * DQ_NC * DQ_CONSUMER_REGS <= 65536, "register file");
+
+// dK/dV: two consumers of 64 keys; S^T, dP^T, dK and dV are 32 f32
+// registers a thread each, beside P^T and dS^T of the last tile and the
+// consumer's K and V rows as A fragments, in 232.
+constexpr int DKDV_NC = 2;
+constexpr int DKDV_BK = BT * DKDV_NC;
+constexpr int DKDV_THREADS = 128 * (1 + DKDV_NC);
+constexpr int DKDV_PRODUCER_REGS = 40;
+constexpr int DKDV_CONSUMER_REGS = 232;
+static_assert(128 * DKDV_PRODUCER_REGS + 128 * DKDV_NC * DKDV_CONSUMER_REGS <= 65536,
+              "register file");
+
+struct DqSmem {
+  alignas(1024) bf16 q[DQ_NC][BT * HD];
+  alignas(1024) bf16 dout[DQ_NC][BT * HD];
+  alignas(1024) bf16 k[BWD_STAGES][BT * HD];
+  alignas(1024) bf16 v[BWD_STAGES][BT * HD];
+  uint64_t q_full;
+  uint64_t k_full[BWD_STAGES], v_full[BWD_STAGES];
+  uint64_t k_empty[BWD_STAGES], v_empty[BWD_STAGES];
+};
+constexpr size_t DQ_SMEM = sizeof(DqSmem) + 1024;  // + room to align the base
+
+struct DkdvSmem {
+  alignas(1024) bf16 k[DKDV_NC][BT * HD];
+  alignas(1024) bf16 v[DKDV_NC][BT * HD];
+  alignas(1024) bf16 q[BWD_STAGES][BT * HD];
+  alignas(1024) bf16 dout[BWD_STAGES][BT * HD];
+  float lse[BWD_STAGES][BT];
+  float dd[BWD_STAGES][BT];
+  uint64_t kv_full;
+  uint64_t full[BWD_STAGES], empty[BWD_STAGES];
+};
+constexpr size_t DKDV_SMEM = sizeof(DkdvSmem) + 1024;
+// A dK/dV stage fills when the TMA thread's expect_tx and the 32 lanes'
+// cp.async arrivals (lse and D) are all in.
+constexpr unsigned DKDV_FULL_ARRIVALS = 1 + 32;
+
+// What both backward kernels take besides the tensor maps of q, k, v and dO.
+struct BwdParams {
+  int h, lq, lk, causal, q_off, k_off;
+  const float* lse;
+  const float* dd;
+  void* out0;  // dq, or dk
+  void* out1;  // dv
+};
+
+template <typename T>
+__device__ __forceinline__ T& align1024(unsigned char* raw) {
+  return *reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// A 4-byte global -> shared copy; `bytes` 0 reads nothing and writes 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// One arrival on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// A consumer's own 64 rows, a 128-byte-swizzled [64][64] tile (TMA's
+// layout: the 16-byte chunk c of row r sits at chunk c ^ (r % 8)), as the
+// bf16 A fragments of a product over the head width: warp w holds rows
+// 16 w .. 16 w + 15 in the mma.sync A layout. Read once a block.
+__device__ __forceinline__ void load_a(unsigned (&a)[HD / 16][4], const bf16* tile) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = warp * 16 + lane / 4 + 8 * (j & 1);
+      const int col = kc * 16 + (lane % 4) * 2 + 8 * (j >> 1);
+      a[kc][j] = *reinterpret_cast<const unsigned*>(
+          base + row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2)));
+    }
+}
+
+// s = A X^T over the head width (4 k steps): A a consumer's own 64 rows
+// as register fragments, X a streamed tile, K-major in shared memory. A
+// from registers halves the shared-memory reads of an m64n64k16, which
+// with both operands in shared memory needs all of the SM's 128 bytes a
+// clock at the tensor cores' rate.
+__device__ __forceinline__ void issue_score(float (&s)[8][4], const unsigned (&a)[HD / 16][4],
+                                            const bf16* x) {
+  const uint64_t dx = sw128_desc(x);
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) wgmma_m64n64k16_rs<0>(s, a[kc], dx + 2 * kc, kc);
+}
+// The same with A in shared memory too (descriptor da): dQ's three
+// consumers have no room for A fragments at 160 registers.
+__device__ __forceinline__ void issue_score(float (&s)[8][4], uint64_t da, const bf16* x) {
+  const uint64_t dx = sw128_desc(x);
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) wgmma_m64n64k16_ss<0>(s, da + 2 * kc, dx + 2 * kc, kc);
+}
+// acc += A T over a streamed tile T (its 64 rows the contraction: 4 k
+// steps of 2048 bytes, T MN-major), A as bf16 register fragments.
+__device__ __forceinline__ void issue_acc(float (&acc)[8][4], const unsigned (&a)[BT / 16][4],
+                                          const bf16* t) {
+  const uint64_t dt = sw128_desc(t);
+#pragma unroll
+  for (int kc = 0; kc < BT / 16; ++kc) wgmma_m64n64k16_rs(acc, a[kc], dt + 128 * kc);
+}
+
+// dQ's p on one key tile: s (raw scores, this thread's rows row0 and
+// row0 + 8, keys k0 + 8 nt + col (+1)) becomes p = exp2(s scale log2e -
+// lse2), set to 0 past the sequence end and the diagonal if asked; lse2 =
+// lse log2e of the thread's two rows.
+__device__ __forceinline__ void dq_p(float (&s)[8][4], const float (&lse2)[2], bool need_mask,
+                                     int row0, int k0, int col, const BwdParams& p) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = ex2(fmaf(s[nt][e], SCALE * LOG2E, -lse2[e >> 1]));
+  if (need_mask) {
+    // Each row sees the tile's keys below a limit: the sequence end, and
+    // with causal masking its own position.
+    int limit[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      limit[i] = p.lk - k0 - col;
+      if (p.causal) limit[i] = min(limit[i], p.q_off - p.k_off + row0 + 8 * i + 1 - k0 - col);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nt * 8 + (e & 1) >= limit[e >> 1]) s[nt][e] = 0.f;
   }
-  cp_async_commit();
+}
 
-  const int key0 = k0 + warp * 16 + lane / 4;  // this thread's keys: key0 and key0 + 8
-  const int col = (lane % 4) * 2;              // and query columns col, col + 1 of each n-tile
-  float dka[8][4], dva[8][4];
-  zero(dka);
-  zero(dva);
-  for (int t = t0; t < n_q_tiles; ++t) {
-    const int buf = (t - t0) & 1;
-    cp_async_wait_all();
-    __syncthreads();
-    if (t + 1 < n_q_tiles) {
-      const int nb = buf ^ 1;
-      load_tile(qs + nb * TILE, qb, (t + 1) * BQ, lq, stride);
-      load_tile(dos + nb * TILE, dob, (t + 1) * BQ, lq, stride);
-      load_row(ls + nb * BQ, lrow, (t + 1) * BQ, lq, 0);
-      load_row(ds_ + nb * BQ, drow, (t + 1) * BQ, lq, 64);
-      cp_async_commit();
-    }
-    const bf16* qt = qs + buf * TILE;
-    const bf16* dot = dos + buf * TILE;
-    const float* lt = ls + buf * BQ;
-    const float* dt = ds_ + buf * BQ;
-    const int qt0 = t * BQ;
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    {
-      unsigned a[4][4];
-      load_a(a, ks, warp * 16, lane);
-      mma_abt(s, a, qt, lane);  // S^T [keys x queries]
-      load_a(a, vs, warp * 16, lane);
-      mma_abt(dp, a, dot, lane);  // dP^T
-    }
-    const bool need_mask =
-        qt0 + BQ > lq || k0 + BK > lk || (causal && k_off + k0 + BK - 1 > q_off + qt0);
+// dK/dV's p^T on one query tile: s (raw transposed scores, this thread's
+// keys key0 and key0 + 8, queries qt0 + 8 nt + col (+1)) becomes p^T, with
+// the tile's lse from the stage, two columns a load.
+__device__ __forceinline__ void dkdv_p(float (&s)[8][4], const float* lse, bool need_mask,
+                                       int key0, int qt0, int col, const BwdParams& p) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + nt * 8 + col);
+    const float l2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = ex2(fmaf(s[nt][e], SCALE * LOG2E, -l2[e & 1]));
+  }
+  if (need_mask) {
+    // Query column c of the tile is visible to a key iff lo <= c < hi: the
+    // sequence end, and with causal masking q_off + q >= k_off + key.
+    const int hi = p.lq - qt0 - col;
+    int lo[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lo[i] = p.causal ? p.k_off - p.q_off + key0 + 8 * i - qt0 - col : -BT;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + col + (e & 1);
-        float p = __expf(s[nt][e] * scale - lt[qi]);
-        if (need_mask &&
-            invalid(qt0 + qi, key0 + 8 * (e >> 1), lq, lk, causal, q_off, k_off))
-          p = 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - dt[qi]);
+        const int c = nt * 8 + (e & 1);
+        if (c < lo[e >> 1] || c >= hi) s[nt][e] = 0.f;
       }
-    unsigned pa[4][4];
-    to_a(pa, s);
-    mma_ab(dva, pa, dot, lane);
-    to_a(pa, dp);
-    mma_ab(dka, pa, qt, lane);
   }
-  cp_async_wait_all();
-
-  const size_t head = (size_t(b) * lk * H + h) * HD;
-  store_rows(dk + head, dka, k0 + warp * 16, lk, stride, scale, lane);
-  store_rows(dv + head, dva, k0 + warp * 16, lk, stride, 1.f, lane);
 }
 
-// ----------------------------------------------------------------------- dQ
+// Named barriers 1 .. NC order a kernel's consumers round robin, as in the
+// forward: consumer c waits on 1 + c and then releases 1 + (c + 1) % NC.
+// Each round issues, in the consumer's turn, three commit groups: the next
+// tile's scores, its dP, and the last tile's accumulating product(s). p is
+// computed as soon as the scores land, ds as soon as dP does, beside the
+// accumulating products and the other consumers' products.
 
-// One block per 64 query rows of one (batch, head), walking the key tiles up
-// to the diagonal, as the forward does.
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dd,
-                    OutT* __restrict__ dq, int H, int lq, int lk, int causal, int q_off,
-                    int k_off, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + TILE;
-  bf16* ks = dos + TILE;      // [2][TILE]
-  bf16* vs = ks + 2 * TILE;   // [2][TILE]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int stride = H * HD;
-  const bf16* qb = q + (size_t(b) * lq * H + h) * HD;
-  const bf16* dob = dout + (size_t(b) * lq * H + h) * HD;
-  const bf16* kb = k + (size_t(b) * lk * H + h) * HD;
-  const bf16* vb = v + (size_t(b) * lk * H + h) * HD;
-  const int k_end = key_end(q0, lq, lk, causal, q_off, k_off);
-  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-  load_tile(qs, qb, q0, lq, stride);
-  load_tile(dos, dob, q0, lq, stride);
-  if (n_tiles > 0) {
-    load_tile(ks, kb, 0, lk, stride);
-    load_tile(vs, vb, 0, lk, stride);
-  }
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + lane / 4;
+// One dQ consumer (rows qc .. qc + 63) over the block's n_tiles key tiles,
+// from the last down. V's stage is released when dP lands, K's when dS K
+// has run.
+__device__ __forceinline__ void dq_consume(DqSmem& sm, int c, int qc, int n_tiles,
+                                           const BwdParams& p, const float (&lse2)[2],
+                                           const float (&dd)[2], float (&dq)[8][4]) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int row0 = qc + warp * 16 + lane / 4;
   const int col = (lane % 4) * 2;
-  float row_lse[2], row_d[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    row_lse[i] = row < lq ? lse[size_t(bh) * lq + row] : 0.f;
-    row_d[i] = row < lq ? dd[size_t(bh) * lq + row] : 0.f;
-  }
-  float dqa[8][4];
-  zero(dqa);
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (t + 1 < n_tiles) {
-      const int nb = (t + 1) & 1;
-      load_tile(ks + nb * TILE, kb, (t + 1) * BK, lk, stride);
-      load_tile(vs + nb * TILE, vb, (t + 1) * BK, lk, stride);
-      cp_async_commit();
-    }
-    const bf16* kt = ks + (t & 1) * TILE;
-    const bf16* vt = vs + (t & 1) * TILE;
-    const int k0 = t * BK;
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    {
-      unsigned a[4][4];
-      load_a(a, qs, warp * 16, lane);
-      mma_abt(s, a, kt, lane);  // S
-      load_a(a, dos, warp * 16, lane);
-      mma_abt(dp, a, vt, lane);  // dP
-    }
-    const bool need_mask =
-        q0 + BQ > lq || k0 + BK > lk || (causal && k_off + k0 + BK - 1 > q_off + q0);
+  const int my_turn = 1 + c, their_turn = 1 + (c + 1) % DQ_NC;
+  float s[8][4], dp[8][4];
+  unsigned ds[BT / 16][4];  // dS of the last tile, bf16 A fragments
+  const uint64_t d_q = sw128_desc(sm.q[c]), d_do = sw128_desc(sm.dout[c]);
+  auto probs = [&](int i) {
+    const int k0 = (n_tiles - 1 - i) * BT;
+    const bool need_mask = k0 + BT > p.lk || (p.causal && p.k_off + k0 + BT - 1 > p.q_off + qc);
+    dq_p(s, lse2, need_mask, row0, k0, col, p);
+  };
+  auto grads = [&]() {  // s = ds = p (dP - D)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = __expf(s[nt][e] * scale - row_lse[i]);
-        if (need_mask &&
-            invalid(row0 + 8 * i, k0 + nt * 8 + col + (e & 1), lq, lk, causal, q_off, k_off))
-          p = 0.f;
-        dp[nt][e] = p * (dp[nt][e] - row_d[i]);
-      }
-    unsigned pa[4][4];
-    to_a(pa, dp);
-    mma_ab(dqa, pa, kt, lane);
-  }
-  cp_async_wait_all();
+      for (int e = 0; e < 4; ++e) s[nt][e] *= dp[nt][e] - dd[e >> 1];
+  };
+  mbar_wait(&sm.q_full, 0);
+  if (c == DQ_NC - 1) named_arrive(1);  // consumer 0 goes first
 
-  store_rows(dq + (size_t(b) * lq * H + h) * HD, dqa, q0 + warp * 16, lq, stride, scale, lane);
+  mbar_wait(&sm.k_full[0], 0);
+  mbar_wait(&sm.v_full[0], 0);
+  named_sync(my_turn);
+  wgmma_fence();
+  issue_score(s, d_q, sm.k[0]);
+  wgmma_commit();
+  issue_score(dp, d_do, sm.v[0]);
+  wgmma_commit();
+  named_arrive(their_turn);
+  wgmma_wait<1>();  // S
+  fence_regs(s);
+  probs(0);
+  wgmma_wait<0>();  // dP
+  fence_regs(dp);
+  if (lane == 0) mbar_arrive(&sm.v_empty[0]);
+  grads();
+  to_a(ds, s);
+
+  int stage = 0, parity = 0;  // the last tile's
+  for (int i = 1; i < n_tiles; ++i) {
+    const int next = stage + 1 == BWD_STAGES ? 0 : stage + 1;
+    const int next_parity = next == 0 ? parity ^ 1 : parity;
+    mbar_wait(&sm.k_full[next], next_parity);
+    mbar_wait(&sm.v_full[next], next_parity);
+    named_sync(my_turn);
+    fence_regs(dq);
+    wgmma_fence();
+    issue_score(s, d_q, sm.k[next]);
+    wgmma_commit();
+    issue_score(dp, d_do, sm.v[next]);
+    wgmma_commit();
+    issue_acc(dq, ds, sm.k[stage]);
+    wgmma_commit();
+    named_arrive(their_turn);
+    wgmma_wait<2>();  // S
+    fence_regs(s);
+    probs(i);
+    wgmma_wait<1>();  // dP
+    fence_regs(dp);
+    if (lane == 0) mbar_arrive(&sm.v_empty[next]);
+    grads();
+    wgmma_wait<0>();  // dS K
+    fence_regs(dq);
+    fence_regs(ds);
+    if (lane == 0) mbar_arrive(&sm.k_empty[stage]);
+    to_a(ds, s);
+    stage = next;
+    parity = next_parity;
+  }
+
+  named_sync(my_turn);
+  fence_regs(dq);
+  wgmma_fence();
+  issue_acc(dq, ds, sm.k[stage]);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  fence_regs(ds);
+  // The last consumer's last round has no round of consumer 0's left to release.
+  if (c != DQ_NC - 1) named_arrive(their_turn);
+  if (lane == 0) mbar_arrive(&sm.k_empty[stage]);
 }
 
+// One block per DQ_BM query rows of one (batch, head), each head's longest
+// causal rows first; the key tiles they see are walked from the diagonal
+// down.
+template <typename OutT>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                    const __grid_constant__ CUtensorMap vm,
+                    const __grid_constant__ CUtensorMap dom, const BwdParams p) {
+  extern __shared__ unsigned char dq_smem[];
+  DqSmem& sm = align1024<DqSmem>(dq_smem);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;
+  const int bh = blockIdx.y, b = bh / p.h, h = bh % p.h;
+  const int k_end = p.causal ? min(p.lk, p.q_off - p.k_off + min(q0 + DQ_BM, p.lq)) : p.lk;
+  const int n_tiles = k_end > 0 ? (k_end + BT - 1) / BT : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 4 * DQ_NC);
+      mbar_init(&sm.v_empty[s], 4 * DQ_NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy, in the consumers' order.
+    setmaxnreg_dec<DQ_PRODUCER_REGS>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      // Only consumers with a row inside the sequence get their Q and dO rows.
+      const int parts = min(DQ_NC, (p.lq - q0 + BT - 1) / BT);
+      mbar_expect_tx(&sm.q_full, 2 * parts * TILE_BYTES);
+      for (int c = 0; c < parts; ++c) {
+        tma_load(sm.q[c], &qm, &sm.q_full, 0, h, q0 + BT * c, b);
+        tma_load(sm.dout[c], &dom, &sm.q_full, 0, h, q0 + BT * c, b);
+      }
+      int stage = 0, parity = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (n_tiles - 1 - i) * BT;
+        mbar_wait(&sm.k_empty[stage], parity ^ 1);
+        mbar_expect_tx(&sm.k_full[stage], TILE_BYTES);
+        tma_load(sm.k[stage], &km, &sm.k_full[stage], 0, h, k0, b);
+        mbar_wait(&sm.v_empty[stage], parity ^ 1);
+        mbar_expect_tx(&sm.v_full[stage], TILE_BYTES);
+        tma_load(sm.v[stage], &vm, &sm.v_full[stage], 0, h, k0, b);
+        if (++stage == BWD_STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<DQ_CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int qc = q0 + BT * c;
+    const int row0 = qc + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      lse2[i] = row < p.lq ? p.lse[size_t(bh) * p.lq + row] * LOG2E : 0.f;
+      dd[i] = row < p.lq ? p.dd[size_t(bh) * p.lq + row] : 0.f;
+    }
+    float dq[8][4];
+    zero(dq);
+    if (n_tiles > 0) dq_consume(sm, c, qc, n_tiles, p, lse2, dd, dq);
+    store_rows(static_cast<OutT*>(p.out0) + (size_t(b) * p.lq * p.h + h) * HD, dq,
+               qc + warp * 16, p.lq, p.h * HD, SCALE, lane);
+  }
+}
+
+// One dK/dV consumer (keys kc .. kc + 63) over the block's n_tiles query
+// tiles, from tile t0 (the diagonal) to the end. A stage (Q, dO, lse, D) is
+// released when dV += P^T dO and dK += dS^T Q have run on it.
+__device__ __forceinline__ void dkdv_consume(DkdvSmem& sm, int c, int kc, int t0, int n_tiles,
+                                             const BwdParams& p, float (&dk)[8][4],
+                                             float (&dv)[8][4]) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int key0 = kc + warp * 16 + lane / 4;
+  const int col = (lane % 4) * 2;
+  const int my_turn = 1 + c, their_turn = 1 + (c + 1) % DKDV_NC;
+  float s[8][4], dp[8][4];
+  unsigned d_k[HD / 16][4], d_v[HD / 16][4];  // this consumer's K and V rows
+  unsigned pa[BT / 16][4], dsa[BT / 16][4];  // P^T and dS^T of the last tile, bf16 A fragments
+  auto probs = [&](int i, int stage) {
+    const int qt0 = (t0 + i) * BT;
+    const bool need_mask = qt0 + BT > p.lq || (p.causal && p.k_off + kc + BT - 1 > p.q_off + qt0);
+    dkdv_p(s, sm.lse[stage], need_mask, key0, qt0, col, p);
+  };
+  auto grads = [&](int stage) {  // dp = ds^T = p^T (dP^T - D)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 d = *reinterpret_cast<const float2*>(sm.dd[stage] + nt * 8 + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? d.y : d.x));
+    }
+  };
+  mbar_wait(&sm.kv_full, 0);
+  load_a(d_k, sm.k[c]);
+  load_a(d_v, sm.v[c]);
+  if (c == DKDV_NC - 1) named_arrive(1);  // consumer 0 goes first
+
+  mbar_wait(&sm.full[0], 0);
+  named_sync(my_turn);
+  wgmma_fence();
+  issue_score(s, d_k, sm.q[0]);
+  wgmma_commit();
+  issue_score(dp, d_v, sm.dout[0]);
+  wgmma_commit();
+  named_arrive(their_turn);
+  wgmma_wait<1>();  // S^T
+  fence_regs(s);
+  probs(0, 0);
+  wgmma_wait<0>();  // dP^T
+  fence_regs(dp);
+  grads(0);
+  to_a(pa, s);
+  to_a(dsa, dp);
+
+  int stage = 0, parity = 0;  // the last tile's
+  for (int i = 1; i < n_tiles; ++i) {
+    const int next = stage + 1 == BWD_STAGES ? 0 : stage + 1;
+    const int next_parity = next == 0 ? parity ^ 1 : parity;
+    mbar_wait(&sm.full[next], next_parity);
+    named_sync(my_turn);
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    issue_score(s, d_k, sm.q[next]);
+    wgmma_commit();
+    issue_score(dp, d_v, sm.dout[next]);
+    wgmma_commit();
+    issue_acc(dv, pa, sm.dout[stage]);
+    issue_acc(dk, dsa, sm.q[stage]);
+    wgmma_commit();
+    named_arrive(their_turn);
+    wgmma_wait<2>();  // S^T
+    fence_regs(s);
+    probs(i, next);
+    wgmma_wait<1>();  // dP^T
+    fence_regs(dp);
+    grads(next);
+    wgmma_wait<0>();  // dV and dK
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    to_a(pa, s);
+    to_a(dsa, dp);
+    stage = next;
+    parity = next_parity;
+  }
+
+  named_sync(my_turn);
+  fence_regs(dk);
+  fence_regs(dv);
+  wgmma_fence();
+  issue_acc(dv, pa, sm.dout[stage]);
+  issue_acc(dk, dsa, sm.q[stage]);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+  fence_regs(pa);
+  fence_regs(dsa);
+  if (c != DKDV_NC - 1) named_arrive(their_turn);
+  if (lane == 0) mbar_arrive(&sm.empty[stage]);
+}
+
+// One block per DKDV_BK keys of one (batch, head), the query tiles that see
+// them walked from the diagonal to the end; in causal attention the first
+// keys see the most queries, so each head's longest walks start first.
+template <typename OutT>
+__global__ void __launch_bounds__(DKDV_THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qm,
+                      const __grid_constant__ CUtensorMap km,
+                      const __grid_constant__ CUtensorMap vm,
+                      const __grid_constant__ CUtensorMap dom, const BwdParams p) {
+  extern __shared__ unsigned char dkdv_smem[];
+  DkdvSmem& sm = align1024<DkdvSmem>(dkdv_smem);
+  const int k0 = blockIdx.x * DKDV_BK;
+  const int bh = blockIdx.y, b = bh / p.h, h = bh % p.h;
+  // The first query that sees key k0; tiles before its own see none of this block's keys.
+  const int t0 = p.causal ? max(0, p.k_off - p.q_off + k0) / BT : 0;
+  const int n_tiles = max(0, (p.lq + BT - 1) / BT - t0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(&sm.full[s], DKDV_FULL_ARRIVALS);
+      mbar_init(&sm.empty[s], 4 * DKDV_NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: warp 0. Its lane 0 issues the TMA copies; all 32 lanes
+    // copy the tile's lse and D (rows past lq read as 0).
+    setmaxnreg_dec<DKDV_PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32 && n_tiles > 0) {
+      if (lane == 0) {
+        const int parts = min(DKDV_NC, (p.lk - k0 + BT - 1) / BT);
+        mbar_expect_tx(&sm.kv_full, 2 * parts * TILE_BYTES);
+        for (int c = 0; c < parts; ++c) {
+          tma_load(sm.k[c], &km, &sm.kv_full, 0, h, k0 + BT * c, b);
+          tma_load(sm.v[c], &vm, &sm.kv_full, 0, h, k0 + BT * c, b);
+        }
+      }
+      const float* lrow = p.lse + size_t(bh) * p.lq;
+      const float* drow = p.dd + size_t(bh) * p.lq;
+      int stage = 0, parity = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int qt0 = (t0 + i) * BT;
+        mbar_wait(&sm.empty[stage], parity ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&sm.full[stage], 2 * TILE_BYTES);
+          tma_load(sm.q[stage], &qm, &sm.full[stage], 0, h, qt0, b);
+          tma_load(sm.dout[stage], &dom, &sm.full[stage], 0, h, qt0, b);
+        }
+#pragma unroll
+        for (int j = 0; j < BT / 32; ++j) {
+          const int r = qt0 + lane + 32 * j;
+          const bool ok = r < p.lq;
+          cp_async4(&sm.lse[stage][lane + 32 * j], ok ? lrow + r : lrow, ok ? 4 : 0);
+          cp_async4(&sm.dd[stage][lane + 32 * j], ok ? drow + r : drow, ok ? 4 : 0);
+        }
+        cp_async_arrive(&sm.full[stage]);
+        if (++stage == BWD_STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    }
+  } else {
+    setmaxnreg_inc<DKDV_CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int kc = k0 + BT * c;
+    float dk[8][4], dv[8][4];
+    zero(dk);
+    zero(dv);
+    if (n_tiles > 0) dkdv_consume(sm, c, kc, t0, n_tiles, p, dk, dv);
+    const size_t head = (size_t(b) * p.lk * p.h + h) * HD;
+    store_rows(static_cast<OutT*>(p.out0) + head, dk, kc + warp * 16, p.lk, p.h * HD, SCALE, lane);
+    store_rows(static_cast<OutT*>(p.out1) + head, dv, kc + warp * 16, p.lk, p.h * HD, 1.f, lane);
+  }
+}
 
 // What every entry point takes: head width 64 (the only one instantiated),
 // non-empty sequences, and a grid that fits (b*h on the grid's y axis).
@@ -850,25 +1105,29 @@ int launch_fwd(Kernel kernel, const void* q, const void* k, const void* v, const
   return int(cudaGetLastError());
 }
 
+// Both backward kernels: tensor maps of q, k, v and dO (BT-row boxes),
+// then one block per DQ_BM query rows or DKDV_BK keys.
 template <typename OutT>
-int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* dd, void* dk, void* dv, void* dq, int b, int h, int lq, int lk,
                int causal, int q_off, int k_off, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf(float(HD));
+  CUtensorMap qm, km, vm, dom;
+  if (!head_map(&qm, q, b, lq, h, BT) || !head_map(&km, k, b, lk, h, BT) ||
+      !head_map(&vm, v, b, lk, h, BT) || !head_map(&dom, dout, b, lq, h, BT))
+    return int(cudaErrorInvalidValue);
+  BwdParams p{h, lq, lk, causal, q_off, k_off, lse, dd, dk != nullptr ? dk : dq, dv};
   if (dk != nullptr) {
     auto kernel = flash_bwd_dkdv_kernel<OutT>;
-    cudaError_t err = set_smem(kernel, DKDV_SMEM);
+    const cudaError_t err = set_smem(kernel, DKDV_SMEM);
     if (err != cudaSuccess) return int(err);
-    kernel<<<dim3((lk + BK - 1) / BK, b * h), THREADS, DKDV_SMEM, stream>>>(
-        q, k, v, dout, lse, dd, static_cast<OutT*>(dk), static_cast<OutT*>(dv), h, lq, lk,
-        causal, q_off, k_off, scale);
+    kernel<<<dim3((lk + DKDV_BK - 1) / DKDV_BK, b * h), DKDV_THREADS, DKDV_SMEM, stream>>>(
+        qm, km, vm, dom, p);
   } else {
     auto kernel = flash_bwd_dq_kernel<OutT>;
-    cudaError_t err = set_smem(kernel, DQ_SMEM);
+    const cudaError_t err = set_smem(kernel, DQ_SMEM);
     if (err != cudaSuccess) return int(err);
-    kernel<<<dim3((lq + BQ - 1) / BQ, b * h), THREADS, DQ_SMEM, stream>>>(
-        q, k, v, dout, lse, dd, static_cast<OutT*>(dq), h, lq, lk, causal, q_off, k_off,
-        scale);
+    kernel<<<dim3((lq + DQ_BM - 1) / DQ_BM, b * h), DQ_THREADS, DQ_SMEM, stream>>>(qm, km, vm,
+                                                                                  dom, p);
   }
   return int(cudaGetLastError());
 }
@@ -931,13 +1190,9 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const
                               int out_f32, void* stream) {
   if (!args_ok(b, h, lq, lk, d)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto q_ = static_cast<const bf16*>(q);
-  auto k_ = static_cast<const bf16*>(k);
-  auto v_ = static_cast<const bf16*>(v);
-  auto do_ = static_cast<const bf16*>(dout);
-  return out_f32 ? launch_bwd<float>(q_, k_, v_, do_, lse, dd, dk, dv, nullptr, b, h, lq, lk,
+  return out_f32 ? launch_bwd<float>(q, k, v, dout, lse, dd, dk, dv, nullptr, b, h, lq, lk,
                                      causal, q_off, k_off, s)
-                 : launch_bwd<bf16>(q_, k_, v_, do_, lse, dd, dk, dv, nullptr, b, h, lq, lk,
+                 : launch_bwd<bf16>(q, k, v, dout, lse, dd, dk, dv, nullptr, b, h, lq, lk,
                                     causal, q_off, k_off, s);
 }
 
@@ -947,12 +1202,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             void* stream) {
   if (!args_ok(b, h, lq, lk, d)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto q_ = static_cast<const bf16*>(q);
-  auto k_ = static_cast<const bf16*>(k);
-  auto v_ = static_cast<const bf16*>(v);
-  auto do_ = static_cast<const bf16*>(dout);
-  return out_f32 ? launch_bwd<float>(q_, k_, v_, do_, lse, dd, nullptr, nullptr, dq, b, h, lq,
+  return out_f32 ? launch_bwd<float>(q, k, v, dout, lse, dd, nullptr, nullptr, dq, b, h, lq,
                                      lk, causal, q_off, k_off, s)
-                 : launch_bwd<bf16>(q_, k_, v_, do_, lse, dd, nullptr, nullptr, dq, b, h, lq,
+                 : launch_bwd<bf16>(q, k, v, dout, lse, dd, nullptr, nullptr, dq, b, h, lq,
                                     lk, causal, q_off, k_off, s);
 }

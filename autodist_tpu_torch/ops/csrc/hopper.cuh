@@ -208,10 +208,13 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&s)[32][4], uint64_t 
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// o[64 x 64] += P[64 x 16] . V[16 x 64], P as bf16 A fragments in
-// registers (the mma.sync A layout per warp), V MN-major in shared memory.
+// o[64 x 64] (+)= A[64 x 16] . B[16 x 64], A as bf16 fragments in
+// registers (the mma.sync A layout per warp), B in shared memory MN-major
+// (TRANS_B 1: V in P . V) or K-major (TRANS_B 0: B[64 x 16]^T);
+// `accumulate` 0 overwrites o.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&o)[8][4], const unsigned (&a)[4],
-                                                   uint64_t db) {
+                                                   uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -219,11 +222,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&o)[8][4], const unsig
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : ACC4(o, 0), ACC4(o, 1), ACC4(o, 2), ACC4(o, 3), ACC4(o, 4), ACC4(o, 5), ACC4(o, 6),
         ACC4(o, 7)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 #undef ACC4

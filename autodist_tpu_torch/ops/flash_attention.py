@@ -185,9 +185,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check_kernel_args(q, k, v, do=None, lse=None, dd=None):
     """What the kernels take: bf16 q/k/v (and dO like q) with head width 64,
-    contiguous and 16-byte aligned (the forward reads q/k/v through TMA
-    tensor maps, which need it); f32 ``[B * H, Lq]`` lse and dd; all on q's
-    card."""
+    contiguous and 16-byte aligned (every kernel reads q/k/v, and the
+    backward dO, through TMA tensor maps, which need it); f32
+    ``[B * H, Lq]`` lse and dd; all on q's card."""
     b, lq, lk, h, d = _dims(q, k, v)
     if 0 in (b, lq, lk, h):
         raise ValueError(f"the flash kernels take no empty dimension: q {tuple(q.shape)}, "
@@ -353,8 +353,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and v; returns ``[B, Lq, H, D]`` in q's dtype. The JAX signature's
     ``q_block``/``k_block`` are TPU tiling controls (the kernels here size
     their tiles to shared memory and registers: the forward 192 query rows
-    a block over 128-key tiles, the backward 64 by 64) and its ``interpret``
-    flag a Pallas mode; neither has a counterpart."""
+    a block over 128-key tiles, dQ 192 query rows over 64-key tiles, dK/dV
+    128 keys over 64-query tiles) and its ``interpret`` flag a Pallas mode;
+    neither has a counterpart."""
     return _FlashAttention.apply(q, k, v, causal)
 
 

@@ -12,8 +12,8 @@ exits non-zero without them, or when any phase fails. Phases:
 1. The card's name and power limit (``nvidia-smi``), TF32 off.
 2. Build every kernel source of the port into ``build/`` (timed); print
    each kernel's registers, barriers, stack and spills from ``-Xptxas -v``,
-   any ptxas warning (a serialized wgmma), and the forward kernels'
-   dynamic shared memory.
+   any ptxas warning, and the forward kernels' dynamic shared memory. A
+   serialized-wgmma warning (C7518-C7520, C7512, ...) fails the phase.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
    and without a bias, ragged N and V (1,000 x 31,999), the forward and dh
@@ -41,18 +41,24 @@ exits non-zero without them, or when any phase fails. Phases:
    the wall time, and the top kernels.
 5. Each flash-attention kernel against its plain version on the same
    inputs: bf16 q/k/v/dO [B, L, 8, 64], B = 2 at a ragged L = 1,000 causal
-   and not causal, with ring offsets (q_offset 1,024; and k_offset 300, where
-   the first 300 query rows see no key, with f32 gradient outputs), the
-   forward's tiling edges (L = 129, 193 and 8,191, causal and not: one row
-   past a 128- and a 192-row block, one short of the path's length), and
-   the long-context path's own shape, B = 8 at L = 8,192, causal.
-   Tolerance: lse within FLASH_LSE_ATOL absolute; out, dq, dk and dv within
-   TILE_RTOL in every tile. Then each kernel is timed at the long-context
-   shape (B = 8, L = 8,192, H = 8, hd = 64, causal) beside its plain
-   version, its bound (with the TFLOP/s reached and the share of the bound)
-   and a library yardstick the port never calls
+   and not causal, with ring offsets (q_offset 1,024, with bf16 and with
+   f32 gradient outputs; k_offset 300 and 700, where the first 300 or 700
+   query rows see no key and the last 300 or 700 keys no query: those
+   rows of dq and keys of dk and dv must come out exactly 0, in bf16 and
+   in f32), the forward's tiling edges (L = 129, 193 and 8,191, causal and
+   not: one row past a 128- and a 192-row block, one short of the path's
+   length), the backward's (L = 63, 65, 127, 129, 191 and 193: one short
+   of and one past a 64-row tile, a 128-key dK/dV block and a 192-row dQ
+   block), and the long-context path's own shape, B = 8 at L = 8,192,
+   causal. Tolerance: lse within FLASH_LSE_ATOL absolute; out, dq, dk and
+   dv within TILE_RTOL in every tile. Then each kernel is timed at the
+   long-context shape (B = 8, L = 8,192, H = 8, hd = 64, causal) beside its
+   plain version, its bound (with the TFLOP/s reached and the share of the
+   bound) and a library yardstick the port never calls
    (``F.scaled_dot_product_attention(is_causal=True)``, and that call's
-   backward for dK/dV and dQ together).
+   backward for dK/dV and dQ together, which computes its own D: it is
+   set beside the pair, and beside ``prepare_backward_q_side`` and the
+   pair).
 6. The long-context entry point (``autodist_tpu_torch.examples.long_context_lm``)
    at full width: d512 x 6 layers, 8 heads, d_ff 2048, vocab 32,000, seq =
    max_len = 8,192, flash attention, every block rematerialized, untied
@@ -137,6 +143,14 @@ RING_SHARDS = 4                   # shards of the ring replay on one card
 # whose first visible row falls in each consumer's rows of a block.
 EDGE_LENGTHS = (129, 193, LC_SEQ - 1)
 EDGE_K_OFFSETS = (100, 150, 200, 300)
+# The backward kernels stream 64-row tiles; dK/dV blocks hold 128 keys (two
+# consumers of 64), dQ blocks 192 query rows (three of 64): lengths one
+# short of and one past each.
+BWD_EDGE_LENGTHS = (63, 65, 127, 129, 191, 193)
+# ptxas's "wgmma serialized" warnings (C7518-C7520: a wgmma on a divergent
+# path; C7512: too few registers): a kernel that shows one runs every wgmma
+# one after the other.
+SERIALIZED_WGMMA = ("wgmma", "serialized")
 # The fused-head forward's blocks hold 128 rows and walk 128-column vocab
 # tiles, dh's 64 rows and 64-column tiles: (N, V) one short of or one past
 # each, every V odd (the packed "dv" table's row stride is padded to 8).
@@ -452,13 +466,17 @@ def check_flash(fa, dev):
         (2, 1000, 1000, True, 0, 0, None),
         (2, 1000, 1000, False, 0, 0, None),
         (2, 1000, 1000, True, 1024, 0, None),
+        (2, 1000, 1000, True, 1024, 0, torch.float32),
         (2, 1000, 1000, True, 0, 300, torch.float32),
+        (2, 1000, 1000, True, 0, 300, None),
+        (2, 1000, 1000, True, 0, 700, torch.float32),
         (LC_BATCH, LC_SEQ, LC_SEQ, True, 0, 0, None),
     ]
     # The forward's tiling edges: one row past a 128-row and a 192-row block
     # (the last block's rows end in its second or its first consumer), and
-    # one row short of the long-context length.
-    cases += [(2, n, n, causal, 0, 0, None) for n in EDGE_LENGTHS for causal in (True, False)]
+    # one row short of the long-context length; and the backward's.
+    cases += [(2, n, n, causal, 0, 0, None)
+              for n in sorted(set(EDGE_LENGTHS + BWD_EDGE_LENGTHS)) for causal in (True, False)]
     for b, lq, lk, causal, qo, ko, out_dtype in cases:
         q, k, v, do = flash_inputs(b, lq, lk, gen, dev)
         out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
@@ -481,6 +499,14 @@ def check_flash(fa, dev):
             + "; ".join(f"{n} {describe(c)}" for n, c in e.items()))
         ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
               and all(c[2] <= TILE_RTOL for c in e.values()))
+        # Query rows that see no key, and keys that no query sees: exactly 0.
+        blind = min(lq, max(0, ko - qo)) if causal else 0
+        unseen = min(lk, max(0, qo - ko + lq)) if causal else lk
+        if blind or unseen < lk:
+            zero = not (dq[:, :blind].any() or dk[:, unseen:].any() or dv[:, unseen:].any())
+            log(f"check flash: dq rows 0-{blind - 1} and dk, dv keys {unseen}-{lk - 1} "
+                f"exactly 0: {zero}")
+            ok = ok and zero
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version at b={b} "
                                  f"lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko})")
@@ -533,6 +559,20 @@ def time_flash(fa, dev):
         log(f"time {name} B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}: kernel "
             f"{r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
+    # The library's backward computes its own D: set it beside the pair
+    # alone and beside D's pass and the pair, as _FlashAttention.backward runs them.
+    def pair():
+        fa.flash_bwd_dkdv(q, k, v, do, lse, dd)
+        fa.flash_bwd_dq(q, k, v, do, lse, dd)
+
+    def with_d():
+        d = fa.prepare_backward_q_side(out, do)
+        fa.flash_bwd_dkdv(q, k, v, do, lse, d)
+        fa.flash_bwd_dq(q, k, v, do, lse, d)
+    pair_bound = rows["flash_bwd_dkdv"]["bound"][0] + rows["flash_bwd_dq"]["bound"][0]
+    log(f"time flash backward pair B={b} L={length}: {time_ms(pair, 5):.3f} ms (bound "
+        f"{pair_bound:.3f} ms), with prepare_backward_q_side {time_ms(with_d, 5):.3f} ms; "
+        f"library backward (its own D included) {lib_bwd:.3f} ms")
     return rows
 
 
@@ -810,9 +850,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    serialized = []
     for name in built:
         for line in ptxas_summary(_build.build_log(name)):
             log(f"ptxas {name}: {line}")
+            if all(word in line for word in SERIALIZED_WGMMA):
+                serialized.append(line)
+    if serialized:
+        raise AssertionError(f"ptxas serialized the wgmma of a kernel: {serialized}")
     log(f"flash forward kernels: {fa._lib().flash_fwd_smem_bytes()} bytes of dynamic shared "
         "memory a block")
 

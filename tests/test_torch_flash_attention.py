@@ -142,35 +142,61 @@ def test_flash_forward_at_kernel_tiling_edges_matches_jax(l, causal, k_offset):
         assert not out[:, :k_offset].any()
 
 
+def _backward_plain_against_jax(seed, l, causal, q_offset, k_offset, out_dtype, block):
+    """The plain backward against ``_flash_backward_kv`` (the two Pallas
+    backward kernels, ``block`` rows a block on both sides) on the same q, k,
+    v, dO, lse and D; returns the torch inputs and ``(dq, dk, dv)``."""
+    q, k, v, do = _qkv(seed, l=l, n=4)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.flash_forward_plain(tq, tk, tv, causal, q_offset, k_offset)
+    dd = tfa.prepare_backward_q_side(out, tdo)
+    got = tfa.flash_backward_plain(tq, tk, tv, tdo, lse, dd, causal, q_offset, k_offset,
+                                   out_dtype=out_dtype)
+
+    qf, dof, jdd, bq, n_q = jfa.prepare_backward_q_side(*_j(q, out.numpy(), do), block)
+    np.testing.assert_allclose(dd.numpy(), np.asarray(jdd).reshape(B * H, -1)[:, :l], **OUT)
+    # The Pallas kernels take lse in their padded [bh, n_q, bq] planes; pad
+    # query rows have zero q and dO and contribute nothing.
+    jlse = jnp.asarray(np.pad(lse.numpy(), ((0, 0), (0, n_q * bq - l)))).reshape(B * H, n_q, bq)
+    want = jfa._flash_backward_kv(qf, dof, jlse, jdd, *_j(k, v), causal, bq, n_q, block, True,
+                                  q.shape, q_offset=q_offset, k_offset=k_offset,
+                                  out_dtype=jnp.float32 if out_dtype else None)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD)
+    return (tq, tk, tv, tdo, lse, dd), got
+
+
 @pytest.mark.parametrize("q_offset,k_offset,out_dtype",
                          [(0, 0, None), (64, 0, torch.float32), (0, 32, torch.float32)])
 def test_flash_backward_plain_matches_jax(q_offset, k_offset, out_dtype):
     """The plain backward against ``_flash_backward_kv`` (the two Pallas
     backward kernels) on the same q, k, v, dO, lse and D, with ring-style
     offsets and the f32 output override."""
-    q, k, v, do = _qkv(7, n=4)
-    tq, tk, tv, tdo = _t(q, k, v, do)
-    out, lse = tfa.flash_forward_plain(tq, tk, tv, True, q_offset, k_offset)
-    dd = tfa.prepare_backward_q_side(out, tdo)
-    got = tfa.flash_backward_plain(tq, tk, tv, tdo, lse, dd, True, q_offset, k_offset,
-                                   out_dtype=out_dtype)
-
-    bq = 32
-    qf, dof, jdd, bq, n_q = jfa.prepare_backward_q_side(*_j(q, out.numpy(), do), bq)
-    np.testing.assert_allclose(dd.numpy(), np.asarray(jdd).reshape(B * H, -1), **OUT)
-    jlse = jnp.asarray(lse.numpy()).reshape(B * H, n_q, bq)
-    want = jfa._flash_backward_kv(qf, dof, jlse, jdd, *_j(k, v), True, bq, n_q, 32, True,
-                                  q.shape, q_offset=q_offset, k_offset=k_offset,
-                                  out_dtype=jnp.float32 if out_dtype else None)
-    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
-        assert a.dtype == torch.float32
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD)
+    (tq, tk, tv, tdo, lse, dd), got = _backward_plain_against_jax(
+        7, L, True, q_offset, k_offset, out_dtype, 32)
     # The split wrappers give the same three on CPU tensors.
     dk, dv = tfa.flash_bwd_dkdv(tq, tk, tv, tdo, lse, dd, True, q_offset, k_offset,
                                 out_dtype)
     dq = tfa.flash_bwd_dq(tq, tk, tv, tdo, lse, dd, True, q_offset, k_offset, out_dtype)
     for a, b in zip((dq, dk, dv), got):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("l,causal,k_offset", [(129, True, 0), (129, False, 0),
+                                               (193, True, 0), (193, False, 0),
+                                               (256, True, 128)])
+def test_flash_backward_plain_at_kernel_tiling_edges_matches_jax(l, causal, k_offset):
+    """The plain backward, the CUDA backward kernels' oracle, at the edges of
+    their tiling (64-row tiles; dK/dV blocks of 128 keys, dQ blocks of 192
+    query rows): L one past a 128-key and a 192-row block, causal and not;
+    and k_offset 128 at L = 256, where no query sees the second 128-key block
+    and query rows 0-127 see no key, so their gradients are exactly 0."""
+    _, (dq, dk, dv) = _backward_plain_against_jax(12, l, causal, 0, k_offset,
+                                                  torch.float32, 64)
+    if k_offset:
+        assert not dq[:, :k_offset].any()
+        assert not (dk[:, l - k_offset:].any() or dv[:, l - k_offset:].any())
 
 
 @pytest.mark.parametrize("causal", [True, False])
