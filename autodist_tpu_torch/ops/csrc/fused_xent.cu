@@ -2,8 +2,9 @@
 //
 // lse[n] = logsumexp_v(h[n] . w[:, v] + b[v]) and its gradient, with the
 // [N, V] logits never written to device memory: each logits tile lives in
-// registers (forward, dh) or shared memory (dw/db) only and is reduced on
-// the fly (forward) or recomputed from the saved lse (backward).
+// registers (and, as the backward's bf16 g * p, in shared memory) only and
+// is reduced on the fly (forward) or recomputed from the saved lse
+// (backward).
 //
 // Replaces the Pallas TPU kernels of autodist_tpu/ops/fused_xent.py:
 //   xent_fwd_kernel  <- _fwd_kernel   (fused_xent.py:90, pallas_call :192)
@@ -17,14 +18,16 @@
 // against 0.17 GB of inputs, and each backward kernel recomputes the logits
 // and does one more product of the same size (6.4 TFLOP); all three sit far
 // above the card's ~295 FLOP/byte ridge. Every row block streams all of w,
-// so the next limit is L2 -> SM traffic: (row blocks) x 32.8 MB of bf16 w.
+// so the next limit is L2 -> SM traffic: (row blocks) x 32.8 MB of bf16 w
+// for the forward and dh, (vocab blocks) x 100.7 MB of h for dw/db.
 //
 // Common to all: the TPU grid runs in order, so the Pallas kernels carry
 // (m, l) and the dh / dw accumulators across grid steps in VMEM scratch.
 // Hopper's blocks run in no order, so the sequential loop moves inside one
 // block: the forward and dh kernels give each block one stripe of rows that
-// walks every vocab tile; the dw/db kernel gives each block one tile of
-// TN_COL vocab columns that walks every row stripe. No cross-block reduction.
+// walks every vocab tile; the dw/db kernel gives each block one tile of 64
+// vocab columns that walks every row stripe. No cross-block reduction.
+// All three read the table as packed by xent_pack_kernel.
 //
 // Forward and dh design (xent_fwd_kernel, xent_dh_kernel):
 // - The pack: xent_pack_kernel writes w once a call as bf16 in its stored
@@ -70,17 +73,50 @@
 //   forward.
 // - Rows >= N of the stripe arrive as zeros, are excluded from the softmax
 //   sums' use (p = 0) and are not written.
+//
+// dw/db design (xent_dwdb_kernel): dh's pattern mirrored.
+// - A block owns 64 vocab columns. Its [64 vocab x 512 d] tile of the packed
+//   table (64 KB) is loaded once with TMA and stays resident; h streams in
+//   64-row stripes (64 KB) through a 2-stage ring with full and empty
+//   mbarriers (a third stage does not fit beside the tile).
+// - L2 -> SM traffic: 500 blocks each streaming all of h read 50.3 GB at
+//   the flagship shape, more than L2 delivers in the products' time. So
+//   two blocks on neighbouring vocab tiles form a cluster: each producer
+//   loads half of every stripe (4 of its 8 d chunks) and multicasts it to
+//   both blocks, halving the reads of h. Each block's full barrier expects
+//   the whole stripe; each consumer warp releases a stage on the empty
+//   barriers of both blocks (a remote arrive), so neither producer refills
+//   a stage that its partner still reads. A block whose columns all lie
+//   past V still walks and loads its half, and writes nothing.
+// - Warp specialisation as in dh: the producer warpgroup's thread 0 issues
+//   every copy; two consumer warpgroups split the model width, consumer c
+//   owning d in [256c, 256c + 256): its dw^T [64 vocab, 256 d] is 128 f32
+//   registers a thread. Each computes partial scores over its half of d
+//   (m64n64, as dh), the halves are traded through shared memory, each
+//   finishes 32 columns' g * p into a swizzled bf16 [row][vocab] P tile, and
+//   after a named barrier both issue dw^T += P^T h (m64n256k16: P read
+//   MN-major as A, h's four d chunks of the half as MN-major B atoms 8 KB
+//   apart). db sums the f32 p before its bf16 rounding, per thread, and is
+//   reduced once at the end (shuffles, then the 4 warps in order): no
+//   atomics, so dw and db are the same bits from call to call.
+// - Order a stripe: its scores are issued behind the last stripe's dw
+//   product, whose stage is released as soon as that product lands; then
+//   the softmax and the exchange; then its own dw product. So a stripe's
+//   copy overlaps the two products and the softmax of the stripe before it.
+//   The softmax does not overlap the products: that needs the next stripe
+//   resident beside the two that the products read, a third stage.
+// - Rows >= N (TMA zero fill) and columns >= V get p = 0 by a select; their
+//   lse, g and bias are never read. dw is written in w's stored layout, f32,
+//   straight from the accumulators (a warp's store fills whole 32-byte
+//   sectors in either layout); columns >= V are not written.
 
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -484,242 +520,243 @@ xent_dh_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__ C
   }
 }
 
-// ---------------------------------------------------------------- dwdb tiles
+// --------------------------------------------------------------------- dw/db
 
-// The dw/db kernel keeps the first design: WMMA 16x16x16 from shared memory.
-constexpr int BM = 64;        // rows of h per stripe
-constexpr int TN_COL = 64;    // vocab columns per block of the dw/db kernel
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
+constexpr int DW_BM = 64;              // rows a stripe
+constexpr int DW_TN = 64;              // vocab columns a block
+constexpr int DW_STAGES = 2;           // h stripes in flight
+constexpr int DW_CLUSTER = 2;          // blocks sharing each stripe
+constexpr int DW_THREADS = 384;
+constexpr unsigned DW_W_BYTES = DW_TN * KERNEL_D * 2;
+constexpr unsigned DW_STRIPE_BYTES = DW_BM * KERNEL_D * 2;
+static_assert(KC % DW_CLUSTER == 0, "each block loads whole d chunks of a stripe");
 
-// Shared-memory tiles for TN vocab columns. Row strides are padded by 16
-// bytes (8 bf16 / 4 f32) so that WMMA fragment loads do not all land on one
-// bank; every region size is a multiple of 128 bytes.
-template <int D, bool VD, int TN>
-struct Tiles {
-  static constexpr int H_LD = D + 8;           // bf16 h stripe [BM][H_LD]
-  static constexpr int W_ROWS = VD ? TN : D;   // w tile in its stored layout:
-  static constexpr int W_COLS = VD ? D : TN;   //   vd [TN][D], dv [D][TN]
-  static constexpr int W_LD = W_COLS + 8;      // bf16 w tile [W_ROWS][W_LD]
-  static constexpr int S_LD = TN + 4;          // f32 logits tile [BM][S_LD]
-  static constexpr int P_LD = TN + 8;          // bf16 g*softmax tile [BM][P_LD]
-  static constexpr size_t H_BYTES = size_t(BM) * H_LD * 2;
-  static constexpr size_t W_BYTES = size_t(W_ROWS) * W_LD * 2;
-  static constexpr size_t S_BYTES = size_t(BM) * S_LD * 4;
-  static constexpr size_t P_BYTES = size_t(BM) * P_LD * 2;
-  static constexpr size_t E_BYTES = size_t(WARPS) * 16 * 16 * 4;  // per-warp epilogue stage
-  static_assert(H_BYTES % 128 == 0 && W_BYTES % 128 == 0 && S_BYTES % 128 == 0 &&
-                P_BYTES % 128 == 0, "regions must stay aligned");
+struct DwSmem {
+  alignas(1024) bf16 w[KC][DW_TN * 64];             // resident; vd: [64 vocab][64 d], dv: [64 d][64 vocab]
+  alignas(1024) bf16 h[DW_STAGES][KC][DW_BM * 64];  // [stage][d chunk][row][64 d], swizzled
+  alignas(1024) bf16 p[DW_BM * 64];                 // g * softmax, [row][64 vocab], swizzled
+  float x[2][16][128];                              // partial scores handed over; then db partials
+  uint64_t w_full, full[DW_STAGES], empty[DW_STAGES];
 };
+constexpr size_t DW_SMEM = sizeof(DwSmem) + 1024;
+static_assert(DW_SMEM <= 232448, "over the 227 KB a block may use");
 
-// Dynamic shared memory of the dw/db kernel, region by region in that order.
-template <int D, bool VD>
-struct Smem {
-  typedef Tiles<D, VD, TN_COL> C;
-  static constexpr size_t RED_BYTES = size_t(THREADS / TN_COL) * TN_COL * 4;  // db partials
-  static constexpr size_t DWDB = C::H_BYTES + C::W_BYTES + C::S_BYTES + C::P_BYTES +
-                                 C::E_BYTES + RED_BYTES + size_t(2) * BM * 4;
-  static_assert(DWDB <= 232448, "over the 227 KB a block may use");
-};
-
-// Asynchronous global -> shared copies. `bytes` below the copy size
-// zero-fills the rest of the destination; 0 reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// h rows [n0, n0 + BM) -> hs, asynchronously; rows >= n are zeros. h must be
-// 16-byte aligned (the wrapper checks).
-template <int D>
-__device__ __forceinline__ void copy_h_stripe(bf16* hs, const bf16* __restrict__ h, int n0,
-                                              int n) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks a row
-  static_assert((BM * CHUNKS) % THREADS == 0, "whole chunks per thread");
+// Consumer c's half of a stripe once its partial scores s (over its d half,
+// all 64 vocab columns) have landed: as dh_scores_to_p, and the f32 p of its
+// columns [32c, 32c + 32) summed into db_part before the bf16 rounding. p is
+// 0 by a select for rows past n (ok false: their lse and g are not read)
+// and for columns past v (bias[q][e] is -inf there), never by arithmetic on
+// a value that may be inf.
+__device__ __forceinline__ void dw_scores_to_p(DwSmem& sm, const float (&s)[8][4], int c,
+                                               int tid, int r, int col,
+                                               const float (&bias)[4][2],
+                                               const float (&row_lse2)[2],
+                                               const float (&row_g)[2], const bool (&ok)[2],
+                                               float (&db_part)[4][2]) {
 #pragma unroll
-  for (int k = 0; k < BM * CHUNKS / THREADS; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool ok = n0 + r < n;
-    cp_async16(hs + r * (D + 8) + c, ok ? h + size_t(n0 + r) * D + c : h, ok ? 16 : 0);
-  }
-}
-
-// The dw/db kernel's w tile, loaded once per block: f32 global -> bf16
-// shared through registers, eight loads in flight a thread.
-template <int D, bool VD, int TN>
-__device__ __forceinline__ void load_w_tile(bf16* ws, const float* __restrict__ w, int v0,
-                                            int v) {
-  typedef Tiles<D, VD, TN> T;
-#pragma unroll 8
-  for (int k = 0; k < D * TN / THREADS; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int r = i / T::W_COLS;
-    const int c = i % T::W_COLS;
-    const int vv = VD ? v0 + r : v0 + c;
-    const float x = vv < v ? (VD ? w[size_t(vv) * D + c] : w[size_t(r) * v + vv]) : 0.f;
-    ws[r * T::W_LD + c] = __float2bfloat16(x);
-  }
-}
-
-// ss[BM][TN] = hs[BM][D] . w_tile[D][TN] (f32). Warp k computes rows
-// 16*(k/2) .. +16 and columns (TN/2)*(k%2) .. +TN/2.
-template <int D, bool VD, int TN>
-__device__ __forceinline__ void logits_tile(const bf16* hs, const bf16* ws, float* ss) {
-  typedef Tiles<D, VD, TN> T;
-  typedef typename std::conditional<VD, wmma::col_major, wmma::row_major>::type WLayout;
-  constexpr int CF = TN / 32;  // 16-column fragments per warp
-  const int warp = threadIdx.x / 32;
-  const int r = (warp / 2) * 16;
-  const int c0 = (warp % 2) * (TN / 2);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CF];
+  for (int k = 0; k < 16; ++k) sm.x[c][k][tid] = c ? s[k / 4][k % 4] : s[4 + k / 4][k % 4];
+  named_sync(1);
+  float z[4][4];
 #pragma unroll
-  for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[j], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, WLayout> b;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 16) {
-    wmma::load_matrix_sync(a, hs + r * T::H_LD + k, T::H_LD);
+  for (int k = 0; k < 16; ++k)
+    z[k / 4][k % 4] = (c ? s[4 + k / 4][k % 4] : s[k / 4][k % 4]) + sm.x[1 - c][k][tid];
+  unsigned char* pbase = reinterpret_cast<unsigned char*>(sm.p);
 #pragma unroll
-    for (int j = 0; j < CF; ++j) {
-      const int c = c0 + 16 * j;
-      // element (k, c) of the [D, TN] operand: vd stores it at ws[c][k], dv at ws[k][c]
-      const bf16* bp = VD ? ws + c * T::W_LD + k : ws + k * T::W_LD + c;
-      wmma::load_matrix_sync(b, bp, T::W_LD);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+  for (int q = 0; q < 4; ++q) {
+    const int kcol = 32 * c + 8 * q + col;  // vocab column in the tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float y = ex2(fmaf(z[q][2 * i + e] + bias[q][e], LOG2E, -row_lse2[i]));
+        pv[e] = ok[i] && bias[q][e] != -INFINITY ? row_g[i] * y : 0.f;
+        db_part[q][e] += pv[e];
+      }
+      const int rr = r + 8 * i;
+      const int off = rr * 128 + (((kcol >> 3) ^ (rr & 7)) << 4) + (kcol & 7) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(pbase + off) = __floats2bfloat162_rn(pv[0], pv[1]);
     }
   }
-#pragma unroll
-  for (int j = 0; j < CF; ++j)
-    wmma::store_matrix_sync(ss + r * T::S_LD + c0 + 16 * j, acc[j], T::S_LD,
-                            wmma::mem_row_major);
+  fence_proxy_async();  // the P stores, visible to wgmma
+  named_sync(2);
 }
 
-// ---------------------------------------------------------------------- dwdb
-
-// dw[:, v] = sum_n h[n] * g[n] * softmax(h w + b)[n, v], db[v] = sum_n of the
-// same weights. One block per TN_COL-column vocab tile, walking all row
-// stripes; its w tile stays in shared memory. The [D, TN_COL] dw accumulator
-// is split over the warps by model rows: warp k owns rows (D/8)*k .. +D/8.
-template <int D, bool VD>
-__global__ void __launch_bounds__(THREADS, 1)
-xent_dwdb_kernel(const bf16* __restrict__ h, const float* __restrict__ w,
+// dw[:, v] = sum_n h[n] * bf16(g[n] * softmax(h w + b)[n, v]), db[v] = sum_n
+// of the same weights in f32; the logits recomputed from the saved lse.
+// One block per 64 vocab columns walks every row stripe; a cluster of
+// DW_CLUSTER blocks on neighbouring tiles shares each stripe.
+template <bool VD>
+__global__ void __cluster_dims__(DW_CLUSTER, 1, 1) __launch_bounds__(DW_THREADS, 1)
+xent_dwdb_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__ CUtensorMap wm,
                  const float* __restrict__ b, const float* __restrict__ lse,
                  const float* __restrict__ g, float* __restrict__ dw,
                  float* __restrict__ db, int n, int v) {
-  typedef Tiles<D, VD, TN_COL> T;
-  constexpr int DF = D / 16 / WARPS;  // model-row fragments per warp
-  constexpr int CF = TN_COL / 16;     // vocab-column fragments
-  constexpr int RGRPS = THREADS / TN_COL;  // row groups of the elementwise mapping
-  static_assert(D % (16 * WARPS) == 0, "D must be a multiple of 128");
-  static_assert(BM % RGRPS == 0, "whole rows per group");
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  bf16* hs = reinterpret_cast<bf16*>(p);
-  bf16* ws = reinterpret_cast<bf16*>(p += T::H_BYTES);
-  float* ss = reinterpret_cast<float*>(p += T::W_BYTES);
-  bf16* ps = reinterpret_cast<bf16*>(p += T::S_BYTES);
-  float* stage = reinterpret_cast<float*>(p += T::P_BYTES);
-  float* red = reinterpret_cast<float*>(p += T::E_BYTES);
-  float* lg = reinterpret_cast<float*>(p += Smem<D, VD>::RED_BYTES);  // [2][BM]: lse, g
-
-  const int v0 = blockIdx.x * TN_COL;
-  load_w_tile<D, VD, TN_COL>(ws, w, v0, v);
-  // Elementwise mapping: thread t takes vocab column t % TN_COL and rows
-  // (BM/RGRPS)*(t / TN_COL) .. of each stripe, so its db partial sum stays in a register.
-  constexpr int RPG = BM / RGRPS;  // rows per group
-  const int col = threadIdx.x % TN_COL;
-  const int rgrp = (threadIdx.x / TN_COL) * RPG;
-  const bool col_ok = v0 + col < v;
-  const float bias = (col_ok && b) ? b[v0 + col] : 0.f;
-  float db_part = 0.f;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int d0 = warp * DF * 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DF][CF];
-#pragma unroll
-  for (int i = 0; i < DF; ++i)
-#pragma unroll
-    for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  // A operand h^T: element (model d, row k) sits at hs[k][d] -> column major.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
-
-  for (int n0 = 0; n0 < n; n0 += BM) {
-    __syncthreads();  // the previous stripe's readers of hs / ps / lg are done
-    copy_h_stripe<D>(hs, h, n0, n);
-    cp_async_commit();
-    if (threadIdx.x < BM) {  // the stripe's lse and g, read once per stripe
-      const bool ok = n0 + threadIdx.x < n;
-      lg[threadIdx.x] = ok ? lse[n0 + threadIdx.x] : 0.f;
-      lg[BM + threadIdx.x] = ok ? g[n0 + threadIdx.x] : 0.f;
+  extern __shared__ unsigned char dw_raw[];
+  DwSmem& sm = align1024<DwSmem>(dw_raw);  // the same offset in every block of the cluster
+  const int v0 = blockIdx.x * DW_TN;
+  const int n_stripes = (n + DW_BM - 1) / DW_BM;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.w_full, 1);
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], DW_CLUSTER * 8);  // lane 0 of each consumer warp of the cluster
     }
-    cp_async_wait_all();
-    __syncthreads();
-    logits_tile<D, VD, TN_COL>(hs, ws, ss);
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < RPG; ++i) {
-      const int rr = rgrp + i;
-      float pv = 0.f;  // rows >= n and columns >= v contribute exactly 0
-      if (n0 + rr < n && col_ok)
-        pv = __expf(ss[rr * T::S_LD + col] + bias - lg[rr]) * lg[BM + rr];
-      db_part += pv;
-      ps[rr * T::P_LD + col] = __float2bfloat16(pv);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < DF; ++i) {
-        wmma::load_matrix_sync(a, hs + kk * T::H_LD + d0 + 16 * i, T::H_LD);
-#pragma unroll
-        for (int j = 0; j < CF; ++j) {
-          wmma::load_matrix_sync(pb, ps + kk * T::P_LD + 16 * j, T::P_LD);
-          wmma::mma_sync(acc[i][j], a, pb, acc[i][j]);
-        }
+    mbar_init_fence();
+  }
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.w_full, DW_W_BYTES);
+      for (int j = 0; j < KC; ++j) {
+        if (VD)
+          tma_load(sm.w[j], &wm, &sm.w_full, 64 * j, v0);
+        else
+          tma_load(sm.w[j], &wm, &sm.w_full, v0, 64 * j);
+      }
+      // This block's share of each stripe: d chunks [rank * KC / DW_CLUSTER, ...),
+      // multicast to the whole cluster. Each block's full barrier expects
+      // the whole stripe; a stage is refilled once every consumer of the
+      // cluster has released it.
+      const int j0 = int(cluster_ctarank()) * (KC / DW_CLUSTER);
+      for (int t = 0; t < n_stripes; ++t) {
+        const int stage = t % DW_STAGES;
+        mbar_wait(&sm.empty[stage], ((t / DW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[stage], DW_STRIPE_BYTES);
+        for (int j = j0; j < j0 + KC / DW_CLUSTER; ++j)
+          tma_load_multicast(sm.h[stage][j], &hm, &sm.full[stage], 64 * j, t * DW_BM,
+                             uint16_t((1u << DW_CLUSTER) - 1));
       }
     }
-  }
-
-  // Epilogue: dw in w's stored layout and dtype (f32); columns >= v are not written.
-  float* st = stage + warp * 256;
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col = (lane % 4) * 2;
+    const int r = warp * 16 + lane / 4;  // this thread's rows of a stripe: r, r + 8
+    // This thread's columns of the P tile, v0 + 32c + 8q + col (+1): the
+    // bias, or -inf for a column past v (its p is 0).
+    float bias[4][2], db_part[4][2];
 #pragma unroll
-  for (int i = 0; i < DF; ++i) {
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int j = 0; j < CF; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int d = d0 + 16 * i + e / 16;
-        const int vv = v0 + 16 * j + e % 16;
-        if (vv < v) {
+      for (int e = 0; e < 2; ++e) {
+        const int vv = v0 + 32 * c + 8 * q + col + e;
+        bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
+        db_part[q][e] = 0.f;
+      }
+    // The stripe's lse (times log2 e) and g of rows r and r + 8, read a
+    // stripe ahead and taken over once the next scores have landed, so no
+    // load's latency lies in the walk.
+    float row_lse2[2], row_g[2], next_lse2[2], next_g[2];
+    bool ok[2], next_ok[2];
+    auto read_rows = [&](int t, float (&l2)[2], float (&gg)[2], bool (&in)[2]) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = t * DW_BM + r + 8 * i;
+        in[i] = row < n;
+        l2[i] = in[i] ? lse[row] * LOG2E : 0.f;
+        gg[i] = in[i] ? g[row] : 0.f;
+      }
+    };
+    read_rows(0, next_lse2, next_g, next_ok);
+    float acc[32][4];  // dw^T: vocab rows r (+8) of the tile, d columns 256c + 8nt + col (+1)
+#pragma unroll
+    for (int nt = 0; nt < 32; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    float s[8][4];
+    const uint64_t dp = sw128_desc(sm.p);
+    mbar_wait(&sm.w_full, 0);
+    for (int t = 0; t < n_stripes; ++t) {
+      const int stage = t % DW_STAGES;
+      mbar_wait(&sm.full[stage], (t / DW_STAGES) & 1);
+      // Partial scores over this consumer's half of d, queued behind the
+      // last stripe's dw product.
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t da = sw128_desc(sm.h[stage][4 * c + q]);
+        const uint64_t dbw = sw128_desc(sm.w[4 * c + q]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
           if (VD)
-            dw[size_t(vv) * D + d] = st[e];
+            wgmma_m64n64k16_ss<0>(s, da + 2 * kk, dbw + 2 * kk, q | kk);
           else
-            dw[size_t(d) * v + vv] = st[e];
+            wgmma_m64n64k16_ss<1>(s, da + 2 * kk, dbw + 128 * kk, q | kk);
         }
       }
-      __syncwarp();
-    }
-  }
-  red[(threadIdx.x / TN_COL) * TN_COL + col] = db_part;
-  __syncthreads();
-  if (threadIdx.x < TN_COL && v0 + threadIdx.x < v) {
-    float sum = 0.f;
+      wgmma_commit();
+      wgmma_wait<1>();  // the last stripe's dw product: its stage is free
+      fence_regs(acc);
+      if (t > 0 && lane == 0)
+        for (int rank = 0; rank < DW_CLUSTER; ++rank)
+          mbar_arrive_cluster(&sm.empty[(t - 1) % DW_STAGES], rank);
 #pragma unroll
-    for (int k = 0; k < RGRPS; ++k) sum += red[k * TN_COL + threadIdx.x];
-    db[v0 + threadIdx.x] = sum;
+      for (int i = 0; i < 2; ++i) {
+        row_lse2[i] = next_lse2[i];
+        row_g[i] = next_g[i];
+        ok[i] = next_ok[i];
+      }
+      read_rows(t + 1, next_lse2, next_g, next_ok);
+      wgmma_wait<0>();
+      fence_regs(s);
+      dw_scores_to_p(sm, s, c, tid, r, col, bias, row_lse2, row_g, ok, db_part);
+      // dw^T[:, this half] += P^T h: M the tile's 64 vocab columns (P read
+      // MN-major), k the stripe's 64 rows, N this half's 256 d (the four d
+      // chunks as MN atoms 8 KB apart).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n256k16_ss<1, 1>(acc, dp + 128 * kk,
+                                  sw128_desc(sm.h[stage][4 * c], 8192) + 128 * kk, 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // dw in w's stored layout, f32; vocab columns >= v are not written.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int vv = v0 + r + 8 * i;
+      if (vv >= v) continue;
+      if (VD) {
+        float* out = dw + size_t(vv) * KERNEL_D + 256 * c + col;
+#pragma unroll
+        for (int nt = 0; nt < 32; ++nt)
+          *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+      } else {
+        // A warp's store covers 8 neighbouring columns of 4 d rows: whole
+        // 32-byte sectors.
+        float* out = dw + size_t(256 * c + col) * v + vv;
+#pragma unroll
+        for (int nt = 0; nt < 32; ++nt) {
+          out[size_t(8 * nt) * v] = acc[nt][2 * i];
+          out[size_t(8 * nt + 1) * v] = acc[nt][2 * i + 1];
+        }
+      }
+    }
+    // db: the column sums over the 8 lanes that share a column, then over
+    // the 4 warps in order through shared memory (the exchange buffer is
+    // free after the walk's last named barrier); no atomics.
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = db_part[q][e];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        if (lane < 4) sm.x[c][warp][8 * q + col + e] = x;
+      }
+    named_sync(1);
+    if (tid < 32 && v0 + 32 * c + tid < v)
+      db[v0 + 32 * c + tid] = sm.x[c][0][tid] + sm.x[c][1][tid] + sm.x[c][2][tid] + sm.x[c][3][tid];
   }
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------- launchers
@@ -766,14 +803,17 @@ int launch_dh(const void* h, const void* wp, const float* b, const float* lse, c
   return int(cudaGetLastError());
 }
 
-template <int D, bool VD>
-int launch_dwdb(const bf16* h, const float* w, const float* b, const float* lse,
-                const float* g, float* dw, float* db, int n, int v, cudaStream_t stream) {
-  auto kernel = xent_dwdb_kernel<D, VD>;
-  cudaError_t err = set_smem(kernel, Smem<D, VD>::DWDB);
+template <bool VD>
+int launch_dwdb(const void* h, const void* wp, const float* b, const float* lse, const float* g,
+                float* dw, float* db, int n, int v, cudaStream_t stream) {
+  CUtensorMap hm, wm;
+  if (!maps(&hm, &wm, h, wp, n, v, VD, DW_BM, DW_TN)) return int(cudaErrorInvalidValue);
+  auto kernel = xent_dwdb_kernel<VD>;
+  const cudaError_t err = set_smem(kernel, DW_SMEM);
   if (err != cudaSuccess) return int(err);
-  kernel<<<(v + TN_COL - 1) / TN_COL, THREADS, Smem<D, VD>::DWDB, stream>>>(
-      h, w, b, lse, g, dw, db, n, v);
+  const int tiles = (v + DW_TN - 1) / DW_TN;
+  const int blocks = (tiles + DW_CLUSTER - 1) / DW_CLUSTER * DW_CLUSTER;  // whole clusters
+  kernel<<<blocks, DW_THREADS, DW_SMEM, stream>>>(hm, wm, b, lse, g, dw, db, n, v);
   return int(cudaGetLastError());
 }
 
@@ -792,7 +832,7 @@ bool args_ok(const void* h, const float* b, int n, int d, int v) {
 // tensor map cannot be encoded). h is bf16 [n, d]; w is f32 [d, v]
 // (w_vd == 0) or [v, d] (w_vd == 1); wp is w packed by xent_pack_w: bf16
 // [d, v rounded up to a multiple of 8] or [v, d], 16-byte aligned; b is f32
-// [v] or null; lse and g are f32 [n].
+// [v] or null; lse and g are f32 [n]; dw is f32 in w's layout, db f32 [v].
 
 extern "C" int xent_pack_w(const float* w, void* wp, int d, int v, int w_vd, void* stream) {
   if (d != KERNEL_D || v <= 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
@@ -818,12 +858,24 @@ extern "C" int xent_dh(const void* h, const void* wp, const float* b, const floa
               : launch_dh<false>(h, wp, b, lse, g, out, n, v, s);
 }
 
-extern "C" int xent_dwdb(const void* h, const float* w, const float* b, const float* lse,
-                         const float* g, float* dw, float* db, int n, int d, int v,
-                         int w_vd, void* stream) {
+extern "C" int xent_dwdb(const void* h, const void* wp, const float* b, const float* lse,
+                         const float* g, float* dw, float* db, int n, int d, int v, int w_vd,
+                         void* stream) {
   if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* hh = static_cast<const bf16*>(h);
-  return w_vd ? launch_dwdb<512, true>(hh, w, b, lse, g, dw, db, n, v, s)
-              : launch_dwdb<512, false>(hh, w, b, lse, g, dw, db, n, v, s);
+  return w_vd ? launch_dwdb<true>(h, wp, b, lse, g, dw, db, n, v, s)
+              : launch_dwdb<false>(h, wp, b, lse, g, dw, db, n, v, s);
+}
+
+// How many clusters of the dw/db kernel the card holds at once (its waves
+// are ceil(clusters launched / this)); -1 if the query fails.
+extern "C" int xent_dwdb_active_clusters() {
+  auto kernel = xent_dwdb_kernel<false>;
+  if (set_smem(kernel, DW_SMEM) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};  // the cluster size is the kernel's own
+  cfg.gridDim = dim3(DW_CLUSTER);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = DW_SMEM;
+  int clusters = 0;
+  return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess ? clusters : -1;
 }

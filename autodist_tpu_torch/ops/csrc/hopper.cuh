@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA copies and their tensor maps, named barriers and wgmma, as inline PTX.
+// TMA copies and their tensor maps, clusters (multicast copies, remote
+// arrives), named barriers and wgmma, as inline PTX.
 // Included by flash_attention.cu and fused_xent.cu; ops/_build.py hashes it
 // with each source, so an edited header rebuilds both libraries.
 
@@ -64,6 +65,54 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "r"(c3)
       : "memory");
 }
+// --------------------------------------------------------------- clusters
+// A cluster's blocks run on neighbouring SMs and reach each other's shared
+// memory: one TMA copy can land in all of them (multicast), and a thread can
+// arrive on a partner's mbarrier. Every block of a cluster runs
+// cluster_sync() after its barriers are initialised (so no copy or remote
+// arrive finds an uninitialised barrier) and again before it exits (so none
+// lands in a block that has left).
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster, converged or not.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+// Arrive on the mbarrier at `bar`'s offset in block `rank` of the cluster
+// (this block's own included). The default semantics, release at CTA
+// scope: a consumer arrives after wgmma.wait_group, when its reads of the
+// stage are complete, not just ordered. (Release at cluster scope made the
+// dw/db kernel slower than with no cluster at all.)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+// One box of a 2-D tensor map into `dst` of every block in `mask` (bit i:
+// cluster rank i), each block's bytes landing on its own mbarrier at
+// `bar`'s offset: each receiver expects the whole box's bytes.
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
 // Named barriers over two consumer warpgroups (256 threads); id 0 is
 // __syncthreads'.
 __device__ __forceinline__ void named_sync(int id) {
@@ -178,10 +227,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&s)[8][4], uint64_t da
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// s[64 x 256] (+)= A[64 x 16] . B[16 x 256], A K-major and B K-major
-// (TRANS_B 0) or MN-major (TRANS_B 1, 64-wide MN atoms LBO apart), both in
-// shared memory.
-template <int TRANS_B>
+// s[64 x 256] (+)= A[64 x 16] . B[16 x 256], A K-major (TRANS_A 0) or
+// MN-major (TRANS_A 1: one 64-wide atom, a row of 64 m values per k) and B
+// K-major (TRANS_B 0) or MN-major (TRANS_B 1, 64-wide MN atoms LBO apart),
+// both in shared memory.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&s)[32][4], uint64_t da, uint64_t db,
                                                     int accumulate) {
   asm volatile(
@@ -197,7 +247,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&s)[32][4], uint64_t 
       "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
       "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
       "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : ACC4(s, 0), ACC4(s, 1), ACC4(s, 2), ACC4(s, 3), ACC4(s, 4), ACC4(s, 5), ACC4(s, 6),
         ACC4(s, 7), ACC4(s, 8), ACC4(s, 9), ACC4(s, 10), ACC4(s, 11), ACC4(s, 12),
@@ -205,7 +255,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&s)[32][4], uint64_t 
         ACC4(s, 19), ACC4(s, 20), ACC4(s, 21), ACC4(s, 22), ACC4(s, 23), ACC4(s, 24),
         ACC4(s, 25), ACC4(s, 26), ACC4(s, 27), ACC4(s, 28), ACC4(s, 29), ACC4(s, 30),
         ACC4(s, 31)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // o[64 x 64] (+)= A[64 x 16] . B[16 x 64], A as bf16 fragments in

@@ -10,10 +10,11 @@ plain torch, as the JAX package leaves it to XLA.
 
 ``w`` is taken in either layout, ``[D, V]`` (``w_layout="dv"``, a dense
 kernel) or ``[V, D]`` (``"vd"``, an embedding table), and in its stored dtype.
-The forward and dh kernels read it as packed by a fourth kernel
+All three kernels read it as packed by a fourth kernel
 (:func:`xent_pack_w`): rounded to bf16 once a call, in the stored layout,
-``"dv"`` rows padded to :func:`packed_cols` columns; the dw/db kernel casts
-it per tile. ``dw`` comes back in the stored layout and dtype.
+``"dv"`` rows padded to :func:`packed_cols` columns; the backward packs once
+and hands the table to both of its kernels. ``dw`` comes back in the stored
+layout and dtype.
 
 Each kernel has a wrapper (:func:`xent_fwd`, :func:`xent_dh`,
 :func:`xent_dwdb`, :func:`xent_pack_w`) that counts its launches in a
@@ -59,8 +60,9 @@ def _dims(h, w, vd: bool) -> Tuple[int, int, int]:
 # ------------------------------------------------------------ plain versions
 
 def _w_chunk(w, vd: bool, v0: int, v1: int, dtype) -> torch.Tensor:
-    """``[D, c]`` f32 slice of w holding its values rounded to the activation
-    dtype: the kernels' per-tile cast, with products then taken in f32."""
+    """``[D, c]`` f32 slice of w (or of its pack) holding its values rounded
+    to the activation dtype: what the kernels read, with products then taken
+    in f32."""
     wc = w[v0:v1].T if vd else w[:, v0:v1]
     return wc.to(dtype).float()
 
@@ -104,12 +106,13 @@ def matmul_logsumexp_plain(h, w, b=None, w_layout: str = "dv",
 
 
 def lse_backward_plain(h, w, b, lse, g, w_layout: str = "dv",
-                       v_chunk: int = PLAIN_V_CHUNK):
+                       v_chunk: int = PLAIN_V_CHUNK, wp=None):
     """Plain version of the two backward kernels: ``(dh, dw, db)`` of
     ``sum(g * lse)``, the logits recomputed per vocab chunk from the saved
     lse. ``g * softmax`` is rounded to the activation dtype before its
     products, as in the kernels; dh comes back in h's dtype, dw in w's layout
-    and dtype, db in f32."""
+    and dtype, db in f32. Given ``wp`` (w packed, :func:`pack_w_plain`), the
+    products read its values, as the kernels do."""
     vd = _w_vd(w_layout)
     n, d, v = _dims(h, w, vd)
     hf = h.float()
@@ -117,9 +120,10 @@ def lse_backward_plain(h, w, b, lse, g, w_layout: str = "dv",
     dh = torch.zeros((n, d), dtype=torch.float32, device=h.device)
     dw = torch.empty_like(w)
     db = torch.empty((v,), dtype=torch.float32, device=h.device)
+    table = w if wp is None else wp
     for v0 in range(0, v, v_chunk):
         v1 = min(v, v0 + v_chunk)
-        logits, wc = _logits_chunk(hf, w, b, vd, v0, v1, h.dtype)
+        logits, wc = _logits_chunk(hf, table, b, vd, v0, v1, h.dtype)
         p = torch.exp(logits - lse[:, None]) * g[:, None]
         db[v0:v1] = p.sum(dim=0)
         ph = p.to(h.dtype).float()
@@ -142,7 +146,9 @@ def _lib() -> ctypes.CDLL:
     lib.xent_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.xent_dh.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.xent_dwdb.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    for fn in (lib.xent_pack_w, lib.xent_fwd, lib.xent_dh, lib.xent_dwdb):
+    lib.xent_dwdb_active_clusters.argtypes = []
+    for fn in (lib.xent_pack_w, lib.xent_fwd, lib.xent_dh, lib.xent_dwdb,
+               lib.xent_dwdb_active_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -191,7 +197,7 @@ def _launch(fn, *args):
 
 
 def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
-    """w as the forward and dh kernels read it: bf16 in its stored layout,
+    """w as the fused-head kernels read it: bf16 in its stored layout,
     ``"dv"`` rows padded with zeros to :func:`packed_cols` columns. CUDA: the
     pack kernel (no TPU counterpart: the Pallas kernels cast each block in
     VMEM); CPU: :func:`pack_w_plain`."""
@@ -232,16 +238,30 @@ def xent_fwd(h, w, b, w_layout: str = "dv") -> torch.Tensor:
     return lse
 
 
-def xent_dh(h, w, b, lse, g, w_layout: str = "dv") -> torch.Tensor:
-    """``dh`` of ``sum(g * lse)`` in h's dtype. CUDA: the pack, then the dh
-    kernel (replaces ``_dh_kernel``); CPU: :func:`lse_backward_plain`."""
+def _packed(w, w_layout: str, wp) -> torch.Tensor:
+    """``wp`` if given (checked against w's pack's shape), else a new pack."""
+    if wp is None:
+        return xent_pack_w(w, w_layout)
+    v, d = tuple(w.shape) if _w_vd(w_layout) else tuple(w.shape[::-1])
+    shape = (v, d) if _w_vd(w_layout) else (d, packed_cols(v))
+    if (wp.dtype != torch.bfloat16 or tuple(wp.shape) != shape or not wp.is_contiguous()
+            or wp.device != w.device or wp.data_ptr() % 16):
+        raise ValueError(f"wp must be xent_pack_w's table: contiguous bf16 {shape} on "
+                         f"w's device, 16-byte aligned; got {wp.dtype} {tuple(wp.shape)}")
+    return wp
+
+
+def xent_dh(h, w, b, lse, g, w_layout: str = "dv", wp=None) -> torch.Tensor:
+    """``dh`` of ``sum(g * lse)`` in h's dtype. CUDA: the pack (unless ``wp``,
+    :func:`xent_pack_w`'s table of w, is given), then the dh kernel (replaces
+    ``_dh_kernel``); CPU: :func:`lse_backward_plain`, reading ``wp`` if given."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
-        return lse_backward_plain(h, w, b, lse, g, w_layout)[0]
+        return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[0]
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     dh = torch.empty((n, d), dtype=h.dtype, device=h.device)
     if n:
-        wp = xent_pack_w(w, w_layout)
+        wp = _packed(w, w_layout, wp)
         with torch.cuda.device(h.device):
             _launch(_lib().xent_dh, _ptr(h), _ptr(wp), _ptr(b), _ptr(lse), _ptr(g),
                     _ptr(dh), n, d, v, int(vd),
@@ -250,21 +270,23 @@ def xent_dh(h, w, b, lse, g, w_layout: str = "dv") -> torch.Tensor:
     return dh
 
 
-def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv"):
+def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv", wp=None):
     """``(dw, db)`` of ``sum(g * lse)``: dw in w's layout and dtype, db f32
-    ``[V]``. CUDA: the dw/db kernel (replaces ``_dwdb_kernel``); CPU:
-    :func:`lse_backward_plain`."""
+    ``[V]``. CUDA: the pack (unless ``wp`` is given, as for :func:`xent_dh`),
+    then the dw/db kernel (replaces ``_dwdb_kernel``); CPU:
+    :func:`lse_backward_plain`, reading ``wp`` if given."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
-        return lse_backward_plain(h, w, b, lse, g, w_layout)[1:]
+        return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[1:]
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     if n == 0:
         return torch.zeros_like(w), torch.zeros((v,), dtype=torch.float32,
                                                 device=h.device)
+    wp = _packed(w, w_layout, wp)
     dw = torch.empty_like(w)
     db = torch.empty((v,), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
-        _launch(_lib().xent_dwdb, _ptr(h), _ptr(w), _ptr(b), _ptr(lse), _ptr(g),
+        _launch(_lib().xent_dwdb, _ptr(h), _ptr(wp), _ptr(b), _ptr(lse), _ptr(g),
                 _ptr(dw), _ptr(db), n, d, v, int(vd),
                 torch.cuda.current_stream().cuda_stream)
     xent_dwdb.launches += 1
@@ -291,8 +313,11 @@ class _MatmulLogsumexp(torch.autograd.Function):
     def backward(ctx, g):
         h, w, b, lse = ctx.saved_tensors
         g = g.float().contiguous()
-        dh = xent_dh(h, w, b, lse, g, ctx.w_layout)
-        dw, db = xent_dwdb(h, w, b, lse, g, ctx.w_layout)
+        # One pack a backward, read by both kernels (the plain versions on the
+        # CPU round w per chunk themselves).
+        wp = None if h.device.type == "cpu" or h.shape[0] == 0 else xent_pack_w(w, ctx.w_layout)
+        dh = xent_dh(h, w, b, lse, g, ctx.w_layout, wp=wp)
+        dw, db = xent_dwdb(h, w, b, lse, g, ctx.w_layout, wp=wp)
         return dh, dw, (db if b is not None else None), None
 
 

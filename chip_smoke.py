@@ -13,22 +13,29 @@ exits non-zero without them, or when any phase fails. Phases:
 2. Build every kernel source of the port into ``build/`` (timed); print
    each kernel's registers, barriers, stack and spills from ``-Xptxas -v``,
    any ptxas warning, and the forward kernels' dynamic shared memory. A
-   serialized-wgmma warning (C7518-C7520, C7512, ...) fails the phase.
+   serialized-wgmma warning (C7518-C7520, C7512, ...) fails the phase, and
+   so does a spill in the dw/db kernel.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
    and without a bias, ragged N and V (1,000 x 31,999), the forward and dh
    kernels' tiling edges (``XENT_EDGES``: N one short of and one past the
    forward's 128-row and dh's 64-row blocks, V one past the forward's
    128-column and dh's 64-column vocab tiles, every such V odd, so the
-   packed "dv" table is padded), and the main paths' own shapes ("dv", no
-   bias, V = 32,000): N = 8,192 (the flagship micro-batch here) and 65,536
-   (the long-context step). The pack kernel must equal its plain version
-   bit for bit. Tolerance: lse within 0.01 absolute; dh, dw and db within
-   TILE_RTOL in every tile (see ``worst_tile``). Then each kernel is timed
-   at the flagship micro-batch (N = 98,304) beside its plain version, the
-   one PyTorch call computing the same function where there is one, and its
-   bound, with the TFLOP/s reached and the share of the bound; and the pack
-   beside its bytes' bound.
+   packed "dv" table is padded), the dw/db kernel's (``XENT_DWDB_EDGES``:
+   N = 1 and one short of and one past its 64-row stripe, V = 63, 65, 129
+   and 193, where a cluster's second block holds no column or one), and
+   the main paths' own shapes ("dv", no bias, V = 32,000): N = 8,192 (the
+   flagship micro-batch here) and 65,536 (the long-context step). The pack
+   kernel must equal its plain version bit for bit. Tolerance: lse within
+   0.01 absolute; dh, dw and db within TILE_RTOL in every tile (see
+   ``worst_tile``). Then each kernel is timed at the flagship micro-batch
+   (N = 98,304) beside its plain version, the one PyTorch call computing
+   the same function where there is one, and its bound, with the TFLOP/s
+   reached and the share of the bound; and the pack beside its bytes'
+   bound. dw/db must give the same bits twice on those inputs; it is also
+   timed on a table packed beforehand, beside cuBLAS's products of the same
+   work (``h @ wp`` into a materialised bf16 [N, V] S, then ``h.T @ S``), a
+   yardstick for the text only.
 4. The flagship at full width (d512 x 6 layers, 8 heads, d_ff 2048, vocab
    32,000, seq 256, untied fused head, bf16 activations, f32 params) through
    ``AutoDist(resource_info=..., strategy_builder=AllReduce()).function``
@@ -107,6 +114,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -155,6 +163,13 @@ SERIALIZED_WGMMA = ("wgmma", "serialized")
 # tiles, dh's 64 rows and 64-column tiles: (N, V) one short of or one past
 # each, every V odd (the packed "dv" table's row stride is padded to 8).
 XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
+# The dw/db kernel's blocks own 64 vocab columns, two blocks to a cluster,
+# and walk 64-row stripes: N = 1, one short of and one past a stripe; V = 63
+# and 65 (the first cluster's second block holds no column, or one), 129
+# (the second cluster's second block holds none) and 193 (one).
+XENT_DWDB_EDGES = tuple((n, v) for n in (1, 63, 65) for v in (63, 65, 129, 193))
+# A spill in this kernel fails phase 2.
+NO_SPILL = "xent_dwdb_kernel"
 
 
 def log(msg: str) -> None:
@@ -228,8 +243,8 @@ def check_kernels(fx, dev):
     gen = torch.Generator().manual_seed(0)
     errs = {"xent_fwd": 0.0, "xent_dh": 0.0, "xent_dwdb": 0.0}
     cases = [(1000, V - 1, layout, bias) for layout in ("dv", "vd") for bias in (True, False)]
-    cases += [(n, v, layout, bias) for n, v in XENT_EDGES for layout in ("dv", "vd")
-              for bias in (True, False)]
+    cases += [(n, v, layout, bias) for n, v in XENT_EDGES + XENT_DWDB_EDGES
+              for layout in ("dv", "vd") for bias in (True, False)]
     cases += [(MAIN_MICRO_ROWS, V, "dv", False), (LC_BATCH * LC_SEQ, V, "dv", False)]
     for n, v, layout, bias in cases:
         h, w, b, g = inputs(n, v, layout, bias, gen, dev)
@@ -328,6 +343,7 @@ def time_kernels(fx, dev):
     log(f"time xent_pack_w D={D} V={V} (dv): {pack_ms:.3f} ms, plain "
         f"{time_ms(lambda: fx.pack_w_plain(w), 10):.3f} ms, bound "
         f"{bound(D * V * 6, 0)[0]:.3f} ms (bytes)")
+    dwdb_yardstick(fx, h, w, lse, g, rows["xent_dwdb"])
     # The main path's own micro-batch, for the step-time breakdown.
     m = MAIN_MICRO_ROWS
     hm, lm, gm = h[:m], lse[:m], torch.full((m,), 1.0 / m, device=dev)
@@ -336,6 +352,33 @@ def time_kernels(fx, dev):
         f"xent_dh {time_ms(lambda: fx.xent_dh(hm, w, None, lm, gm), 5):.3f} ms, "
         f"xent_dwdb {time_ms(lambda: fx.xent_dwdb(hm, w, None, lm, gm), 5):.3f} ms")
     return rows
+
+
+def dwdb_yardstick(fx, h, w, lse, g, row):
+    """dw/db at the flagship micro-batch: the same bits from two calls; its
+    time on a table packed beforehand (the backward packs once for dh and
+    dw/db); and cuBLAS's two products of the same work, S = h @ wp into a
+    materialised bf16 [N, V] and h.T @ S, which skip the softmax (a
+    yardstick for the text only: no library call computes dw/db)."""
+    first, second = fx.xent_dwdb(h, w, None, lse, g), fx.xent_dwdb(h, w, None, lse, g)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"check xent_dwdb N={h.shape[0]}: dw and db bit-identical over two calls: {same}")
+    if not same:
+        raise AssertionError("xent_dwdb gave different bits from call to call")
+    del first, second
+    wp = fx.xent_pack_w(w)
+    packed_ms = time_ms(lambda: fx.xent_dwdb(h, w, None, lse, g, wp=wp), 3)
+    s = torch.empty(h.shape[0], V, dtype=torch.bfloat16, device=h.device)
+    scores_ms = time_ms(lambda: torch.matmul(h, wp, out=s), 3)
+    dw_ms = time_ms(lambda: torch.matmul(h.T, s), 3)
+    del s
+    torch.cuda.empty_cache()
+    log(f"time xent_dwdb N={h.shape[0]} on a packed table: {packed_ms:.3f} ms "
+        f"({row['flops'] / (packed_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{row['bound'][0] / packed_ms:.3f} of the bound); cuBLAS h @ wp "
+        f"{scores_ms:.3f} ms + h.T @ S {dw_ms:.3f} ms = {scores_ms + dw_ms:.3f} ms; "
+        f"{fx._lib().xent_dwdb_active_clusters()} clusters of 2 resident at once")
 
 
 def main_path(kernels, dev):
@@ -850,14 +893,18 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    serialized = []
+    serialized, spilled = [], []
     for name in built:
         for line in ptxas_summary(_build.build_log(name)):
             log(f"ptxas {name}: {line}")
             if all(word in line for word in SERIALIZED_WGMMA):
                 serialized.append(line)
+            if line.startswith(NO_SPILL) and re.search(r"[1-9]\d* bytes spill", line):
+                spilled.append(line)
     if serialized:
         raise AssertionError(f"ptxas serialized the wgmma of a kernel: {serialized}")
+    if spilled:
+        raise AssertionError(f"ptxas spilled in a kernel that must not: {spilled}")
     log(f"flash forward kernels: {fa._lib().flash_fwd_smem_bytes()} bytes of dynamic shared "
         "memory a block")
 

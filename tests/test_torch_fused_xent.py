@@ -89,9 +89,15 @@ def test_grads_match_jax(layout, bias):
 
 # The CUDA kernels' tiling edges at their one width, D = 512: the forward's
 # blocks hold 128 rows and walk 128-column vocab tiles, dh's 64 rows and
-# 64-column tiles; V odd is the packed "dv" table's padded stride.
+# 64-column tiles; V odd is the packed "dv" table's padded stride. The last
+# three: dw/db's blocks own 64 vocab columns in clusters of two and walk
+# 64-row stripes (one row; one past and one short of a stripe; the first
+# cluster's second block holds one column at V = 65 and none at V = 63, the
+# second cluster's second block one at V = 193).
 @pytest.mark.parametrize("n,v,layout,bias", [(127, 129, "dv", True), (129, 129, "vd", False),
-                                             (63, 65, "vd", True), (65, 65, "dv", False)])
+                                             (63, 65, "vd", True), (65, 65, "dv", False),
+                                             (1, 65, "vd", True), (65, 63, "dv", False),
+                                             (63, 193, "dv", True)])
 def test_grads_at_kernel_tiling_edges_match_jax(n, v, layout, bias):
     h, w, b = _data(n, 512, v, seed=21)
     w = _stored(w, layout)
@@ -125,6 +131,28 @@ def test_pack_w_plain_matches_jax_cast(layout):
         np.testing.assert_array_equal(got[:, :v].float().numpy(), want)
         assert not got[:, v:].float().any()
     assert tfx.packed_cols(136) == 136 and tfx.packed_cols(1) == 8
+
+
+@pytest.mark.parametrize("layout", ["dv", "vd"])
+def test_backward_wrappers_read_a_given_packed_table(layout):
+    """xent_dh and xent_dwdb given ``wp=pack_w_plain(w)`` (the table the
+    backward packs once for both kernels) equal the same calls without it,
+    bit for bit: the pack rounds w to bf16 as each chunk's own cast does."""
+    n, v = 65, 129
+    h, w, b = _data(n, 512, v, seed=24)
+    h = torch.tensor(h).to(torch.bfloat16)
+    w, b = torch.tensor(_stored(w, layout)), torch.tensor(b)
+    lse = tfx.matmul_logsumexp_plain(h, w, b, layout)
+    g = torch.rand(n, generator=torch.Generator().manual_seed(1))
+    wp = tfx.pack_w_plain(w, layout)
+    got = (tfx.xent_dh(h, w, b, lse, g, layout, wp=wp),
+           *tfx.xent_dwdb(h, w, b, lse, g, layout, wp=wp))
+    want = (tfx.xent_dh(h, w, b, lse, g, layout), *tfx.xent_dwdb(h, w, b, lse, g, layout))
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+    # The table given is the one read: another one shows.
+    assert not torch.equal(tfx.xent_dwdb(h, w, b, lse, g, layout, wp=wp * 2)[0], want[1])
 
 
 def test_large_bias_with_padding_rows_matches_jax():
