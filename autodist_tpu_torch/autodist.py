@@ -1,8 +1,10 @@
 """User API: the AutoDist class (``autodist_tpu/autodist.py:44,184-287,363-400``).
 
 Ported so far: the synchronous single-node path, ``AutoDist(resource spec,
-builder)`` -> ``create_distributed_session`` or ``function``, and the
-sequence-parallel session built on it
+builder)`` -> ``create_distributed_session`` or ``function``, over a mesh of
+one or more ranks (one process per device, launched by torchrun: the mesh's
+device count comes from the resource spec, whose default is the world size
+or the visible cards), and the sequence-parallel session built on it
 (:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`).
 Async PS, cluster launch and autotuning raise ``NotImplementedError``.
 """
@@ -12,6 +14,7 @@ from typing import Callable, Mapping, Optional, Sequence, Union
 import torch
 
 from autodist_tpu_torch.model_spec import ModelSpec
+from autodist_tpu_torch.parallel import multihost
 from autodist_tpu_torch.parallel.plan import ShardingPlan
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, step_function
@@ -29,7 +32,8 @@ class AutoDist:
                  device: Union[str, torch.device, None] = None):
         """``resource_spec_file``: a YAML path, inline YAML text or a parsed
         :class:`ResourceSpec`; or ``resource_info=`` as a dict; neither gives
-        the local default. ``strategy_builder`` defaults to ``AllReduce()``
+        the local default (one device per rank of torchrun's world, else the
+        visible cards). ``strategy_builder`` defaults to ``AllReduce()``
         (the JAX package defaults to ``PSLoadBalancing``, not ported yet).
         ``device`` defaults to ``cuda:$LOCAL_RANK`` (``cuda:0`` outside
         torchrun) and raises ``RuntimeError`` when CUDA is absent; pass
@@ -76,6 +80,7 @@ class AutoDist:
                                    params: Mapping[str, torch.Tensor], optimizer: Callable,
                                    example_batch=None,
                                    sparse_names: Optional[Sequence[str]] = None,
+                                   has_aux: bool = False,
                                    accumulation_steps: int = 1,
                                    batch_size: Optional[int] = None) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
@@ -85,25 +90,31 @@ class AutoDist:
         Sparse flags come from ``sparse_names`` if given, else from the
         gather-only parameters ``loss_fn.sparse_names`` declares.
         ``example_batch`` is accepted for the JAX signature's sake: the port
-        declares sparsity instead of tracing the loss."""
+        declares sparsity instead of tracing the loss. A mesh of more than
+        one rank joins the process group from torchrun's environment first;
+        every rank calls this with the same arguments."""
         del example_batch
         model_spec = (ModelSpec.from_loss_fn(loss_fn, params) if sparse_names is None
                       else ModelSpec(params, sparse_names=sparse_names))
         compiled = self._compile(model_spec)
         plan = ShardingPlan.from_strategy(compiled, model_spec)
+        if plan.num_devices > 1:
+            multihost.maybe_initialize_multihost(self.device)
         return DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
                                  plan=plan, accumulation_steps=accumulation_steps,
-                                 batch_size=batch_size)
+                                 batch_size=batch_size, has_aux=has_aux)
 
     def function(self, loss_fn: Callable, params: Mapping[str, torch.Tensor],
                  optimizer: Callable, example_batch=None,
                  sparse_names: Optional[Sequence[str]] = None,
-                 accumulation_steps: int = 1,
+                 has_aux: bool = False, accumulation_steps: int = 1,
                  batch_size: Optional[int] = None) -> Callable:
-        """``step(batch) -> loss`` carrying the training state inside; the
-        first call's runner is reused by every later one. ``step.runner``,
-        ``step.get_state()`` and ``step.evaluate(batch, fn=None)`` expose it."""
+        """``step(batch, fetches=None) -> loss`` (what
+        :meth:`DistributedRunner.run` fetches) carrying the training state
+        inside; the first call's runner is reused by every later one.
+        ``step.runner``, ``step.get_state()`` and ``step.evaluate(batch,
+        fn=None)`` expose it."""
         runner = self.create_distributed_session(
-            loss_fn, params, optimizer, example_batch, sparse_names,
+            loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
             accumulation_steps=accumulation_steps, batch_size=batch_size)
         return step_function(runner, params)

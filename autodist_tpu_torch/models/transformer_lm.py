@@ -47,6 +47,7 @@ from autodist_tpu_torch.models.common import (EMBEDDING, HEAD_KERNEL,
 from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
 from autodist_tpu_torch.ops.flash_attention import flash_attention
 from autodist_tpu_torch.parallel.ring_attention import ring_attention
+from autodist_tpu_torch.parallel.synchronization import global_mean
 from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
@@ -310,7 +311,13 @@ def fused_head_nll(model: TransformerLM, params, inputs, targets,
 def make_loss_fn(model: TransformerLM) -> Callable:
     """Next-token cross entropy ``loss_fn(params, batch)``; ``batch`` holds
     int ``tokens [B, L+1]`` and optionally a ``mask [B, L+1]`` over them.
-    ``loss_fn.sparse_names`` declares the gather-only parameters."""
+    ``loss_fn.sparse_names`` declares the gather-only parameters.
+
+    Under data parallelism the loss is the JAX package's global one
+    (``autodist_tpu/models/transformer_lm.py:290-297``): the unmasked mean
+    over equal rows on every rank is exact under the runner's average, and
+    the masked mean ``sum(nll * mask) / max(sum(mask), 1)`` reduces both
+    sums over all data ranks' rows of the micro-batch (:func:`global_mean`)."""
 
     def logits_nll(params, inputs, targets):
         logits = apply(model, params, inputs)
@@ -328,7 +335,7 @@ def make_loss_fn(model: TransformerLM) -> Callable:
         nll = per_token_nll(params, inputs, targets)
         if "mask" in batch:
             mask = batch["mask"][:, 1:].to(nll.dtype)
-            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            return global_mean((nll * mask).sum(), mask.sum())
         return nll.mean()
 
     loss_fn.sparse_names = model.gather_only_params()

@@ -1,14 +1,22 @@
-"""Mesh shape resolution (``autodist_tpu/parallel/mesh.py:26-65``). The port
-records the named mesh in the strategy and runs one process per device: a
-``seq`` axis of k > 1 is the process group of k ranks that
-:mod:`autodist_tpu_torch.parallel.sequence` joins. Data axes over more than
-one device are not ported yet."""
+"""The device mesh (``autodist_tpu/parallel/mesh.py:26-108``).
+
+The port runs one process per device, so a mesh is a grid of ranks: the
+world's ranks reshaped row-major over ``STANDARD_AXES``, as the JAX package
+reshapes its devices (rank ``data_index * seq_size + seq_index`` on a
+data x seq mesh). Every axis of more than one rank gets the process groups
+along it, and so does each combination of axes the training path reduces
+over (the data axes; the data axes with ``seq``).
+"""
 
 import collections
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.parallel.plan import DP_AXES
 
 # Canonical axis order. Axes the user does not size default to 1.
 STANDARD_AXES = (
@@ -48,3 +56,102 @@ def standard_mesh_shape(n_devices: int, axes: Optional[Dict[str, int]] = None
     elif fixed != n_devices:
         raise ValueError(f"Mesh axes {dict(shape)} require {fixed} devices, have {n_devices}")
     return shape
+
+
+# Axis combinations a step reduces over, besides every single axis: the
+# data-parallel axes (gradients, a data-dependent loss count) and those with
+# seq (the sequence-parallel loss and its gradients).
+REDUCE_AXES = (DP_AXES, DP_AXES + (const.MESH_AXIS_SEQ,))
+
+
+class DeviceMesh:
+    """A named grid of ranks, this process's place in it, and the process
+    groups along its axes. ``group(axes)`` is the group of the ranks that
+    differ from this one only along ``axes``: ``None`` when that is this
+    rank alone, the world group when it is every rank."""
+
+    def __init__(self, shape: "collections.OrderedDict[str, int]", rank: int = 0,
+                 groups: Optional[Dict[Tuple[str, ...], "dist.ProcessGroup"]] = None):
+        self.shape = collections.OrderedDict(shape)
+        self.rank = rank
+        self.coords = {a: int(c) for a, c in zip(
+            self.shape, np.unravel_index(rank, tuple(self.shape.values())))}
+        self._groups = dict(groups or {})
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def _live(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        return tuple(a for a in self.shape if a in axes and self.shape[a] > 1)
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over ``axes`` (its data index over
+        ``("data", "reduce")``)."""
+        idx = 0
+        for a in self.shape:
+            if a in axes:
+                idx = idx * self.shape[a] + int(self.coords[a])
+        return idx
+
+    def group(self, axes: Sequence[str]) -> Optional["dist.ProcessGroup"]:
+        live = self._live(axes)
+        if not live:
+            return None
+        if live == self._live(tuple(self.shape)):
+            return dist.group.WORLD
+        return self._groups[live]
+
+
+def _subgroup_members(shape: "collections.OrderedDict[str, int]",
+                      live: Tuple[str, ...]):
+    """Every sub-group along the axes ``live``, as rank lists, in one order
+    all ranks share: for each setting of the other axes (row-major), the
+    ranks varying along ``live``."""
+    ranks = np.arange(math.prod(shape.values())).reshape(tuple(shape.values()))
+    names = list(shape)
+    keep = [names.index(a) for a in live]
+    rest = [i for i in range(len(names)) if i not in keep]
+    moved = ranks.transpose(rest + keep).reshape(-1, math.prod(shape[a] for a in live))
+    return [row.tolist() for row in moved]
+
+
+def build_mesh(resource_spec=None, axes: Optional[Dict[str, int]] = None) -> DeviceMesh:
+    """The mesh over the joined process group's ranks (one rank when no
+    group is up). ``axes`` overrides the resource spec's ``mesh:`` section;
+    their product must be the world size. With more than one rank, every
+    rank must call this with the same arguments: each creates every
+    sub-group with ``dist.new_group`` in the same order."""
+    world_size = dist.get_world_size() if dist.is_initialized() else 1
+    if axes is None and resource_spec is not None:
+        axes = resource_spec.mesh_config
+    shape = standard_mesh_shape(world_size, axes)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    groups = {}
+    if world_size > 1:
+        wanted = [(a,) for a in shape] + list(REDUCE_AXES)
+        every = tuple(a for a in shape if shape[a] > 1)
+        for combo in wanted:
+            live = tuple(a for a in shape if a in combo and shape[a] > 1)
+            if not live or live == every or live in groups:
+                continue
+            for members in _subgroup_members(shape, live):
+                group = dist.new_group(members)
+                if rank in members:
+                    groups[live] = group
+    return DeviceMesh(shape, rank, groups)
+
+
+def joined_mesh(axes: Dict[str, int]) -> Optional[DeviceMesh]:
+    """:func:`build_mesh` over ``axes`` when the joined world has their
+    device count, else None (the runner then names the mismatch)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return build_mesh(axes=axes) if world == math.prod(axes.values()) else None
+
+
+def data_axis_size(mesh: DeviceMesh) -> int:
+    return mesh.shape[const.MESH_AXIS_DATA]
+
+
+def single_device_mesh() -> DeviceMesh:
+    """A mesh of one rank (the original single-node step)."""
+    return DeviceMesh(standard_mesh_shape(1, {const.MESH_AXIS_DATA: 1}))

@@ -6,7 +6,9 @@ torchrun sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``
 (and ``LOCAL_RANK``, which :func:`autodist_tpu_torch.utils.device.resolve_device`
 reads); this module reads the first four and gives them to
 ``init_process_group`` explicitly. One process per card: NCCL on the card,
-gloo on the host.
+gloo on the host. ``AutoDist`` joins for any mesh of more than one rank
+(data, seq or both); :func:`autodist_tpu_torch.parallel.mesh.build_mesh`
+then makes the groups along its axes.
 """
 
 import datetime

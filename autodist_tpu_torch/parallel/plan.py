@@ -81,6 +81,17 @@ class ShardingPlan:
         return (self.mesh_axes.get(const.MESH_AXIS_DATA, 1)
                 * self.mesh_axes.get(const.MESH_AXIS_REDUCE, 1))
 
+    def batch_rows(self, n_rows: int, data_index: int) -> slice:
+        """The rows of a leading dim of ``n_rows`` that data rank
+        ``data_index`` holds: its contiguous ``1/dp`` chunk, the data axes
+        taken together, data major (``batch_pspec``,
+        ``autodist_tpu/parallel/plan.py:269-272``)."""
+        dp = self.dp_size
+        if n_rows % dp:
+            raise ValueError(f"a leading dim of {n_rows} does not split over {dp} data ranks")
+        per = n_rows // dp
+        return slice(data_index * per, (data_index + 1) * per)
+
     @property
     def seq_size(self) -> int:
         return self.mesh_axes.get(const.MESH_AXIS_SEQ, 1)

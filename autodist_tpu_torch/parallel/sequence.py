@@ -9,11 +9,14 @@ group, one process per card; each rank runs the model on its shard with
 - ring attention for the mixing across shards (K/V rotate around the group,
   :mod:`autodist_tpu_torch.parallel.ring_attention`), and
 - the loss as this shard's share of the global token mean (local NLL sum over
-  the all-reduced token count), whose gradients the runner sums over the
-  group (:func:`autodist_tpu_torch.parallel.synchronization.make_grad_fn`),
+  the token count all-reduced over the data and seq ranks, as the JAX loss
+  psums over both), whose gradients the runner combines over the same ranks
+  (:func:`autodist_tpu_torch.parallel.synchronization.make_grad_fn`),
   where the JAX package's ``psum`` transposes inside ``shard_map``.
 
-A group of ``None`` is a ring of one rank: the same path without sends.
+Sequence parallelism composes with data parallelism in one mesh: the ring
+runs on the seq sub-group of each data rank's ranks. A group of ``None`` is
+a ring of one rank: the same path without sends.
 """
 
 from typing import Callable, Optional
@@ -21,24 +24,29 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.models import transformer_lm as tlm
 from autodist_tpu_torch.parallel import multihost
+from autodist_tpu_torch.parallel.mesh import joined_mesh
 from autodist_tpu_torch.parallel.plan import ShardingPlan
 from autodist_tpu_torch.parallel.ring_attention import ring_size_and_rank
+from autodist_tpu_torch.parallel.synchronization import SYNC_AXES, global_mean
 from autodist_tpu_torch.runner import DistributedRunner
 
 
 def make_sequence_parallel_loss_fn(model: tlm.TransformerLM,
                                    group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``loss_fn(params, batch)``: next-token cross entropy with the sequence
-    sharded over ``group``. ``model`` uses ring attention
+    sharded over ``group``, the seq ranks. ``model`` uses ring attention
     (``attention_impl="ring"``); every other layer is positionwise, which is
     what makes per-shard evaluation exact. ``batch = {"tokens": int [B, L+1]}``,
     the whole sequence on every rank, with L divisible by the group's size.
 
-    The returned loss has the global token mean as its value on every rank
-    and this shard's share of it as its gradient."""
+    The returned loss has the global token mean over the data and seq ranks
+    as its value on every rank and this shard's share of it as its gradient
+    (scaled as :func:`~autodist_tpu_torch.parallel.synchronization.global_mean`
+    says). Outside a runner's step the mean is over ``group``."""
     size, rank = ring_size_and_rank(group)
     cfg = model.config
 
@@ -67,13 +75,8 @@ def make_sequence_parallel_loss_fn(model: tlm.TransformerLM,
         l_local = length // size
         shard = slice(rank * l_local, (rank + 1) * l_local)
         nll = per_token_nll(params, inputs[:, shard], targets[:, shard], rank * l_local)
-        sums = torch.stack([nll.detach().sum(), torch.tensor(float(nll.numel()),
-                                                             device=nll.device)])
-        if size > 1:
-            dist.all_reduce(sums, group=group)
-        local = nll.sum() / sums[1]
-        # Value: the global mean; gradient: this shard's share of it.
-        return local + (sums[0] / sums[1] - local).detach()
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+        return global_mean(nll.sum(), count, axes=SYNC_AXES, group=group)
 
     loss_fn.sparse_names = model.gather_only_params()
     return loss_fn
@@ -84,15 +87,17 @@ def create_sequence_parallel_session(autodist, model: tlm.TransformerLM, params,
     """Sequence-parallel counterpart of ``AutoDist.create_distributed_session``
     (``autodist_tpu/parallel/sequence.py:99-121``). ``autodist`` carries a
     strategy with a ``seq`` axis (:class:`~autodist_tpu_torch.strategy.SequenceParallel`);
-    each rank calls this with the same arguments. With a seq axis of k > 1
-    the process group is joined from torchrun's environment and must hold k
-    ranks; at k = 1 no group is needed."""
+    each rank calls this with the same arguments. With a mesh of more than
+    one rank (seq, or data x seq) the process group is joined from
+    torchrun's environment and must hold the mesh's ranks; the ring runs on
+    this rank's seq sub-group."""
     model_spec = ModelSpec(params)
     compiled = autodist._compile(model_spec)
     plan = ShardingPlan.from_strategy(compiled, model_spec)
-    group = None
-    if plan.seq_size > 1 and multihost.maybe_initialize_multihost(autodist.device):
-        group = dist.group.WORLD
+    if plan.num_devices > 1:
+        multihost.maybe_initialize_multihost(autodist.device)
+    mesh = joined_mesh(plan.mesh_axes)
+    group = mesh.group((const.MESH_AXIS_SEQ,)) if mesh is not None else None
     loss_fn = make_sequence_parallel_loss_fn(model, group)
     return DistributedRunner(compiled, model_spec, loss_fn, optimizer, autodist.device,
-                             plan=plan, seq_group=group)
+                             plan=plan, mesh=mesh)

@@ -84,8 +84,11 @@ class Node:
 class ResourceSpec:
     """Parsed resource spec.
 
-    With no argument, a single-host spec over the visible CUDA devices (or the
-    host's CPU when there is none)."""
+    With no argument, a single-host spec of one device per rank of the
+    world torchrun launched (the ranks are the spec's accelerators, as the
+    JAX package declares its visible devices, on the card or on the host),
+    else over the visible CUDA devices (or the host's CPU when there is
+    none)."""
 
     def __init__(self, resource_file: Optional[str] = None, *,
                  resource_info: Optional[dict] = None):
@@ -116,7 +119,11 @@ class ResourceSpec:
     @staticmethod
     def _local_default_info() -> dict:
         import torch
-        n = torch.cuda.device_count()
+        import torch.distributed as dist
+        if dist.is_initialized():
+            n = dist.get_world_size()
+        else:
+            n = int(os.environ.get("WORLD_SIZE", "0")) or torch.cuda.device_count()
         node = {"address": "localhost", "chief": True}
         if n:
             node["gpus"] = list(range(n))

@@ -106,7 +106,25 @@ exits non-zero without them, or when any phase fails. Phases:
    steps (every kernel but ``flash_fwd`` must launch, ``flash_fwd`` never;
    all losses finite), tokens/s and MFU over 4 steady steps with peak
    memory, and a profiler window over 2 steps.
-9. One JSON line of per-kernel numbers (all seven kernels), then the result
+9. The flagship entry point (``autodist_tpu_torch.examples.flagship_lm``)
+   at its real shape: d512 x 6 layers, 8 heads, d_ff 2048, vocab 32,000,
+   max_len 512, untied fused head, bf16 activations, f32 params,
+   ``AllReduce``, Adam 1e-3, micro-batches of 384 x 256 tokens with 8-way
+   accumulation (dp = 1: one card), the batch resident on the card. First,
+   on a small batch, its fused-head loss is held against the plain logits
+   head (rtol 1e-2). Then the entry point's own ``main``: 2 warm-up and
+   FLAGSHIP_STEPS timed steps, launch counts set to 0 just before and read
+   just after (each fused-head kernel must launch 8 times a step, the pack
+   16; the final loss finite), its tokens/s, MFU and peak memory; and a
+   profiler window over 2 steps.
+10. ``train()`` at full width (the flagship model, micro-batches of 32 x 256
+   with 2-way accumulation) on host batches through the prefetching device
+   feed (``prefetch_depth=2``: pinned memory, a side stream) into a
+   temporary checkpoint directory: 4 straight steps against 2 steps, the
+   final save, a restore into a fresh runner (which must equal the saved
+   state bit for bit) and 2 more steps. The losses and the final params
+   must be bit-identical, and the losses equal the synchronous feed's.
+11. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
 
@@ -114,6 +132,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -144,6 +163,7 @@ PROFILE_STEPS = 3                 # steps traced after those
 LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
 FLASH_LSE_ATOL = 1e-3
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
+FLAGSHIP_STEPS, FLAGSHIP_ACCUM = 10, 8      # timed steps of phase 9, its micro-batches a step
 RING_SHARDS = 4                   # shards of the ring replay on one card
 # The forward kernels' blocks hold 192 query rows, 64 per consumer
 # warpgroup; their key tiles 128 keys. Lengths one past a 128- and a
@@ -872,6 +892,136 @@ def sequence_parallel_path(kernels, dev):
     return launches
 
 
+def flagship_full_path(kernels, dev):
+    """Phase 9: the flagship entry point at its real shape."""
+    from autodist_tpu_torch.examples import flagship_lm
+    from autodist_tpu_torch.models import transformer_lm as tlm
+
+    argv = ["--device", str(dev), "--steps", str(FLAGSHIP_STEPS)]
+    args = flagship_lm.parse_args(argv)
+    cfg, step, _ = flagship_lm.build(args)
+    log(f"flagship: {cfg}")
+    # Reference on a small input: fused head (kernels) vs plain logits head.
+    params = step.get_state().params
+    small = {k: torch.as_tensor(a).to(dev)
+             for k, a in tlm.synthetic_batch(cfg, 4, args.seq_len, seed=96).items()}
+    plain_model = tlm.TransformerLM(dataclasses.replace(cfg, fused_head=False))
+    with torch.no_grad():
+        fused = float(tlm.make_loss_fn(tlm.TransformerLM(cfg))(params, small))
+        plain = float(tlm.make_loss_fn(plain_model)(params, small))
+    log(f"flagship reference: fused-head loss {fused:.6f} vs logits-head loss {plain:.6f}")
+    if not (math.isfinite(fused) and abs(fused - plain) <= 1e-2 * abs(plain)):
+        raise AssertionError("fused-head loss disagrees with the logits head")
+    del step, params
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = flagship_lm.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = flagship_lm.WARMUP_STEPS + FLAGSHIP_STEPS
+    log(f"flagship: main took {wall:.1f} s for {steps} steps; kernel launches {launches} "
+        f"({steps} steps); {result['value']} tokens/s, MFU {result['mfu']} of 989 TFLOP/s, "
+        f"max_memory_allocated {result['max_memory_allocated']} bytes, final loss "
+        f"{result['final_loss']}; card {card_line()}")
+    want = {"xent_fwd": FLAGSHIP_ACCUM, "xent_dh": FLAGSHIP_ACCUM,
+            "xent_dwdb": FLAGSHIP_ACCUM, "xent_pack_w": 2 * FLAGSHIP_ACCUM}
+    wrong = {name: launches[name] for name, per_step in want.items()
+             if launches[name] != per_step * steps}
+    if wrong or not math.isfinite(result["final_loss"]):
+        raise AssertionError(f"flagship: launches {wrong} are not {want} a step, or the "
+                             f"final loss {result['final_loss']} is not finite")
+    torch.cuda.empty_cache()
+    _, step, batch = flagship_lm.build(args)
+    float(step(batch))
+    profile_steps(step, [batch] * 2, label="flagship profile")
+    return launches
+
+
+def train_path(kernels, dev):
+    """Phase 10: train() with checkpoints, resume and the prefetching feed."""
+    import tempfile
+
+    from autodist_tpu_torch import AllReduce, AutoDist
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.training import train
+
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6,
+                                  d_ff=2048, max_len=512, fused_head=True,
+                                  tied_output=False, dtype=torch.bfloat16)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    micro, accum = 32, 2
+
+    def batches(i):
+        return tlm.synthetic_batch(cfg, micro * accum, 256, seed=1000 + i)
+
+    def runner():
+        ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
+                      strategy_builder=AllReduce(), device=dev)
+        r = ad.create_distributed_session(tlm.make_loss_fn(model), params,
+                                          lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
+                                          accumulation_steps=accum)
+        r.losses, run = [], r.run
+
+        def recorded(state, batch):
+            state, loss = run(state, batch)
+            r.losses.append(loss)
+            return state, loss
+
+        r.run = recorded
+        return r
+
+    def state_tensors(state):
+        out = {f"param {k}": v.detach() for k, v in state.params.items()}
+        for k, p in state.params.items():
+            for field, value in state.optimizer.state[p].items():
+                out[f"{field} {k}"] = value
+        return out
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in kernels:
+            k.launches = 0
+        straight = runner()
+        t0 = time.perf_counter()
+        want = train(straight, params, batches, steps=4, checkpoint_dir=f"{tmp}/a",
+                     log_every=1, prefetch_depth=2)
+        straight_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        first, second, sync = runner(), runner(), runner()
+        saved = train(first, params, batches, steps=2, checkpoint_dir=f"{tmp}/b",
+                      prefetch_depth=2)
+        latest = Saver.latest_checkpoint(f"{tmp}/b", name="model")
+        restored = Saver().restore(latest, runner=runner())
+        restored_same = restored.step == saved.step == 2 and same(state_tensors(restored),
+                                                                 state_tensors(saved))
+        got = train(second, params, batches, steps=4, checkpoint_dir=f"{tmp}/b",
+                    prefetch_depth=2)
+        train(sync, params, batches, steps=4, prefetch_depth=0)
+        files = sorted(os.listdir(f"{tmp}/b"))
+    losses = [float(x) for x in straight.losses]
+    resumed = [float(x) for x in first.losses + second.losses]
+    synced = [float(x) for x in sync.losses]
+    params_same = same({k: v.detach() for k, v in want.params.items()},
+                       {k: v.detach() for k, v in got.params.items()})
+    log(f"train: 4 straight steps (prefetch_depth=2) in {straight_s:.2f} s, losses {losses}; "
+        f"2 + resume + 2 {resumed}; synchronous feed {synced}; checkpoint files {files}; "
+        f"launches {launches}")
+    log(f"train: restored state equals the saved one bit for bit: {restored_same}; "
+        f"resumed losses and final params bit-identical: {losses == resumed and params_same}; "
+        f"prefetch feed equals the synchronous feed: {losses == synced}")
+    if not (restored_same and losses == resumed and params_same and losses == synced
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError("train(): the resumed run or the prefetching feed disagrees")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -921,17 +1071,20 @@ def main() -> int:
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
     by_phase = {"flagship": main_path(every, dev),
                 "long_context": long_context_path(every, dev),
-                "sequence_parallel": sequence_parallel_path(every, dev)}
+                "sequence_parallel": sequence_parallel_path(every, dev),
+                "flagship_full": flagship_full_path(every, dev),
+                "train": train_path(every, dev)}
 
-    # Each kernel's main path: the flagship for the fused head, the
-    # long-context run for flash attention, the sequence-parallel run for
-    # the carry. Keyed by the name in the JSON line, with the wrapper's name.
+    # Each kernel's main path: the flagship at its real shape for the fused
+    # head, the long-context run for flash attention, the sequence-parallel
+    # run for the carry. Keyed by the name in the JSON line, with the wrapper's name.
     sites = {
         "xent_fwd": ("xent_fwd", "fused_xent", "autodist_tpu/ops/fused_xent.py:192",
-                     "flagship"),
-        "xent_dh": ("xent_dh", "fused_xent", "autodist_tpu/ops/fused_xent.py:287", "flagship"),
+                     "flagship_full"),
+        "xent_dh": ("xent_dh", "fused_xent", "autodist_tpu/ops/fused_xent.py:287",
+                    "flagship_full"),
         "xent_dwdb": ("xent_dwdb", "fused_xent", "autodist_tpu/ops/fused_xent.py:305",
-                      "flagship"),
+                      "flagship_full"),
         "flash_fwd": ("flash_fwd", "flash_attention",
                       "autodist_tpu/ops/flash_attention.py:144", "long_context"),
         "flash_bwd_dkdv": ("flash_bwd_dkdv", "flash_attention",

@@ -187,10 +187,12 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_more_than_one_replica_is_not_ported_yet():
+    """Two data replicas without a process group of two ranks never train
+    alone (tests/test_torch_data_parallel.py runs them over 2 gloo ranks)."""
     ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0, 1]}]},
                   device="cpu")
     _, jparams, tmodel = _models(tied=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="data axes have 2 ranks but the data group has 1"):
         ad.create_distributed_session(tlm.make_loss_fn(tmodel), from_jax_params(jparams),
                                       lambda p: torch.optim.SGD(p, lr=0.1))
 

@@ -73,11 +73,10 @@ def _worker(workdir: pathlib.Path):
                       device="cpu")
         runner = sequence.create_sequence_parallel_session(ad, model, params, _adam)
         grad_fn = synchronization.make_grad_fn(
-            runner.plan, ModelSpec(params), 1,
-            sequence.make_sequence_parallel_loss_fn(model, dist.group.WORLD),
-            seq_group=dist.group.WORLD)
+            runner.plan, ModelSpec(params), runner.mesh,
+            sequence.make_sequence_parallel_loss_fn(model, dist.group.WORLD))
         leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-        grads, loss = grad_fn(leaves, batch)
+        grads, loss, _ = grad_fn(leaves, batch)
         results[f"{head}-loss"] = loss.numpy()
         results.update({f"{head}-grad-{k}": g.numpy() for k, g in grads.items()})
         # Adam steps through the session, as a user drives it.
@@ -228,7 +227,7 @@ def test_seq_axis_without_a_process_group_raises():
         sequence.create_sequence_parallel_session(ad, model, params, _adam)
     four = {"nodes": [{"address": "localhost", "gpus": [0, 1, 2, 3]}]}
     ad = AutoDist(resource_info=four, strategy_builder=SequenceParallel(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="dp > 1"):
+    with pytest.raises(RuntimeError, match="data axes have 2 ranks but the data group has 1"):
         sequence.create_sequence_parallel_session(ad, model, params, _adam)
 
 
