@@ -13,8 +13,12 @@ one card, with the fused LM-head loss in hand-written Hopper kernels
 in hand-written Hopper kernels (:mod:`autodist_tpu_torch.ops.flash_attention`)
 with rematerialized blocks; and sequence parallelism over k cards
 (``SequenceParallel`` with :mod:`autodist_tpu_torch.parallel.sequence`):
-ring attention whose local step is the flash carry kernel. ``ROADMAP.md``
-lists what is next.
+ring attention whose local step is the flash carry kernel; data
+parallelism, ``train()`` and checkpoints; and the synchronous strategy
+family (:mod:`autodist_tpu_torch.strategy`: PS and ``PSLoadBalancing``, the
+default builder, with weight-update sharding, partitioned and padded
+storage, ``Parallax``'s sparse wire, the gradient codecs, ZeRO and the
+sharded checkpoint write). ``ROADMAP.md`` lists what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist
@@ -22,8 +26,12 @@ from autodist_tpu_torch.models.transformer_lm import (TransformerLM,
                                                       TransformerLMConfig)
 from autodist_tpu_torch.params import from_jax_params, to_jax_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.strategy import AllReduce, SequenceParallel, StrategyBuilder
+from autodist_tpu_torch.strategy import (PS, AllReduce, Parallax, PartitionedAR,
+                                         PartitionedPS, PSLoadBalancing,
+                                         RandomAxisPartitionAR, SequenceParallel,
+                                         StrategyBuilder, UnevenPartitionedPS)
 
-__all__ = ["AutoDist", "AllReduce", "ResourceSpec", "SequenceParallel",
+__all__ = ["AutoDist", "AllReduce", "PS", "PSLoadBalancing", "Parallax", "PartitionedAR",
+           "PartitionedPS", "RandomAxisPartitionAR", "ResourceSpec", "SequenceParallel",
            "StrategyBuilder", "TransformerLM", "TransformerLMConfig",
-           "from_jax_params", "to_jax_params"]
+           "UnevenPartitionedPS", "from_jax_params", "to_jax_params"]

@@ -1,12 +1,16 @@
 """User API: the AutoDist class (``autodist_tpu/autodist.py:44,184-287,363-400``).
 
-Ported so far: the synchronous single-node path, ``AutoDist(resource spec,
-builder)`` -> ``create_distributed_session`` or ``function``, over a mesh of
-one or more ranks (one process per device, launched by torchrun: the mesh's
-device count comes from the resource spec, whose default is the world size
-or the visible cards), and the sequence-parallel session built on it
+Ported: the synchronous single-node path, ``AutoDist(resource spec,
+builder)`` -> ``create_distributed_session`` or ``function``, under every
+synchronous builder of :mod:`autodist_tpu_torch.strategy` (default
+``PSLoadBalancing()``, as in the JAX package) and ``zero=`` /
+``AUTODIST_ZERO`` weight-update sharding, over a mesh of one or more ranks
+(one process per device, launched by torchrun: the mesh's device count
+comes from the resource spec, whose default is the world size or the
+visible cards); and the sequence-parallel session built on it
 (:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`).
-Async PS, cluster launch and autotuning raise ``NotImplementedError``.
+Async PS, cluster launch and autotuning raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 
 from typing import Callable, Mapping, Optional, Sequence, Union
@@ -18,8 +22,8 @@ from autodist_tpu_torch.parallel import multihost
 from autodist_tpu_torch.parallel.plan import ShardingPlan
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, step_function
-from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
+from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -27,19 +31,24 @@ class AutoDist:
     """Entry point: resource spec + strategy builder -> distributed execution."""
 
     def __init__(self, resource_spec_file: Union[str, ResourceSpec, None] = None,
-                 strategy_builder: Optional[StrategyBuilder] = None, *,
+                 strategy_builder: Union[StrategyBuilder, str, None] = None, *,
                  resource_info: Optional[dict] = None,
                  device: Union[str, torch.device, None] = None):
         """``resource_spec_file``: a YAML path, inline YAML text or a parsed
         :class:`ResourceSpec`; or ``resource_info=`` as a dict; neither gives
         the local default (one device per rank of torchrun's world, else the
-        visible cards). ``strategy_builder`` defaults to ``AllReduce()``
-        (the JAX package defaults to ``PSLoadBalancing``, not ported yet).
+        visible cards). ``strategy_builder`` defaults to
+        ``PSLoadBalancing()``, as in the JAX package; the string
+        ``"autotune"`` (the plan search) raises ``NotImplementedError``.
         ``device`` defaults to ``cuda:$LOCAL_RANK`` (``cuda:0`` outside
         torchrun) and raises ``RuntimeError`` when CUDA is absent; pass
         ``"cpu"`` to run on the host."""
         if isinstance(strategy_builder, str):
-            raise NotImplementedError("autotuning is not ported yet")
+            if strategy_builder != "autotune":
+                raise ValueError(f"unknown strategy name {strategy_builder!r}; the only "
+                                 f"string strategy is 'autotune'")
+            raise NotImplementedError("autotuning is not ported yet (ROADMAP.md, Queue 1 "
+                                      "item 3: the strategy search, after run_many)")
         self.device = resolve_device(device)
         if isinstance(resource_spec_file, ResourceSpec):
             self._resource_spec = resource_spec_file
@@ -48,7 +57,7 @@ class AutoDist:
                                                resource_info=resource_info)
         if self._resource_spec.num_nodes > 1:
             raise NotImplementedError("multi-node cluster launch is not ported yet")
-        self._strategy_builder = strategy_builder or AllReduce()
+        self._strategy_builder = strategy_builder or PSLoadBalancing()
         self._strategy: Optional[Strategy] = None
         self._compiled: Optional[Strategy] = None
         self._model_signature = None
@@ -82,33 +91,41 @@ class AutoDist:
                                    sparse_names: Optional[Sequence[str]] = None,
                                    has_aux: bool = False,
                                    accumulation_steps: int = 1,
-                                   batch_size: Optional[int] = None) -> DistributedRunner:
+                                   batch_size: Optional[int] = None,
+                                   zero: Optional[int] = None,
+                                   index_leaves: Optional[Mapping[str, str]] = None
+                                   ) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
 
         ``params`` is a flat ``{state-dict key: tensor}`` dict; ``optimizer``
         a factory ``optimizer(list_of_params) -> torch.optim.Optimizer``.
         Sparse flags come from ``sparse_names`` if given, else from the
-        gather-only parameters ``loss_fn.sparse_names`` declares.
-        ``example_batch`` is accepted for the JAX signature's sake: the port
-        declares sparsity instead of tracing the loss. A mesh of more than
-        one rank joins the process group from torchrun's environment first;
-        every rank calls this with the same arguments."""
+        gather-only parameters ``loss_fn.sparse_names`` declares; their
+        index leaves (the sparse wire) from ``index_leaves``, else
+        ``loss_fn.index_leaves``. ``example_batch`` is accepted for the JAX
+        signature's sake: the port declares sparsity instead of tracing the
+        loss. ``zero`` (default ``AUTODIST_ZERO``) turns on ZeRO-style
+        weight-update sharding over the data axes. A plan of PS nodes that
+        are not synchronous raises ``NotImplementedError``. A mesh of more
+        than one rank joins the process group from torchrun's environment
+        first; every rank calls this with the same arguments."""
         del example_batch
-        model_spec = (ModelSpec.from_loss_fn(loss_fn, params) if sparse_names is None
-                      else ModelSpec(params, sparse_names=sparse_names))
+        model_spec = ModelSpec.from_loss_fn(loss_fn, params, sparse_names=sparse_names,
+                                            index_leaves=index_leaves)
         compiled = self._compile(model_spec)
         plan = ShardingPlan.from_strategy(compiled, model_spec)
-        if plan.num_devices > 1:
+        if plan.num_devices > 1 and not plan.is_async:
             multihost.maybe_initialize_multihost(self.device)
         return DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
                                  plan=plan, accumulation_steps=accumulation_steps,
-                                 batch_size=batch_size, has_aux=has_aux)
+                                 batch_size=batch_size, has_aux=has_aux, zero=zero)
 
     def function(self, loss_fn: Callable, params: Mapping[str, torch.Tensor],
                  optimizer: Callable, example_batch=None,
                  sparse_names: Optional[Sequence[str]] = None,
                  has_aux: bool = False, accumulation_steps: int = 1,
-                 batch_size: Optional[int] = None) -> Callable:
+                 batch_size: Optional[int] = None, zero: Optional[int] = None,
+                 index_leaves: Optional[Mapping[str, str]] = None) -> Callable:
         """``step(batch, fetches=None) -> loss`` (what
         :meth:`DistributedRunner.run` fetches) carrying the training state
         inside; the first call's runner is reused by every later one.
@@ -116,5 +133,6 @@ class AutoDist:
         fn=None)`` expose it."""
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
-            accumulation_steps=accumulation_steps, batch_size=batch_size)
+            accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero,
+            index_leaves=index_leaves)
         return step_function(runner, params)

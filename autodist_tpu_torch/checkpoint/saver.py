@@ -9,15 +9,25 @@ by either package restores in the other.
   it (torch's ``step``, ``exp_avg`` and ``exp_avg_sq``); the step is
   ``__step__``.
 - Write: the single-file v1 format, ``<prefix>-<step>.npz`` with its
-  ``.json`` manifest, and the directory's ``checkpoint`` state file
-  (``{"latest", "all"}``, merged per name); ``max_to_keep`` rotation;
-  async double-buffered writes joined by :meth:`Saver.wait`.
-- Read: v1 and the sharded v2 format (per-process ``.shardNNNNN-of-NNNNN.npz``
-  files and a manifest of index slices), assembled into whole tensors.
-
-The only plan ported keeps every tensor replicated, so with several ranks
-rank 0 writes v1 and the others wait at a barrier; writing v2 belongs with
-the partitioned plans and raises until then.
+  ``.json`` manifest, and the sharded v2 format, each rank's
+  ``<prefix>-<step>.shardNNNNN-of-NNNNN.npz`` of the chunks it owns (the
+  lowest rank holding a chunk writes it) and rank 0's manifest of index
+  ranges over the logical shapes, published after every rank's file landed
+  (two barriers: no rank returns before the manifest exists). Tensors are
+  written at their logical shapes (padded storage is cut back), so either
+  package restores either format onto any layout. The directory's
+  ``checkpoint`` state file (``{"latest", "all"}``, merged per name);
+  ``max_to_keep`` rotation; async double-buffered writes joined by
+  :meth:`Saver.wait`.
+- ``sharded=None`` writes v2 when some tensor is sharded across ranks (a
+  model-axis shard, a PS or ZeRO optimizer shard), else v1 from rank 0;
+  ``sharded=False`` gathers every shard and rank 0 writes v1 at the full
+  logical shapes (the JAX package's gather-on-save).
+- Read: either format, assembled into whole tensors and placed as the
+  reading runner's layout says.
+- Codec state: PowerSGD's Q is saved as ``__ef__/<name>/q`` and restored
+  when the shapes match; error-feedback residuals are per-rank transients
+  and are not saved, as in the JAX package.
 """
 
 import glob
@@ -33,21 +43,19 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch.model_spec import _path_name
+from autodist_tpu_torch.parallel.layout import StateLayout, spec_owner, spec_ranges
 from autodist_tpu_torch.runner import TrainState
 
 _log = logging.getLogger("autodist_tpu_torch")
 
 _OPT_PREFIX = "__opt__/"
+_EF_PREFIX = "__ef__/"
 _STEP_KEY = "__step__"
 _STATE_FILE = "checkpoint"  # the directory's latest-pointer, like TF's
 _COUNT = "0/count"
 _MOMENTS = {"exp_avg": "0/mu/", "exp_avg_sq": "0/nu/"}
 # torch optimizers whose state maps onto an optax one's names.
 MAPPED_OPTIMIZERS = (torch.optim.Adam, torch.optim.AdamW)
-
-V2_ROADMAP = ("writing the sharded (v2) checkpoint format is not ported yet; it comes "
-              "with the partitioned plans (ROADMAP.md, Queue 1: the v2 sharded write)")
-
 
 def _is_sharded_manifest(path: str) -> bool:
     try:
@@ -106,6 +114,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A tensor as an npz-safe array and its dtype's name (bfloat16 is
+    stored as uint16, as the JAX package stores it)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy(), "bfloat16"
+    data = t.numpy().copy()
+    return data, str(data.dtype)
+
+
 def _require_mapped(optimizer: torch.optim.Optimizer):
     if not isinstance(optimizer, MAPPED_OPTIMIZERS) or any(
             g.get("amsgrad") for g in optimizer.param_groups):
@@ -115,49 +133,118 @@ def _require_mapped(optimizer: torch.optim.Optimizer):
             f"torch.optim.AdamW with amsgrad=False (optax.adam, optax.adamw)")
 
 
-def _flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
-    """``{name: host array}`` of a TrainState under the JAX names."""
+def _state_tensors(state: TrainState):
+    """``[(name, local tensor, pspec, global shape, logical shape)]`` of a
+    TrainState under the JAX names, each as this rank holds it: the
+    parameters, Adam's moments and count, and PowerSGD's Q."""
     _require_mapped(state.optimizer)
-    flat = {_path_name(k): _host(v) for k, v in state.params.items()}
-    key_of = {id(t): k for k, t in state.params.items()}
+
+    def entry(name, key, t, opt=False):
+        if state.layout is None:
+            return name, t, (), tuple(t.shape), tuple(t.shape)
+        p = state.layout.by_key[key].plan
+        return name, t, p.opt_pspec if opt else p.pspec, p.storage_shape, p.shape
+
+    out = [entry(_path_name(key), key, t) for key, t in state.params.items()]
+    opt_params = state.opt_params or state.params
+    key_of = {id(t): k for k, t in opt_params.items()}
     counts = set()
     for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            name = _path_name(key_of[id(p)])
-            st = state.optimizer.state.get(p, {})
+        for param in group["params"]:
+            key = key_of[id(param)]
+            st = state.optimizer.state.get(param, {})
             counts.add(int(st["step"]) if "step" in st else 0)
             for field, prefix in _MOMENTS.items():
                 value = st.get(field)
-                flat[_OPT_PREFIX + prefix + name] = (
-                    _host(value) if value is not None else np.zeros(tuple(p.shape), np.float32))
+                if value is None:
+                    value = torch.zeros_like(param, dtype=torch.float32)
+                out.append(entry(_OPT_PREFIX + prefix + _path_name(key), key, value, opt=True))
     if len(counts) > 1:
         raise ValueError(f"the optimizer's parameters have stepped {sorted(counts)} times; "
                          f"optax keeps one count")
-    flat[_OPT_PREFIX + _COUNT] = np.asarray(counts.pop() if counts else 0, np.int32)
-    return flat
+    count = torch.tensor(counts.pop() if counts else 0, dtype=torch.int32)
+    out.append((_OPT_PREFIX + _COUNT, count, (), (), ()))
+    out += [(f"{_EF_PREFIX}{_path_name(key)}/q", e["q"], (), tuple(e["q"].shape),
+             tuple(e["q"].shape)) for key, e in state.ef_state.items() if "q" in e]
+    return out
+
+
+def _gathered(layout: Optional[StateLayout], tensors, keep: bool) -> Dict[str, np.ndarray]:
+    """``{name: host array}`` at the full logical shapes, each sharded tensor
+    all-gathered first (a collective: every rank calls it); only a rank with
+    ``keep`` copies to the host."""
+    host = {}
+    for name, t, pspec, _, logical in tensors:
+        if pspec:
+            full = layout.gather(t.detach(), pspec)
+            t = full[tuple(slice(0, d) for d in logical)]
+        if keep:
+            host[name] = _host(t)
+    return host
 
 
 def _load_optimizer(state: TrainState, opt_flat: Mapping[str, torch.Tensor]):
     """The checkpoint's Adam state into ``state.optimizer`` through
     ``load_state_dict`` (which casts the moments to each parameter's dtype
-    and device)."""
+    and device), each moment cut to this rank's share of it."""
     optimizer = state.optimizer
     _require_mapped(optimizer)
     count = float(opt_flat[_COUNT])
-    key_of = {id(t): k for k, t in state.params.items()}
+    layout = state.layout
+    opt_params = state.opt_params or state.params
+    key_of = {id(t): k for k, t in opt_params.items()}
     entries, index = {}, 0
     for group in optimizer.param_groups:
         for p in group["params"]:
-            name = _path_name(key_of[id(p)])
+            key = key_of[id(p)]
+            name = _path_name(key)
             entry = {"step": torch.tensor(count)}
             for field, prefix in _MOMENTS.items():
                 if prefix + name not in opt_flat:
                     raise KeyError(f"Checkpoint missing optimizer state {_OPT_PREFIX}{prefix}{name}")
-                entry[field] = opt_flat[prefix + name]
+                value = opt_flat[prefix + name]
+                if layout is not None:
+                    value = layout.to_update(key, layout.to_storage(key, value)).clone(
+                        memory_format=torch.contiguous_format)
+                entry[field] = value
             entries[index] = entry
             index += 1
     optimizer.load_state_dict({"state": entries,
                                "param_groups": optimizer.state_dict()["param_groups"]})
+
+
+def _mesh_coords(layout: StateLayout, rank: int) -> Dict[str, int]:
+    shape = layout.mesh.shape
+    return {a: int(c) for a, c in zip(shape, np.unravel_index(rank, tuple(shape.values())))}
+
+
+def _sharded_entries(layout: Optional[StateLayout], tensors, rank: int, world: int):
+    """The v2 manifest's tensors and this rank's ``{key: array}`` of the
+    chunks it owns. Every chunk is clipped to the logical shape (padded
+    storage is cut back; a chunk wholly in the pad is not written) and
+    written once, by the lowest rank holding it."""
+    manifest, own = {}, {}
+    for name, t, pspec, shape, logical in tensors:
+        chunks = {}
+        for r in range(world) if pspec else (0,):
+            coords = _mesh_coords(layout, r) if pspec else None
+            if pspec and not spec_owner(pspec, layout.mesh, coords):
+                continue
+            ranges = spec_ranges(pspec, shape, layout.mesh, coords) if pspec else \
+                tuple((0, d) for d in shape)
+            clipped = tuple((a, min(b, d)) for (a, b), d in zip(ranges, logical))
+            if not any(a >= b for a, b in clipped):
+                chunks.setdefault(clipped, r)
+        dtype = _encode(t.detach().reshape(-1)[:0])[1]
+        shards = []
+        for j, (index, owner) in enumerate(sorted(chunks.items())):
+            key = f"{name}#{j}"
+            shards.append({"key": key, "file": owner, "index": [list(x) for x in index]})
+            if owner == rank:
+                own[key] = _encode(t.detach()[tuple(slice(0, b - a) for a, b in index)])[0]
+        manifest[name] = {"shape": [int(d) for d in logical], "dtype": dtype,
+                          "shards": shards}
+    return manifest, own
 
 
 class Saver:
@@ -170,34 +257,60 @@ class Saver:
         self._pending: Optional[threading.Thread] = None
         self._pending_error: Optional[BaseException] = None
         self._barrier_pending = False
+        self._publish = None
 
     # ------------------------------------------------------------------- save
     def save(self, state_or_params, save_path: str, global_step: Optional[int] = None,
              sharded: Optional[bool] = None, async_write: bool = False) -> str:
-        """Write ``<save_path>-<step>`` (v1) from a :class:`TrainState`
-        (params, Adam state and step) or a bare ``{state-dict key: tensor}``
-        dict (step 0); returns the prefix. ``global_step`` overrides the
-        step for both the file name and the stored step. With several ranks
-        this is collective: every rank calls it, rank 0 writes, and every
-        rank returns (or, with ``async_write``, leaves :meth:`wait`) once the
-        files are down. ``async_write`` copies to the host now and writes
+        """Write ``<save_path>-<step>`` from a :class:`TrainState` (params,
+        Adam state, PowerSGD's Q and step) or a bare ``{state-dict key:
+        tensor}`` dict of logical tensors (step 0; a runner's
+        ``logical_params`` gives them); returns the prefix. ``global_step`` overrides the
+        step for both the file name and the stored step. ``sharded``: True
+        writes v2, False gathers and writes v1, None writes v2 when some
+        tensor is sharded across ranks. With several ranks this is
+        collective: every rank calls it and every rank returns (or, with
+        ``async_write``, leaves :meth:`wait`) once the checkpoint is
+        complete on disk. ``async_write`` copies to the host now and writes
         on a background thread; a new save first joins the previous one."""
         self.wait()
-        if sharded:
-            raise NotImplementedError(V2_ROADMAP)
         rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() \
             else (0, 1)
-        step = int(state_or_params.step) if isinstance(state_or_params, TrainState) else 0
+        is_state = isinstance(state_or_params, TrainState)
+        layout = state_or_params.layout if is_state else None
+        step = int(state_or_params.step) if is_state else 0
         if global_step is not None:
             step = global_step
         prefix = f"{save_path}-{step}"
+        if is_state:
+            tensors = _state_tensors(state_or_params)
+        else:
+            tensors = [(_path_name(k), t, (), tuple(t.shape), tuple(t.shape))
+                       for k, t in state_or_params.items()]
+        if sharded is None:
+            sharded = layout is not None and layout.plan.has_sharded_state and world > 1
         if rank == 0:
-            if isinstance(state_or_params, TrainState):
-                host = _flatten_state(state_or_params)
-            else:
-                host = {_path_name(k): _host(v) for k, v in state_or_params.items()}
-            host[_STEP_KEY] = np.asarray(step)
             os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+        if sharded:
+            if world > 1:
+                dist.barrier()   # the directory exists before any rank writes
+            manifest, own = _sharded_entries(layout, tensors, rank, world)
+            base = os.path.basename(prefix)
+            writers = sorted({sh["file"] for t in manifest.values() for sh in t["shards"]})
+            manifest = {"format": "sharded", "step": step, "process_count": world,
+                        "files": {str(r): f"{base}.shard{r:05d}-of-{world:05d}.npz"
+                                  for r in writers},
+                        "tensors": manifest}
+            self._publish = (manifest, save_path, prefix, step, rank, world)
+            if rank in writers:
+                self._run_write(async_write, self._write_shard_file, own, manifest, prefix,
+                                rank)
+            if not async_write:
+                self.wait()
+            return prefix
+        host = _gathered(layout, tensors, keep=rank == 0)
+        if rank == 0:
+            host[_STEP_KEY] = np.asarray(step)
             self._run_write(async_write, self._write_single_file, host, save_path, prefix,
                             step)
         if world > 1:
@@ -208,17 +321,47 @@ class Saver:
 
     def wait(self):
         """Join an in-flight async write (re-raising its failure) and, after
-        a multi-rank save, meet the other ranks at the barrier."""
+        a multi-rank save, meet the other ranks: at a barrier after a v1
+        write; after a v2 write, at a barrier once every rank's shard file
+        is down, then (rank 0 having published the manifest) at a second."""
         t = self._pending
         if t is not None:
             t.join()
             self._pending = None
+        err, self._pending_error = self._pending_error, None
+        if err is not None:
+            self._publish = None
+            raise RuntimeError("async checkpoint write failed") from err
         if self._barrier_pending:
             self._barrier_pending = False
             dist.barrier()
-        err, self._pending_error = self._pending_error, None
-        if err is not None:
-            raise RuntimeError("async checkpoint write failed") from err
+        if self._publish is not None:
+            manifest, save_path, prefix, step, rank, world = self._publish
+            self._publish = None
+            if world > 1:
+                dist.barrier()
+            if rank == 0:
+                self._write_manifest(manifest, save_path, prefix, step)
+            if world > 1:
+                dist.barrier()
+
+    def _write_shard_file(self, own: Dict[str, np.ndarray], manifest: dict, prefix: str,
+                          rank: int):
+        path = os.path.join(os.path.dirname(prefix) or ".", manifest["files"][str(rank)])
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, **own)
+        os.replace(path + ".tmp", path)
+
+    def _write_manifest(self, manifest: dict, save_path: str, prefix: str, step: int):
+        tmp = prefix + ".json.tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+        os.replace(tmp, prefix + ".json")
+        self._load_rotation_state(save_path)
+        self._rotate(prefix)
+        self._update_state_file(save_path, prefix)
+        _log.info("Saved sharded checkpoint %s (step %d, %d tensors, %d writer ranks)",
+                  prefix, step, len(manifest["tensors"]), len(manifest["files"]))
 
     def _run_write(self, async_write: bool, fn, *args):
         if not async_write:
@@ -354,8 +497,9 @@ class Saver:
 
     def restore(self, prefix: str, runner=None):
         """With ``runner``: a :class:`TrainState` on the runner's device
-        (params, optimizer state and step). Without: the params, as
-        :meth:`restore_params` gives them."""
+        (params, optimizer state, PowerSGD's Q and step), each rank holding
+        its own shards of them as the runner's layout says. Without: the
+        params, as :meth:`restore_params` gives them."""
         if runner is None:
             return self.restore_params(prefix)
         flat, step = self._load_flat(prefix)
@@ -369,5 +513,9 @@ class Saver:
                     if k.startswith(_OPT_PREFIX)}
         if opt_flat:
             _load_optimizer(state, opt_flat)
+        for key, entry in state.ef_state.items():
+            q = flat.get(f"{_EF_PREFIX}{_path_name(key)}/q")
+            if q is not None and "q" in entry and tuple(q.shape) == tuple(entry["q"].shape):
+                entry["q"] = q.to(device=entry["q"].device, dtype=entry["q"].dtype)
         state.step = step
         return state

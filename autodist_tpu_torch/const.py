@@ -11,6 +11,11 @@ MESH_AXIS_SEQ = "seq"            # sequence/context parallelism axis
 MESH_AXIS_EXPERT = "expert"      # expert parallelism axis
 MESH_AXIS_PIPE = "pipe"          # pipeline parallelism axis
 
+# ZeRO-style weight-update sharding (arXiv 2004.13336) for the synchronous
+# runner: 0 off (the default), any other integer on. The JAX package's N > 1
+# also shards the async PS apply, which the port has not ported.
+AUTODIST_ZERO = "AUTODIST_ZERO"
+
 # train()'s input pipeline: the prefetch queue's depth (0 = the synchronous
 # feed) and the producer's worker threads (source pulls stay serialized).
 PREFETCH_DEPTH = "AUTODIST_PREFETCH_DEPTH"

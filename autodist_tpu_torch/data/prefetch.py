@@ -370,7 +370,11 @@ def assemble_global_batch(runner, local_batch: Any, process_id: Optional[int] = 
         return place(t)
 
     out = _tree_map(put, local_batch)
-    return ShardedBatch(out) if isinstance(out, dict) else out
+    if not isinstance(out, dict):
+        return out
+    out = ShardedBatch(out)
+    out.rows = {local_rows: 1} if local_rows is not None else {}
+    return out
 
 
 # --------------------------------------------------------------- device feed

@@ -1,9 +1,10 @@
 """The flagship training benchmark (the port's counterpart of the flagship in
 ``bench.py``): TransformerLM d512 x 6, 8 heads, d_ff 2048, vocab 32,000,
 max_len 512, untied fused head, bf16 activations and f32 params, trained
-with ``AllReduce`` and Adam 1e-3 on micro-batches of 384 sequences of 256
-tokens per data rank with 8-way gradient accumulation (a global batch of
-``384 * dp * 8`` sequences).
+with ``AllReduce`` (``--strategy`` names another builder of
+:mod:`autodist_tpu_torch.strategy`, built with its defaults) and Adam 1e-3
+on micro-batches of 384 sequences of 256 tokens per data rank with 8-way
+gradient accumulation (a global batch of ``384 * dp * 8`` sequences).
 
     python -m autodist_tpu_torch.examples.flagship_lm   # one visible card
     # data parallelism over k cards, one process each (the mesh is every
@@ -19,7 +20,8 @@ then 2 warm-up steps and ``--steps`` timed steps run, the last loss read back
 as the fence. Rank 0 prints one JSON line with ``bench.py``'s keys
 ``metric``, ``value`` (tokens/s over the whole mesh), ``unit``,
 ``flops_per_token`` and ``mfu`` (analytic, per card, against the H100's
-989 TFLOP/s), plus ``max_memory_allocated``; on the host ``mfu`` and the
+989 TFLOP/s), plus ``max_memory_allocated``, ``final_loss`` and
+``strategy``; on the host ``mfu`` and the
 memory are null, not measured. ``bench.py``'s ``vs_baseline`` is left out:
 its baseline is a TPU figure.
 """
@@ -32,7 +34,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import AllReduce, AutoDist
+from autodist_tpu_torch import AutoDist
+from autodist_tpu_torch import strategy as strategies
 from autodist_tpu_torch.models import transformer_lm
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
@@ -50,6 +53,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--d_model", type=int, default=512)
     parser.add_argument("--n_layers", type=int, default=6)
     parser.add_argument("--vocab", type=int, default=32_000)
+    parser.add_argument("--strategy", default="AllReduce",
+                        help="a builder of autodist_tpu_torch.strategy, with its defaults "
+                             "(PSLoadBalancing: the update sharded over every data rank)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda:$LOCAL_RANK or cuda:0; "
                              "'cpu' for the host)")
@@ -68,7 +74,8 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
         tied_output=False, fused_head=True)
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
-    step = AutoDist(strategy_builder=AllReduce(), device=device).function(
+    builder = getattr(strategies, args.strategy)()
+    step = AutoDist(strategy_builder=builder, device=device).function(
         transformer_lm.make_loss_fn(model), params,
         lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8), accumulation_steps=args.accum)
     batch = transformer_lm.synthetic_batch(
@@ -109,6 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "max_memory_allocated": (torch.cuda.max_memory_allocated(runner.device)
                                  if on_card else None),
         "final_loss": final,
+        "strategy": args.strategy,
     }
     if not dist.is_initialized() or dist.get_rank() == 0:
         print(json.dumps(result), flush=True)

@@ -311,7 +311,8 @@ def fused_head_nll(model: TransformerLM, params, inputs, targets,
 def make_loss_fn(model: TransformerLM) -> Callable:
     """Next-token cross entropy ``loss_fn(params, batch)``; ``batch`` holds
     int ``tokens [B, L+1]`` and optionally a ``mask [B, L+1]`` over them.
-    ``loss_fn.sparse_names`` declares the gather-only parameters.
+    ``loss_fn.sparse_names`` declares the gather-only parameters and
+    ``loss_fn.index_leaves`` their index leaves (none).
 
     Under data parallelism the loss is the JAX package's global one
     (``autodist_tpu/models/transformer_lm.py:290-297``): the unmasked mean
@@ -339,6 +340,10 @@ def make_loss_fn(model: TransformerLM) -> Callable:
         return nll.mean()
 
     loss_fn.sparse_names = model.gather_only_params()
+    # The embedding gathers read tokens[:, :-1] and a position iota, never a
+    # batch leaf as it is: no index leaf, so no sparse wire (the JAX
+    # package's jaxpr walk finds none for this loss either).
+    loss_fn.index_leaves = {}
     return loss_fn
 
 

@@ -3,12 +3,14 @@
 The port runs one process per device, so a mesh is a grid of ranks: the
 world's ranks reshaped row-major over ``STANDARD_AXES``, as the JAX package
 reshapes its devices (rank ``data_index * seq_size + seq_index`` on a
-data x seq mesh). Every axis of more than one rank gets the process groups
-along it, and so does each combination of axes the training path reduces
-over (the data axes; the data axes with ``seq``).
+data x seq mesh). Every set of the axes of more than one rank gets the
+process groups along it: the training path reduces over the data axes (and
+``seq``), reduce-scatters and all-gathers a sharded update over ``reduce``
+or all data axes, and gathers model-axis storage over ``model``.
 """
 
 import collections
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
-from autodist_tpu_torch.parallel.plan import DP_AXES
+
 
 # Canonical axis order. Axes the user does not size default to 1.
 STANDARD_AXES = (
@@ -56,12 +58,6 @@ def standard_mesh_shape(n_devices: int, axes: Optional[Dict[str, int]] = None
     elif fixed != n_devices:
         raise ValueError(f"Mesh axes {dict(shape)} require {fixed} devices, have {n_devices}")
     return shape
-
-
-# Axis combinations a step reduces over, besides every single axis: the
-# data-parallel axes (gradients, a data-dependent loss count) and those with
-# seq (the sequence-parallel loss and its gradients).
-REDUCE_AXES = (DP_AXES, DP_AXES + (const.MESH_AXIS_SEQ,))
 
 
 class DeviceMesh:
@@ -127,13 +123,9 @@ def build_mesh(resource_spec=None, axes: Optional[Dict[str, int]] = None) -> Dev
     shape = standard_mesh_shape(world_size, axes)
     rank = dist.get_rank() if dist.is_initialized() else 0
     groups = {}
-    if world_size > 1:
-        wanted = [(a,) for a in shape] + list(REDUCE_AXES)
-        every = tuple(a for a in shape if shape[a] > 1)
-        for combo in wanted:
-            live = tuple(a for a in shape if a in combo and shape[a] > 1)
-            if not live or live == every or live in groups:
-                continue
+    every = tuple(a for a in shape if shape[a] > 1)
+    for n in range(1, len(every)):
+        for live in itertools.combinations(every, n):
             for members in _subgroup_members(shape, live):
                 group = dist.new_group(members)
                 if rank in members:

@@ -1,12 +1,29 @@
-"""Gradient synchronization (``autodist_tpu/parallel/synchronization.py:165-223``).
+"""Gradient synchronization (``autodist_tpu/parallel/synchronization.py``).
 
-The *implicit* lowering. Under JAX the loss is one function of the global
-batch and XLA inserts the gradient all-reduce; here every rank runs the loss
-on its own rows (one process per device), differentiates it, and one
-all-reduce of a flat buffer over the data and seq ranks combines the
-gradients: averaged over the data ranks, summed over the seq ranks (the
-transpose of the sequence-parallel loss's ``psum``,
-``autodist_tpu/parallel/sequence.py:67-70``).
+Every rank runs the loss on its own rows (one process per device) and
+differentiates it; the gradient function then combines the ranks'
+gradients. Two lowerings, as in the JAX package (``make_grad_fn``,
+``:165-363``):
+
+- **Implicit** (no codec, no sparse wire, no honoured DCN request): one
+  all-reduce of a flat buffer over the data and seq ranks, averaged over
+  the data ranks and summed over the seq ranks (the transpose of the
+  sequence-parallel loss's ``psum``). Gradients whose update is sharded (PS
+  along ``reduce``, ZeRO along all data axes) take a ``reduce_scatter`` over
+  those axes instead, so each rank receives only its shard: the first half
+  of the sharded update whose all-gather the runner does.
+- **Explicit** (a codec somewhere, a sparse parameter with a known index
+  leaf, or ``spec=DCN`` on a mesh with both data axes): each gradient is
+  averaged over the data ranks on its own wire: cast to bf16 (``BF16``),
+  with a per-rank error-feedback residual (``BF16_EF``: x = g + e, send
+  bf16(x), e' = x - f32(bf16(x))), as PowerSGD factors (``POWER_SGD``:
+  M = g + e, P = mean(M Q), P^ = QR(P), Q' = mean(M^T P^), e' = M - P^ Q'^T,
+  only the thin factors on the wire), or for a sparse parameter as the
+  all-gathered (indices, rows) of the touched rows, summed by
+  ``index_add_``. ``spec=DCN`` reduces in two phases, ``reduce`` first, then
+  ``data``. Gradients that share a codec, tier and dtype go in one buffer.
+  It needs replicated parameters: a codec on a partitioned one raises, and
+  the sparse wire then stays off, as in the JAX package.
 
 What that asks of a loss under data parallelism:
 
@@ -18,22 +35,30 @@ What that asks of a loss under data parallelism:
   average over the data ranks is the global mean's gradient.
 
 The reported loss is averaged over the same ranks, so it is the global one.
-Gradient compression and the explicit lowering raise ``NotImplementedError``.
 """
 
 import contextlib
 import contextvars
+import logging
+import zlib
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
-from autodist_tpu_torch.parallel.mesh import DeviceMesh
-from autodist_tpu_torch.parallel.plan import DP_AXES, ShardingPlan
+from autodist_tpu_torch.parallel.layout import StateLayout
+from autodist_tpu_torch.parallel.mesh import DeviceMesh, single_device_mesh
+from autodist_tpu_torch.parallel.plan import (COMP_BF16, COMP_BF16_EF, COMP_NONE,
+                                              COMP_POWER_SGD, DP_AXES, ShardingPlan)
+from autodist_tpu_torch.proto.strategy import AllReduceSynchronizer
+
+_log = logging.getLogger("autodist_tpu_torch")
 
 SYNC_AXES = DP_AXES + (const.MESH_AXIS_SEQ,)
+SPEC_DCN = AllReduceSynchronizer.Spec.DCN
 
 _STEP_MESH: contextvars.ContextVar = contextvars.ContextVar("step_mesh", default=None)
 
@@ -84,20 +109,112 @@ def _group_size(mesh: Optional[DeviceMesh], axes) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+# ----------------------------------------------------------------- compressors
+
+def compress(x: torch.Tensor, kind) -> torch.Tensor:
+    """The wire form of a gradient: bf16 for the cast codecs."""
+    if kind in (COMP_BF16, COMP_BF16_EF):
+        return x.to(torch.bfloat16)
+    return x
+
+
+def decompress(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype)
+
+
+def _powersgd_applies(shape) -> bool:
+    # Only matrix-shaped (rank >= 2) tensors are factorized.
+    return len(shape) >= 2
+
+
+def _powersgd_rank(shape, rank: int) -> int:
+    m, n = shape[0], int(np.prod(shape[1:]))
+    return max(1, min(rank, m, n))
+
+
+def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """The Threefry-2x32 block cipher (20 rounds), as ``jax.random``'s
+    default generator computes it."""
+    ks = [np.uint32(k0), np.uint32(k1), np.uint32(k0 ^ k1 ^ 0x1BD11BDA)]
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        x0, x1 = x0 + ks[0], x1 + ks[1]
+        for i in range(5):
+            for r in rotations[i % 2]:
+                x0 = x0 + x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def jax_normal(seed: int, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)`` on the
+    host: the key's two words, Threefry over a 64-bit counter per element
+    (hi and lo words, the partitionable layout), the two output words
+    xor-ed, 23 mantissa bits to a uniform on (-1, 1), and
+    ``sqrt(2) * erfinv`` (taken in f64 here, in f32 by XLA: the values agree
+    to about 1e-7 relative)."""
+    n = int(np.prod(shape))
+    count = np.arange(n, dtype=np.uint64)
+    b0, b1 = _threefry2x32((seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF,
+                           (count >> np.uint64(32)).astype(np.uint32),
+                           (count & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    unit = bits.view(np.float32) - np.float32(1.0)
+    lo = np.nextafter(np.float32(-1.0), np.float32(1.0))
+    u = np.maximum(lo, unit * (np.float32(1.0) - lo) + lo)
+    z = torch.erfinv(torch.from_numpy(u.astype(np.float64))) * np.sqrt(2.0)
+    return z.to(torch.float32).reshape(tuple(shape))
+
+
+def powersgd_q0(name: str, shape, rank: int) -> torch.Tensor:
+    """PowerSGD's warm start, the JAX package's: the orthonormal factor of a
+    normal draw seeded by the parameter name's CRC32
+    (``autodist_tpu/parallel/synchronization.py:441-448``), on the host."""
+    r = _powersgd_rank(shape, rank)
+    draw = jax_normal(zlib.crc32(name.encode()), (int(np.prod(shape[1:])), r))
+    return torch.linalg.qr(draw)[0]
+
+
+def init_compressor_state(plan: ShardingPlan, model_spec: ModelSpec,
+                          device: torch.device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{state-dict key: {"error": residual, "q": factor}}`` for the
+    parameters whose codec keeps state: this rank's own error-feedback
+    residual (``BF16_EF`` and matrix ``POWER_SGD``) and PowerSGD's Q, the
+    same on every rank."""
+    state = {}
+    for name, p in plan.params.items():
+        meta = model_spec[name]
+        if p.compressor == COMP_BF16_EF or (p.compressor == COMP_POWER_SGD
+                                            and _powersgd_applies(p.shape)):
+            entry = {"error": torch.zeros(p.shape, dtype=meta.dtype, device=device)}
+            if p.compressor == COMP_POWER_SGD:
+                entry["q"] = powersgd_q0(name, p.shape, p.power_sgd_rank).to(device)
+            state[model_spec.keys[name]] = entry
+    return state
+
+
+# -------------------------------------------------------------- grad functions
+
 def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
                  mesh: Optional[DeviceMesh], loss_fn: Callable,
-                 has_aux: bool = False) -> Callable:
-    """``grad_fn(params, batch) -> (grads, loss, aux)``: ``params`` maps
-    state-dict keys to leaf tensors that require grad, ``grads`` maps the
-    same keys to the synchronized gradients, ``loss`` is the detached global
-    loss and ``aux`` the loss function's auxiliary output (``()`` without
-    ``has_aux``), computed on this rank's rows. ``grad_fn.local`` is the same
-    without the all-reduce and ``grad_fn.sync(grads, loss)`` the all-reduce
-    alone, so that gradient accumulation reduces once a step. ``mesh`` is the
-    mesh of joined ranks (None when no group of the plan's size is up, which
-    raises for a plan of more than one rank)."""
-    if sharding_plan.has_compression:
-        raise NotImplementedError("gradient compression is not ported yet")
+                 has_aux: bool = False, layout: Optional[StateLayout] = None) -> Callable:
+    """``grad_fn(params, batch, ef_state=None) -> (grads, loss, aux)``:
+    ``params`` maps state-dict keys to the logical tensors the loss reads
+    (leaves that require grad), ``grads`` maps the trainable keys to what
+    their optimizer parameter needs (the synchronized gradient of the
+    storage, or of the update shard where the update is sharded), ``loss``
+    is the detached global loss and ``aux`` the loss function's auxiliary
+    output (``()`` without ``has_aux``) on this rank's rows. ``ef_state``
+    (:func:`init_compressor_state`) is updated in place.
+    ``grad_fn.local(params, batch)`` is the same without synchronization
+    (logical gradients) and ``grad_fn.sync(grads, loss, ef_state, batch)``
+    the synchronization alone, so that gradient accumulation reduces once a
+    step; the explicit lowering (``grad_fn.explicit``) syncs every
+    micro-batch, as the JAX package's does. ``mesh`` is the mesh of joined
+    ranks (None when no group of the plan's size is up, which raises for a
+    plan of more than one rank)."""
     dp, seq = sharding_plan.dp_size, sharding_plan.seq_size
     for axes, size, what in ((DP_AXES, dp, "data axes have"),
                              ((const.MESH_AXIS_SEQ,), seq, "seq axis has")):
@@ -106,9 +223,37 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
             group = "data group" if axes == DP_AXES else "seq group"
             raise RuntimeError(f"the mesh's {what} {size} ranks but the {group} has "
                                f"{joined}: join the process group first (torchrun)")
-    group = mesh.group(SYNC_AXES) if mesh is not None else None
-    ranks = _group_size(mesh, SYNC_AXES)
+    if layout is None:
+        layout = StateLayout(sharding_plan, model_spec, mesh or single_device_mesh())
     keys = [model_spec.keys[n] for n in model_spec.trainable]
+    plans = {model_spec.keys[n]: sharding_plan.params[n] for n in model_spec.trainable}
+    sparse_wire = {model_spec.keys[n]: p for n, p in
+                   sharding_plan.sparse_wire_params.items()} if dp > 1 else {}
+    hierarchical_ok = mesh is not None and all(mesh.shape.get(a, 1) > 1 for a in DP_AXES)
+    requested_dcn = any(p.spec == SPEC_DCN for p in plans.values())
+    honor_dcn = (requested_dcn and dp > 1 and hierarchical_ok
+                 and sharding_plan.all_params_replicated)
+    if requested_dcn and dp > 1 and not honor_dcn:
+        _log.warning("spec=DCN (hierarchical two-phase reduce) cannot be honoured here "
+                     "(%s); gradients use a single-phase reduce",
+                     "the mesh lacks a populated inner data axis" if not hierarchical_ok
+                     else "partitioned parameters use the implicit lowering")
+    explicit = sharding_plan.has_compression or bool(sparse_wire) or honor_dcn
+    if explicit and not sharding_plan.all_params_replicated:
+        if sharding_plan.has_compression:
+            raise NotImplementedError(
+                "Gradient compression requires replicated parameters (AllReduce-family "
+                "strategies); partitioned parameters with a compressor are not supported "
+                "in one strategy")
+        _log.info("Sparse all-gather wire disabled: the model has partitioned parameters")
+        explicit = False
+    if explicit and seq > 1:
+        raise NotImplementedError("the explicit gradient lowering (codecs, the sparse "
+                                  "wire, DCN) does not run under sequence parallelism")
+
+    sync_group = mesh.group(SYNC_AXES) if mesh is not None else None
+    sync_ranks = _group_size(mesh, SYNC_AXES)
+    dp_group = mesh.group(DP_AXES) if mesh is not None else None
 
     def local(params: Mapping[str, torch.Tensor], batch) -> tuple:
         with step_mesh(mesh):
@@ -119,23 +264,134 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
                                     allow_unused=True, materialize_grads=True)
         return dict(zip(keys, grads)), loss.detach(), _detached(aux)
 
-    def sync(grads: Dict[str, torch.Tensor], loss: torch.Tensor) -> tuple:
-        if group is None:
+    def implicit_sync(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                      ef_state=None, batch=None) -> tuple:
+        grads = {k: layout.to_storage(k, g) for k, g in grads.items()}
+        by_axes: Dict[tuple, list] = {}
+        for k in grads:
+            pl = layout.by_key[k]
+            if pl.sharded_update:
+                by_axes.setdefault(pl.update_axes, []).append(k)
+        out = {}
+        for axes, members in by_axes.items():
+            rest = mesh.group(tuple(a for a in SYNC_AXES if a not in axes))
+            shards = layout.reduce_scatter(members, grads, rest)
+            out.update({k: s.div_(dp) for k, s in shards.items()})
+        dense = [k for k in grads if k not in out]
+        if sync_group is None:
             return grads, loss
-        parts = list(grads.values())
+        parts = [grads[k] for k in dense]
         flat = torch.cat([g.reshape(-1) for g in parts]
-                         + [loss.reshape(1).to(parts[0].dtype)])
-        dist.all_reduce(flat, group=group)
+                         + [loss.reshape(1).to(parts[0].dtype if parts else loss.dtype)])
+        dist.all_reduce(flat, group=sync_group)
         pieces = flat.split([g.numel() for g in parts] + [1])
-        synced = {k: p.view(g.shape).to(g.dtype) / dp
-                  for (k, g), p in zip(grads.items(), pieces)}
-        return synced, (pieces[-1][0] / ranks).to(loss.dtype)
+        out.update({k: p.view(g.shape).to(g.dtype) / dp
+                    for k, g, p in zip(dense, parts, pieces)})
+        return {k: out[k] for k in grads}, (pieces[-1][0] / sync_ranks).to(loss.dtype)
 
-    def implicit(params: Mapping[str, torch.Tensor], batch) -> tuple:
+    def pmean(x: torch.Tensor, spec) -> torch.Tensor:
+        """Mean over the data ranks, in two phases (``reduce``, then
+        ``data``) for an honoured DCN request."""
+        if spec == SPEC_DCN and honor_dcn:
+            for axis in (const.MESH_AXIS_REDUCE, const.MESH_AXIS_DATA):
+                dist.all_reduce(x, group=mesh.group((axis,)))
+                x.div_(mesh.shape[axis])
+            return x
+        if dp_group is not None:
+            dist.all_reduce(x, group=dp_group)
+            x.div_(dp)
+        return x
+
+    def powersgd(key: str, g: torch.Tensor, state: Dict[str, torch.Tensor], spec):
+        shape = g.shape
+        mat = (g + state["error"]).reshape(shape[0], -1).to(torch.float32)
+        p_hat = torch.linalg.qr(pmean(mat @ state["q"], spec))[0]
+        q_new = pmean(mat.T @ p_hat, spec)
+        approx = p_hat @ q_new.T
+        state["error"] = (mat - approx).reshape(shape).to(g.dtype)
+        state["q"] = q_new.to(state["q"].dtype)
+        return approx.reshape(shape).to(g.dtype)
+
+    def sparse_allgather(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Ship (indices, touched rows) and rebuild the dense mean: each
+        duplicate index carries 1/k of its row, so the scatter-sum of the
+        gathered contributions is exactly the sum of the ranks' gradients."""
+        vocab = g.shape[0]
+        flat = idx.reshape(-1).to(device=g.device, dtype=torch.int64)
+        flat = torch.where(flat < 0, flat + vocab, flat)
+        valid = (flat >= 0) & (flat < vocab)
+        safe = torch.where(valid, flat, torch.zeros_like(flat))
+        counts = torch.zeros(vocab, dtype=torch.float32, device=g.device).index_add_(
+            0, safe, valid.to(torch.float32))
+        inv = torch.where(valid, 1.0 / torch.clamp(counts[safe], min=1.0),
+                          torch.zeros((), device=g.device))
+        contrib = g[safe] * inv.to(g.dtype).reshape((-1,) + (1,) * (g.dim() - 1))
+        all_idx = safe.new_empty((dp * safe.numel(),))
+        all_contrib = contrib.new_empty((dp * contrib.shape[0],) + tuple(contrib.shape[1:]))
+        dist.all_gather_into_tensor(all_idx, safe, group=dp_group)
+        dist.all_gather_into_tensor(all_contrib, contrib.contiguous(), group=dp_group)
+        return torch.zeros_like(g).index_add_(0, all_idx, all_contrib) / dp
+
+    def explicit_sync(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                      ef_state=None, batch=None) -> tuple:
+        ef_state = {} if ef_state is None else ef_state
+        out, buckets = {}, {}
+        for k, g in grads.items():
+            p = plans[k]
+            if k in sparse_wire:
+                idx = _batch_leaf_by_name(batch, p.index_leaf)
+                if idx is not None:
+                    out[k] = sparse_allgather(g, idx)
+                    continue
+            if p.compressor == COMP_POWER_SGD and _powersgd_applies(g.shape):
+                if k not in ef_state:
+                    raise TypeError(f"POWER_SGD parameter {p.name!r} has no compressor "
+                                    f"state; init_compressor_state was bypassed")
+                out[k] = powersgd(k, g, ef_state[k], p.spec)
+                continue
+            kind = p.compressor if p.compressor in (COMP_BF16, COMP_BF16_EF) else COMP_NONE
+            if kind == COMP_BF16_EF and k not in ef_state:
+                raise TypeError(f"BF16_EF parameter {p.name!r} has no compressor state; "
+                                f"init_compressor_state was bypassed")
+            buckets.setdefault((kind, p.spec, g.dtype), []).append(k)
+        for (kind, spec, dtype), members in buckets.items():
+            xs = [grads[k] + ef_state[k]["error"] if kind == COMP_BF16_EF else grads[k]
+                  for k in members]
+            wire = compress(torch.cat([x.reshape(-1) for x in xs]), kind)
+            synced = decompress(pmean(wire, spec), dtype)
+            for k, x, part in zip(members, xs, synced.split([x.numel() for x in xs])):
+                out[k] = part.view(x.shape)
+                if kind == COMP_BF16_EF:
+                    ef_state[k]["error"] = x - decompress(compress(x, kind), x.dtype)
+        loss = pmean(loss.detach().clone(), None)
+        return {k: layout.to_update(k, out[k]) for k in grads}, loss
+
+    sync = explicit_sync if explicit else implicit_sync
+
+    def grad_fn(params: Mapping[str, torch.Tensor], batch, ef_state=None) -> tuple:
         grads, loss, aux = local(params, batch)
-        grads, loss = sync(grads, loss)
+        grads, loss = sync(grads, loss, ef_state, batch)
         return grads, loss, aux
 
-    implicit.local = local
-    implicit.sync = sync
-    return implicit
+    grad_fn.local = local
+    grad_fn.sync = sync
+    grad_fn.explicit = explicit
+    return grad_fn
+
+
+def _batch_leaf_by_name(batch, leaf_name: str):
+    """The batch leaf whose '/'-joined path is ``leaf_name`` (None if none)."""
+    def walk(tree, path):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                yield from walk(v, path + (str(k),))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, path + (str(i),))
+        else:
+            yield "/".join(path), tree
+
+    for name, leaf in walk(batch, ()):
+        if name == leaf_name and isinstance(leaf, torch.Tensor):
+            return leaf
+    return None

@@ -1,11 +1,29 @@
 """DistributedRunner: executes a compiled strategy
-(``autodist_tpu/runner.py``: ``init`` :281, ``shard_batch`` :561-600,
-``run`` :936, ``evaluate`` :1029).
+(``autodist_tpu/runner.py``: ``init`` :281, the step body :284-381,
+``shard_batch`` :561-600, ``run`` :936, ``evaluate`` :1029).
 
 One process per device: each rank runs a runner over the same strategy and
 keeps the rows of the global batch its data index holds (``shard_batch``),
 and the gradient fn combines the ranks' gradients
 (:mod:`autodist_tpu_torch.parallel.synchronization`).
+
+The state lives as the plan lays it out (:mod:`autodist_tpu_torch.parallel.layout`):
+
+- A parameter partitioned on a ``model`` axis of more than one rank is
+  stored as this rank's shard, zero-padded where the dim does not tile; it
+  is all-gathered and unpadded before the user's loss, which always reads
+  logical shapes (compute stays replicated across the model ranks, as the
+  JAX package's values are), and its gradient is padded and sliced back to
+  the shard, so the pad region's gradient, moments and values stay 0.
+- Under PS nodes, or with ``zero=`` / ``AUTODIST_ZERO`` under any plan, a
+  parameter whose optimizer state shards (``opt_pspec``) is updated
+  ZeRO-1 style: its gradient is reduce-scattered, the optimizer updates
+  this rank's shard (it owns a leaf of the shard's shape, so its moments
+  are the shard's), and the updated shards are all-gathered back into the
+  storage (the lowering XLA emits from ``constrain_update``,
+  ``constrain_opt`` and ``constrain_params``).
+- The codecs' state (error-feedback residuals, PowerSGD's Q) rides in
+  :attr:`TrainState.ef_state`.
 
 PyTorch runs eagerly, so there is no compiled step to cache: ``run`` computes
 the gradients, applies one optimizer step and returns. The state is updated
@@ -20,16 +38,19 @@ reported loss is the mean of the micro losses, and the optimizer steps once.
 
 import collections
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import types
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel import synchronization
-from autodist_tpu_torch.parallel.mesh import DeviceMesh, joined_mesh
-from autodist_tpu_torch.parallel.plan import DP_AXES, ShardingPlan
+from autodist_tpu_torch.parallel.layout import StateLayout
+from autodist_tpu_torch.parallel.mesh import DeviceMesh, joined_mesh, single_device_mesh
+from autodist_tpu_torch.parallel.plan import ASYNC_ROADMAP, DP_AXES, ShardingPlan
 
 
 class MicroBatched:
@@ -42,7 +63,12 @@ class MicroBatched:
 class ShardedBatch(dict):
     """A dict batch that :meth:`DistributedRunner.shard_batch` already laid
     out: this rank's rows, on its device. ``run`` and ``shard_batch`` take it
-    as it is (the JAX runner's arrays carry their sharding instead)."""
+    as it is (the JAX runner's arrays carry their sharding instead).
+    ``rows`` maps the leading dim of this rank's share of each leaf split
+    over the data ranks (micro-batches folded back) to the number of
+    micro-batches it folds (1 for a leaf not micro-batched)."""
+
+    rows: Mapping[int, int] = types.MappingProxyType({})
 
 
 def _tree_map(fn: Callable, tree):
@@ -79,12 +105,18 @@ def _leaves(tree):
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, parameters (leaf tensors keyed by state-dict key) and the
-    optimizer that owns their update state."""
+    """Step count, parameters (this rank's storage, leaf tensors keyed by
+    state-dict key), the optimizer that owns their update state, the codecs'
+    state, and the tensors the optimizer updates (``opt_params``: the
+    storage itself, or this rank's update shard of it). ``layout`` is the
+    runner's, so the saver can address the shards without the runner."""
 
     step: int
     params: Dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
+    ef_state: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    opt_params: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    layout: Optional[StateLayout] = None
 
 
 class DistributedRunner:
@@ -94,17 +126,25 @@ class DistributedRunner:
                  optimizer: Callable, device: torch.device,
                  plan: Optional[ShardingPlan] = None, accumulation_steps: int = 1,
                  batch_size: Optional[int] = None, mesh: Optional[DeviceMesh] = None,
-                 has_aux: bool = False):
+                 has_aux: bool = False, zero: Optional[int] = None):
         """``optimizer`` is a factory: ``optimizer(list_of_params)`` returns a
         ``torch.optim.Optimizer`` (``lambda p: torch.optim.Adam(p, lr=1e-3)``).
         ``mesh`` defaults to the plan's mesh over the joined process group.
         Every rank of the mesh runs its own runner: the process group's world
         size must be the mesh's device count. With ``has_aux`` the loss
-        returns ``(loss, aux)``."""
+        returns ``(loss, aux)``. ``zero`` (default ``AUTODIST_ZERO``, 0 off)
+        shards the optimizer state and update of every parameter with a
+        free axis that tiles over all the data ranks."""
         if accumulation_steps < 1:
             raise ValueError("accumulation_steps must be >= 1")
         self.plan = plan if plan is not None \
             else ShardingPlan.from_strategy(compiled_strategy, model_spec)
+        if self.plan.is_async:
+            raise NotImplementedError(f"asynchronous PS (sync=False or staleness > 0) is "
+                                      f"not ported yet ({ASYNC_ROADMAP})")
+        self.zero = const.env_int(const.AUTODIST_ZERO, 0) if zero is None else int(zero)
+        if self.zero and not self.plan.zero:
+            self.plan = self.plan.with_zero_update()
         self.device = device
         self._model_spec = model_spec
         self._loss_fn = loss_fn
@@ -114,29 +154,66 @@ class DistributedRunner:
         self._has_aux = has_aux
         self._dp = self.plan.dp_size
         self.mesh = mesh if mesh is not None else joined_mesh(self.plan.mesh_axes)
+        self.layout = StateLayout(self.plan, model_spec, self.mesh or single_device_mesh())
         self._grad_fn = synchronization.make_grad_fn(
-            self.plan, model_spec, self.mesh, loss_fn, has_aux=has_aux)
+            self.plan, model_spec, self.mesh, loss_fn, has_aux=has_aux, layout=self.layout)
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != self.plan.num_devices:
             raise RuntimeError(f"the mesh {dict(self.plan.mesh_axes)} has "
                                f"{self.plan.num_devices} devices but {world} processes "
                                f"run it (one process per device)")
         self._data_index = self.mesh.index(DP_AXES)
+        self._dp_group = self.mesh.group(DP_AXES)
 
     # ------------------------------------------------------------------- state
     def init(self, params: Dict[str, torch.Tensor]) -> TrainState:
-        """Fresh leaf copies of ``params`` on the runner's device (the caller's
-        tensors are never updated), and the optimizer over the trainable ones
-        in the model spec's order."""
+        """Fresh leaf copies of ``params`` (at their logical shapes) on the
+        runner's device, laid out as the plan says (the caller's tensors are
+        never updated); the optimizer over the trainable ones (their update
+        shards where the update is sharded) in the model spec's order; and
+        the codecs' initial state."""
         missing = set(self._model_spec.keys.values()) - set(params)
         if missing:
             raise ValueError(f"params lack {sorted(missing)}")
         placed = {}
         for name, key in self._model_spec.keys.items():
             leaf = params[key].detach().to(self.device, copy=True)
+            if self.layout.by_key[key].model_sharded:
+                leaf = self.layout.to_storage(key, leaf).clone(
+                    memory_format=torch.contiguous_format)
             placed[key] = leaf.requires_grad_(self._model_spec[name].trainable)
-        trainable = [placed[self._model_spec.keys[n]] for n in self._model_spec.trainable]
-        return TrainState(step=0, params=placed, optimizer=self._optimizer(trainable))
+        opt_params = {}
+        for name in self._model_spec.trainable:
+            key = self._model_spec.keys[name]
+            opt_params[key] = placed[key]
+            if self.layout.by_key[key].sharded_update:
+                opt_params[key] = self.layout.to_update(key, placed[key]).detach().clone(
+                    memory_format=torch.contiguous_format).requires_grad_()
+        return TrainState(step=0, params=placed,
+                          optimizer=self._optimizer(list(opt_params.values())),
+                          ef_state=synchronization.init_compressor_state(
+                              self.plan, self._model_spec, self.device),
+                          opt_params=opt_params, layout=self.layout)
+
+    def logical_params(self, state_or_params) -> Dict[str, torch.Tensor]:
+        """The parameters at their logical shapes (model-axis storage
+        gathered and unpadded: a collective, every rank calls it); replicated
+        storage comes back as it is stored."""
+        params = state_or_params.params if isinstance(state_or_params, TrainState) \
+            else state_or_params
+        return {k: self.layout.logical(k, v) for k, v in params.items()}
+
+    def _loss_view(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """What the loss reads: the storage where it is whole, else fresh
+        logical leaves gathered from the model-axis shards."""
+        if not self.layout.has_model_storage:
+            return state.params
+        view = {}
+        for key, t in state.params.items():
+            pl = self.layout.by_key[key]
+            view[key] = (self.layout.logical(key, t).detach().requires_grad_(pl.trainable)
+                         if pl.model_sharded else t)
+        return view
 
     # ------------------------------------------------------------------- batch
     @staticmethod
@@ -200,6 +277,8 @@ class DistributedRunner:
                     f"(present: {sorted(dims)}); nothing would be micro-split "
                     f"for accumulation_steps={k}")
 
+        rows = {}
+
         def put(leaf):
             if isinstance(leaf, MicroBatched):
                 return leaf
@@ -213,26 +292,38 @@ class DistributedRunner:
                 micro = t.reshape(k, t.shape[0] // k, *t.shape[1:])
                 if dp > 1:
                     micro = micro[:, self.plan.batch_rows(micro.shape[1], data_index)]
+                rows[micro.shape[0] * micro.shape[1]] = k
                 return MicroBatched(place(micro))
             if dp > 1 and t.dim() >= 1 and t.shape[0] % dp == 0:
                 t = t[self.plan.batch_rows(t.shape[0], data_index)]
+                rows.setdefault(t.shape[0], 1)
             return place(t)
 
         out = _tree_map(put, batch)
-        return ShardedBatch(out) if isinstance(out, dict) else out
+        if not isinstance(out, dict):
+            return out
+        out = ShardedBatch(out)
+        out.rows = rows
+        return out
 
     # -------------------------------------------------------------------- step
-    def _accumulate(self, params, batch):
+    def _accumulate(self, params, batch, ef_state):
         """Micro-gradients summed on this rank and divided by ``k``, then one
-        all-reduce for the step; the loss is the micro losses' mean. Aux
-        contracts as the JAX runner's does (``runner.py:322-356``): a leaf
-        whose second stacked dim is the micro-batch's rows folds back to
-        ``[rows, ...]``, any other averages over the micro-batches."""
+        synchronization for the step (every micro-batch's under the explicit
+        lowering, whose codecs and residuals step per micro-batch as the JAX
+        package's do); the loss is the micro losses' mean. Aux contracts as
+        the JAX runner's does (``runner.py:322-356``): a leaf whose second
+        stacked dim is the micro-batch's rows folds back to ``[rows, ...]``,
+        any other averages over the micro-batches."""
         gsum, losses, auxes = None, [], []
+        per_micro = self._grad_fn.explicit
         for i in range(self._accum):
             micro = _tree_map(lambda l: l.value[i] if isinstance(l, MicroBatched) else l,
                               batch)
-            grads, loss, aux = self._grad_fn.local(params, micro)
+            if per_micro:
+                grads, loss, aux = self._grad_fn(params, micro, ef_state)
+            else:
+                grads, loss, aux = self._grad_fn.local(params, micro)
             if gsum is None:
                 gsum = grads
             else:
@@ -241,7 +332,9 @@ class DistributedRunner:
             losses.append(loss)
             auxes.append(aux)
         grads = {key: g.div_(self._accum) for key, g in gsum.items()}
-        grads, loss = self._grad_fn.sync(grads, torch.stack(losses).mean())
+        loss = torch.stack(losses).mean()
+        if not per_micro:
+            grads, loss = self._grad_fn.sync(grads, loss, ef_state)
         micro_b = next((l.value.shape[1] for l in _leaves(batch)
                         if isinstance(l, MicroBatched)), None)
         aux = _tree_map(lambda a: a.reshape(-1, *a.shape[2:])
@@ -249,52 +342,115 @@ class DistributedRunner:
                         _stack_trees(auxes)) if self._has_aux else ()
         return grads, loss, aux
 
+    @staticmethod
+    def _rows(sharded) -> Mapping[int, int]:
+        """:attr:`ShardedBatch.rows` of a laid-out batch (of any other, every
+        leading dim, micro-batched leaves folded)."""
+        if isinstance(sharded, ShardedBatch):
+            return sharded.rows
+        rows = {}
+        for leaf in _leaves(sharded):
+            if isinstance(leaf, MicroBatched):
+                rows[leaf.value.shape[0] * leaf.value.shape[1]] = leaf.value.shape[0]
+            elif isinstance(leaf, torch.Tensor) and leaf.dim() >= 1:
+                rows.setdefault(int(leaf.shape[0]), 1)
+        return rows
+
+    def _global(self, tree, rows: Mapping[int, int]):
+        """A result computed on this rank's rows as the JAX package returns
+        it, computed on the global batch: a leaf whose leading dim is this
+        rank's rows is all-gathered over the data ranks in data-major order,
+        into the global ``[rows, ...]`` array in the batch's own row order
+        (under accumulation each micro-batch's rows gather in turn); any
+        other tensor is averaged over the data ranks, which is exact for a
+        mean over equal counts."""
+        if self._dp_group is None:
+            return tree
+
+        def leaf(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            x = x.detach()
+            if x.dim() >= 1 and int(x.shape[0]) in rows:
+                chunks = rows[int(x.shape[0])]
+                x = x.contiguous()
+                out = x.new_empty((self._dp * x.shape[0],) + tuple(x.shape[1:]))
+                dist.all_gather_into_tensor(out, x, group=self._dp_group)
+                if chunks == 1:
+                    return out
+                return out.view((self._dp, chunks, -1) + tuple(x.shape[1:])).transpose(
+                    0, 1).reshape(out.shape)
+            out = x.to(torch.promote_types(x.dtype, torch.float32)).clone()
+            dist.all_reduce(out, group=self._dp_group)
+            return out / self._dp
+
+        return _tree_map(leaf, tree)
+
     def run(self, state: TrainState, batch, fetches: Optional[Callable] = None):
         """One synchronized training step; returns ``(state, fetched)``.
 
         ``fetched`` is the loss, a 0-dim tensor on the device that reading
         waits for (``(loss, aux)`` with ``has_aux``). With ``fetches=fn``,
-        ``fn(params, batch)`` runs on the pre-update params and this rank's
-        rows of the batch (micro-batches folded back) and ``fetched`` is
-        ``(default, fn_result)``. The loss is the global one; aux and fetches
-        are computed on this rank's rows."""
+        ``fn(params, batch)`` runs on the pre-update logical params and this
+        rank's rows of the batch (micro-batches folded back) and ``fetched``
+        is ``(default, fn_result)``. The loss is the global one; aux and the
+        fetched results are made global under data parallelism: a leaf of
+        this rank's rows is all-gathered over the data ranks into the global
+        ``[rows, ...]`` array, any other leaf averaged over them."""
         sharded = self.shard_batch(batch)
+        params = self._loss_view(state)
         if self._accum > 1:
-            grads, loss, aux = self._accumulate(state.params, sharded)
+            grads, loss, aux = self._accumulate(params, sharded, state.ef_state)
         else:
-            grads, loss, aux = self._grad_fn(state.params, sharded)
+            grads, loss, aux = self._grad_fn(params, sharded, state.ef_state)
         extra = None
         if fetches is not None:
             with torch.no_grad(), synchronization.step_mesh(self.mesh):
                 extra = _tree_map(
                     lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
-                    fetches(state.params, _fold(sharded)))
+                    fetches(params, _fold(sharded)))
         for key, g in grads.items():
-            state.params[key].grad = g
+            state.opt_params[key].grad = g
         state.optimizer.step()
+        by_axes: Dict[tuple, list] = {}
         for key in grads:
-            state.params[key].grad = None
+            state.opt_params[key].grad = None
+            pl = self.layout.by_key[key]
+            if pl.sharded_update:
+                by_axes.setdefault(pl.update_axes, []).append(key)
+        for keys in by_axes.values():
+            self.layout.gather_updates(keys, state.opt_params, state.params)
         state.step += 1
+        rows = self._rows(sharded)
+        if self._has_aux:
+            aux = self._global(aux, rows)
         default = (loss, aux) if self._has_aux else loss
-        return state, ((default, extra) if fetches is not None else default)
+        if fetches is None:
+            return state, default
+        return state, (default, self._global(extra, rows))
 
     def evaluate(self, state: TrainState, batch, fn: Optional[Callable] = None):
-        """``fn(params, batch)`` (default: the loss) on this rank's rows,
-        without gradients or an update; ``state`` is left as it is. A 0-dim
-        floating result is averaged over the data and seq ranks, as the
-        training loss is, so it is the global value."""
+        """``fn(params, batch)`` (default: the loss) on the logical params and
+        this rank's rows, without gradients or an update; ``state`` is left
+        as it is. A 0-dim floating result is averaged over the data and seq
+        ranks, as the training loss is, so it is the global value; any other
+        result is made global as :meth:`run` makes aux global."""
         fn = fn if fn is not None else self._loss_fn
-        batch = (ShardedBatch(_fold(batch)) if isinstance(batch, ShardedBatch)
-                 else self.shard_batch(_fold(batch), accumulation=1))
+        if isinstance(batch, ShardedBatch):
+            rows, batch = batch.rows, ShardedBatch(_fold(batch))
+            batch.rows = rows
+        else:
+            batch = self.shard_batch(_fold(batch), accumulation=1)
         with torch.no_grad(), synchronization.step_mesh(self.mesh):
-            out = fn(state.params, batch)
+            out = fn(self._loss_view(state), batch)
         group = self.mesh.group(synchronization.SYNC_AXES)
-        if group is not None and isinstance(out, torch.Tensor) and out.dim() == 0 \
-                and out.is_floating_point():
-            out = out.clone()
-            dist.all_reduce(out, group=group)
-            out = out / dist.get_world_size(group)
-        return out
+        if isinstance(out, torch.Tensor) and out.dim() == 0 and out.is_floating_point():
+            if group is not None:
+                out = out.clone()
+                dist.all_reduce(out, group=group)
+                out = out / dist.get_world_size(group)
+            return out
+        return self._global(out, self._rows(batch))
 
 
 def step_function(runner: DistributedRunner, params: Dict[str, torch.Tensor]) -> Callable:

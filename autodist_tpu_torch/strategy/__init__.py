@@ -1,8 +1,41 @@
-"""Strategy builders of the port: ``AllReduce`` and ``SequenceParallel`` so far."""
+"""Strategy builders of the port: the synchronous family of the JAX
+package's twelve (``autodist_tpu/strategy/__init__.py``). ``ExpertParallel``
+and ``Pipeline`` come with the models that use them, and the strategy
+search (``AutoStrategy``, the tuner, ``autotune``) after ``run_many``
+(``ROADMAP.md``, Queue 1 item 3): each raises ``NotImplementedError``."""
 
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
+from autodist_tpu_torch.strategy.parallax_strategy import Parallax
+from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import PartitionedAR
+from autodist_tpu_torch.strategy.partitioned_ps_strategy import PartitionedPS
+from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing, byte_size_load_fn
+from autodist_tpu_torch.strategy.ps_strategy import PS
+from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy import \
+    RandomAxisPartitionAR
 from autodist_tpu_torch.strategy.sequence_parallel_strategy import SequenceParallel
+from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import UnevenPartitionedPS
 
-__all__ = ["AllReduce", "SequenceParallel", "Strategy", "StrategyBuilder",
-           "StrategyCompiler"]
+UNPORTED_ROADMAP = "ROADMAP.md, Queue 1 item 3"
+
+
+class _Unported:
+    """A builder of the JAX package that the port has not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"{type(self).__name__} is not ported yet; it comes "
+                                  f"with the models that use it ({UNPORTED_ROADMAP})")
+
+
+class ExpertParallel(_Unported):
+    pass
+
+
+class Pipeline(_Unported):
+    pass
+
+
+__all__ = ["AllReduce", "ExpertParallel", "PS", "PSLoadBalancing", "Parallax",
+           "PartitionedAR", "PartitionedPS", "Pipeline", "RandomAxisPartitionAR",
+           "SequenceParallel", "Strategy", "StrategyBuilder", "StrategyCompiler",
+           "UnevenPartitionedPS", "byte_size_load_fn"]

@@ -2,14 +2,10 @@
 (``autodist_tpu/strategy/all_reduce_strategy.py:40-91``). ``chunk_size`` maps
 the i-th parameter to collective fusion group ``i // chunk_size``."""
 
-from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.proto.strategy import AllReduceSynchronizer, NodeConfig
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
-
-# Default mesh for the AllReduce family: pure data parallelism.
-AR_DEFAULT_AXES = {const.MESH_AXIS_DATA: -1}
+from autodist_tpu_torch.strategy.base import AR_DEFAULT_AXES, Strategy, StrategyBuilder
 
 _Spec = AllReduceSynchronizer.Spec
 _Comp = AllReduceSynchronizer.Compressor

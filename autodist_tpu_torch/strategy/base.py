@@ -1,8 +1,9 @@
 """Strategy wrapper, builder ABC and compiler (``autodist_tpu/strategy/base.py:28-235``).
 
 The port's strategy is the dataclass schema of :mod:`autodist_tpu_torch.proto.strategy`.
-Serialization by id (the chief-to-worker handshake) and PS destination
-resolution belong to the multi-process and PS slices and are not ported yet.
+The compiler prunes, resolves the mesh and resolves PS destinations to
+``reduce:<k>`` coordinates. Serialization by id (the chief-to-worker
+handshake) belongs to the cluster slice (``ROADMAP.md``, Queue 1 item 4).
 """
 
 import abc
@@ -10,6 +11,7 @@ import copy
 import datetime
 from typing import Optional
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel.mesh import standard_mesh_shape
 from autodist_tpu_torch.proto import strategy as strategy_pb
@@ -53,6 +55,13 @@ class Strategy:
     def __str__(self):
         return (f"Strategy(id={self.id}, nodes={len(self._proto.node_config)}, "
                 f"mesh={self.mesh_axes()})")
+
+
+# Default mesh for the PS family: every device is both a data replica and a
+# parameter shard (the batch shards over data x reduce jointly).
+PS_DEFAULT_AXES = {const.MESH_AXIS_REDUCE: -1, const.MESH_AXIS_DATA: 1}
+# Default mesh for the AllReduce family: pure data parallelism.
+AR_DEFAULT_AXES = {const.MESH_AXIS_DATA: -1}
 
 
 def num_devices(resource_spec: ResourceSpec) -> int:
@@ -101,6 +110,7 @@ class StrategyCompiler:
         out = strategy.copy()
         self._prune_nodes(out)
         self._resolve_mesh(out)
+        self._resolve_destinations(out)
         return out
 
     def _prune_nodes(self, strategy: Strategy):
@@ -116,3 +126,20 @@ class StrategyCompiler:
                     else [d.name_string for d in self._resource_spec.replica_devices])
         strategy.proto.mesh_config = _mesh_config(
             num_devices(self._resource_spec), strategy.mesh_axes() or None, replicas)
+
+    def _resolve_destinations(self, strategy: Strategy):
+        """PS reduction destinations as shard indices along the ``reduce``
+        axis: a device string ``host:...`` becomes ``reduce:<k>`` (the host's
+        place among the sorted nodes, modulo the axis size); empty and
+        already-resolved destinations pass through."""
+        hosts = [n.address for n in self._resource_spec.sorted_nodes]
+        reduce_size = strategy.mesh_axes().get(const.MESH_AXIS_REDUCE, 1)
+        for node in strategy.node_config:
+            for cfg in [node] + list(node.part_config):
+                ps = cfg.ps_synchronizer
+                if ps is None or not ps.reduction_destination \
+                        or ps.reduction_destination.startswith("reduce:"):
+                    continue
+                host = ps.reduction_destination.split(":")[0]
+                idx = hosts.index(host) % reduce_size if host in hosts else 0
+                ps.reduction_destination = f"reduce:{idx}"

@@ -81,7 +81,8 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
           on_eval: Optional[Callable[[int, Any], None]] = None,
           unroll: Optional[int] = None,
           prefetch_depth: Optional[int] = None,
-          health_monitor=None) -> TrainState:
+          health_monitor=None,
+          sharded: Optional[bool] = None) -> TrainState:
     """Run ``steps`` global steps, checkpointing and resuming automatically.
 
     ``batches``: ``fn(step_index) -> batch`` or an iterable of batches
@@ -101,7 +102,9 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
     ``AUTODIST_PREFETCH_DEPTH``, 0 = the synchronous feed) pulls and places
     that many batches ahead through
     :func:`autodist_tpu_torch.data.prefetch.device_feed`; the source's
-    exceptions re-raise at the consuming step. Returns the final state."""
+    exceptions re-raise at the consuming step. ``sharded`` picks every
+    save's format (:meth:`Saver.save`: None writes the sharded v2 format when
+    some tensor is sharded across ranks). Returns the final state."""
     _refuse_unported(unroll, health_monitor)
     if prefetch_depth is None:
         prefetch_depth = _prefetch.default_prefetch_depth()
@@ -141,13 +144,13 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
         state = _per_step_loop(runner, state, feed, next_batch, batch_iter, start, steps,
                                saver, prefix_base, save_participant, save_every, async_save,
                                log_every, batch_size, on_metrics, eval_every, eval_batch,
-                               eval_fn, on_eval)
+                               eval_fn, on_eval, sharded)
     finally:
         if feed is not None:
             feed.close()
     # The final save stays synchronous: returning means the state is on disk.
     if saver is not None and save_participant and state.step > start:
-        saver.save(state, prefix_base)
+        saver.save(state, prefix_base, sharded=sharded)
     if saver is not None:
         saver.wait()
     return state
@@ -170,7 +173,8 @@ def _step_feed(runner, next_batch, batch_iter, start: int, steps: int, depth: in
 def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, start: int,
                    steps: int, saver, prefix_base, save_participant, save_every: int,
                    async_save: bool, log_every: int, batch_size: Optional[int], on_metrics,
-                   eval_every: int, eval_batch, eval_fn, on_eval) -> TrainState:
+                   eval_every: int, eval_batch, eval_fn, on_eval,
+                   sharded: Optional[bool]) -> TrainState:
     """One dispatch per step, fed synchronously or from ``feed``."""
     meter = None
     for step_i in range(start, steps):
@@ -204,7 +208,7 @@ def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, star
                 on_eval(step_i + 1, val)
         if (saver is not None and save_participant and save_every
                 and (step_i + 1) % save_every == 0 and step_i + 1 < steps):
-            saver.save(state, prefix_base, async_write=async_save)
+            saver.save(state, prefix_base, async_write=async_save, sharded=sharded)
     if meter is not None:
         meter.finish()
     return state

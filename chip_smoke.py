@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: build its CUDA kernels, hold each against
 its plain version on the card, and train the flagship TransformerLM through
-the port's entry points on one card, at seq 256, at seq 8,192, and at seq
-8,192 through the sequence-parallel path (a ring of one card).
+the port's entry points on one card, at seq 256, at seq 8,192, at seq 8,192
+through the sequence-parallel path (a ring of one card), and at seq 256
+under every synchronous strategy.
 
     python3 chip_smoke.py
 
@@ -124,7 +125,28 @@ exits non-zero without them, or when any phase fails. Phases:
    final save, a restore into a fresh runner (which must equal the saved
    state bit for bit) and 2 more steps. The losses and the final params
    must be bit-identical, and the losses equal the synchronous feed's.
-11. One JSON line of per-kernel numbers (all seven kernels), then the result
+11. The strategy family on one card: the flagship at full width and phase
+   4's size (micro-batches of 32 x 256, 2-way accumulation, Adam 1e-3), 3
+   steps from one seed and one set of batches under each of
+   ``STRATEGY_LOWERINGS``: ``AllReduce()`` (the reference run), ``AutoDist()``
+   with no builder (``PSLoadBalancing``), ``PS``, ``PartitionedPS``,
+   ``UnevenPartitionedPS``, ``PartitionedAR``, ``RandomAxisPartitionAR``,
+   ``Parallax``, and the codecs: ``Parallax(compressor="HorovodCompressorEF")``,
+   ``AllReduce(compressor="HorovodCompressor")``, ``AllReduce(compressor=
+   "PowerSGDCompressor", power_sgd_rank=2)``; and ``AllReduce()`` with
+   ``zero=1``. Each prints its losses, the device's busy ms per step over
+   steps 2 and 3 (a profiler window: the union of kernel intervals) beside
+   the card's event-timed ms for them, peak memory, fused-head launches per
+   step (counts set to 0 just before, read just after) and its final
+   params' largest distance from the reference run's (kept on the host).
+   On one card the mesh's reduce, model and data axes are all 1, so every
+   uncompressed lowering must equal the reference bit for bit (losses and
+   params); each compressed one must stay within
+   rtol 1e-2 of the reference losses, end with other params, and (EF,
+   PowerSGD) hold a nonzero residual after step 1. Then one ``torch.linalg.qr``
+   of a PowerSGD factor's shape ([32,000, 2] f32) is timed on the host's
+   clock and the card's.
+12. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
 
@@ -190,6 +212,26 @@ XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
 XENT_DWDB_EDGES = tuple((n, v) for n in (1, 63, 65) for v in (63, 65, 129, 193))
 # A spill in this kernel fails phase 2.
 NO_SPILL = "xent_dwdb_kernel"
+# Phase 11: (label, builder (None: AutoDist's default), session keywords,
+# codec: None, "bf16", or the residual the codec keeps, "error").
+STRATEGY_STEPS = 3
+STRATEGY_LOWERINGS = (
+    ("AllReduce()", "AllReduce", {}, {}, None),
+    ("AutoDist() default (PSLoadBalancing)", None, {}, {}, None),
+    ("PS()", "PS", {}, {}, None),
+    ("PartitionedPS()", "PartitionedPS", {}, {}, None),
+    ("UnevenPartitionedPS()", "UnevenPartitionedPS", {}, {}, None),
+    ("PartitionedAR()", "PartitionedAR", {}, {}, None),
+    ("RandomAxisPartitionAR()", "RandomAxisPartitionAR", {}, {}, None),
+    ("Parallax()", "Parallax", {}, {}, None),
+    ("Parallax(HorovodCompressorEF)", "Parallax", {"compressor": "HorovodCompressorEF"}, {},
+     "error"),
+    ("AllReduce(HorovodCompressor)", "AllReduce", {"compressor": "HorovodCompressor"}, {},
+     "bf16"),
+    ("AllReduce(PowerSGDCompressor, rank 2)", "AllReduce",
+     {"compressor": "PowerSGDCompressor", "power_sgd_rank": 2}, {}, "error"),
+    ("AllReduce() zero=1", "AllReduce", {}, {"zero": 1}, None),
+)
 
 
 def log(msg: str) -> None:
@@ -474,11 +516,27 @@ def counted_steps(step, batches, kernels):
     return losses, times, launches
 
 
+def device_kernels(prof):
+    """The device kernels a ``torch.profiler`` window recorded."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(kernels) -> float:
+    """The union of the kernels' intervals, in microseconds."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
 def profile_steps(step, batches, label="profile"):
     """A torch.profiler window over steady steps of a main path: device busy
     time per step (the union of kernel intervals), the device's idle share
     of the wall time, the port's kernels and the kernels that take the most."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -487,26 +545,21 @@ def profile_steps(step, batches, label="profile"):
         for batch in batches:
             float(step(batch))
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_kernels(prof)
     n = len(batches)
     if not kernels:
         log(f"{label}: the profiler recorded no device time; busy and idle share "
             "not measured")
         return
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
+    busy = busy_us(kernels)
     per_name = collections.Counter()
     for e in kernels:
         per_name[e.name] += e.time_range.elapsed_us()
     head_us = sum(us for name, us in per_name.items() if "xent_" in name)
     flash_us = sum(us for name, us in per_name.items() if "flash_" in name)
     log(f"{label}: {n} steps, {1e3 * wall / n:.3f} ms/step wall with the profiler on; "
-        f"device busy {busy_us / n / 1e3:.3f} ms/step, idle share "
-        f"{1 - busy_us / 1e6 / wall:.3f}; {len(kernels) // n} kernels/step; "
+        f"device busy {busy / n / 1e3:.3f} ms/step, idle share "
+        f"{1 - busy / 1e6 / wall:.3f}; {len(kernels) // n} kernels/step; "
         f"fused-head kernels {head_us / n / 1e3:.3f} ms/step, flash kernels "
         f"{flash_us / n / 1e3:.3f} ms/step")
     for name, us in per_name.most_common(10):
@@ -1022,6 +1075,104 @@ def train_path(kernels, dev):
     return launches
 
 
+def strategies_path(kernels, dev):
+    """Phase 11: the flagship under every synchronous lowering on one card."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import strategy as st
+    from autodist_tpu_torch.models import transformer_lm as tlm
+
+    micro, accum, seq = 32, 2, 256
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6,
+                                  d_ff=2048, max_len=512, fused_head=True,
+                                  tied_output=False, dtype=torch.bfloat16)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    batches = [tlm.synthetic_batch(cfg, micro * accum, seq, seed=2000 + i)
+               for i in range(STRATEGY_STEPS)]
+    one_card = {"nodes": [{"address": "localhost", "gpus": [0]}]}
+    total = collections.Counter()
+    ref_losses = ref_params = None
+    failures = []
+    for label, builder, options, session, codec in STRATEGY_LOWERINGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ad = AutoDist(resource_info=one_card, device=dev,
+                      strategy_builder=getattr(st, builder)(**options) if builder else None)
+        step = ad.function(tlm.make_loss_fn(model), params,
+                           lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
+                           accumulation_steps=accum, **session)
+        placed = [step.runner.shard_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        losses = [float(step(placed[0]))]
+        residual = None
+        if codec == "error":
+            residual = max(float(e["error"].abs().max())
+                           for e in step.get_state().ef_state.values())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            losses += [float(step(batch)) for batch in placed[1:]]
+            end.record()
+            end.synchronize()
+        timed = len(placed) - 1
+        busy_ms = busy_us(device_kernels(prof)) / 1e3 / timed
+        event_ms = start.elapsed_time(end) / timed
+        launches = {k.__name__: k.launches for k in kernels}
+        total.update(launches)
+        state = step.get_state()
+        final = {k: v.detach().cpu() for k, v in step.runner.logical_params(state).items()}
+        if ref_params is None:
+            ref_losses, ref_params = losses, final
+        dist = max(float((final[k].float() - ref_params[k].float()).abs().max())
+                   for k in final)
+        per_step = {name: launches[name] / STRATEGY_STEPS
+                    for name in ("xent_fwd", "xent_dh", "xent_dwdb")}
+        log(f"strategies: {label}: mesh {dict(step.runner.plan.mesh_axes)}, lowering "
+            f"{'explicit' if step.runner._grad_fn.explicit else 'implicit'}; losses {losses}; "
+            f"device busy {busy_ms:.3f} ms/step, {event_ms:.3f} event-timed (steps 2-3); "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+            f"fused-head launches per step {per_step}; final params' max distance from "
+            f"the reference {dist:.3e}"
+            + (f"; largest residual after step 1 {residual:.3e}" if codec == "error" else ""))
+        if not all(math.isfinite(x) for x in losses) or min(per_step.values()) <= 0:
+            failures.append(f"{label}: non-finite losses or no fused-head launch")
+        elif codec is None and not (losses == ref_losses and dist == 0.0):
+            failures.append(f"{label}: differs from the reference ({losses} vs {ref_losses}, "
+                            f"params {dist:.3e})")
+        elif codec is not None and not (
+                all(abs(a - b) <= 1e-2 * abs(b) for a, b in zip(losses, ref_losses))
+                and dist > 0 and (codec != "error" or (residual or 0.0) > 0)):
+            failures.append(f"{label}: the codec did not run as it should (losses {losses}, "
+                            f"params {dist:.3e}, residual {residual})")
+        del step, state, final, placed
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    factor = torch.randn(V, 2, device=dev)
+    torch.linalg.qr(factor)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.linalg.qr(factor)
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    log(f"strategies: torch.linalg.qr of a [{V}, 2] f32 factor: {host_us:.1f} us a call on "
+        f"the host's clock (enqueue only, unless it synchronizes), "
+        f"{1e3 * time_ms(lambda: torch.linalg.qr(factor), reps):.1f} us a call on the "
+        f"card's (events)")
+    if failures:
+        raise AssertionError("strategies: " + "; ".join(failures))
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1073,7 +1224,8 @@ def main() -> int:
                 "long_context": long_context_path(every, dev),
                 "sequence_parallel": sequence_parallel_path(every, dev),
                 "flagship_full": flagship_full_path(every, dev),
-                "train": train_path(every, dev)}
+                "train": train_path(every, dev),
+                "strategies": strategies_path(every, dev)}
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

@@ -199,8 +199,9 @@ def test_rotation_and_state_file_merged_per_name(tmp_path):
 
 
 def test_async_write_then_wait_and_unported_parts(tmp_path):
-    """An async save is on disk once ``wait()`` returns; a sharded write and
-    an optimizer without a mapping raise."""
+    """An async save is on disk once ``wait()`` returns; a sharded write on
+    one rank is the v2 format (one shard file and the manifest) and restores
+    bit for bit; an optimizer without a mapping raises."""
     runner = _torch_runner()
     state = runner.init(from_jax_params(_jax_params()))
     runner.run(state, _batch(1))
@@ -210,8 +211,10 @@ def test_async_write_then_wait_and_unported_parts(tmp_path):
     assert checkpoint_exists(prefix)
     restored = Saver().restore(prefix, runner=runner)
     _assert_bit_equal(_torch_flat(restored), _torch_flat(state))
-    with pytest.raises(NotImplementedError, match="v2"):
-        saver.save(state, str(tmp_path / "model"), sharded=True)
+    v2 = saver.save(state, str(tmp_path / "v2"), sharded=True)
+    assert os.path.exists(v2 + ".shard00000-of-00001.npz") and not os.path.exists(v2 + ".npz")
+    assert checkpoint_exists(v2)
+    _assert_bit_equal(_torch_flat(Saver().restore(v2, runner=runner)), _torch_flat(state))
     state.optimizer = torch.optim.SGD(list(state.params.values()), lr=0.1)
     with pytest.raises(NotImplementedError, match="Adam"):
         saver.save(state, str(tmp_path / "model"))

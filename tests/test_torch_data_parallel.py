@@ -7,8 +7,10 @@ The port runs over gloo ranks, all multi-rank cases in one spawn: 4 ranks
 train a data x seq mesh of 2 x 2 (``SequenceParallel(seq_axis_size=2)``),
 leave that group, and ranks 0 and 1 join a group of 2 that trains the
 flagship step with ``AllReduce`` (dp = 2) and 2-way accumulation on a
-masked batch whose mask gives the two ranks different token counts, then
-run the flagship entry point's tiny host smoke. Each child runs this file as
+masked batch whose mask gives the two ranks different token counts, train
+a small regression with ``has_aux`` and ``fetches=`` whose per-row and
+scalar results must come back global, then run the flagship entry point's
+tiny host smoke. Each child runs this file as
 a script (``_worker``), imports torch and the port only, and writes what it
 computed for the parent to compare. JAX runs on a 2-device data mesh and a
 {data: 2, seq: 2} mesh of its CPU devices and is imported inside the test
@@ -73,6 +75,26 @@ def _adam(p):
     return torch.optim.Adam(p, lr=1e-3, eps=1e-8)
 
 
+def _aux_data():
+    """A regression's weights and its batches (8 rows: 2 per rank per
+    micro-batch at dp = 2 with 2-way accumulation)."""
+    rng = np.random.RandomState(11)
+    w = rng.randn(5, 3).astype(np.float32)
+    return w, [{"x": rng.randn(DP_BATCH, 5).astype(np.float32),
+                "y": rng.randn(DP_BATCH, 3).astype(np.float32)} for _ in range(STEPS)]
+
+
+def _aux_loss(p, b):
+    """``(loss, aux)``: aux holds a per-row leaf and a scalar."""
+    pred = b["x"] @ p["w"]
+    per_row = ((b["y"] - pred) ** 2).mean(-1)
+    return per_row.mean(), {"per_row": per_row, "pred_mean": pred.mean()}
+
+
+def _aux_fetch(p, b):
+    return {"pred": b["x"] @ p["w"], "w_sq": (p["w"] ** 2).sum()}
+
+
 def _as_torch(batch):
     return {k: torch.tensor(v) for k, v in batch.items()}
 
@@ -131,6 +153,16 @@ def _worker(workdir: pathlib.Path):
             tlm.make_loss_fn(model), params, _adam, accumulation_steps=ACCUM)
         train(runner, params, lambda i: batches[i], steps=STEPS, save_every=1, log_every=0,
               checkpoint_dir=str(workdir / "ckpt"), prefetch_depth=2)
+        # has_aux and fetches= under dp = 2: the global arrays.
+        w, aux_batches = _aux_data()
+        aux_step = AutoDist(resource_info=NODES[2], strategy_builder=AllReduce(),
+                            device="cpu").function(
+            _aux_loss, {"w": torch.tensor(w)}, lambda p: torch.optim.SGD(p, lr=0.1),
+            has_aux=True, accumulation_steps=ACCUM)
+        for i, b in enumerate(aux_batches):
+            (loss, aux), fetched = aux_step(_as_torch(b), fetches=_aux_fetch)
+            results[f"aux{i}-loss"] = loss.numpy()
+            results.update({f"aux{i}-{k}": v.numpy() for k, v in {**aux, **fetched}.items()})
         from autodist_tpu_torch.examples import flagship_lm
         flagship_lm.main(["--device", "cpu", "--micro_batch", "2", "--seq_len", "16",
                           "--accum", "2", "--d_model", "32", "--n_layers", "1",
@@ -235,6 +267,50 @@ def test_two_rank_data_parallel_matches_jax(dp_runs):
         np.testing.assert_allclose(got["dp-losses"], losses, rtol=1e-4)
         np.testing.assert_allclose(got["dp-eval"], evaluated, rtol=1e-4)
         _assert_params(got, params, "dp")
+
+
+def test_two_rank_aux_and_fetches_are_global(dp_runs):
+    """Under dp = 2 with 2-way accumulation, ``has_aux`` and ``fetches=``
+    results equal the JAX package's global arrays on its 2-device mesh:
+    per-row leaves gathered in the batch's row order, scalars averaged; on
+    both ranks."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import autodist_tpu
+    from autodist_tpu.model_spec import ModelSpec as JModelSpec
+    from autodist_tpu.parallel.mesh import build_mesh
+    from autodist_tpu.parallel.plan import ShardingPlan as JPlan
+    from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
+    from autodist_tpu.runner import DistributedRunner as JRunner
+    from autodist_tpu.strategy import AllReduce as JAllReduce
+
+    def loss(p, b):
+        pred = b["x"] @ p["w"]
+        per_row = jnp.mean((b["y"] - pred) ** 2, axis=-1)
+        return jnp.mean(per_row), {"per_row": per_row, "pred_mean": jnp.mean(pred)}
+
+    def fetch(p, b):
+        return {"pred": b["x"] @ p["w"], "w_sq": jnp.sum(p["w"] ** 2)}
+
+    w, batches = _aux_data()
+    ad = autodist_tpu.AutoDist(JResourceSpec(resource_info=NODES[2]), JAllReduce())
+    spec = JModelSpec({"w": w})
+    compiled = ad._compile(spec)
+    runner = JRunner(compiled, spec, loss, optax.sgd(0.1), has_aux=True,
+                     mesh=build_mesh(axes={"data": 2}, devices=jax.devices()[:2]),
+                     plan=JPlan.from_strategy(compiled, spec), accumulation_steps=ACCUM)
+    state = runner.init({"w": w})
+    ranks = dp_runs()[0][:2]
+    for i, b in enumerate(batches):
+        state, ((jloss, jaux), jfetched) = runner.run(state, b, fetches=fetch)
+        want = {"loss": jloss, **jaux, **jfetched}
+        for got in ranks:
+            for key, value in want.items():
+                value = np.asarray(value)
+                assert got[f"aux{i}-{key}"].shape == value.shape, key
+                np.testing.assert_allclose(got[f"aux{i}-{key}"], value, rtol=1e-5,
+                                           atol=1e-6, err_msg=key)
 
 
 def test_two_rank_data_parallel_equals_one_process(dp_runs):
