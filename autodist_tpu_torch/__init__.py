@@ -18,7 +18,14 @@ parallelism, ``train()`` and checkpoints; and the synchronous strategy
 family (:mod:`autodist_tpu_torch.strategy`: PS and ``PSLoadBalancing``, the
 default builder, with weight-update sharding, partitioned and padded
 storage, ``Parallax``'s sparse wire, the gradient codecs, ZeRO and the
-sharded checkpoint write). ``ROADMAP.md`` lists what is next.
+sharded checkpoint write); the sparse-parameter walk of the loss's graph
+(:meth:`~autodist_tpu_torch.model_spec.ModelSpec.from_loss_fn`); Ulysses
+sequence parallelism (:mod:`autodist_tpu_torch.parallel.ulysses`); the
+native data loader (:mod:`autodist_tpu_torch.data.loader`); and the image
+family: the CNN zoo (``models.resnet``, ``vgg``, ``densenet``,
+``inception``), the ImageNet input plane (:mod:`autodist_tpu_torch.data.imagenet`),
+the JAX package's self-contained examples and its ImageNet benchmark
+(``examples.benchmark.imagenet``). ``ROADMAP.md`` lists what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist

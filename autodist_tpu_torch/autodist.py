@@ -92,26 +92,21 @@ class AutoDist:
                                    has_aux: bool = False,
                                    accumulation_steps: int = 1,
                                    batch_size: Optional[int] = None,
-                                   zero: Optional[int] = None,
-                                   index_leaves: Optional[Mapping[str, str]] = None
-                                   ) -> DistributedRunner:
+                                   zero: Optional[int] = None) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
 
         ``params`` is a flat ``{state-dict key: tensor}`` dict; ``optimizer``
         a factory ``optimizer(list_of_params) -> torch.optim.Optimizer``.
-        Sparse flags come from ``sparse_names`` if given, else from the
-        gather-only parameters ``loss_fn.sparse_names`` declares; their
-        index leaves (the sparse wire) from ``index_leaves``, else
-        ``loss_fn.index_leaves``. ``example_batch`` is accepted for the JAX
-        signature's sake: the port declares sparsity instead of tracing the
-        loss. ``zero`` (default ``AUTODIST_ZERO``) turns on ZeRO-style
-        weight-update sharding over the data axes. A plan of PS nodes that
+        Sparse flags follow the JAX package's rule (``_model_spec_for``):
+        ``sparse_names`` if given; else the walk of ``loss_fn`` traced on
+        ``example_batch`` (:meth:`ModelSpec.from_loss_fn`, which also finds
+        each sparse parameter's index leaf, the sparse wire's indices);
+        else no parameter is sparse. ``zero`` (default ``AUTODIST_ZERO``)
+        turns on ZeRO-style weight-update sharding over the data axes. A plan of PS nodes that
         are not synchronous raises ``NotImplementedError``. A mesh of more
         than one rank joins the process group from torchrun's environment
         first; every rank calls this with the same arguments."""
-        del example_batch
-        model_spec = ModelSpec.from_loss_fn(loss_fn, params, sparse_names=sparse_names,
-                                            index_leaves=index_leaves)
+        model_spec = self._model_spec_for(loss_fn, params, example_batch, sparse_names)
         compiled = self._compile(model_spec)
         plan = ShardingPlan.from_strategy(compiled, model_spec)
         if plan.num_devices > 1 and not plan.is_async:
@@ -120,12 +115,19 @@ class AutoDist:
                                  plan=plan, accumulation_steps=accumulation_steps,
                                  batch_size=batch_size, has_aux=has_aux, zero=zero)
 
+    @staticmethod
+    def _model_spec_for(loss_fn, params, example_batch, sparse_names) -> ModelSpec:
+        if sparse_names is not None:
+            return ModelSpec(params, sparse_names=sparse_names)
+        if example_batch is not None:
+            return ModelSpec.from_loss_fn(loss_fn, params, example_batch)
+        return ModelSpec(params)
+
     def function(self, loss_fn: Callable, params: Mapping[str, torch.Tensor],
                  optimizer: Callable, example_batch=None,
                  sparse_names: Optional[Sequence[str]] = None,
                  has_aux: bool = False, accumulation_steps: int = 1,
-                 batch_size: Optional[int] = None, zero: Optional[int] = None,
-                 index_leaves: Optional[Mapping[str, str]] = None) -> Callable:
+                 batch_size: Optional[int] = None, zero: Optional[int] = None) -> Callable:
         """``step(batch, fetches=None) -> loss`` (what
         :meth:`DistributedRunner.run` fetches) carrying the training state
         inside; the first call's runner is reused by every later one.
@@ -133,6 +135,5 @@ class AutoDist:
         fn=None)`` expose it."""
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
-            accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero,
-            index_leaves=index_leaves)
+            accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero)
         return step_function(runner, params)

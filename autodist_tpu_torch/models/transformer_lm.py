@@ -23,17 +23,17 @@ What the port keeps from flax, since each changes the numbers:
 
 Ported: the training (non-decode) path with ``attention_impl`` "dot",
 "flash" (:mod:`autodist_tpu_torch.ops.flash_attention`), "blockwise"
-(:mod:`autodist_tpu_torch.ops.blockwise_attention`) or "ring"
-(:mod:`autodist_tpu_torch.parallel.ring_attention`, over the ``seq_group``
-that ``forward`` is given: the sequence-parallel loss of
+(:mod:`autodist_tpu_torch.ops.blockwise_attention`), "ring"
+(:mod:`autodist_tpu_torch.parallel.ring_attention`) or "ulysses"
+(:mod:`autodist_tpu_torch.parallel.ulysses`), the last two over the
+``seq_group`` that ``forward`` is given (the sequence-parallel loss of
 :mod:`autodist_tpu_torch.parallel.sequence` passes its group; None is a
-ring of one), and ``remat``. "ulysses" and decode raise
-``NotImplementedError``.
+group of one), and ``remat``. Decode raises ``NotImplementedError``.
 """
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +48,7 @@ from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
 from autodist_tpu_torch.ops.flash_attention import flash_attention
 from autodist_tpu_torch.parallel.ring_attention import ring_attention
 from autodist_tpu_torch.parallel.synchronization import global_mean
+from autodist_tpu_torch.parallel.ulysses import ulysses_attention
 from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
@@ -159,6 +160,9 @@ class MultiHeadAttention(nn.Module):
             # x is this rank's shard of the sequence: the ring masks by
             # global position, so no local mask is read.
             ctx = ring_attention(q, k, v, causal=True, group=seq_group)
+        elif cfg.attention_impl == "ulysses":
+            # Head re-sharding: the whole sequence after the exchange.
+            ctx = ulysses_attention(q, k, v, causal=True, group=seq_group)
         elif cfg.attention_impl == "flash":
             ctx = flash_attention(q, k, v, causal=True)
         elif cfg.attention_impl == "blockwise":
@@ -191,10 +195,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, config: TransformerLMConfig):
         super().__init__()
-        if config.attention_impl == "ulysses":
-            raise NotImplementedError(
-                "attention_impl='ulysses' is not ported yet (ROADMAP.md, port queue: "
-                "Ulysses sequence parallelism); use 'ring', 'dot', 'flash' or 'blockwise'")
         self.config = cfg = config
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype)
         self.pos_embed = _param(cfg.max_len, cfg.d_model)
@@ -210,7 +210,7 @@ class TransformerLM(nn.Module):
         dtype, or the final hidden states ``[B, L, D]`` with
         ``return_hidden`` (the fused-head loss owns the projection).
         ``pos_offset`` is the global position of the first token and
-        ``seq_group`` the ring of ``attention_impl="ring"``."""
+        ``seq_group`` the seq group of ``attention_impl`` "ring" or "ulysses"."""
         if decode:
             raise NotImplementedError("decode (KV-cache) mode is not ported yet")
         cfg = self.config
@@ -230,15 +230,6 @@ class TransformerLM(nn.Module):
         return lm_head_logits(x, {EMBEDDING: self.embed.embedding} if cfg.tied_output
                               else {HEAD_KERNEL: self.lm_head.kernel},
                               tied=cfg.tied_output)
-
-    def gather_only_params(self) -> List[str]:
-        """JAX-style names of the parameters the loss reads only by gather or
-        slice, whose gradients are row-sparse: the declared counterpart of
-        ``autodist_tpu.model_spec.detect_sparse_params``."""
-        names = ["pos_embed"]
-        if not self.config.tied_output:
-            names.insert(0, "embed/embedding")
-        return names
 
 
 def _checkpointed(block: Block, x, mask, seq_group=None):
@@ -311,8 +302,6 @@ def fused_head_nll(model: TransformerLM, params, inputs, targets,
 def make_loss_fn(model: TransformerLM) -> Callable:
     """Next-token cross entropy ``loss_fn(params, batch)``; ``batch`` holds
     int ``tokens [B, L+1]`` and optionally a ``mask [B, L+1]`` over them.
-    ``loss_fn.sparse_names`` declares the gather-only parameters and
-    ``loss_fn.index_leaves`` their index leaves (none).
 
     Under data parallelism the loss is the JAX package's global one
     (``autodist_tpu/models/transformer_lm.py:290-297``): the unmasked mean
@@ -338,12 +327,6 @@ def make_loss_fn(model: TransformerLM) -> Callable:
             mask = batch["mask"][:, 1:].to(nll.dtype)
             return global_mean((nll * mask).sum(), mask.sum())
         return nll.mean()
-
-    loss_fn.sparse_names = model.gather_only_params()
-    # The embedding gathers read tokens[:, :-1] and a position iota, never a
-    # batch leaf as it is: no index leaf, so no sparse wire (the JAX
-    # package's jaxpr walk finds none for this loss either).
-    loss_fn.index_leaves = {}
     return loss_fn
 
 

@@ -59,19 +59,28 @@ def _dims(h, w, vd: bool) -> Tuple[int, int, int]:
 
 # ------------------------------------------------------------ plain versions
 
-def _w_chunk(w, vd: bool, v0: int, v1: int, dtype) -> torch.Tensor:
-    """``[D, c]`` f32 slice of w (or of its pack) holding its values rounded
-    to the activation dtype: what the kernels read, with products then taken
-    in f32."""
-    wc = w[v0:v1].T if vd else w[:, v0:v1]
-    return wc.to(dtype).float()
+def _chunks(w, b, vd: bool, v: int, v_chunk: int):
+    """``[(v0, v1, w chunk, b chunk or None)]`` over the vocab. The table is
+    split, not sliced, so a trace of the loss shows it read whole, as the
+    kernels read it (the sparse-parameter walk counts a slice as a gather).
+    Columns past ``v`` (a packed table's padding) are left out."""
+    dim = 0 if vd else 1
+    sizes = [min(v_chunk, v - v0) for v0 in range(0, v, v_chunk)]
+    pad = w.shape[dim] - v
+    ws = w.split(sizes + ([pad] if pad else []), dim=dim)
+    bs = b.split(sizes) if b is not None else [None] * len(sizes)
+    return [(v0, v0 + c, wc, bc)
+            for v0, c, wc, bc in zip(range(0, v, v_chunk), sizes, ws, bs)]
 
 
-def _logits_chunk(hf, w, b, vd, v0, v1, dtype):
-    wc = _w_chunk(w, vd, v0, v1, dtype)
+def _logits_chunk(hf, wc, bc, vd, dtype):
+    """Logits of one vocab chunk, and the chunk as ``[D, c]`` f32 holding
+    its values rounded to the activation dtype: what the kernels read, with
+    products then taken in f32."""
+    wc = (wc.T if vd else wc).to(dtype).float()
     logits = hf @ wc
-    if b is not None:
-        logits = logits + b[v0:v1]
+    if bc is not None:
+        logits = logits + bc
     return logits, wc
 
 
@@ -99,8 +108,8 @@ def matmul_logsumexp_plain(h, w, b=None, w_layout: str = "dv",
     n, _, v = _dims(h, w, vd)
     hf = h.float()
     lse = torch.full((n,), float("-inf"), dtype=torch.float32, device=h.device)
-    for v0 in range(0, v, v_chunk):
-        logits, _ = _logits_chunk(hf, w, b, vd, v0, min(v, v0 + v_chunk), h.dtype)
+    for _, _, wc, bc in _chunks(w, b, vd, v, v_chunk):
+        logits, _ = _logits_chunk(hf, wc, bc, vd, h.dtype)
         lse = torch.logaddexp(lse, torch.logsumexp(logits, dim=-1))
     return lse
 
@@ -121,9 +130,8 @@ def lse_backward_plain(h, w, b, lse, g, w_layout: str = "dv",
     dw = torch.empty_like(w)
     db = torch.empty((v,), dtype=torch.float32, device=h.device)
     table = w if wp is None else wp
-    for v0 in range(0, v, v_chunk):
-        v1 = min(v, v0 + v_chunk)
-        logits, wc = _logits_chunk(hf, table, b, vd, v0, v1, h.dtype)
+    for v0, v1, wc, bc in _chunks(table, b, vd, v, v_chunk):
+        logits, wc = _logits_chunk(hf, wc, bc, vd, h.dtype)
         p = torch.exp(logits - lse[:, None]) * g[:, None]
         db[v0:v1] = p.sum(dim=0)
         ph = p.to(h.dtype).float()

@@ -7,7 +7,9 @@ group, one process per card; each rank runs the model on its shard with
 - globally offset position embeddings (rank r's shard starts at position
   ``r * L_local``),
 - ring attention for the mixing across shards (K/V rotate around the group,
-  :mod:`autodist_tpu_torch.parallel.ring_attention`), and
+  :mod:`autodist_tpu_torch.parallel.ring_attention`), or Ulysses (two
+  all-to-alls re-shard by heads around flash attention,
+  :mod:`autodist_tpu_torch.parallel.ulysses`), and
 - the loss as this shard's share of the global token mean (local NLL sum over
   the token count all-reduced over the data and seq ranks, as the JAX loss
   psums over both), whose gradients the runner combines over the same ranks
@@ -38,10 +40,11 @@ from autodist_tpu_torch.runner import DistributedRunner
 def make_sequence_parallel_loss_fn(model: tlm.TransformerLM,
                                    group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``loss_fn(params, batch)``: next-token cross entropy with the sequence
-    sharded over ``group``, the seq ranks. ``model`` uses ring attention
-    (``attention_impl="ring"``); every other layer is positionwise, which is
-    what makes per-shard evaluation exact. ``batch = {"tokens": int [B, L+1]}``,
-    the whole sequence on every rank, with L divisible by the group's size.
+    sharded over ``group``, the seq ranks. ``model`` uses ring or Ulysses
+    attention (``attention_impl`` "ring" or "ulysses"); every other layer
+    is positionwise, which is what makes per-shard evaluation exact.
+    ``batch = {"tokens": int [B, L+1]}``, the whole sequence on every rank,
+    with L divisible by the group's size.
 
     The returned loss has the global token mean over the data and seq ranks
     as its value on every rank and this shard's share of it as its gradient
@@ -77,8 +80,6 @@ def make_sequence_parallel_loss_fn(model: tlm.TransformerLM,
         nll = per_token_nll(params, inputs[:, shard], targets[:, shard], rank * l_local)
         count = torch.tensor(float(nll.numel()), device=nll.device)
         return global_mean(nll.sum(), count, axes=SYNC_AXES, group=group)
-
-    loss_fn.sparse_names = model.gather_only_params()
     return loss_fn
 
 
@@ -89,8 +90,8 @@ def create_sequence_parallel_session(autodist, model: tlm.TransformerLM, params,
     strategy with a ``seq`` axis (:class:`~autodist_tpu_torch.strategy.SequenceParallel`);
     each rank calls this with the same arguments. With a mesh of more than
     one rank (seq, or data x seq) the process group is joined from
-    torchrun's environment and must hold the mesh's ranks; the ring runs on
-    this rank's seq sub-group."""
+    torchrun's environment and must hold the mesh's ranks; the ring or the
+    Ulysses exchange runs on this rank's seq sub-group."""
     model_spec = ModelSpec(params)
     compiled = autodist._compile(model_spec)
     plan = ShardingPlan.from_strategy(compiled, model_spec)

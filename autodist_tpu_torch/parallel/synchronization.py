@@ -74,6 +74,13 @@ def step_mesh(mesh: Optional[DeviceMesh]):
         _STEP_MESH.reset(token)
 
 
+def current_group(axes: Sequence[str] = DP_AXES) -> Optional["dist.ProcessGroup"]:
+    """The process group along ``axes`` of the running step's mesh (None
+    outside a step, or for a group of one rank)."""
+    mesh = _STEP_MESH.get()
+    return mesh.group(axes) if mesh is not None else None
+
+
 def global_mean(total: torch.Tensor, count: torch.Tensor, axes: Sequence[str] = DP_AXES,
                 group: Optional["dist.ProcessGroup"] = None) -> torch.Tensor:
     """``sum(total) / max(sum(count), 1)`` over the ranks of the running

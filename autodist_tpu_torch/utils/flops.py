@@ -1,7 +1,14 @@
-"""FLOPs and MFU accounting (the port's copy of ``autodist_tpu/utils/flops.py:75-119``,
-with the peak of the port's card)."""
+"""FLOPs and MFU accounting (the port's copy of ``autodist_tpu/utils/flops.py:47-119``,
+with the peak of the port's card).
 
-from typing import Optional
+Two estimators, as in the JAX package: the analytic decoder count for the
+LM benchmarks, and a count of one training step's work where the JAX package
+asks XLA's cost analysis (:func:`loss_and_grad_flops`, with
+``torch.utils.flop_counter.FlopCounterMode``)."""
+
+from typing import Callable, Mapping, Optional
+
+import torch
 
 # NVIDIA H100 SXM, dense bf16 tensor-core peak (data sheet, at the full 700 W).
 H100_PEAK_BF16_FLOPS = 989e12
@@ -20,6 +27,23 @@ def transformer_flops_per_token(d_model: int, n_layers: int, d_ff: int,
                  + 4 * d_model * d_ff * n_experts_active)
     fwd = n_layers * per_layer + 2 * d_model * vocab_size
     return 3.0 * fwd
+
+
+def loss_and_grad_flops(loss_fn: Callable, params: Mapping[str, torch.Tensor],
+                        batch) -> float:
+    """FLOPs of ``loss_fn(params, batch)`` and its gradient in the params,
+    counted by ``FlopCounterMode``: the matmuls and convolutions of the
+    forward and backward passes at 2 FLOPs a multiply-add. Normalization,
+    activations, pooling, the loss's softmax and the optimizer are not
+    counted (XLA's cost analysis, which the JAX package reads, counts its
+    elementwise work too). Runs one extra forward and backward; the params'
+    ``.grad`` are left as they are."""
+    from torch.utils.flop_counter import FlopCounterMode
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with FlopCounterMode(display=False) as counter:
+        loss = loss_fn(leaves, batch)
+        torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return float(counter.get_total_flops())
 
 
 def mfu(flops_per_sec: Optional[float],

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: build its CUDA kernels, hold each against
-its plain version on the card, and train the flagship TransformerLM through
-the port's entry points on one card, at seq 256, at seq 8,192, at seq 8,192
-through the sequence-parallel path (a ring of one card), and at seq 256
-under every synchronous strategy.
+"""Chip smoke of the PyTorch port: build its CUDA kernels and its native host
+loader, hold each kernel against its plain version on the card, and train
+the flagship TransformerLM through the port's entry points on one card, at
+seq 256, at seq 8,192, at seq 8,192 through the sequence-parallel path (a
+ring of one card, and Ulysses on one card), and at seq 256 under every
+synchronous strategy; then the data plane and the image-classification
+family (the CNN zoo at full width through the ImageNet benchmark entry
+point).
 
     python3 chip_smoke.py
 
@@ -15,7 +18,9 @@ exits non-zero without them, or when any phase fails. Phases:
    each kernel's registers, barriers, stack and spills from ``-Xptxas -v``,
    any ptxas warning, and the forward kernels' dynamic shared memory. A
    serialized-wgmma warning (C7518-C7520, C7512, ...) fails the phase, and
-   so does a spill in the dw/db kernel.
+   so does a spill in the dw/db kernel. The native data loader
+   (``data/native/loader.cc``) is built with ``g++`` beside them; a failed
+   build fails the phase.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
    D = 512 with bf16 activations and an f32 table, both table layouts, with
    and without a bias, ragged N and V (1,000 x 31,999), the forward and dh
@@ -146,7 +151,33 @@ exits non-zero without them, or when any phase fails. Phases:
    PowerSGD) hold a nonzero residual after step 1. Then one ``torch.linalg.qr``
    of a PowerSGD factor's shape ([32,000, 2] f32) is timed on the host's
    clock and the card's.
-12. One JSON line of per-kernel numbers (all seven kernels), then the result
+12. Ulysses on one card at full width: the long-context model of phase 8
+   with ``attention_impl="ulysses"`` (d512 x 6, seq 8,192, B = 8, every
+   block rematerialized) through ``create_sequence_parallel_session(...,
+   SequenceParallel(seq_axis_size=1))``. On B = 2, L = 1,024 its loss is
+   held against the flash model's (rtol 1e-2); then 3 counted steps (flash
+   forward, dK/dV and dQ must launch, the carry never; losses finite),
+   tokens/s over 4 steady steps and a profiler window over 2. Then a
+   one-card replay of Ulysses over 4 shards (B = 8, L = 8,192): the two
+   all-to-alls as permutes of the shards, flash forward and backward on
+   each rank's pair of heads ([8, 8,192, 2, 64]), held tile by tile against
+   the kernels on all 8 heads (TILE_RTOL; lse within FLASH_LSE_ATOL).
+13. The data plane: the native ``DataLoader`` (``is_native`` must hold) gives
+   the numpy path's batches bit for bit unshuffled, and a shuffled epoch
+   serves every row once.
+14. The image family: ``image_classifier.main`` (SmallCNN under
+   ``PSLoadBalancing`` from the native loader through the device feed; its
+   loss must fall). ResNet-50 at full width (224 px, GroupNorm, 1,000
+   classes): on 4 images its bf16 loss is held against its f32 loss with
+   the same weights (rtol 1e-2); then the ImageNet benchmark entry point at
+   32 and 128 images a card under ``PSLoadBalancing`` and
+   ``AllReduce(chunk_size=200)`` (images/s, MFU from a ``FlopCounterMode``
+   count, peak memory, and a profiler window over 2 steps each); the
+   record-pool input (``--input_mode cache``) at 128 on uint8 record shards
+   written here with ``save_shards`` (a pool of half the records, so it
+   refreshes); and 3 steps each of VGG16, DenseNet-121 (224 px) and
+   Inception-v3 (299 px) at batch 8, whose losses must be finite.
+15. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
 
@@ -212,6 +243,15 @@ XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
 XENT_DWDB_EDGES = tuple((n, v) for n in (1, 63, 65) for v in (63, 65, 129, 193))
 # A spill in this kernel fails phase 2.
 NO_SPILL = "xent_dwdb_kernel"
+# Phase 12: the Ulysses replay's shards (4 seq ranks: 2 of the 8 heads each).
+ULYSSES_SHARDS = 4
+# Phase 14: ResNet-50 benchmark runs (strategy, images a card, timed steps).
+IMAGE_RUNS = (("PSLoadBalancing", 32, 30), ("AllReduce", 32, 30),
+              ("PSLoadBalancing", 128, 20), ("AllReduce", 128, 20))
+# The record-pool run: (strategy, images a card, timed steps), over record
+# shards of IMAGE_RECORDS records of IMAGE_RECORD_SIZE px, half of them pooled.
+IMAGE_CACHE_RUN = ("PSLoadBalancing", 128, 20)
+IMAGE_RECORDS, IMAGE_RECORD_SIZE = 512, 256
 # Phase 11: (label, builder (None: AutoDist's default), session keywords,
 # codec: None, "bf16", or the residual the codec keeps, "error").
 STRATEGY_STEPS = 3
@@ -1173,6 +1213,210 @@ def strategies_path(kernels, dev):
     return dict(total)
 
 
+def ulysses_path(kernels, dev):
+    """Phase 12a: Ulysses training through the sequence-parallel session on
+    one card."""
+    from autodist_tpu_torch import AutoDist, SequenceParallel
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.parallel.sequence import (create_sequence_parallel_session,
+                                                      make_sequence_parallel_loss_fn)
+    from autodist_tpu_torch.runner import step_function
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=LC_HEADS, n_layers=6,
+                                  d_ff=2048, max_len=LC_SEQ, dtype=torch.bfloat16,
+                                  remat=True, attention_impl="ulysses", fused_head=True,
+                                  tied_output=False)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    log(f"ulysses: {cfg}")
+    small = {k: torch.as_tensor(a).to(dev)
+             for k, a in tlm.synthetic_batch(cfg, 2, min(1024, LC_SEQ), seed=95).items()}
+    flash_model = tlm.TransformerLM(dataclasses.replace(cfg, attention_impl="flash"))
+    with torch.no_grad():
+        ulysses = float(make_sequence_parallel_loss_fn(model)(params, small))
+        flash = float(tlm.make_loss_fn(flash_model)(params, small))
+    log(f"ulysses reference: ulysses loss {ulysses:.6f} vs flash loss {flash:.6f}")
+    if not (math.isfinite(ulysses) and abs(ulysses - flash) <= 1e-2 * abs(flash)):
+        raise AssertionError("Ulysses loss disagrees with flash attention")
+
+    ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
+                  strategy_builder=SequenceParallel(seq_axis_size=1), device=dev)
+    runner = create_sequence_parallel_session(
+        ad, model, params, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
+    step = step_function(runner, params)
+    batch = runner.shard_batch(tlm.synthetic_batch(cfg, LC_BATCH, LC_SEQ))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = counted_steps(step, [batch] * LC_COUNTED, kernels)
+    log(f"ulysses: losses {losses}; step seconds {times}")
+    log(f"ulysses: kernel launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    flash_kernels = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    if any(launches[name] == 0 for name in flash_kernels) or launches["flash_fwd_carry"]:
+        raise AssertionError(f"ulysses path: launches {launches}: flash forward, dK/dV and "
+                             f"dQ must launch and the carry never")
+    tokens = LC_BATCH * LC_SEQ
+    float(step(batch))
+    t0 = time.perf_counter()
+    for _ in range(LC_STEADY):
+        loss = step(batch)
+    float(loss)
+    per_step = (time.perf_counter() - t0) / LC_STEADY
+    flops = transformer_flops_per_token(D, 6, 2048, V, LC_SEQ) * tokens
+    log(f"ulysses: {tokens / per_step:.1f} tokens/s over {LC_STEADY} steady steps "
+        f"({tokens} tokens/step, {1e3 * per_step:.3f} ms/step), MFU "
+        f"{mfu(flops / per_step):.4f} of 989 TFLOP/s (full score matrix counted); "
+        f"launches a step {({n: launches[n] / LC_COUNTED for n in flash_kernels})}")
+    profile_steps(step, [batch] * LC_PROFILE, label="ulysses profile")
+    return launches
+
+
+def _exchange(shards, split_axis: int, concat_axis: int):
+    """One card's stand-in for the tiled all-to-all over ``len(shards)``
+    ranks: rank j receives chunk j of every rank's ``split_axis``, and
+    concatenates them along ``concat_axis`` in rank order."""
+    n = len(shards)
+    chunks = [x.chunk(n, dim=split_axis) for x in shards]
+    return [torch.cat([chunks[r][j] for r in range(n)], dim=concat_axis).contiguous()
+            for j in range(n)]
+
+
+def check_ulysses_replay(fa, dev):
+    """Phase 12b: Ulysses over 4 shards on one card. B = 8, L = 8,192 in 4
+    sequence shards; the exchange to heads, flash forward and backward on
+    each rank's 2 heads over the whole sequence, the exchange back; against
+    the kernels on all 8 heads, tile by tile."""
+    gen = torch.Generator().manual_seed(6)
+    n, b, length = ULYSSES_SHARDS, LC_BATCH, LC_SEQ
+    q, k, v, do = flash_inputs(b, length, length, gen, dev)
+    seq = [x.chunk(n, dim=1) for x in (q, k, v, do)]
+    qh, kh, vh, doh = (_exchange(list(x), 2, 1) for x in seq)
+    outs, lses, dqs, dks, dvs = [], [], [], [], []
+    for j in range(n):
+        out, lse = fa.flash_fwd(qh[j], kh[j], vh[j], True)
+        dd = fa.prepare_backward_q_side(out, doh[j])
+        dk, dv = fa.flash_bwd_dkdv(qh[j], kh[j], vh[j], doh[j], lse, dd, True)
+        dq = fa.flash_bwd_dq(qh[j], kh[j], vh[j], doh[j], lse, dd, True)
+        outs.append(out)
+        lses.append(lse.view(b, -1, length))
+        dqs.append(dq)
+        dks.append(dk)
+        dvs.append(dv)
+    got = {name: torch.cat(_exchange(parts, 1, 2), dim=1)
+           for name, parts in (("out", outs), ("dq", dqs), ("dk", dks), ("dv", dvs))}
+    lse = torch.cat(lses, dim=1).view(b * LC_HEADS, length)
+    ref_out, ref_lse = fa.flash_fwd(q, k, v, True)
+    ref_dd = fa.prepare_backward_q_side(ref_out, do)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv(q, k, v, do, ref_lse, ref_dd, True)
+    ref_dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, ref_dd, True)
+    torch.cuda.synchronize()
+    e_lse = (lse - ref_lse).abs().max().item()
+    e = {name: compare(got[name], want, 1)
+         for name, want in (("out", ref_out), ("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv))}
+    log(f"check ulysses replay B={b} L={length} in {n} shards (heads {LC_HEADS // n} a "
+        f"rank): lse {e_lse:.3g}; " + "; ".join(f"{m} {describe(c)}" for m, c in e.items()))
+    if not (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
+            and all(c[2] <= TILE_RTOL for c in e.values())):
+        raise AssertionError("the Ulysses replay disagrees with flash on all heads")
+    return {"flash_fwd": max(e_lse, e["out"][0]), "flash_bwd_dkdv": max(e["dk"][0], e["dv"][0]),
+            "flash_bwd_dq": e["dq"][0]}
+
+
+def data_plane_path():
+    """Phase 13: the native loader against the numpy path."""
+    import numpy as np
+
+    from autodist_tpu_torch.data.loader import DataLoader
+
+    rng = np.random.RandomState(0)
+    arrays = {"images": rng.randint(0, 256, (1000, 32, 32, 3)).astype(np.uint8),
+              "labels": np.arange(1000, dtype=np.int32)}
+    native = DataLoader(arrays, batch_size=100, shuffle=False, native=True)
+    plain = DataLoader(arrays, batch_size=100, shuffle=False, native=False)
+    same = all(all(np.array_equal(a[key], b[key]) for key in arrays)
+               for a, b in ((native.next(), plain.next()) for _ in range(15)))
+    shuffled = DataLoader(arrays, batch_size=100, shuffle=True, seed=3)
+    epoch = np.sort(np.concatenate([shuffled.next()["labels"] for _ in range(10)]))
+    once = np.array_equal(epoch, arrays["labels"])
+    is_native = native.is_native and shuffled.is_native
+    log(f"data plane: native {is_native}; native batches equal the numpy path's "
+        f"unshuffled: {same}; a shuffled epoch serves each row once: {once}")
+    for loader in (native, plain, shuffled):
+        loader.close()
+    if not (is_native and same and once):
+        raise AssertionError("data plane: the native loader is missing or disagrees")
+
+
+def image_path(kernels, dev):
+    """Phase 14: the image-classification family on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from autodist_tpu_torch.data import imagenet
+    from autodist_tpu_torch.data.loader import save_shards
+    from autodist_tpu_torch.examples import image_classifier
+    from autodist_tpu_torch.examples.benchmark import imagenet as bench
+    from autodist_tpu_torch.models import resnet
+
+    for k in kernels:
+        k.launches = 0
+    losses = image_classifier.main(device=dev)
+    log(f"images: image_classifier losses by epoch {losses}")
+
+    cfg = resnet.ResNet50Config()
+    model, params = resnet.init_params(cfg, seed=0, device=dev)
+    f32 = resnet.ResNet(dataclasses.replace(cfg, dtype=torch.float32))
+    small = {k: torch.as_tensor(a).to(dev) for k, a in resnet.synthetic_batch(cfg, 4).items()}
+    with torch.no_grad():
+        low = float(resnet.make_loss_fn(model)(params, small))
+        full = float(resnet.make_loss_fn(f32)(params, small))
+    log(f"images: ResNet-50 bf16 loss {low:.6f} vs f32 loss {full:.6f}")
+    if not (math.isfinite(low) and abs(low - full) <= 1e-2 * abs(full)):
+        raise AssertionError("ResNet-50's bf16 loss disagrees with its f32 loss")
+    del model, params, f32
+    torch.cuda.empty_cache()
+
+    def run(argv, label):
+        args = bench.parse_args(argv + ["--device", str(dev), "--log_every", "1000"])
+        b = bench.build(args)
+        try:
+            t0 = time.perf_counter()
+            result = bench.train(b)
+            log(f"images: {label}: {result} ({time.perf_counter() - t0:.1f} s); card "
+                f"{card_line()}")
+            profile_steps(b.step, [b.next_batch() for _ in range(2)],
+                          label=f"images profile {label}")
+        finally:
+            b.close()
+        del b
+        torch.cuda.empty_cache()
+        if not math.isfinite(result["final_loss"]):
+            raise AssertionError(f"images: {label}: non-finite loss")
+        return result
+
+    for strategy, per_card, steps in IMAGE_RUNS:
+        run(["--strategy", strategy, "--batch_size", str(per_card), "--steps", str(steps)],
+            f"resnet50 {strategy} {per_card}/card")
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(1)
+        side = IMAGE_RECORD_SIZE
+        save_shards({"images": rng.randint(0, 256, (IMAGE_RECORDS, side, side, 3),
+                                           dtype=np.uint8),
+                     "labels": rng.randint(0, 1000, IMAGE_RECORDS).astype(np.int32)},
+                    tmp, rows_per_shard=128)
+        with open(os.path.join(tmp, imagenet.META_NAME), "w") as f:
+            json.dump({"record_size": side, "rows": IMAGE_RECORDS,
+                       "classes": [f"c{i}" for i in range(1000)]}, f)
+        strategy, per_card, steps = IMAGE_CACHE_RUN
+        run(["--strategy", strategy, "--batch_size", str(per_card), "--steps", str(steps),
+             "--data_dir", tmp, "--input_mode", "cache", "--pool_rows",
+             str(IMAGE_RECORDS // 2)], f"resnet50 record pool {strategy} {per_card}/card")
+    for name in ("vgg16", "densenet121", "inceptionv3"):
+        run(["--model", name, "--batch_size", "8", "--steps", "3"], f"{name} 8/card")
+    return {k.__name__: k.launches for k in kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1208,6 +1452,11 @@ def main() -> int:
         raise AssertionError(f"ptxas spilled in a kernel that must not: {spilled}")
     log(f"flash forward kernels: {fa._lib().flash_fwd_smem_bytes()} bytes of dynamic shared "
         "memory a block")
+    from autodist_tpu_torch.data import loader as data_loader
+    t0 = time.perf_counter()
+    if data_loader._build_native() is None:
+        raise AssertionError("the native data loader (data/native/loader.cc) did not build")
+    log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
 
     errs = check_kernels(fx, dev)
     timing = time_kernels(fx, dev)
@@ -1225,7 +1474,14 @@ def main() -> int:
                 "sequence_parallel": sequence_parallel_path(every, dev),
                 "flagship_full": flagship_full_path(every, dev),
                 "train": train_path(every, dev),
-                "strategies": strategies_path(every, dev)}
+                "strategies": strategies_path(every, dev),
+                "ulysses": ulysses_path(every, dev)}
+    ulysses_err = check_ulysses_replay(fa, dev)
+    errs["flash_fwd"] = max(errs["flash_fwd"], ulysses_err["flash_fwd"])
+    errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], ulysses_err["flash_bwd_dkdv"])
+    errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], ulysses_err["flash_bwd_dq"])
+    data_plane_path()
+    by_phase["images"] = image_path(every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

@@ -63,7 +63,7 @@ def test_model_spec_and_strategy_match_jax(tied):
     jmodel, jparams, tmodel = _models(tied)
     batch = _batches()[0]
     jspec = JModelSpec.from_loss_fn(jlm.make_loss_fn(jmodel), jparams, batch)
-    tspec = ModelSpec.from_loss_fn(tlm.make_loss_fn(tmodel), from_jax_params(jparams))
+    tspec = ModelSpec.from_loss_fn(tlm.make_loss_fn(tmodel), from_jax_params(jparams), batch)
     assert tspec.names == jspec.names
     assert {n: p.sparse for n, p in tspec.params.items()} == \
         {n: p.sparse for n, p in jspec.params.items()}

@@ -128,9 +128,6 @@ def matrix_loss(p, b):
     return ((b["y"] - pred) ** 2).mean()
 
 
-matrix_loss.sparse_names = ("emb",)
-matrix_loss.index_leaves = {"emb": "idx"}
-
 
 def zero_loss(p, b):
     h = torch.tanh(b["x"] @ p["w1"] + p["b1"])
@@ -170,7 +167,8 @@ def _record(out, prefix, runner, state, losses):
 def _matrix_session(world, mesh, builder, opt, **kw):
     ad = AutoDist(resource_info=_nodes(world, mesh), strategy_builder=builder, device="cpu")
     return ad.create_distributed_session(matrix_loss, _tensors(matrix_params()),
-                                         _optimizer(opt), **kw)
+                                         _optimizer(opt), example_batch=matrix_batch(0),
+                                         **kw)
 
 
 def _steps(runner, state, lo, hi, batch_fn=matrix_batch):

@@ -4,7 +4,7 @@ strategy field by field (destinations, shard counts, part names, groups,
 compressor, spec, the sparse flags, the mesh), the compiled plan's storage
 and optimizer-state partition specs with and without ZeRO, the policies of
 ``tests/test_strategy_builders.py:30-125``, the divisor helpers, the
-flagship loss's declared index leaves against JAX's detection, and what
+flagship loss's walked index leaves against JAX's detection, and what
 raises instead of running."""
 
 import jax.numpy as jnp
@@ -214,8 +214,9 @@ def test_default_builder_is_ps_load_balancing():
 
 
 def test_flagship_index_leaves_equal_jax_detection():
-    """The flagship loss declares the gather-only params JAX detects and, as
-    JAX finds for its sliced token gather, no index leaf (so no wire)."""
+    """The walk of the flagship loss finds the gather-only params JAX
+    detects and, as JAX finds for its sliced token gather, no index leaf
+    (so no wire)."""
     import jax
     from autodist_tpu.models import transformer_lm as jlm
     from autodist_tpu_torch import from_jax_params
@@ -229,7 +230,7 @@ def test_flagship_index_leaves_equal_jax_detection():
                                         batch)
         tcfg = tlm.TransformerLMConfig(**small, tied_output=tied, dtype=torch.float32)
         tspec = ModelSpec.from_loss_fn(tlm.make_loss_fn(tlm.TransformerLM(tcfg)),
-                                       from_jax_params(jax.device_get(params)))
+                                       from_jax_params(jax.device_get(params)), batch)
         assert {n: (p.sparse, p.index_leaf) for n, p in tspec.params.items()} == \
             {n: (p.sparse, p.index_leaf) for n, p in jspec.params.items()}
     spec = ModelSpec({"e": torch.zeros(4, 2)}, sparse_names=["e"], index_leaves={"e": "ids"})

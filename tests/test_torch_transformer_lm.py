@@ -198,15 +198,16 @@ def test_init_params_matches_flax_shapes_and_scales():
 
 
 def test_unported_paths_raise():
-    """Ulysses and decode raise; ring is ported, and without a group it is a
-    ring of one rank: the flash model's logits."""
-    with pytest.raises(NotImplementedError, match="ulysses"):
-        tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL, attention_impl="ulysses"))
+    """Decode raises; ring and Ulysses are ported, and without a group each
+    is a group of one rank: the flash model's logits."""
     _, _, ring, tparams = _pair(False, fused_head=False, attention_impl="ring")
+    _, _, ulysses, _ = _pair(False, fused_head=False, attention_impl="ulysses")
     _, _, flash, _ = _pair(False, fused_head=False, attention_impl="flash")
     tokens = torch.tensor(_batch(False)["tokens"][:, :-1]).long()
-    torch.testing.assert_close(tlm.apply(ring, tparams, tokens, pos_offset=3),
-                               tlm.apply(flash, tparams, tokens, pos_offset=3))
+    want = tlm.apply(flash, tparams, tokens, pos_offset=3)
+    torch.testing.assert_close(tlm.apply(ring, tparams, tokens, pos_offset=3), want)
+    torch.testing.assert_close(tlm.apply(ulysses, tparams, tokens, pos_offset=3), want,
+                               rtol=0, atol=0)
     with pytest.raises(ValueError, match="attention_impl"):
         tlm.TransformerLMConfig(**SMALL, attention_impl="nope")
     model = tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL))
