@@ -19,6 +19,7 @@ augmentation on the device (the port's counterpart of
   steps before it is applied.
 """
 
+import functools
 import glob as globlib
 import json
 import logging
@@ -27,6 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from autodist_tpu_torch.models.common import make_classification_loss_fn
 from autodist_tpu_torch.utils.device import resolve_device
@@ -160,8 +162,15 @@ def augment_images(images, crop_yx, flip, image_size: int,
     cols = crop[:, 1:] + torch.where(flip[:, None], image_size - 1 - steps, steps)
     batch = torch.arange(images.shape[0], device=dev)[:, None, None]
     x = images[batch, rows[:, :, None], cols[:, None, :]]      # [B, S, S, 3]
-    x = x.float() - torch.tensor(CHANNEL_MEANS, dtype=torch.float32, device=dev)
+    x = x.float() - _channel_means(dev)
     return x.to(dtype) if dtype is not None else x
+
+
+@functools.lru_cache(maxsize=None)
+def _channel_means(device: torch.device) -> torch.Tensor:
+    """The f32 channel means on ``device``, copied there once: a copy from
+    the host in every step would make the host wait for the stream."""
+    return torch.tensor(CHANNEL_MEANS, dtype=torch.float32, device=device)
 
 
 def make_augmented_loss_fn(model, image_size: int, dtype: Optional[torch.dtype] = None):
@@ -288,27 +297,37 @@ class DeviceDatasetCache:
         if self._cursor >= self._rows:
             self._cursor = 0
 
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without waiting for the stream:
+        a copy from pageable memory may synchronize it (and does unless
+        ``non_blocking``), and the host would then wait out the previous
+        step before launching this one. From pinned memory it does not."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def next_batch(self, batch_size: int) -> Dict[str, object]:
-        """One batch assembled on the device: ``{"images": [B, S, S, 3]
-        tensor, "labels": [B] int32}``, ready for the plain classification
+        """One batch assembled on the device: ``{"images": [B, S, S, 3],
+        "labels": [B] int32}`` tensors, ready for the plain classification
         loss."""
         if self._step % self._refresh_interval == 0:
-            self._tick_refresh()
+            with record_function("DeviceDatasetCache.refresh"):
+                self._tick_refresh()
         self._step += 1
-        idx = self._rng.integers(0, self._rows, size=batch_size, dtype=np.int32)
-        margin = self.record_size - self.image_size
-        if self.train:
-            crop = self._rng.integers(0, margin + 1, size=(batch_size, 2), dtype=np.int32)
-            flip = self._rng.random(batch_size) < 0.5
-        else:
-            crop = np.full((batch_size, 2), margin // 2, np.int32)
-            flip = np.zeros(batch_size, bool)
-        dev_idx = torch.from_numpy(idx).to(self.device).long()
-        images = augment_images(self._pool.index_select(0, dev_idx),
-                                torch.from_numpy(crop).to(self.device),
-                                torch.from_numpy(flip).to(self.device),
-                                self.image_size, self._dtype)
-        return {"images": images, "labels": self._labels[idx]}
+        with record_function("DeviceDatasetCache.gather"):
+            idx = self._rng.integers(0, self._rows, size=batch_size, dtype=np.int32)
+            margin = self.record_size - self.image_size
+            if self.train:
+                crop = self._rng.integers(0, margin + 1, size=(batch_size, 2), dtype=np.int32)
+                flip = self._rng.random(batch_size) < 0.5
+            else:
+                crop = np.full((batch_size, 2), margin // 2, np.int32)
+                flip = np.zeros(batch_size, bool)
+            images = augment_images(self._pool.index_select(0, self._put(idx).long()),
+                                    self._put(crop), self._put(flip),
+                                    self.image_size, self._dtype)
+        return {"images": images, "labels": self._put(self._labels[idx])}
 
 
 class AugmentingBatcher:

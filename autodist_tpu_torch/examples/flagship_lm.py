@@ -75,9 +75,13 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
         tied_output=False, fused_head=True)
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
     builder = getattr(strategies, args.strategy)()
+    # One micro-batch for the sparse walk (only its shapes and dtypes are
+    # read), as bench.py passes its batch: at bf16 it marks pos_embed sparse.
     step = AutoDist(strategy_builder=builder, device=device).function(
         transformer_lm.make_loss_fn(model), params,
-        lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8), accumulation_steps=args.accum)
+        lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
+        example_batch=transformer_lm.synthetic_batch(cfg, args.micro_batch, args.seq_len),
+        accumulation_steps=args.accum)
     batch = transformer_lm.synthetic_batch(
         cfg, args.micro_batch * step.runner.plan.dp_size * args.accum, args.seq_len)
     # Device-resident batch: measure the card, not the host link.

@@ -114,6 +114,13 @@ class ModelSpec:
 
 # --- sparse-gradient detection by a walk of the ATen graph
 
+# A slice counts as a gather: ATen has one op for ``x[a:b]`` and for the
+# JAX package's ``dynamic_slice_in_dim`` (the positional table). So a plain
+# version of a kernel that reads a parameter table must not slice it (the
+# fused head's splits its table instead): a table that a kernel reads whole
+# is dense, as an operand of ``pallas_call`` is in the JAX package.
+# ``tests/test_torch_sparse_walk.py`` walks each kernel wrapper's plain
+# version to hold this.
 _GATHER_OPS = {"aten::embedding", "aten::index.Tensor", "aten::index_select",
                "aten::slice.Tensor", "aten::narrow"}
 # Ops whose output holds exactly the input's values (re-laid out or cast):

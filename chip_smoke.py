@@ -139,8 +139,13 @@ exits non-zero without them, or when any phase fails. Phases:
    ``Parallax``, and the codecs: ``Parallax(compressor="HorovodCompressorEF")``,
    ``AllReduce(compressor="HorovodCompressor")``, ``AllReduce(compressor=
    "PowerSGDCompressor", power_sgd_rank=2)``; and ``AllReduce()`` with
-   ``zero=1``. Each prints its losses, the device's busy ms per step over
-   steps 2 and 3 (a profiler window: the union of kernel intervals) beside
+   ``zero=1``, each given the first batch as ``example_batch``, so the
+   sparse walk marks ``pos_embed`` (and only it: at bf16 the embedding table
+   is cast before its gather) sparse in every lowering, and ``Parallax``
+   must send it to a PS synchronizer and ``embed/embedding`` to the
+   all-reduce. Each prints its sparse parameters and their routes, its
+   losses, the device's busy ms per step over steps 2 and 3 (a profiler
+   window: the union of kernel intervals) beside
    the card's event-timed ms for them, peak memory, fused-head launches per
    step (counts set to 0 just before, read just after) and its final
    params' largest distance from the reference run's (kept on the host).
@@ -155,13 +160,16 @@ exits non-zero without them, or when any phase fails. Phases:
    with ``attention_impl="ulysses"`` (d512 x 6, seq 8,192, B = 8, every
    block rematerialized) through ``create_sequence_parallel_session(...,
    SequenceParallel(seq_axis_size=1))``. On B = 2, L = 1,024 its loss is
-   held against the flash model's (rtol 1e-2); then 3 counted steps (flash
-   forward, dK/dV and dQ must launch, the carry never; losses finite),
-   tokens/s over 4 steady steps and a profiler window over 2. Then a
-   one-card replay of Ulysses over 4 shards (B = 8, L = 8,192): the two
-   all-to-alls as permutes of the shards, flash forward and backward on
-   each rank's pair of heads ([8, 8,192, 2, 64]), held tile by tile against
-   the kernels on all 8 heads (TILE_RTOL; lse within FLASH_LSE_ATOL).
+   held against the flash model's (rtol 1e-2; a group of one calls flash
+   itself, so this holds the wiring, not the exchange); then 3 counted
+   steps (flash forward, dK/dV and dQ must launch, the carry never; losses
+   finite), tokens/s over 4 steady steps and a profiler window over 2.
+   Then a one-card replay of Ulysses over 4 shards (B = 8, L = 8,192): the
+   two all-to-alls as this script's own permutes of the shards (the port's
+   ``all_to_all`` and its backward need a group of several ranks and do
+   not run here), flash forward and backward on each rank's pair of heads
+   ([8, 8,192, 2, 64]), held tile by tile against the kernels on all 8
+   heads (TILE_RTOL; lse within FLASH_LSE_ATOL).
 13. The data plane: the native ``DataLoader`` (``is_native`` must hold) gives
    the numpy path's batches bit for bit unshuffled, and a shuffled epoch
    serves every row once.
@@ -175,8 +183,10 @@ exits non-zero without them, or when any phase fails. Phases:
    count, peak memory, and a profiler window over 2 steps each); the
    record-pool input (``--input_mode cache``) at 128 on uint8 record shards
    written here with ``save_shards`` (a pool of half the records, so it
-   refreshes); and 3 steps each of VGG16, DenseNet-121 (224 px) and
-   Inception-v3 (299 px) at batch 8, whose losses must be finite.
+   refreshes, at the default cadence of 64 rows every 16 steps), with its
+   host time split by the pool's profiler spans over one refresh interval;
+   and 3 steps each of VGG16, DenseNet-121 (224 px) and Inception-v3
+   (299 px) at batch 8, whose losses must be finite.
 15. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
@@ -252,6 +262,8 @@ IMAGE_RUNS = (("PSLoadBalancing", 32, 30), ("AllReduce", 32, 30),
 # shards of IMAGE_RECORDS records of IMAGE_RECORD_SIZE px, half of them pooled.
 IMAGE_CACHE_RUN = ("PSLoadBalancing", 128, 20)
 IMAGE_RECORDS, IMAGE_RECORD_SIZE = 512, 256
+# The record pool's host-time window: one refresh interval (the default 16).
+POOL_PROFILE_STEPS = 16
 # Phase 11: (label, builder (None: AutoDist's default), session keywords,
 # codec: None, "bf16", or the residual the codec keeps, "error").
 STRATEGY_STEPS = 3
@@ -604,6 +616,36 @@ def profile_steps(step, batches, label="profile"):
         f"{flash_us / n / 1e3:.3f} ms/step")
     for name, us in per_name.most_common(10):
         log(f"{label}:   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+
+
+def profile_pool(b, label, steps=POOL_PROFILE_STEPS):
+    """The record pool's host time, split: a profiler window over one
+    refresh interval of the benchmark's own loop (batch, step, no read-back
+    until the last), with the CPU time of the pool's spans (refresh, and the
+    gather: index draws, their copies, the gather and augmentation
+    launches) and of each step's call, against the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            batch = b.next_batch()
+            with record_function("smoke.step"):
+                loss = b.step(batch)
+        float(loss)
+        wall = time.perf_counter() - t0
+    # A span is listed twice, on the host and as the device's annotation
+    # (no host time): keep the host's.
+    spans = collections.Counter()
+    for e in prof.key_averages():
+        if e.key.startswith(("DeviceDatasetCache.", "smoke.")):
+            spans[e.key] = max(spans[e.key], e.cpu_time_total / steps / 1e3)
+    busy = busy_us(device_kernels(prof)) / 1e6
+    log(f"{label}: {steps} steps, {1e3 * wall / steps:.3f} ms/step wall with the profiler "
+        f"on, device busy {1e3 * busy / steps:.3f} ms/step, idle share "
+        f"{1 - busy / wall:.3f}; host ms a step in "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spans.items())))
 
 
 def flash_inputs(b, lq, lk, gen, dev):
@@ -1124,6 +1166,7 @@ def strategies_path(kernels, dev):
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import strategy as st
     from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.parallel.plan import SYNC_ALLREDUCE, SYNC_PS
 
     micro, accum, seq = 32, 2, 256
     cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6,
@@ -1142,9 +1185,20 @@ def strategies_path(kernels, dev):
         torch.cuda.reset_peak_memory_stats()
         ad = AutoDist(resource_info=one_card, device=dev,
                       strategy_builder=getattr(st, builder)(**options) if builder else None)
+        # The walk marks pos_embed sparse at bf16 (the table is cast before
+        # its gather), as the JAX package's strategy matrix does.
         step = ad.function(tlm.make_loss_fn(model), params,
                            lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
-                           accumulation_steps=accum, **session)
+                           example_batch=batches[0], accumulation_steps=accum, **session)
+        plans = step.runner.plan.params
+        routes = {n: plans[n].sync for n in ("embed/embedding", "pos_embed")}
+        sparse = sorted(n for n, p in plans.items() if p.sparse)
+        if sparse != ["pos_embed"]:
+            failures.append(f"{label}: sparse parameters {sparse}, not ['pos_embed']")
+        if builder == "Parallax" and routes != {"embed/embedding": SYNC_ALLREDUCE,
+                                                "pos_embed": SYNC_PS}:
+            failures.append(f"{label}: routes {routes}: pos_embed must go to PS and "
+                            f"embed/embedding to the all-reduce")
         placed = [step.runner.shard_batch(b) for b in batches]
         torch.cuda.synchronize()
         for k in kernels:
@@ -1174,7 +1228,8 @@ def strategies_path(kernels, dev):
                    for k in final)
         per_step = {name: launches[name] / STRATEGY_STEPS
                     for name in ("xent_fwd", "xent_dh", "xent_dwdb")}
-        log(f"strategies: {label}: mesh {dict(step.runner.plan.mesh_axes)}, lowering "
+        log(f"strategies: {label}: mesh {dict(step.runner.plan.mesh_axes)}, sparse "
+            f"{sparse}, routes {routes}, lowering "
             f"{'explicit' if step.runner._grad_fn.explicit else 'implicit'}; losses {losses}; "
             f"device busy {busy_ms:.3f} ms/step, {event_ms:.3f} event-timed (steps 2-3); "
             f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
@@ -1235,7 +1290,10 @@ def ulysses_path(kernels, dev):
     with torch.no_grad():
         ulysses = float(make_sequence_parallel_loss_fn(model)(params, small))
         flash = float(tlm.make_loss_fn(flash_model)(params, small))
-    log(f"ulysses reference: ulysses loss {ulysses:.6f} vs flash loss {flash:.6f}")
+    # A group of one calls flash directly (no exchange), so this holds the
+    # model's and the session's wiring of Ulysses, not the all-to-alls.
+    log(f"ulysses reference (a seq group of one: flash itself, no exchange): ulysses "
+        f"loss {ulysses:.6f} vs flash loss {flash:.6f}")
     if not (math.isfinite(ulysses) and abs(ulysses - flash) <= 1e-2 * abs(flash)):
         raise AssertionError("Ulysses loss disagrees with flash attention")
 
@@ -1377,7 +1435,7 @@ def image_path(kernels, dev):
     del model, params, f32
     torch.cuda.empty_cache()
 
-    def run(argv, label):
+    def run(argv, label, pool=False):
         args = bench.parse_args(argv + ["--device", str(dev), "--log_every", "1000"])
         b = bench.build(args)
         try:
@@ -1387,6 +1445,8 @@ def image_path(kernels, dev):
                 f"{card_line()}")
             profile_steps(b.step, [b.next_batch() for _ in range(2)],
                           label=f"images profile {label}")
+            if pool:
+                profile_pool(b, label=f"images host split {label}")
         finally:
             b.close()
         del b
@@ -1411,7 +1471,8 @@ def image_path(kernels, dev):
         strategy, per_card, steps = IMAGE_CACHE_RUN
         run(["--strategy", strategy, "--batch_size", str(per_card), "--steps", str(steps),
              "--data_dir", tmp, "--input_mode", "cache", "--pool_rows",
-             str(IMAGE_RECORDS // 2)], f"resnet50 record pool {strategy} {per_card}/card")
+             str(IMAGE_RECORDS // 2)], f"resnet50 record pool {strategy} {per_card}/card",
+            pool=True)
     for name in ("vgg16", "densenet121", "inceptionv3"):
         run(["--model", name, "--batch_size", "8", "--steps", "3"], f"{name} 8/card")
     return {k.__name__: k.launches for k in kernels}
