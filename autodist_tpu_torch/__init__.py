@@ -25,7 +25,12 @@ native data loader (:mod:`autodist_tpu_torch.data.loader`); and the image
 family: the CNN zoo (``models.resnet``, ``vgg``, ``densenet``,
 ``inception``), the ImageNet input plane (:mod:`autodist_tpu_torch.data.imagenet`),
 the JAX package's self-contained examples and its ImageNet benchmark
-(``examples.benchmark.imagenet``). ``ROADMAP.md`` lists what is next.
+(``examples.benchmark.imagenet``); and the text family: BERT and NCF
+(``models.bert``, ``ncf``), their input (``data.text_corpus``, ``mlm``,
+``movielens``), the benchmark logger (``utils.benchmark_logger``) and the
+rest of the benchmark suite (``examples.benchmark``: ``bert``, ``ncf``,
+``disk_input``, ``raw_torch_baseline``, ``run_all``). ``ROADMAP.md`` lists
+what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist

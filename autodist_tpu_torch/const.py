@@ -21,6 +21,10 @@ AUTODIST_ZERO = "AUTODIST_ZERO"
 PREFETCH_DEPTH = "AUTODIST_PREFETCH_DEPTH"
 PREFETCH_WORKERS = "AUTODIST_PREFETCH_WORKERS"
 
+# Directory for benchmark metric files (utils/benchmark_logger.py): set, the
+# file sink; empty, the framework logger.
+AUTODIST_BENCHMARK_LOG_DIR = "AUTODIST_BENCHMARK_LOG_DIR"
+
 # Planes of the JAX package's train() that the port has not ported: each one
 # armed in the environment makes train() raise instead of running without it.
 UNPORTED_PLANES = {

@@ -23,8 +23,10 @@ preprocessing and prints top-1 and top-5 accuracy.
 Activations are bf16 on the card and f32 on the host, params f32. MFU is
 per card, against the H100's 989 TFLOP/s, from a ``FlopCounterMode`` count
 of one step's matmuls and convolutions (:func:`~autodist_tpu_torch.utils.
-flops.loss_and_grad_flops`); on the host it is not measured. The JAX
-example's benchmark-logger run file is not written.
+flops.loss_and_grad_flops`); on the host it is not measured. The run info
+and the examples/s metrics go through
+:mod:`~autodist_tpu_torch.utils.benchmark_logger` (files under
+``$AUTODIST_BENCHMARK_LOG_DIR`` when it is set), as in the JAX example.
 """
 
 import argparse
@@ -39,11 +41,12 @@ import torch.distributed as dist
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch import strategy as strategies
 from autodist_tpu_torch.data import imagenet as imagenet_data
+from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
 from autodist_tpu_torch.models import densenet, inception, layers, resnet, vgg
 from autodist_tpu_torch.models.common import make_classification_loss_fn
 from autodist_tpu_torch.utils import flops as flops_util
+from autodist_tpu_torch.utils.benchmark_logger import gather_run_info, get_benchmark_logger
 from autodist_tpu_torch.utils.device import resolve_device
-from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
 # The reference's chunk sizes (vgg16=25, resnet101=200, inceptionv3=30,
 # others 512); resnet50 takes resnet101's.
@@ -157,7 +160,7 @@ def build_model(args, num_classes: int, dtype: torch.dtype, seed: int = 0):
     return model, lambda device: layers.init_params(model, seed, device)
 
 
-def _synthetic(num_classes: int, batch_size: int, image_size: int):
+def synthetic_batch(num_classes: int, batch_size: int, image_size: int):
     rng = np.random.RandomState(0)
     return {"images": rng.randn(batch_size, image_size, image_size, 3).astype(np.float32),
             "labels": rng.randint(0, num_classes, size=(batch_size,)).astype(np.int32)}
@@ -223,7 +226,7 @@ def build(args) -> Bench:
     elif cache is not None:
         example = cache.next_batch(batch_size)
     else:
-        example = _synthetic(num_classes, batch_size, args.image_size)
+        example = synthetic_batch(num_classes, batch_size, args.image_size)
     ad = AutoDist(args.resource_spec, build_strategy(args.strategy, args.model),
                   device=device)
     lr = 0.0 if args.eval else 0.01
@@ -327,40 +330,31 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def train(bench: Bench) -> dict:
     args, step = bench.args, bench.step
-    device = step.runner.device
-    on_card = device.type == "cuda"
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
-    meter = ThroughputMeter(batch_size=bench.batch_size, log_every=args.log_every)
-    loss = None
-    for i in range(args.steps):
-        loss = step(bench.next_batch())
-        rate = meter.step(sync=loss)
-        if rate is not None:
-            print(f"step {i + 1}: {rate:.1f} examples/s")
-    final = float(loss)        # the fence: trailing steps must not inflate the rate
-    avg = meter.finish() or 0.0
+    bench_logger = get_benchmark_logger()
+    bench_logger.log_run_info(gather_run_info(args.model, strategy_name=args.strategy,
+                                              batch_size=bench.batch_size))
+    # A failed step still records run_status and closes the metric file.
+    try:
+        avg, final, peak = timed_steps(step, bench.next_batch, bench.batch_size, args.steps,
+                                       args.log_every, logger=bench_logger)
+        bench_logger.log_metric("average_examples_per_second", avg, unit="examples/s",
+                                global_step=args.steps)
+    except BaseException:
+        bench_logger.on_finish(status="failure")
+        raise
+    bench_logger.on_finish()
     src = "disk" if args.data_dir else "synthetic"
-    peak = torch.cuda.max_memory_allocated(device) if on_card else None
-    result = {"model": args.model, "strategy": args.strategy, "source": src,
-              "batch_size": bench.batch_size, "images_per_sec": avg,
-              "final_loss": final, "max_memory_allocated": peak,
-              "flops_per_step": None, "mfu": None}
-    rank0 = not dist.is_initialized() or dist.get_rank() == 0
-    if rank0:
+    if is_rank0():
         print(f"{args.model}/{args.strategy} ({src}): final loss {final:.4f}, {avg:.1f} "
               f"examples/sec ({avg / max(bench.n_dev, 1):.1f}/device)"
-              + (f", max_memory_allocated {peak} bytes" if on_card else ""))
-    if on_card:
-        local = step.runner.shard_batch(bench.next_batch(), accumulation=1)
-        per_step = flops_util.loss_and_grad_flops(
-            bench.loss_fn, step.runner.logical_params(step.get_state()), local)
-        result["flops_per_step"] = per_step
-        result["mfu"] = (flops_util.report_mfu(per_step, avg / bench.batch_size)
-                         if rank0 else flops_util.mfu(per_step * avg / bench.batch_size))
-    elif rank0:
-        print("mfu not measured (the host has no peak to divide by)")
-    return result
+              + (f", max_memory_allocated {peak} bytes" if peak is not None else ""))
+    per_step, mfu = card_mfu(lambda: flops_util.loss_and_grad_flops(
+        bench.loss_fn, step.runner.logical_params(step.get_state()),
+        step.runner.shard_batch(bench.next_batch(), accumulation=1)),
+        avg / bench.batch_size, step.runner.device)
+    return {"model": args.model, "strategy": args.strategy, "source": src,
+            "batch_size": bench.batch_size, "images_per_sec": avg, "final_loss": final,
+            "max_memory_allocated": peak, "flops_per_step": per_step, "mfu": mfu}
 
 
 if __name__ == "__main__":

@@ -274,10 +274,10 @@ def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args, **kwargs):
     return functional_call(model, params, args, kwargs)
 
 
-def _lecun_normal(shape: Sequence[int], generator) -> torch.Tensor:
+def _lecun_normal(shape: Sequence[int], fan_in: int, generator) -> torch.Tensor:
     """flax's ``lecun_normal``: a normal truncated at two standard deviations,
-    rescaled to variance ``1 / fan_in`` (fan_in: every dim but the last)."""
-    std = 1.0 / math.sqrt(math.prod(shape[:-1])) / 0.87962566103423978
+    rescaled to variance ``1 / fan_in``."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
     out = torch.empty(tuple(shape), dtype=torch.float32)
     return nn.init.trunc_normal_(out, std=std, a=-2 * std, b=2 * std, generator=generator)
 
@@ -285,17 +285,26 @@ def _lecun_normal(shape: Sequence[int], generator) -> torch.Tensor:
 def init_params(model: nn.Module, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """flax's default initializers for every parameter of ``model`` (kernels
-    ``lecun_normal``, biases 0, scales 1), drawn from a ``torch.Generator``
-    seeded with ``seed``: the values differ from the JAX package's; feed
-    both the same weights through ``from_jax_params``."""
+    """flax's default initializers for every parameter of ``model``, drawn
+    in its parameter order from a ``torch.Generator`` seeded with ``seed``:
+    a ``kernel`` ``lecun_normal`` over its input axes (a ``DenseGeneral``'s
+    ``in_shape``, else every dim but the last), an ``embedding`` table
+    normal with variance ``1 / dim`` (``nn.Embed``'s), ``pos_embed``
+    normal(0.02), a ``scale`` 1 and a bias 0. The values differ from the JAX
+    package's: feed both the same weights through ``from_jax_params``."""
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     params = {}
     for key, p in model.named_parameters():
-        leaf = key.rsplit(".", 1)[-1]
+        owner, _, leaf = key.rpartition(".")
         if leaf == "kernel":
-            value = _lecun_normal(p.shape, g)
+            in_shape = getattr(model.get_submodule(owner), "in_shape", p.shape[:-1])
+            value = _lecun_normal(p.shape, math.prod(in_shape), g)
+        elif leaf == "embedding":
+            value = nn.init.normal_(torch.empty(p.shape), std=1.0 / math.sqrt(p.shape[-1]),
+                                    generator=g)
+        elif leaf == "pos_embed":
+            value = nn.init.normal_(torch.empty(p.shape), std=0.02, generator=g)
         elif leaf == "scale":
             value = torch.ones(p.shape)
         else:

@@ -42,6 +42,7 @@ import torch.utils.checkpoint
 from torch import nn
 from torch.func import functional_call
 
+from autodist_tpu_torch.models import layers
 from autodist_tpu_torch.models.common import (EMBEDDING, HEAD_KERNEL,
                                               fused_lm_head_nll, lm_head_logits)
 from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
@@ -49,7 +50,6 @@ from autodist_tpu_torch.ops.flash_attention import flash_attention
 from autodist_tpu_torch.parallel.ring_attention import ring_attention
 from autodist_tpu_torch.parallel.synchronization import global_mean
 from autodist_tpu_torch.parallel.ulysses import ulysses_attention
-from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
 _ATTENTION_IMPLS = ("dot", "flash", "blockwise", "ring", "ulysses")
@@ -100,21 +100,26 @@ def _param(*shape) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Bias-free dense layer with a flax-layout ``kernel`` ``[*in, *out]``;
-    ``n_in`` leading kernel axes contract with the input's last ``n_in`` axes."""
+    """flax ``DenseGeneral``: a flax-layout ``kernel`` ``[*in, *out]`` whose
+    ``n_in`` leading axes contract with the input's last ``n_in`` axes; with
+    ``use_bias`` a ``bias`` ``[*out]`` is added in the compute dtype (this
+    model's layers have none)."""
 
     def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, use_bias: bool = False):
         super().__init__()
         self.in_shape, self.out_shape, self.dtype = in_shape, out_shape, dtype
         self.kernel = _param(*in_shape, *out_shape)
+        self.bias = _param(*out_shape) if use_bias else None
 
     def forward(self, x):
         n_in = len(self.in_shape)
         lead = x.shape[:x.dim() - n_in]
         w = self.kernel.to(self.dtype).reshape(math.prod(self.in_shape), -1)
-        y = x.to(self.dtype).reshape(*lead, -1) @ w
-        return y.reshape(*lead, *self.out_shape)
+        y = (x.to(self.dtype).reshape(*lead, -1) @ w).reshape(*lead, *self.out_shape)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class LayerNorm(nn.Module):
@@ -251,44 +256,15 @@ def apply(model: TransformerLM, params: Dict[str, torch.Tensor], tokens, **kwarg
     return functional_call(model, params, (tokens,), kwargs)
 
 
-def _fan_in_normal(shape, fan_in: int, generator, truncated: bool) -> torch.Tensor:
-    """flax's variance-scaling(1, fan_in) initializers: a normal, or a normal
-    truncated at two standard deviations and rescaled to unit variance."""
-    out = torch.empty(shape, dtype=torch.float32)
-    std = 1.0 / math.sqrt(fan_in)
-    if truncated:
-        std /= 0.87962566103423978
-        return nn.init.trunc_normal_(out, std=std, a=-2 * std, b=2 * std,
-                                     generator=generator)
-    return nn.init.normal_(out, std=std, generator=generator)
-
-
 def init_params(config: TransformerLMConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> Tuple[TransformerLM, Dict[str, torch.Tensor]]:
-    """``(model, params)`` with flax's initializers drawn from a
+    """``(model, params)`` with flax's initializers
+    (:func:`~autodist_tpu_torch.models.layers.init_params`) drawn from a
     ``torch.Generator`` seeded with ``seed`` (the values differ from the JAX
     package's: feed both the same weights through ``from_jax_params``)."""
-    device = resolve_device(device)
     model = TransformerLM(config)
-    g = torch.Generator().manual_seed(seed)
-    params = {}
-    for key, p in model.named_parameters():
-        leaf = key.rsplit(".", 1)[-1]
-        if leaf == "scale":
-            value = torch.ones(p.shape)
-        elif leaf == "bias":
-            value = torch.zeros(p.shape)
-        elif key == "pos_embed":
-            value = nn.init.normal_(torch.empty(p.shape), std=0.02, generator=g)
-        elif key == EMBEDDING:
-            value = _fan_in_normal(p.shape, p.shape[1], g, truncated=False)
-        else:
-            module = model.get_submodule(key.rsplit(".", 1)[0])
-            value = _fan_in_normal(p.shape, math.prod(module.in_shape), g,
-                                   truncated=True)
-        params[key] = value.to(device)
-    return model, params
+    return model, layers.init_params(model, seed, device)
 
 
 def fused_head_nll(model: TransformerLM, params, inputs, targets,

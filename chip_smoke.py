@@ -4,9 +4,10 @@ loader, hold each kernel against its plain version on the card, and train
 the flagship TransformerLM through the port's entry points on one card, at
 seq 256, at seq 8,192, at seq 8,192 through the sequence-parallel path (a
 ring of one card, and Ulysses on one card), and at seq 256 under every
-synchronous strategy; then the data plane and the image-classification
+synchronous strategy; then the data plane, the image-classification
 family (the CNN zoo at full width through the ImageNet benchmark entry
-point).
+point), and the text family with the rest of the benchmark suite (BERT, NCF,
+disk input, the raw baseline and the sweep).
 
     python3 chip_smoke.py
 
@@ -187,7 +188,33 @@ exits non-zero without them, or when any phase fails. Phases:
    host time split by the pool's profiler spans over one refresh interval;
    and 3 steps each of VGG16, DenseNet-121 (224 px) and Inception-v3
    (299 px) at batch 8, whose losses must be finite.
-15. One JSON line of per-kernel numbers (all seven kernels), then the result
+15. The text family and the benchmark suite, through the port's
+   ``examples/benchmark`` entry points, with launch counts set to 0 at its
+   start. BERT-base (d768 x 12, 12 heads, d_ff 3,072, vocab 30,522, seq
+   128, 20 prediction slots, bf16): on 4 sequences its bf16 loss is held
+   against its f32 loss with the same weights (rtol 1e-2); then the BERT
+   benchmark (``AllReduce(compressor="HorovodCompressor")``, AdamW 1e-4) at
+   ``run_all``'s shapes, bert-base at 2,048 with 8 micro-batches a step and
+   bert-large (d1,024 x 24) at 128 (examples/s, MFU, peak memory and a
+   profiler window over 2 steps each); a corpus written here from a word
+   list, ``--tokenize_corpus``, bert-base trained from ``--data_dir`` (the
+   MLM batcher's masks through the device feed), saved with ``Saver`` and
+   scored by ``--eval --restore`` (masked-LM accuracy). NCF at the JAX
+   defaults (138,000 users, 27,000 items, f32, a batch of 65,536, Adam
+   1e-3): under ``Parallax`` with a profiler window, the four tables routed
+   to PS and nothing else; ``Parallax`` against ``AllReduce()`` over 3 steps
+   from one seed, which on one card must agree bit for bit (losses and
+   params); and one epoch over a MovieLens-format ratings file written here
+   (every user 20-40 ratings), with HR@10 and NDCG@10. BERT and NCF reach
+   none of the port's kernels (every count still 0, read just before the
+   next run). ``disk_input`` at the flagship's shape (384 x 256, the fused
+   head, one step a batch) from a resident batch and from ``.npy`` shards
+   through the native loader: its JSON line, ``native_loader`` must hold
+   and each fused-head kernel launch once a step (counts read just after).
+   ``raw_torch_baseline`` for ResNet-50 at 128 beside phase 14's
+   ``AllReduce`` rate at 128; ``run_all --list``, and one ``--only ncf
+   --steps 5`` row run in its own process and parsed as the sweep parses it.
+16. One JSON line of per-kernel numbers (all seven kernels), then the result
    line.
 """
 
@@ -218,6 +245,8 @@ LSE_ATOL = 0.01
 # f32 summation order and one bf16 rounding of the stored result (2^-9
 # relative). A tile left unwritten, zeroed or unscaled reads about 1.
 TILE = 64
+# Kernel-name marks of the libraries' matmuls and convolutions (profile windows).
+LIBRARY_PRODUCTS = ("gemm", "nvjet", "cutlass", "xmma", "cudnn")
 TILE_RTOL = 1e-2
 STEADY_STEPS = 6                  # steps timed for throughput after the counted run
 PROFILE_STEPS = 3                 # steps traced after those
@@ -264,6 +293,18 @@ IMAGE_CACHE_RUN = ("PSLoadBalancing", 128, 20)
 IMAGE_RECORDS, IMAGE_RECORD_SIZE = 512, 256
 # The record pool's host-time window: one refresh interval (the default 16).
 POOL_PROFILE_STEPS = 16
+# Phase 15: BERT benchmark runs (size, global batch, micro-batches a step,
+# steps), the disk run's batch and steps over a corpus of TEXT_LINES lines
+# from TEXT_WORDS words; NCF's steps (synthetic, and over RATING_USERS
+# users' ratings of RATING_ITEMS items: one epoch); disk_input's corpus rows
+# and timed steps; the raw baseline's timed steps.
+BERT_RUNS = (("base", 2048, 8, 4), ("large", 128, 1, 4))
+BERT_DISK_BATCH, BERT_DISK_STEPS = 32, 4
+TEXT_LINES, TEXT_WORDS = 5000, 5000
+NCF_STEPS, NCF_RATING_STEPS = 6, 4
+RATING_USERS, RATING_ITEMS = 2000, 3000
+DISK_ROWS, DISK_STEPS = 8192, 5
+RAW_STEPS = 10
 # Phase 11: (label, builder (None: AutoDist's default), session keywords,
 # codec: None, "bf16", or the residual the codec keeps, "error").
 STRATEGY_STEPS = 3
@@ -607,13 +648,17 @@ def profile_steps(step, batches, label="profile"):
     per_name = collections.Counter()
     for e in kernels:
         per_name[e.name] += e.time_range.elapsed_us()
-    head_us = sum(us for name, us in per_name.items() if "xent_" in name)
-    flash_us = sum(us for name, us in per_name.items() if "flash_" in name)
+    def share(*marks):
+        return sum(us for name, us in per_name.items() if any(m in name for m in marks)) \
+            / n / 1e3
+
     log(f"{label}: {n} steps, {1e3 * wall / n:.3f} ms/step wall with the profiler on; "
         f"device busy {busy / n / 1e3:.3f} ms/step, idle share "
         f"{1 - busy / 1e6 / wall:.3f}; {len(kernels) // n} kernels/step; "
-        f"fused-head kernels {head_us / n / 1e3:.3f} ms/step, flash kernels "
-        f"{flash_us / n / 1e3:.3f} ms/step")
+        f"fused-head kernels {share('xent_'):.3f} ms/step, flash kernels "
+        f"{share('flash_'):.3f} ms/step, library products (cuBLAS, CUTLASS, cuDNN) "
+        f"{share(*LIBRARY_PRODUCTS):.3f} ms/step, PyTorch elementwise kernels "
+        f"{share('elementwise_kernel'):.3f} ms/step")
     for name, us in per_name.most_common(10):
         log(f"{label}:   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
 
@@ -1455,8 +1500,10 @@ def image_path(kernels, dev):
             raise AssertionError(f"images: {label}: non-finite loss")
         return result
 
+    results = {}
     for strategy, per_card, steps in IMAGE_RUNS:
-        run(["--strategy", strategy, "--batch_size", str(per_card), "--steps", str(steps)],
+        results[(strategy, per_card)] = run(
+            ["--strategy", strategy, "--batch_size", str(per_card), "--steps", str(steps)],
             f"resnet50 {strategy} {per_card}/card")
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.RandomState(1)
@@ -1475,7 +1522,183 @@ def image_path(kernels, dev):
             pool=True)
     for name in ("vgg16", "densenet121", "inceptionv3"):
         run(["--model", name, "--batch_size", "8", "--steps", "3"], f"{name} 8/card")
-    return {k.__name__: k.launches for k in kernels}
+    return {k.__name__: k.launches for k in kernels}, results
+
+
+def write_corpus(path: str, seed: int = 5) -> None:
+    """A text corpus of TEXT_LINES lines of 25 words drawn (Zipf) from a
+    word list of TEXT_WORDS words."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = (rng.zipf(1.2, size=(TEXT_LINES, 25)) - 1) % TEXT_WORDS
+    with open(path, "w") as f:
+        f.write("\n".join(" ".join(f"word{i}" for i in row) for row in ids) + "\n")
+
+
+def write_ratings(path: str, seed: int = 6) -> None:
+    """A MovieLens-format CSV: RATING_USERS users, each rating 20 to 40
+    distinct items of RATING_ITEMS, timestamps out of order."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        f.write("user_id,item_id,rating,timestamp\n")
+        for u in range(RATING_USERS):
+            n = rng.randint(20, 41)
+            items = rng.choice(RATING_ITEMS, n, replace=False)
+            for t, i in zip(rng.permutation(n), items):
+                f.write(f"{u + 1},{i + 1},{rng.randint(1, 6)},{978300000 + 60 * t}\n")
+
+
+def text_path(kernels, dev, resnet_rate: float):
+    """Phase 15: the text family and the rest of the benchmark suite."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.examples.benchmark import bert as bert_bench
+    from autodist_tpu_torch.examples.benchmark import disk_input
+    from autodist_tpu_torch.examples.benchmark import ncf as ncf_bench
+    from autodist_tpu_torch.examples.benchmark import raw_torch_baseline, run_all
+    from autodist_tpu_torch.models import bert, ncf
+    from autodist_tpu_torch.parallel.plan import SYNC_PS
+
+    for k in kernels:
+        k.launches = 0
+    cfg = bert.BertConfig(max_len=128)
+    model, params = bert.init_params(cfg, seed=0, device=dev)
+    f32 = bert.Bert(dataclasses.replace(cfg, dtype=torch.float32))
+    small = {k: torch.as_tensor(a).to(dev)
+             for k, a in bert.synthetic_batch(cfg, 4, 128, n_predictions=20).items()}
+    with torch.no_grad():
+        low = float(bert.make_mlm_loss_fn(model)(params, small))
+        full = float(bert.make_mlm_loss_fn(f32)(params, small))
+    log(f"text: bert-base bf16 loss {low:.6f} vs f32 loss {full:.6f}; card {card_line()}")
+    if not (math.isfinite(low) and abs(low - full) <= 1e-2 * abs(full)):
+        raise AssertionError("bert-base's bf16 loss disagrees with its f32 loss")
+    del model, params, f32, small
+    torch.cuda.empty_cache()
+
+    def run(module, argv, label, after=None):
+        args = module.parse_args(argv + ["--device", str(dev), "--log_every", "1000"])
+        b = module.build(args)
+        try:
+            t0 = time.perf_counter()
+            result = module.train(b)
+            log(f"text: {label}: {result} ({time.perf_counter() - t0:.1f} s); card "
+                f"{card_line()}")
+            profile_steps(b.step, [b.next_batch() for _ in range(2)],
+                          label=f"text profile {label}")
+            if after is not None:
+                after(b)
+        finally:
+            b.close()
+        del b
+        torch.cuda.empty_cache()
+        if not math.isfinite(result["final_loss"]):
+            raise AssertionError(f"text: {label}: non-finite loss")
+        return result
+
+    for size, batch, accum, steps in BERT_RUNS:
+        run(bert_bench, ["--size", size, "--batch_size", str(batch), "--accum", str(accum),
+                         "--steps", str(steps)], f"bert-{size} {batch}/card accum {accum}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, data = os.path.join(tmp, "corpus.txt"), os.path.join(tmp, "mlm")
+        write_corpus(corpus)
+        bert_bench.main(["--tokenize_corpus", corpus, "--data_dir", data, "--seq_len", "128"])
+        saved = []
+        disk = ["--data_dir", data, "--batch_size", str(BERT_DISK_BATCH)]
+        run(bert_bench, disk + ["--steps", str(BERT_DISK_STEPS)],
+            f"bert-base from --data_dir, {BERT_DISK_BATCH}/card",
+            after=lambda b: saved.append(Saver().save(b.step.get_state(),
+                                                      os.path.join(tmp, "ckpt", "bert"))))
+        acc = bert_bench.main(disk + ["--eval", "--restore", saved[0], "--device", str(dev)])
+        log(f"text: bert-base --eval --restore {os.path.basename(saved[0])}: "
+            f"masked_lm_accuracy {acc:.4f}; card {card_line()}")
+
+    def tables_to_ps(b):
+        plans = b.step.runner.plan.params
+        tables = sorted(n for n in plans if n.endswith("_embed/embedding"))
+        routes = {n: plans[n].sync for n in plans}
+        log(f"text: ncf Parallax routes {routes}")
+        if len(tables) != 4 or any(routes[n] != SYNC_PS for n in tables) or \
+                any(routes[n] == SYNC_PS for n in plans if n not in tables):
+            raise AssertionError(f"ncf: Parallax must send exactly the four tables to PS: "
+                                 f"{routes}")
+
+    run(ncf_bench, ["--steps", str(NCF_STEPS)], "ncf Parallax 65,536/card",
+        after=tables_to_ps)
+    # Parallax against AllReduce(): three steps of the real config from one
+    # seed on the same batches; on one card they must agree bit for bit.
+    host = [ncf.synthetic_batch(ncf.NeuMFConfig(), ncf_bench.DEFAULT_BATCH, seed=100 + i)
+            for i in range(3)]
+    finals = {}
+    for strategy in ("Parallax", "AllReduce"):
+        b = ncf_bench.build(ncf_bench.parse_args(["--device", str(dev), "--strategy",
+                                                  strategy]))
+        losses = [float(b.step(batch)) for batch in host]
+        finals[strategy] = (losses, {k: v.detach().cpu() for k, v in
+                                     b.step.runner.logical_params(b.step.get_state()).items()})
+        b.close()
+        del b
+    (pl, pp), (al, ap) = finals["Parallax"], finals["AllReduce"]
+    dist = max(float((pp[k] - ap[k]).abs().max()) for k in pp)
+    log(f"text: ncf 3 steps, Parallax losses {pl} vs AllReduce {al}; final params' max "
+        f"distance {dist:.3e}; card {card_line()}")
+    if pl != al or dist != 0.0:
+        raise AssertionError("ncf: Parallax and AllReduce() differ on one card")
+    del finals, pp, ap
+    with tempfile.TemporaryDirectory() as tmp:
+        ratings = os.path.join(tmp, "ratings.csv")
+        write_ratings(ratings)
+        result = ncf_bench.main(["--ratings", ratings, "--steps", str(NCF_RATING_STEPS),
+                                 "--device", str(dev)])
+        log(f"text: ncf on MovieLens-format ratings ({RATING_USERS} users): {result}; card "
+            f"{card_line()}")
+        if not (math.isfinite(result["final_loss"]) and 0 <= result["ndcg"] <= result["hr"]):
+            raise AssertionError("ncf: the ratings run's loss or metrics are wrong")
+    torch.cuda.empty_cache()
+
+    before = {k.__name__: k.launches for k in kernels}
+    if any(before.values()):
+        raise AssertionError(f"text: BERT and NCF launched the port's kernels: {before}")
+    line = disk_input.main(["--device", str(dev), "--rows", str(DISK_ROWS), "--steps",
+                            str(DISK_STEPS)])
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step = {n: launches[n] / (2 * (disk_input.WARMUP_STEPS + DISK_STEPS))
+                for n in ("xent_fwd", "xent_dh", "xent_dwdb")}
+    log(f"text: disk_input {line}; launches {launches}, fused-head launches per step "
+        f"{per_step}; card {card_line()}")
+    if not line["native_loader"] or min(per_step.values()) < 1:
+        raise AssertionError("disk_input: the native loader or a fused-head kernel did not run")
+    torch.cuda.empty_cache()
+
+    raw = raw_torch_baseline.main(["--device", str(dev), "--model", "resnet50",
+                                   "--batch_size", "128", "--steps", str(RAW_STEPS)])
+    log(f"text: raw_torch_baseline resnet50 128: {raw['images_per_sec']:.1f} images/s, mfu "
+        f"{raw['mfu']}, against the ImageNet benchmark's AllReduce 128/card "
+        f"{resnet_rate:.1f} in this run ({raw['images_per_sec'] / resnet_rate:.3f}x); card "
+        f"{card_line()}")
+    if not math.isfinite(raw["final_loss"]):
+        raise AssertionError("raw_torch_baseline: non-finite loss")
+    torch.cuda.empty_cache()
+
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        run_all.main(["--list"])
+    log("text: run_all --list: " + "; ".join(listing.getvalue().splitlines()))
+    t0 = time.perf_counter()
+    rows = run_all.main(["--only", "ncf", "--steps", "5"])
+    log(f"text: run_all --only ncf --steps 5: {rows} ({time.perf_counter() - t0:.1f} s); "
+        f"card {card_line()}")
+    if not rows or rows[0]["rate"] is None:
+        raise AssertionError(f"run_all: the ncf row did not parse: {rows}")
+    return launches
 
 
 def main() -> int:
@@ -1542,7 +1765,9 @@ def main() -> int:
     errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], ulysses_err["flash_bwd_dkdv"])
     errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], ulysses_err["flash_bwd_dq"])
     data_plane_path()
-    by_phase["images"] = image_path(every, dev)
+    by_phase["images"], image_results = image_path(every, dev)
+    by_phase["text"] = text_path(every, dev,
+                                 image_results[("AllReduce", 128)]["images_per_sec"])
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel
