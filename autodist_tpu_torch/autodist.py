@@ -8,15 +8,20 @@ synchronous builder of :mod:`autodist_tpu_torch.strategy` (default
 (one process per device, launched by torchrun: the mesh's device count
 comes from the resource spec, whose default is the world size or the
 visible cards); and the sequence-parallel session built on it
-(:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`).
-Async PS, cluster launch and autotuning raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+(:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`);
+and the plan search (``strategy_builder="autotune"``, ``tune=True`` or
+``AUTODIST_TUNE``: :mod:`autodist_tpu_torch.strategy.autotune`). Async PS
+and cluster launch raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
+import logging
 from typing import Callable, Mapping, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel import multihost
 from autodist_tpu_torch.parallel.plan import ShardingPlan
@@ -25,6 +30,8 @@ from autodist_tpu_torch.runner import DistributedRunner, step_function
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
 from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 from autodist_tpu_torch.utils.device import resolve_device
+
+_log = logging.getLogger("autodist_tpu_torch")
 
 
 class AutoDist:
@@ -39,16 +46,21 @@ class AutoDist:
         the local default (one device per rank of torchrun's world, else the
         visible cards). ``strategy_builder`` defaults to
         ``PSLoadBalancing()``, as in the JAX package; the string
-        ``"autotune"`` (the plan search) raises ``NotImplementedError``.
-        ``device`` defaults to ``cuda:$LOCAL_RANK`` (``cuda:0`` outside
-        torchrun) and raises ``RuntimeError`` when CUDA is absent; pass
-        ``"cpu"`` to run on the host."""
+        ``"autotune"`` makes the first ``create_distributed_session`` run
+        the plan autotuner and apply its winning builder and knobs (a warm
+        plan cache skips the search). ``device`` defaults to
+        ``cuda:$LOCAL_RANK`` (``cuda:0`` outside torchrun) and raises
+        ``RuntimeError`` when CUDA is absent; pass ``"cpu"`` to run on the
+        host."""
+        self._autotune = False
         if isinstance(strategy_builder, str):
             if strategy_builder != "autotune":
                 raise ValueError(f"unknown strategy name {strategy_builder!r}; the only "
-                                 f"string strategy is 'autotune'")
-            raise NotImplementedError("autotuning is not ported yet (ROADMAP.md, Queue 1 "
-                                      "item 3: the strategy search, after run_many)")
+                                 f"string strategy is 'autotune' (pass a StrategyBuilder "
+                                 f"instance otherwise)")
+            self._autotune = True
+            strategy_builder = None
+        self._tuned_plan = None
         self.device = resolve_device(device)
         if isinstance(resource_spec_file, ResourceSpec):
             self._resource_spec = resource_spec_file
@@ -92,7 +104,8 @@ class AutoDist:
                                    has_aux: bool = False,
                                    accumulation_steps: int = 1,
                                    batch_size: Optional[int] = None,
-                                   zero: Optional[int] = None) -> DistributedRunner:
+                                   zero: Optional[int] = None,
+                                   tune: Optional[bool] = None) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
 
         ``params`` is a flat ``{state-dict key: tensor}`` dict; ``optimizer``
@@ -105,15 +118,88 @@ class AutoDist:
         turns on ZeRO-style weight-update sharding over the data axes. A plan of PS nodes that
         are not synchronous raises ``NotImplementedError``. A mesh of more
         than one rank joins the process group from torchrun's environment
-        first; every rank calls this with the same arguments."""
-        model_spec = self._model_spec_for(loss_fn, params, example_batch, sparse_names)
-        compiled = self._compile(model_spec)
-        plan = ShardingPlan.from_strategy(compiled, model_spec)
+        first; every rank calls this with the same arguments.
+
+        ``tune`` (default: ``AutoDist(strategy_builder="autotune")`` or the
+        ``AUTODIST_TUNE`` flag) runs the plan autotuner before the first
+        session (:func:`autodist_tpu_torch.strategy.autotune.autotune`):
+        its winning builder, ``zero`` and ``accumulation_steps`` are applied
+        (explicit arguments win) and its plan is ``runner.tuned_plan``,
+        whose ``unroll`` ``train()`` adopts when given none. The winner is
+        stored in the ``AUTODIST_PLAN_CACHE`` file, so a relaunch of the
+        same job applies it with no search. A failed search keeps the
+        default builder, with a warning. A builder that models memory
+        (``AutoStrategy``) is handed ``optimizer``."""
+        self._maybe_autotune(tune, loss_fn, params, optimizer, example_batch,
+                             sparse_names, has_aux)
+        if self._tuned_plan is not None:
+            if accumulation_steps == 1:
+                accumulation_steps = self._tuned_plan.accumulation_steps
+            if zero is None and self._tuned_plan.zero:
+                zero = self._tuned_plan.zero
+        model_spec, compiled, plan = self._plan(loss_fn, params, optimizer, example_batch,
+                                                sparse_names)
         if plan.num_devices > 1 and not plan.is_async:
             multihost.maybe_initialize_multihost(self.device)
-        return DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
-                                 plan=plan, accumulation_steps=accumulation_steps,
-                                 batch_size=batch_size, has_aux=has_aux, zero=zero)
+        runner = DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
+                                   plan=plan, accumulation_steps=accumulation_steps,
+                                   batch_size=batch_size, has_aux=has_aux, zero=zero)
+        runner.tuned_plan = self._tuned_plan
+        return runner
+
+    def _plan(self, loss_fn, params, optimizer, example_batch, sparse_names):
+        """``(model_spec, compiled strategy, plan)`` for this model, the
+        builder having observed ``optimizer`` if it models memory."""
+        model_spec = self._model_spec_for(loss_fn, params, example_batch, sparse_names)
+        observe = getattr(self._strategy_builder, "observe_optimizer", None)
+        if observe is not None and self._compiled is None:
+            observe(optimizer)
+        compiled = self._compile(model_spec)
+        return model_spec, compiled, ShardingPlan.from_strategy(compiled, model_spec)
+
+    def _maybe_autotune(self, tune: Optional[bool], loss_fn, params, optimizer,
+                        example_batch, sparse_names, has_aux) -> None:
+        """Run the plan autotuner once per instance, before the first
+        strategy build, and install its winner (``autodist.py:289-352``).
+        Skipped, with a warning, once a strategy is built, in a program of
+        several processes (the tuned knobs would not reach the other
+        ranks), without an example batch, or on a multi-node spec; a failed
+        search keeps the default builder with a warning."""
+        if tune is None:
+            tune = self._autotune or const.env_armed(const.AUTODIST_TUNE)
+        if not tune or self._tuned_plan is not None:
+            return
+        if self._strategy is not None or self._compiled is not None:
+            _log.warning("AutoDist: tune requested after a strategy was already built; "
+                         "keeping the existing strategy")
+            return
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            _log.warning("AutoDist: tune=True in a program of several processes: the tuned "
+                         "execution knobs (zero/unroll/accumulation) cannot ship to the "
+                         "other ranks, so the search is skipped; tune one process and pass "
+                         "the winning knobs explicitly")
+            return
+        if example_batch is None:
+            _log.warning("AutoDist: tune=True needs an example_batch to probe candidate "
+                         "plans; skipping the search")
+            return
+        if self._resource_spec.num_nodes > 1:
+            _log.warning("AutoDist: tune=True on a multi-node spec: the autotuner measures "
+                         "on local devices only; skipping the search")
+            return
+        from autodist_tpu_torch.strategy.autotune import autotune
+        try:
+            plan = autotune(loss_fn, params, optimizer, example_batch,
+                            resource_spec=self._resource_spec, sparse_names=sparse_names,
+                            has_aux=has_aux, device=self.device)
+        except Exception as e:  # noqa: BLE001 — a failed search keeps the default
+            _log.warning("AutoDist: plan autotune failed (%s: %s); keeping the default "
+                         "strategy builder", type(e).__name__, e)
+            return
+        self._tuned_plan = plan
+        self._strategy_builder = plan.make_builder()
+        _log.info("AutoDist: applying tuned plan %s (%s)", plan.name,
+                  "cache hit" if plan.from_cache else f"searched in {plan.search_s:.2f}s")
 
     @staticmethod
     def _model_spec_for(loss_fn, params, example_batch, sparse_names) -> ModelSpec:
@@ -127,7 +213,8 @@ class AutoDist:
                  optimizer: Callable, example_batch=None,
                  sparse_names: Optional[Sequence[str]] = None,
                  has_aux: bool = False, accumulation_steps: int = 1,
-                 batch_size: Optional[int] = None, zero: Optional[int] = None) -> Callable:
+                 batch_size: Optional[int] = None, zero: Optional[int] = None,
+                 tune: Optional[bool] = None) -> Callable:
         """``step(batch, fetches=None) -> loss`` (what
         :meth:`DistributedRunner.run` fetches) carrying the training state
         inside; the first call's runner is reused by every later one.
@@ -135,5 +222,6 @@ class AutoDist:
         fn=None)`` expose it."""
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
-            accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero)
+            accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero,
+            tune=tune)
         return step_function(runner, params)

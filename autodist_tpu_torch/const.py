@@ -21,6 +21,23 @@ AUTODIST_ZERO = "AUTODIST_ZERO"
 PREFETCH_DEPTH = "AUTODIST_PREFETCH_DEPTH"
 PREFETCH_WORKERS = "AUTODIST_PREFETCH_WORKERS"
 
+# The strategy search (strategy/autotune.py), with the JAX package's
+# defaults (autodist_tpu/const.py:332-343): AUTODIST_TUNE runs the plan
+# autotuner in create_distributed_session; AUTODIST_PLAN_CACHE is the plan
+# cache file ("" = none); at most AUTODIST_TUNE_TOPK candidates are measured
+# of at most AUTODIST_TUNE_BUDGET ranked. AUTODIST_MEM_BUDGET overrides the
+# per-device memory budget in bytes when no card says (0 = unset).
+# AUTODIST_PROFILE_DIR is read for profiles to calibrate from; no port
+# module writes one yet.
+AUTODIST_TUNE = "AUTODIST_TUNE"
+AUTODIST_PLAN_CACHE = "AUTODIST_PLAN_CACHE"
+AUTODIST_TUNE_TOPK = "AUTODIST_TUNE_TOPK"
+AUTODIST_TUNE_BUDGET = "AUTODIST_TUNE_BUDGET"
+AUTODIST_MEM_BUDGET = "AUTODIST_MEM_BUDGET"
+AUTODIST_PROFILE_DIR = "AUTODIST_PROFILE_DIR"
+TUNE_TOPK_DEFAULT = 3
+TUNE_BUDGET_DEFAULT = 32
+
 # Directory for benchmark metric files (utils/benchmark_logger.py): set, the
 # file sink; empty, the framework logger.
 AUTODIST_BENCHMARK_LOG_DIR = "AUTODIST_BENCHMARK_LOG_DIR"
@@ -40,6 +57,10 @@ _OFF = ("", "0", "false", "no", "off")
 def env_int(name: str, default: int) -> int:
     raw = os.environ.get(name, "").strip()
     return int(raw) if raw else default
+
+
+def env_str(name: str, default: str = "") -> str:
+    return os.environ.get(name, default).strip()
 
 
 def env_armed(name: str) -> bool:

@@ -314,8 +314,11 @@ def device_prefetch(loader, runner, depth: int = 2, unroll: int = 1,
     """Batches laid out for ``runner`` (``runner.shard_batch``: this rank's
     rows, on its device), ``depth`` ahead of the step on a background
     producer (:func:`autodist_tpu_torch.data.prefetch.prefetch_to_device`).
-    Close the returned producer before the loader. ``unroll > 1`` raises
-    ``NotImplementedError``."""
+    Close the returned producer before the loader. With ``unroll=K`` each
+    item is a block of K loader batches (``runner.shard_block``) for
+    ``runner.run_many``, ``depth`` blocks ahead; a loader that runs out
+    mid-block drops the partial remainder (logged) and ends
+    (``autodist_tpu/data/loader.py:371-399``)."""
     from autodist_tpu_torch.data import prefetch
     return prefetch.prefetch_to_device(loader, runner, depth=depth, unroll=unroll,
                                        workers=workers)

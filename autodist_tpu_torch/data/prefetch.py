@@ -11,7 +11,8 @@
   :func:`assemble_global_batch`: per-host loading, where each process loads
   only its rows of the global batch.
 - :func:`prefetch_to_device`: the producer composed with the runner's feed
-  layout (``shard_batch``), ``depth`` batches ahead of the step.
+  layout (``shard_batch``, or ``shard_block`` for blocks of ``unroll=K``
+  batches), ``depth`` batches or blocks ahead of the step.
 
 On a CUDA device the feed copies each batch from pinned host memory on a
 side stream of its own; the consumer's stream waits on the copy's event and
@@ -23,6 +24,7 @@ pinning and no stream.
 """
 
 import collections
+import logging
 import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple
@@ -32,15 +34,15 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
-from autodist_tpu_torch.runner import MicroBatched, ShardedBatch, _leaves, _tree_map
+from autodist_tpu_torch.runner import (BatchBlock, MicroBatched, ShardedBatch, _leaves,
+                                       _tree_map)
 
 __all__ = ["BoundedQueue", "QueueClosed", "EMPTY", "PrefetchProducer",
            "prefetch_to_device", "device_feed", "host_shard_rows", "host_shard",
            "assemble_global_batch", "default_prefetch_depth",
-           "default_prefetch_workers", "UNROLL_ROADMAP"]
+           "default_prefetch_workers"]
 
-UNROLL_ROADMAP = ("unroll > 1 (run_many, the fused multi-step feed) is not ported yet "
-                  "(ROADMAP.md, Queue 1: run_many and unroll > 1)")
+_log = logging.getLogger("autodist_tpu_torch")
 
 
 class QueueClosed(RuntimeError):
@@ -389,6 +391,8 @@ class _Staged:
 
 
 def _tensors(tree):
+    if isinstance(tree, BatchBlock):
+        tree = tree.tree
     for leaf in _leaves(tree):
         leaf = leaf.value if isinstance(leaf, MicroBatched) else leaf
         if isinstance(leaf, torch.Tensor):
@@ -463,15 +467,43 @@ def prefetch_to_device(source, runner, depth: int = 2, unroll: int = 1,
     """The async device feed: ``runner.shard_batch`` (or, with
     ``per_host=True``, :func:`assemble_global_batch` over a source of this
     process's local rows) applied ``depth`` batches ahead of the step, so
-    host loading and the copy to the card overlap the running step.
-    ``unroll > 1`` raises ``NotImplementedError``."""
+    host loading and the copy to the card overlap the running step
+    (``autodist_tpu/data/prefetch.py:568-625``).
+
+    With ``unroll=K`` each item is a :class:`~autodist_tpu_torch.runner.BatchBlock`
+    of K consecutive batches (``runner.shard_block``) for ``run_many``;
+    ``depth`` then counts blocks. A source that runs out mid-block yields
+    nothing for the partial block: the remainder is dropped, logged, and
+    iteration ends. ``per_host`` takes ``unroll=1`` only."""
     if unroll < 1:
         raise ValueError("unroll must be >= 1")
-    if unroll > 1:
-        raise NotImplementedError(UNROLL_ROADMAP)
-    shard = None
+    src = _as_pull(source)
     if per_host:
+        if unroll > 1:
+            raise ValueError("per_host prefetch supports unroll=1 only (blocks stack the "
+                             "global batch)")
         shard = lambda batch, place: assemble_global_batch(  # noqa: E731
             runner, batch, process_id=process_id, num_processes=num_processes, place=place)
-    return device_feed(_as_pull(source), runner, shard, depth=depth, workers=workers,
-                       name=name)
+        return device_feed(src, runner, shard, depth=depth, workers=workers, name=name)
+    if unroll > 1:
+        done = [False]
+
+        def pull_block():
+            if done[0]:
+                raise StopIteration
+            blk = []
+            for _ in range(unroll):
+                try:
+                    blk.append(src())
+                except StopIteration:
+                    done[0] = True
+                    if blk:
+                        _log.info("prefetch: source exhausted mid-block; dropping the "
+                                  "%d-batch remainder (unroll=%d)", len(blk), unroll)
+                    raise StopIteration from None
+            return blk
+
+        return device_feed(pull_block, runner,
+                           lambda blk, place: runner.shard_block(blk, place=place),
+                           depth=depth, workers=workers, name=name)
+    return device_feed(src, runner, depth=depth, workers=workers, name=name)

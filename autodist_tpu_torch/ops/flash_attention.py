@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from autodist_tpu_torch.ops import _build
+from autodist_tpu_torch.ops import _build, costs
 from autodist_tpu_torch.ops.blockwise_attention import NEG_INF
 
 # Keys per step of the plain versions: bounds their [B, H, Lq, block] f32
@@ -230,11 +230,34 @@ def _out_f32(out_dtype: Optional[torch.dtype]) -> int:
     return int(out_dtype == torch.float32)
 
 
+def _probe_cost(name: str, q, k, causal: bool, out_bytes: int = 2):
+    """:func:`costs.kernel` for one launch of ``name`` on these operands:
+    each input read once and each output written once (bf16 q, k, v and dO
+    ``[B, L, H, 64]``, f32 lse and D ``[B*H, Lq]``, outputs of
+    ``out_bytes`` an element, the carry's f32 acc in and out), and the
+    tensor-core products over the scores attended (the causal half, or all
+    of them): 2 in the forward and the carry, 4 in dK/dV, 3 in dQ."""
+    b, lq, h, d = (int(x) for x in q.shape)
+    lk = int(k.shape[1])
+    pairs = lq * (lq + 1) / 2 if causal and lq == lk else lq * lk
+    product = 2.0 * b * h * pairs * d
+    q_act, k_act, row = b * lq * h * d * 2, b * lk * h * d * 2, b * h * lq * 4
+    acc = b * h * lq * d * 4
+    nbytes, products = {
+        "flash_fwd": (2 * q_act + 2 * k_act + row, 2),
+        "flash_fwd_carry": (q_act + 2 * k_act + 2 * acc + 4 * row, 2),
+        "flash_bwd_dkdv": (2 * q_act + 2 * k_act + 2 * row + k_act * out_bytes, 4),
+        "flash_bwd_dq": (2 * q_act + 2 * k_act + 2 * row + q_act * out_bytes // 2, 3),
+    }[name]
+    return costs.kernel(nbytes, products * product)
+
+
 def flash_fwd(q, k, v, causal: bool = True, q_offset: int = 0, k_offset: int = 0):
     """``(out, lse)``. CUDA: the forward kernel (replaces ``_flash_kernel``);
     CPU: :func:`flash_forward_plain`."""
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, causal, q_offset, k_offset)
+        with _probe_cost("flash_fwd", q, k, causal):
+            return flash_forward_plain(q, k, v, causal, q_offset, k_offset)
     b, lq, lk, h, d = _check_kernel_args(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
@@ -265,7 +288,8 @@ def flash_fwd_carry(q, k, v, carry=None, causal: bool = True, q_offset: int = 0,
     which writes a fresh carry and leaves the one given unchanged; CPU:
     :func:`flash_forward_carry_plain`."""
     if q.device.type == "cpu":
-        return flash_forward_carry_plain(q, k, v, carry, causal, q_offset, k_offset)
+        with _probe_cost("flash_fwd_carry", q, k, causal):
+            return flash_forward_carry_plain(q, k, v, carry, causal, q_offset, k_offset)
     b, lq, lk, h, d = _check_kernel_args(q, k, v)
     if carry is not None:
         _check_carry(carry, b, h, lq, d, q.device)
@@ -286,8 +310,9 @@ def flash_bwd_dkdv(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
     """``(dk, dv)``. CUDA: the dK/dV kernel (replaces
     ``_flash_bwd_dkdv_kernel``); CPU: :func:`flash_backward_plain`."""
     if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
-                                    out_dtype)[1:]
+        with _probe_cost("flash_bwd_dkdv", q, k, causal, 4 if out_dtype == torch.float32 else 2):
+            return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
+                                        out_dtype)[1:]
     b, lq, lk, h, d = _check_kernel_args(q, k, v, do, lse, dd)
     f32 = _out_f32(out_dtype)
     dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
@@ -306,8 +331,9 @@ def flash_bwd_dq(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
     """``dq``. CUDA: the dQ kernel (replaces ``_flash_bwd_dq_kernel``); CPU:
     :func:`flash_backward_plain`."""
     if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
-                                    out_dtype)[0]
+        with _probe_cost("flash_bwd_dq", q, k, causal, 4 if out_dtype == torch.float32 else 2):
+            return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
+                                        out_dtype)[0]
     b, lq, lk, h, d = _check_kernel_args(q, k, v, do, lse, dd)
     f32 = _out_f32(out_dtype)
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from autodist_tpu_torch.ops import _build
+from autodist_tpu_torch.ops import _build, costs
 
 # Vocab columns per step of the plain versions: bounds their [N, chunk] f32
 # logits buffer.
@@ -204,6 +204,28 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
 
 
+def _kernel_cost(name: str, n: int, d: int, v: int, bias: bool):
+    """``(HBM bytes, tensor-core operations)`` of one launch of ``name`` at
+    ``[N, D] x [D, V]``: each input read once, each output written once
+    (bf16 h and packed table, f32 lse, g, dw and db), and 2, 4 or 4
+    products of ``N D V``; the pack reads the f32 table and writes it bf16."""
+    h, wp, vec, b = n * d * 2, d * v * 2, n * 4, v * 4 if bias else 0
+    ops = 2.0 * n * d * v
+    return {"xent_pack_w": (d * v * 6, 0.0),
+            "xent_fwd": (h + wp + b + vec, ops),
+            "xent_dh": (h + wp + b + 2 * vec + h, 2 * ops),
+            "xent_dwdb": (h + wp + b + 2 * vec + d * v * 4 + v * 4, 2 * ops)}[name]
+
+
+def _probe_cost(name: str, h, w, b, w_layout: str, packs: int = 0):
+    """:func:`costs.kernel` for ``name`` on these operands, with ``packs``
+    launches of the pack before it (the plain version runs inside)."""
+    n, d, v = _dims(h, w, _w_vd(w_layout))
+    nbytes, flops = _kernel_cost(name, n, d, v, b is not None)
+    nbytes += packs * _kernel_cost("xent_pack_w", n, d, v, False)[0]
+    return costs.kernel(nbytes, flops, 1 + packs)
+
+
 def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
     """w as the fused-head kernels read it: bf16 in its stored layout,
     ``"dv"`` rows padded with zeros to :func:`packed_cols` columns. CUDA: the
@@ -211,7 +233,9 @@ def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
     VMEM); CPU: :func:`pack_w_plain`."""
     vd = _w_vd(w_layout)
     if w.device.type == "cpu":
-        return pack_w_plain(w, w_layout)
+        v, d = tuple(w.shape) if vd else tuple(w.shape[::-1])
+        with costs.kernel(_kernel_cost("xent_pack_w", 0, d, v, False)[0], 0.0):
+            return pack_w_plain(w, w_layout)
     if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError(f"the pack kernel takes a contiguous f32 2-D table, got "
                          f"{w.dtype} {tuple(w.shape)}")
@@ -234,7 +258,8 @@ def xent_fwd(h, w, b, w_layout: str = "dv") -> torch.Tensor:
     :func:`matmul_logsumexp_plain`."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
-        return matmul_logsumexp_plain(h, w, b, w_layout)
+        with _probe_cost("xent_fwd", h, w, b, w_layout, packs=1):
+            return matmul_logsumexp_plain(h, w, b, w_layout)
     n, d, v = _check_kernel_args(h, w, b, vd)
     lse = torch.empty((n,), dtype=torch.float32, device=h.device)
     if n:
@@ -265,7 +290,8 @@ def xent_dh(h, w, b, lse, g, w_layout: str = "dv", wp=None) -> torch.Tensor:
     ``_dh_kernel``); CPU: :func:`lse_backward_plain`, reading ``wp`` if given."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
-        return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[0]
+        with _probe_cost("xent_dh", h, w, b, w_layout, packs=int(wp is None)):
+            return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[0]
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     dh = torch.empty((n, d), dtype=h.dtype, device=h.device)
     if n:
@@ -285,7 +311,8 @@ def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv", wp=None):
     :func:`lse_backward_plain`, reading ``wp`` if given."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
-        return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[1:]
+        with _probe_cost("xent_dwdb", h, w, b, w_layout, packs=int(wp is None)):
+            return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[1:]
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     if n == 0:
         return torch.zeros_like(w), torch.zeros((v,), dtype=torch.float32,
@@ -323,7 +350,9 @@ class _MatmulLogsumexp(torch.autograd.Function):
         g = g.float().contiguous()
         # One pack a backward, read by both kernels (the plain versions on the
         # CPU round w per chunk themselves).
-        wp = None if h.device.type == "cpu" or h.shape[0] == 0 else xent_pack_w(w, ctx.w_layout)
+        wp = None
+        if h.shape[0] and (h.device.type != "cpu" or costs.probing()):
+            wp = xent_pack_w(w, ctx.w_layout)
         dh = xent_dh(h, w, b, lse, g, ctx.w_layout, wp=wp)
         dw, db = xent_dwdb(h, w, b, lse, g, ctx.w_layout, wp=wp)
         return dh, dw, (db if b is not None else None), None
@@ -344,10 +373,11 @@ def fused_softmax_xent(h, w, targets, b=None, w_layout: str = "dv") -> torch.Ten
     The lse term runs through the kernels; the true logit is a gather and a
     row dot in plain torch (its gradient is the row-sparse scatter)."""
     lse = matmul_logsumexp(h, w, b, w_layout)
-    if _w_vd(w_layout):
-        w_true = w.index_select(0, targets)                  # [N, D]
-    else:
-        w_true = w.index_select(1, targets).T                # [N, D]
+    # Indexing, not index_select: its backward on the card (index_put_ with
+    # accumulate) sorts the targets and is deterministic, where
+    # index_select's (index_add_, atomics) is not, and a step must repeat
+    # itself bit for bit (run_many against run()).
+    w_true = (w if _w_vd(w_layout) else w.T)[targets]       # [N, D]
     true_logit = (h.float() * w_true.to(h.dtype).float()).sum(dim=-1)
     if b is not None:
         true_logit = true_logit + b[targets]

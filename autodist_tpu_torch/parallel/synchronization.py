@@ -315,8 +315,9 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
         p_hat = torch.linalg.qr(pmean(mat @ state["q"], spec))[0]
         q_new = pmean(mat.T @ p_hat, spec)
         approx = p_hat @ q_new.T
-        state["error"] = (mat - approx).reshape(shape).to(g.dtype)
-        state["q"] = q_new.to(state["q"].dtype)
+        # In place: a captured run_many graph holds the residual's address.
+        state["error"].copy_((mat - approx).reshape(shape))
+        state["q"].copy_(q_new)
         return approx.reshape(shape).to(g.dtype)
 
     def sparse_allgather(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -369,7 +370,7 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
             for k, x, part in zip(members, xs, synced.split([x.numel() for x in xs])):
                 out[k] = part.view(x.shape)
                 if kind == COMP_BF16_EF:
-                    ef_state[k]["error"] = x - decompress(compress(x, kind), x.dtype)
+                    ef_state[k]["error"].copy_(x - decompress(compress(x, kind), x.dtype))
         loss = pmean(loss.detach().clone(), None)
         return {k: layout.to_update(k, out[k]) for k in grads}, loss
 

@@ -62,6 +62,9 @@ class Node:
         self.address: str = str(entry["address"])
         self.chief: bool = bool(entry.get("chief", False))
         self.ssh_config_name: Optional[str] = entry.get("ssh_config")
+        # Whether the spec stated a bandwidth (not the 1 GBE default): the
+        # strategy search's lossy wire codecs are chosen only from a stated one.
+        self.bandwidth_specified: bool = "network_bandwidth" in entry
         self.network_bandwidth: int = int(
             entry.get("network_bandwidth", DEFAULT_NETWORK_BANDWIDTH_GBPS))
         if self.network_bandwidth <= 0:

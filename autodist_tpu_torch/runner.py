@@ -34,12 +34,33 @@ Gradient accumulation keeps the JAX runner's ``MicroBatched`` semantics
 (``runner.py:74-95,322-356``): batch leaves are split contiguously into
 ``[k, B/k, ...]``, the micro-gradients are summed and divided by ``k``, the
 reported loss is the mean of the micro losses, and the optimizer steps once.
+
+``run_many`` (``runner.py:982-1024``) runs K steps of a :class:`BatchBlock`
+as one dispatch. On a CUDA device the K steps (forward, backward with the
+hand-written kernels, gradient sync, optimizer step, ZeRO gather) are
+captured into one ``torch.cuda.CUDAGraph``, cached per (K, ``fetches``,
+the block's signature), and replayed; the block enters the graph's static
+``[K, ...]`` inputs by one ``copy_`` a leaf. A runner's first block on the
+card runs eagerly on a side stream before the capture, as PyTorch requires
+(it creates the optimizer state and every lazy handle); later blocks and
+signatures are captured and replayed straight away. A plan that cannot be
+captured raises ``RuntimeError`` with the cause: there is no eager path on
+the card. The optimizer runs with ``capturable=True`` on the card in
+``run()`` and in the graph alike (its step counters on the device), so
+``run_many(K)`` equals K ``run()`` calls bit for bit. On the CPU (the
+tests' path, and gloo ranks) the K steps run in order.
+
+``plan_costs`` (``runner.py:892-932``) executes no step and allocates
+nothing on the card: it traces one step's loss and gradient on fake CPU
+tensors and the optimizer's update on meta tensors, counting FLOPs, bytes
+and launches (:mod:`autodist_tpu_torch.ops.costs`).
 """
 
 import collections
 import dataclasses
+import logging
 import types
-from typing import Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,10 +68,13 @@ import torch.distributed as dist
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
+from autodist_tpu_torch.ops import costs
 from autodist_tpu_torch.parallel import synchronization
 from autodist_tpu_torch.parallel.layout import StateLayout
 from autodist_tpu_torch.parallel.mesh import DeviceMesh, joined_mesh, single_device_mesh
 from autodist_tpu_torch.parallel.plan import ASYNC_ROADMAP, DP_AXES, ShardingPlan
+
+_log = logging.getLogger("autodist_tpu_torch")
 
 
 class MicroBatched:
@@ -71,12 +95,14 @@ class ShardedBatch(dict):
     rows: Mapping[int, int] = types.MappingProxyType({})
 
 
-def _tree_map(fn: Callable, tree):
+def _tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and of ``rest``, trees of its
+    structure, leaf by leaf)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(_tree_map(fn, *parts) for parts in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def _stack_trees(trees):
@@ -103,6 +129,108 @@ def _leaves(tree):
     return [tree]
 
 
+def _structure(tree):
+    """The tree's shape without its leaves (a MicroBatched leaf marked)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    return "micro" if isinstance(tree, MicroBatched) else "leaf"
+
+
+def _signature(tree) -> tuple:
+    """What a captured program's static inputs depend on: each leaf's
+    place, layout, shape, dtype and device."""
+    out = []
+    for leaf in _leaves(tree):
+        t = leaf.value if isinstance(leaf, MicroBatched) else leaf
+        if isinstance(t, torch.Tensor):
+            out.append((isinstance(leaf, MicroBatched), tuple(t.shape), t.dtype, str(t.device)))
+        else:
+            out.append(repr(t))
+    return (_structure(tree), tuple(out))
+
+
+class BatchBlock:
+    """K laid-out batches stacked along a leading step axis
+    (``runner.py:98-116``). Built by :meth:`DistributedRunner.shard_block`
+    (or ``prefetch_to_device(..., unroll=K)``) and consumed by
+    :meth:`DistributedRunner.run_many`. ``tree`` holds this rank's stacked
+    rows on its device (micro-batched leaves ``[K, k, B/k, ...]``),
+    ``length`` the steps it carries and ``rows`` what
+    :attr:`ShardedBatch.rows` holds for each step."""
+
+    __slots__ = ("tree", "length", "rows")
+
+    def __init__(self, tree, length: int, rows: Optional[Mapping[int, int]] = None):
+        self.tree = tree
+        self.length = length
+        self.rows = types.MappingProxyType(dict(rows or {}))
+
+    def __len__(self) -> int:
+        return self.length
+
+    def step(self, i: int):
+        """Step ``i``'s batch: views into the block, laid out as
+        :meth:`DistributedRunner.shard_batch` lays one out."""
+        out = _tree_map(lambda l: MicroBatched(l.value[i]) if isinstance(l, MicroBatched)
+                        else l[i] if isinstance(l, torch.Tensor) else l, self.tree)
+        if isinstance(out, dict):
+            out = ShardedBatch(out)
+            out.rows = self.rows
+        return out
+
+
+def _state_tensors(state) -> Dict[tuple, torch.Tensor]:
+    """Every tensor a step reads and updates, by place: a captured graph
+    holds their addresses, so a step must update them in place."""
+    out = {("param", k): t for k, t in state.params.items()}
+    for k, t in state.opt_params.items():
+        out[("update", k)] = t
+        for field, value in state.optimizer.state.get(t, {}).items():
+            if isinstance(value, torch.Tensor):
+                out[("optimizer", k, field)] = value
+    for k, entry in state.ef_state.items():
+        for field, value in entry.items():
+            out[("codec", k, field)] = value
+    return out
+
+
+def _hyperparameters(optimizer) -> tuple:
+    """The optimizer's host-side settings, which a capture bakes in (its
+    tensors are read on the card at every replay)."""
+    return tuple((i, k, repr(v)) for i, g in enumerate(optimizer.param_groups)
+                 for k, v in sorted(g.items())
+                 if k != "params" and not isinstance(v, torch.Tensor))
+
+
+def _clone_outputs(tree):
+    return _tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+class _CapturedBlock:
+    """One captured K-step program: its graph, the static inputs the block
+    is copied into, its outputs, the launches each replay makes, and the
+    optimizer settings it was captured with."""
+
+    def __init__(self, graph, static, outputs, launches: Dict[str, int], hyper: tuple):
+        self.graph, self.static, self.outputs = graph, static, outputs
+        self.launches, self.hyper = launches, hyper
+
+    def replay(self, state, block: "BatchBlock"):
+        def put(dst, src):
+            if isinstance(dst, MicroBatched):
+                dst.value.copy_(src.value, non_blocking=True)
+            elif isinstance(dst, torch.Tensor):
+                dst.copy_(src, non_blocking=True)
+
+        _tree_map(put, self.static, block.tree)
+        self.graph.replay()
+        costs.add_launches(self.launches)
+        state.step += block.length
+        return _clone_outputs(self.outputs)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Step count, parameters (this rank's storage, leaf tensors keyed by
@@ -121,6 +249,10 @@ class TrainState:
 
 class DistributedRunner:
     """Synchronous data-parallel runner of a compiled strategy."""
+
+    # Every plan the port runs has the fused multi-step path (an async plan
+    # raises at construction until its regime is ported).
+    supports_run_many = True
 
     def __init__(self, compiled_strategy, model_spec: ModelSpec, loss_fn: Callable,
                  optimizer: Callable, device: torch.device,
@@ -164,6 +296,15 @@ class DistributedRunner:
                                f"run it (one process per device)")
         self._data_index = self.mesh.index(DP_AXES)
         self._dp_group = self.mesh.group(DP_AXES)
+        # The autotuner's plan, when AutoDist applied one (train() adopts
+        # its unroll).
+        self.tuned_plan = None
+        # run_many's captured programs on the card, for the state they hold
+        # the addresses of; whether a step has run eagerly on the card yet.
+        self._graphs: Dict[tuple, _CapturedBlock] = {}
+        self._graph_state: Optional["TrainState"] = None
+        self._graph_pool = None
+        self._warm = False
 
     # ------------------------------------------------------------------- state
     def init(self, params: Dict[str, torch.Tensor]) -> TrainState:
@@ -189,8 +330,14 @@ class DistributedRunner:
             if self.layout.by_key[key].sharded_update:
                 opt_params[key] = self.layout.to_update(key, placed[key]).detach().clone(
                     memory_format=torch.contiguous_format).requires_grad_()
-        return TrainState(step=0, params=placed,
-                          optimizer=self._optimizer(list(opt_params.values())),
+        optimizer = self._optimizer(list(opt_params.values()))
+        if self.device.type == "cuda":
+            # Step counters on the card, in run() and in run_many's graphs
+            # alike, so the two make the same optimizer calls.
+            for group in optimizer.param_groups:
+                if "capturable" in group:
+                    group["capturable"] = True
+        return TrainState(step=0, params=placed, optimizer=optimizer,
                           ef_state=synchronization.init_compressor_state(
                               self.plan, self._model_spec, self.device),
                           opt_params=opt_params, layout=self.layout)
@@ -398,6 +545,17 @@ class DistributedRunner:
         this rank's rows is all-gathered over the data ranks into the global
         ``[rows, ...]`` array, any other leaf averaged over them."""
         sharded = self.shard_batch(batch)
+        out = self._step(state, sharded, fetches)
+        self._warm = True
+        return state, self._fetched(*out, fetches)
+
+    def _fetched(self, loss, aux, extra, fetches):
+        default = (loss, aux) if self._has_aux else loss
+        return default if fetches is None else (default, extra)
+
+    def _step(self, state: TrainState, sharded, fetches: Optional[Callable]):
+        """The step body that :meth:`run` runs and :meth:`run_many` runs K
+        times (or captures): ``(loss, aux, fetched)``, made global."""
         params = self._loss_view(state)
         if self._accum > 1:
             grads, loss, aux = self._accumulate(params, sharded, state.ef_state)
@@ -411,10 +569,13 @@ class DistributedRunner:
                     fetches(params, _fold(sharded)))
         for key, g in grads.items():
             state.opt_params[key].grad = g
-        state.optimizer.step()
+        try:
+            state.optimizer.step()
+        finally:
+            for key in grads:
+                state.opt_params[key].grad = None
         by_axes: Dict[tuple, list] = {}
         for key in grads:
-            state.opt_params[key].grad = None
             pl = self.layout.by_key[key]
             if pl.sharded_update:
                 by_axes.setdefault(pl.update_axes, []).append(key)
@@ -424,10 +585,279 @@ class DistributedRunner:
         rows = self._rows(sharded)
         if self._has_aux:
             aux = self._global(aux, rows)
-        default = (loss, aux) if self._has_aux else loss
-        if fetches is None:
-            return state, default
-        return state, (default, self._global(extra, rows))
+        if fetches is not None:
+            extra = self._global(extra, rows)
+        return loss, aux, extra
+
+    # ------------------------------------------------------------ fused steps
+    def _place_block_leaf(self, t: torch.Tensor) -> torch.Tensor:
+        """A stacked host leaf to the device: one pinned, non-blocking copy."""
+        if self.device.type == "cuda" and not t.is_cuda:
+            return t.contiguous().pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device, non_blocking=True)
+
+    def shard_block(self, batches, place: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> BatchBlock:
+        """K batches stacked into one :class:`BatchBlock` for :meth:`run_many`
+        (``runner.py:610-640``): :meth:`shard_batch`'s layout with a leading
+        step axis of length K. Leaves are stacked where they are (on the
+        host for host batches), then placed once each, by ``place`` (default:
+        one pinned, non-blocking copy a leaf on the card); micro-batched
+        leaves lay out ``[K, k, B/k, ...]``. Batches that
+        :meth:`shard_batch` already laid out stack as they are. Mismatched
+        structures and ragged shapes raise ``ValueError``."""
+        batches = list(batches)
+        if not batches:
+            raise ValueError("shard_block needs at least one batch")
+        first = _structure(batches[0])
+        for i, b in enumerate(batches[1:], 1):
+            if _structure(b) != first:
+                raise ValueError(
+                    f"shard_block: batch {i}'s structure {_structure(b)} does not match "
+                    f"batch 0's {first}; a block runs one captured step over "
+                    f"uniformly-shaped batches")
+        K = len(batches)
+        place = place or self._place_block_leaf
+
+        def stacked(leaves):
+            ts = [torch.as_tensor(l) for l in leaves]
+            shapes = sorted({tuple(t.shape) for t in ts})
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"shard_block: batches disagree on a leaf's shape {shapes}; a block "
+                    f"runs one captured step over uniformly-shaped batches: pad the "
+                    f"ragged batch (or use unroll=1 / per-step run() for shape-bucketed "
+                    f"data)")
+            device = next((t.device for t in ts if t.device.type != "cpu"), None)
+            return torch.stack([t.to(device) for t in ts] if device is not None else ts)
+
+        if all(isinstance(b, ShardedBatch) for b in batches):
+            tree = _tree_map(lambda *ls: MicroBatched(stacked([l.value for l in ls]))
+                              if isinstance(ls[0], MicroBatched) else stacked(ls), *batches)
+            return BatchBlock(tree, K, batches[0].rows)
+        k, dp, data_index = self._accum, self._dp, self._data_index
+        folded = [_fold(b) for b in batches]
+        batch_dim = 0
+        if k > 1:
+            dims = self._leading_dims(folded[0])
+            batch_dim = self._infer_batch_dim(dims, k * dp)
+            if batch_dim not in dims:
+                raise ValueError(
+                    f"batch_size={batch_dim} matches no leaf's leading dim (present: "
+                    f"{sorted(dims)}); nothing would be micro-split for "
+                    f"accumulation_steps={k}")
+        rows: Dict[int, int] = {}
+
+        def put(*leaves):
+            t = stacked(leaves)
+            shape = tuple(t.shape[1:])
+            if k > 1 and len(shape) >= 1 and shape[0] == batch_dim:
+                if shape[0] % (k * dp):
+                    raise ValueError(
+                        f"Global batch {shape[0]} is not divisible into "
+                        f"accumulation_steps={k} micro-batches over {dp} data "
+                        f"replicas; make it divisible by {k * dp}")
+                micro = t.reshape(K, k, shape[0] // k, *shape[1:])
+                if dp > 1:
+                    micro = micro[:, :, self.plan.batch_rows(micro.shape[2], data_index)]
+                rows[micro.shape[1] * micro.shape[2]] = k
+                return MicroBatched(place(micro))
+            if dp > 1 and len(shape) >= 1 and shape[0] % dp == 0:
+                t = t[:, self.plan.batch_rows(shape[0], data_index)]
+                rows.setdefault(t.shape[1], 1)
+            return place(t)
+
+        tree = _tree_map(put, *folded)
+        return BatchBlock(tree, K, rows)
+
+    def run_many(self, state: TrainState, batches, fetches: Optional[Callable] = None):
+        """K synchronized training steps as one dispatch; returns ``(state,
+        fetched)`` (``runner.py:982-1024``).
+
+        ``batches`` is a sequence of K batches or a :class:`BatchBlock`
+        (:meth:`shard_block`, ``prefetch_to_device(..., unroll=K)``). The
+        result equals K :meth:`run` calls bit for bit. ``fetched`` is
+        :meth:`run`'s with a leading ``[K]`` step axis: the losses as a
+        ``[K]`` stack, aux and ``fetches=fn`` results stacked per step (each
+        from that step's pre-update params). On a CUDA device the K steps
+        are one captured graph (see the module docstring); a plan that
+        cannot be captured raises ``RuntimeError`` naming the cause."""
+        block = batches if isinstance(batches, BatchBlock) else self.shard_block(batches)
+        if self.device.type == "cuda":
+            out = self._run_graphed(state, block, fetches)
+        else:
+            out = self._stacked([self._step(state, block.step(i), fetches)
+                                 for i in range(block.length)], fetches)
+        return state, self._fetched(*out, fetches)
+
+    def _stacked(self, outs, fetches):
+        losses = torch.stack([o[0] for o in outs])
+        aux = _stack_trees([o[1] for o in outs]) if self._has_aux else ()
+        extra = _stack_trees([o[2] for o in outs]) if fetches is not None else None
+        return losses, aux, extra
+
+    def _run_graphed(self, state: TrainState, block: BatchBlock, fetches):
+        """The block through its captured graph: captured first where none
+        holds this (K, fetches, signature) for this state and these optimizer
+        settings, after an eager warm-up on a side stream when no step has run
+        on the card yet (that block's steps are the warm-up's)."""
+        if self._graph_state is not state:
+            self._graphs.clear()
+            self._graph_state = state
+        key = (block.length, fetches, _signature(block.tree))
+        hyper = _hyperparameters(state.optimizer)
+        graph = self._graphs.get(key)
+        if graph is not None and graph.hyper == hyper:
+            return graph.replay(state, block)
+        warmed = None
+        if not self._warm:
+            warmed = self._warm_up(state, block, fetches)
+        graph = self._graphs[key] = self._capture(state, block, fetches, hyper)
+        return warmed if warmed is not None else graph.replay(state, block)
+
+    def _warm_up(self, state: TrainState, block: BatchBlock, fetches):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._stacked([self._step(state, block.step(i), fetches)
+                                 for i in range(block.length)], fetches)
+        current.wait_stream(side)
+        for t in _leaves(out):
+            if isinstance(t, torch.Tensor):
+                t.record_stream(current)
+        self._warm = True
+        return out
+
+    def _capture(self, state: TrainState, block: BatchBlock, fetches, hyper) -> _CapturedBlock:
+        static_tree = _tree_map(
+            lambda l: MicroBatched(l.value.clone()) if isinstance(l, MicroBatched)
+            else l.clone() if isinstance(l, torch.Tensor) else l, block.tree)
+        static = BatchBlock(static_tree, block.length, block.rows)
+        before = _state_tensors(state)
+        step0 = state.step
+        graph = torch.cuda.CUDAGraph()
+        if self._graph_pool is None:
+            # One memory pool for every graph of the runner: they replay one
+            # at a time on one stream, and each replay's outputs are cloned
+            # before the next, so one step's temporaries serve them all.
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        try:
+            with costs.recorded_launches() as launches:
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    outputs = self._stacked([self._step(state, static.step(i), fetches)
+                                             for i in range(static.length)], fetches)
+        except Exception as e:  # noqa: BLE001 — named, then raised
+            raise RuntimeError(
+                f"run_many: this plan cannot be captured into a CUDA graph, so it has no "
+                f"fused {block.length}-step program on the card ({type(e).__name__}: "
+                f"{e}); run it per step: run(), or train(..., unroll=1)") from e
+        finally:
+            state.step = step0
+        rebound = [name for name, t in _state_tensors(state).items() if before.get(name) is not t]
+        if rebound:
+            raise RuntimeError(
+                f"run_many: the step replaced state tensors {rebound[:4]} instead of "
+                f"updating them in place, so a captured graph cannot replay it; run it "
+                f"per step: run(), or train(..., unroll=1)")
+        return _CapturedBlock(graph, static_tree, outputs, dict(launches), hyper)
+
+    # --------------------------------------------------------------- cost probe
+    def plan_costs(self, params, example_batch, unroll: int = 1) -> Optional[dict]:
+        """Static cost probe of this runner's step (``runner.py:892-932``):
+        ``{"flops", "bytes_accessed", "steps", "dispatches", "launches",
+        "source"}`` per dispatch, the record
+        :func:`autodist_tpu_torch.telemetry.costmodel.predict` prices, or None
+        when the step does not trace. **No step executes and nothing is
+        allocated on the card**: the loss and its gradient are traced on
+        fake CPU tensors of ``params``' and ``example_batch``'s shapes (this
+        rank's rows of one micro-batch, counted ``k`` times, with the
+        accumulation's adds), and the optimizer's update on meta tensors.
+        The kernel wrappers count their kernels' HBM bytes, operations and
+        launches in place of their plain versions'. ``launches`` counts the
+        ATen ops of one eager step that launch work on the card, each a host
+        dispatch (one op may launch several kernels); ``unroll=K`` describes
+        a K-step graph, one replay (``launches`` 1) doing K steps' work."""
+        if unroll < 1:
+            raise ValueError("unroll must be >= 1")
+        missing = set(self._model_spec.keys.values()) - set(params)
+        if missing:
+            raise ValueError(f"params lack {sorted(missing)}")
+        try:
+            cost = self._step_cost(example_batch)
+        except Exception as e:  # noqa: BLE001 — a probe that cannot trace reports nothing
+            _log.warning("plan_costs: the step did not trace (%s: %s); no cost",
+                         type(e).__name__, e)
+            return None
+        if unroll > 1:
+            return {"flops": cost["flops"] * unroll,
+                    "bytes_accessed": cost["bytes_accessed"] * unroll,
+                    "steps": unroll, "dispatches": 1, "launches": 1, "source": "fake-trace"}
+        return dict(cost, steps=1, dispatches=1, source="fake-trace")
+
+    def _step_cost(self, example_batch) -> Dict[str, Any]:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        k, dp = self._accum, self._dp
+        host = _tree_map(lambda l: torch.as_tensor(l) if isinstance(l, np.ndarray) else l,
+                         _fold(example_batch))
+        batch_dim = None
+        if k * dp > 1:
+            batch_dim = self._infer_batch_dim(self._leading_dims(host), k * dp)
+        trainable = {self._model_spec.keys[n] for n in self._model_spec.trainable}
+
+        def fake(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            shape = tuple(t.shape)
+            if batch_dim and shape and shape[0] == batch_dim:
+                shape = (batch_dim // (k * dp),) + shape[1:]
+            return torch.empty(shape, dtype=t.dtype)
+
+        with FakeTensorMode():
+            params = {key: torch.empty(self._model_spec[name].shape,
+                                       dtype=self._model_spec[name].dtype)
+                      .requires_grad_(key in trainable)
+                      for name, key in self._model_spec.keys.items()}
+            batch = _tree_map(fake, host)
+            with costs.StepCost() as micro:
+                grads, _, _ = self._grad_fn.local(params, batch)
+            grad_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+        flops = micro.flops * k
+        nbytes = micro.bytes_accessed * k
+        launches = micro.launches * k
+        if k > 1:   # the micro-gradients' sum, its division and the losses' mean
+            nbytes += 3 * grad_bytes * (k - 1) + 2 * grad_bytes
+            launches += len(grads) * k + 2
+        update = self._update_cost()
+        return {"flops": flops + update.flops,
+                "bytes_accessed": nbytes + update.bytes_accessed,
+                "launches": launches + update.launches}
+
+    def _update_cost(self):
+        """The optimizer's update, counted on meta tensors of the trainable
+        parameters' shapes (its second step: the first creates its state),
+        with the card's default implementation (``foreach``). An optimizer
+        that cannot step on meta tensors is counted as nothing."""
+        metas = [torch.empty(p.shape, dtype=p.dtype, device="meta", requires_grad=True)
+                 for p in self._model_spec.trainable.values()]
+        optimizer = self._optimizer(metas)
+        if self.device.type == "cuda":
+            for group in optimizer.param_groups:
+                if "foreach" in group and group["foreach"] is None:
+                    group["foreach"] = True
+        for p in metas:
+            p.grad = torch.empty_like(p)
+        cost = costs.StepCost()
+        try:
+            optimizer.step()
+            with cost:
+                optimizer.step()
+        except Exception as e:  # noqa: BLE001 — host reads (Adafactor's) do not run on meta
+            _log.info("plan_costs: %s does not step on meta tensors (%s); its update is "
+                      "not counted", type(optimizer).__name__, e)
+            return costs.StepCost()
+        return cost
 
     def evaluate(self, state: TrainState, batch, fn: Optional[Callable] = None):
         """``fn(params, batch)`` (default: the loss) on the logical params and

@@ -1,10 +1,13 @@
-"""Strategy builders of the port: the synchronous family of the JAX
-package's twelve (``autodist_tpu/strategy/__init__.py``). ``ExpertParallel``
-and ``Pipeline`` come with the models that use them, and the strategy
-search (``AutoStrategy``, the tuner, ``autotune``) after ``run_many``
-(``ROADMAP.md``, Queue 1 item 3): each raises ``NotImplementedError``."""
+"""Strategy builders of the port (``autodist_tpu/strategy/__init__.py:22-38``):
+the synchronous family of the JAX package's twelve, and the strategy search
+(``AutoStrategy``, the tuner and ``autotune``). ``ExpertParallel`` and
+``Pipeline`` come with the models that use them (``moe``, ``pipeline_lm``)
+and raise ``NotImplementedError`` until then."""
 
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+from autodist_tpu_torch.strategy.auto_strategy import AutoStrategy, choose_optimizer
+from autodist_tpu_torch.strategy.autotune import (Candidate, TunedPlan, autotune,
+                                                  enumerate_candidates, plan_cache_key)
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
 from autodist_tpu_torch.strategy.parallax_strategy import Parallax
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import PartitionedAR
@@ -14,9 +17,12 @@ from autodist_tpu_torch.strategy.ps_strategy import PS
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy import \
     RandomAxisPartitionAR
 from autodist_tpu_torch.strategy.sequence_parallel_strategy import SequenceParallel
+from autodist_tpu_torch.strategy.tuner import (CandidateResult, TuneResult, measure_candidate,
+                                               tune_strategy)
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import UnevenPartitionedPS
 
-UNPORTED_ROADMAP = "ROADMAP.md, Queue 1 item 3"
+UNPORTED_ROADMAP = ("ROADMAP.md, Queue 1 item 3: ExpertParallel with moe, and Pipeline with "
+                    "pipeline_lm")
 
 
 class _Unported:
@@ -35,7 +41,9 @@ class Pipeline(_Unported):
     pass
 
 
-__all__ = ["AllReduce", "ExpertParallel", "PS", "PSLoadBalancing", "Parallax",
-           "PartitionedAR", "PartitionedPS", "Pipeline", "RandomAxisPartitionAR",
-           "SequenceParallel", "Strategy", "StrategyBuilder", "StrategyCompiler",
-           "UnevenPartitionedPS", "byte_size_load_fn"]
+__all__ = ["AllReduce", "AutoStrategy", "Candidate", "CandidateResult", "ExpertParallel",
+           "PS", "PSLoadBalancing", "Parallax", "PartitionedAR", "PartitionedPS", "Pipeline",
+           "RandomAxisPartitionAR", "SequenceParallel", "Strategy", "StrategyBuilder",
+           "StrategyCompiler", "TuneResult", "TunedPlan", "UnevenPartitionedPS", "autotune",
+           "byte_size_load_fn", "choose_optimizer", "enumerate_candidates",
+           "measure_candidate", "plan_cache_key", "tune_strategy"]

@@ -1,7 +1,8 @@
 """Throughput metering (the port's copy of ``autodist_tpu/utils/metrics.py:127-282``,
 ``ThroughputMeter``): examples/s per log period and a run average, with the
-first steps excluded as warm-up and the period's readback wait recorded.
-The caller logs the period's rate.
+first steps excluded as warm-up and the period's readback wait recorded;
+``step_many`` meters a fused block of steps (``run_many``) at block
+granularity. The caller logs the period's rate.
 """
 
 import time
@@ -9,15 +10,15 @@ from typing import List, Optional
 
 
 def _sync(value) -> float:
-    """Read ``value`` (a step's loss tensor) back to the host, a completion
-    fence for the step it came from: CUDA runs asynchronously, so a rate
-    taken without it measures the enqueue. Returns the seconds spent
-    blocked (0.0 for no value)."""
+    """Read ``value`` (a step's loss tensor, or a block's ``[K]`` stack of
+    them) back to the host, a completion fence for the step it came from:
+    CUDA runs asynchronously, so a rate taken without it measures the
+    enqueue. Returns the seconds spent blocked (0.0 for no value)."""
     if value is None:
         return 0.0
     t0 = time.perf_counter()
-    if hasattr(value, "item"):
-        value.item()
+    if hasattr(value, "reshape"):
+        value.reshape(-1)[-1].item()
     return time.perf_counter() - t0
 
 
@@ -36,6 +37,7 @@ class ThroughputMeter:
         self._run_start = now
         self._run_end: Optional[float] = None   # frozen by finish()
         self._run_steps = 0
+        self._period_steps = 0   # block-mode (step_many) period accounting
         self._period_readback_s = 0.0
         # Seconds the last closed period spent blocked on the readback.
         self.last_readback_s = 0.0
@@ -71,6 +73,42 @@ class ThroughputMeter:
             self._period_readback_s = 0.0
             return rate
         return None
+
+    def step_many(self, n: int, sync=None) -> Optional[float]:
+        """Record ``n`` steps completed as one fused dispatch (a
+        ``run_many`` block); returns the period rate when a period closed
+        inside the block. The first call is wholly warm-up (it carries the
+        block's capture); a period closes at the first block end with at
+        least ``log_every`` post-warm-up steps since the last one, and the
+        rate counts the steps it really holds, so periods made ragged by
+        cadence-clipped blocks stay unbiased. ``sync`` is read back only
+        when a period closes."""
+        if n < 1:
+            return None
+        first = self._step == 0
+        self._step += n
+        self._run_end = None
+        if first and self._warmup:
+            _sync(sync)
+            now = time.perf_counter()
+            self._period_start = now
+            self._run_start = now
+            self._run_steps = 0
+            self._period_steps = 0
+            return None
+        self._run_steps += n
+        self._period_steps += n
+        if self._period_steps < self._log_every:
+            return None
+        self._period_readback_s += _sync(sync)
+        now = time.perf_counter()
+        rate = self._period_steps * self._batch_size / (now - self._period_start)
+        self.history.append(rate)
+        self._period_start = now
+        self._period_steps = 0
+        self.last_readback_s = self._period_readback_s
+        self._period_readback_s = 0.0
+        return rate
 
     def finish(self) -> Optional[float]:
         """Freeze the run clock at training end; returns the final average.

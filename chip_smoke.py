@@ -6,8 +6,9 @@ seq 256, at seq 8,192, at seq 8,192 through the sequence-parallel path (a
 ring of one card, and Ulysses on one card), and at seq 256 under every
 synchronous strategy; then the data plane, the image-classification
 family (the CNN zoo at full width through the ImageNet benchmark entry
-point), and the text family with the rest of the benchmark suite (BERT, NCF,
-disk input, the raw baseline and the sweep).
+point), the text family with the rest of the benchmark suite (BERT, NCF,
+disk input, the raw baseline and the sweep), and ``run_many``'s CUDA graphs
+with the strategy search.
 
     python3 chip_smoke.py
 
@@ -122,8 +123,9 @@ exits non-zero without them, or when any phase fails. Phases:
    head (rtol 1e-2). Then the entry point's own ``main``: 2 warm-up and
    FLAGSHIP_STEPS timed steps, launch counts set to 0 just before and read
    just after (each fused-head kernel must launch 8 times a step, the pack
-   16; the final loss finite), its tokens/s, MFU and peak memory; and a
-   profiler window over 2 steps.
+   16; the final loss finite), its tokens/s, MFU and peak memory; a
+   profiler window over 2 steps; and ``plan_costs``' FLOPs and bytes of the
+   step over its measured seconds (the bundled calibration's device rates).
 10. ``train()`` at full width (the flagship model, micro-batches of 32 x 256
    with 2-way accumulation) on host batches through the prefetching device
    feed (``prefetch_depth=2``: pinned memory, a side stream) into a
@@ -214,8 +216,40 @@ exits non-zero without them, or when any phase fails. Phases:
    ``raw_torch_baseline`` for ResNet-50 at 128 beside phase 14's
    ``AllReduce`` rate at 128; ``run_all --list``, and one ``--only ncf
    --steps 5`` row run in its own process and parsed as the sweep parses it.
-16. One JSON line of per-kernel numbers (all seven kernels), then the result
-   line.
+16. ``run_many`` and the strategy search (launch counts set to 0 at its
+   start and banked wherever it sets them to 0 again). ``run_many`` against
+   ``run()`` on fresh sessions with the same weights and batches: two
+   ``run()`` steps (the card's warm-up), then blocks of two, the first
+   captured into a CUDA graph and replayed, the second replayed; the
+   losses and every parameter after must equal six ``run()`` steps bit for
+   bit, and one replay must count twice one step's launches. So for the
+   flagship at its real shape with accumulation off (384 x 256, as
+   ``bench.py``'s unroll sweep), for the long-context model of phase 6
+   (flash: 12 forward, 6 dK/dV and 6 dQ launches a step), and for each of
+   phase 11's twelve lowerings at phase 4's size (each captured, or its
+   raise printed). The flagship's tokens/s and peak memory by unroll factor
+   (``run()``, then ``run_many`` at K = 1, 2 and 4, FLAGSHIP_UNROLL_STEPS
+   steps each on one session, the peak reset before each; the fused-head
+   launches per step at K = 4 must equal K = 1's). The uncompressed
+   lowerings share ``AllReduce()``'s ``run()`` reference (on one card they
+   equal it bit for bit, phase 11). NCF at 65,536 under ``Parallax`` (the benchmark's
+   ``--strategy AllReduce`` if it cannot be captured, with the reason
+   printed): steps/s under ``run()`` and at K = 1, 2, 4 and 8, the host's
+   seconds to enqueue one ``run()`` step over ``plan_costs``' launches (the
+   bundled calibration's host term), and the idle share at ``run()`` and K
+   = 8 from profiler windows. Then ``AutoDist(strategy_builder="autotune")``
+   on NCF at 65,536: the search's table, enumerated, probed (at most
+   ``AUTODIST_TUNE_TOPK``), its seconds, the winner, each probed
+   candidate's predicted step time beside its measured one, the default
+   plan's steps/s beside the winner's; the session's ``tuned_plan`` must be
+   set (the search applied, not degraded to the default builder), no
+   candidate may fail with an error, and ``train()`` for SEARCH_TRAIN_STEPS
+   steps must run in blocks of the plan's ``unroll``.
+17. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll``), then the result line.
+
+``python3 chip_smoke.py --only unroll`` builds the kernels and runs phase 16
+alone, without the kernel line.
 """
 
 import collections
@@ -325,6 +359,15 @@ STRATEGY_LOWERINGS = (
      {"compressor": "PowerSGDCompressor", "power_sgd_rank": 2}, {}, "error"),
     ("AllReduce() zero=1", "AllReduce", {}, {"zero": 1}, None),
 )
+# Phase 16: the flagship's unroll factors (0: run() itself) and the steps
+# timed at each; NCF's factors, the steps timed at each and its profiler
+# windows' steps.
+FLAGSHIP_UNROLLS = (0, 1, 2, 4)
+FLAGSHIP_UNROLL_STEPS = 8
+NCF_UNROLLS = (1, 2, 4, 8)
+NCF_UNROLL_STEPS, NCF_PROFILE_STEPS = 64, 16
+# Phase 16b: train() steps after the search.
+SEARCH_TRAIN_STEPS = 16
 
 
 def log(msg: str) -> None:
@@ -1118,6 +1161,14 @@ def flagship_full_path(kernels, dev):
     _, step, batch = flagship_lm.build(args)
     float(step(batch))
     profile_steps(step, [batch] * 2, label="flagship profile")
+    # The bundled calibration's device rates: plan_costs' counts of this
+    # step over its measured seconds.
+    cost = step.runner.plan_costs(step.get_state().params, batch)
+    step_s = FLAGSHIP_ACCUM * FLAGSHIP_ROWS / result["value"]
+    log(f"flagship: calibration: plan_costs flops {cost['flops']:.6e}, bytes "
+        f"{cost['bytes_accessed']:.6e}, launches {cost['launches']} a step; step "
+        f"{step_s:.6f} s: flops_per_s {cost['flops'] / step_s:.4e}, bytes_per_s "
+        f"{cost['bytes_accessed'] / step_s:.4e}; card {card_line()}")
     return launches
 
 
@@ -1701,7 +1752,360 @@ def text_path(kernels, dev, resnet_rate: float):
     return launches
 
 
-def main() -> int:
+
+def free_card():
+    """Drop what the last run left on the card before the next one is built."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# Phase 16's launches, banked each time its counts are set to 0.
+UNROLL_LAUNCHES = collections.Counter()
+
+
+def bank(kernels):
+    """Add the kernels' counts to phase 16's tally and set them to 0."""
+    for k in kernels:
+        UNROLL_LAUNCHES[k.__name__] += k.launches
+        k.launches = 0
+
+
+def same_params(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def host_params(runner, state):
+    return {k: v.detach().cpu() for k, v in runner.logical_params(state).items()}
+
+
+def fused_against_steps(build, batches, kernels, label, reference=None):
+    """``run_many`` against ``run()`` on one runner's path: a fresh session
+    runs every batch through ``run()`` (unless ``reference``, such a run's
+    ``(losses, host params)``, is given); another runs the first two through
+    ``run()`` (the card's warm-up), then the rest as blocks of 2 through
+    ``run_many`` (the first block captured, then replayed), the launch
+    counts set to 0 just before each block and read just after. Returns
+    ``(bit-identical, launches of one run() step, launches of one replay,
+    the reference)``; raises what ``run_many`` raised."""
+    if reference is None:
+        step = build()
+        runner, state = step.runner, step.get_state()
+        reference = ([float(runner.run(state, b)[1]) for b in batches],
+                     host_params(runner, state))
+        del step, runner, state
+        free_card()
+    want, want_params = reference
+    step = build()
+    runner, state = step.runner, step.get_state()
+    got = [float(runner.run(state, batches[0])[1])]
+    bank(kernels)
+    got.append(float(runner.run(state, batches[1])[1]))
+    per_step = {k.__name__: k.launches for k in kernels}
+    per_replay = {}
+    for i in range(2, len(batches), 2):
+        bank(kernels)
+        _, losses = runner.run_many(state, batches[i:i + 2])
+        got += [float(x) for x in losses]
+        per_replay = {k.__name__: k.launches for k in kernels}
+    same = got == want and same_params(host_params(runner, state), want_params)
+    log(f"unroll: {label}: run_many(2) {'equals' if same else 'DIFFERS FROM'} run() bit for "
+        f"bit; losses {got} vs {want}; launches of one run() step {per_step}, of one replay "
+        f"{per_replay}")
+    del step, runner, state
+    free_card()
+    return same, per_step, per_replay, reference
+
+
+def unroll_rate(runner, state, block, steps: int, kernels):
+    """Blocks of ``block`` through ``run_many`` after one captured block:
+    ``(steps/s, launches per step)`` over ``steps`` steps, the counts set to
+    0 just before and read just after."""
+    _, losses = runner.run_many(state, block)
+    float(losses[-1])
+    n = max(1, steps // block.length)
+    bank(kernels)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, losses = runner.run_many(state, block)
+    float(losses[-1])                         # the fence: the last block's loss
+    dt = time.perf_counter() - t0
+    done = n * block.length
+    return done / dt, {k.__name__: k.launches / done for k in kernels}
+
+
+def idle_share(fn, calls: int, steps_per_call: int, label: str):
+    """A profiler window over ``calls`` calls of ``fn`` (each ``steps_per_call``
+    steps): the device's busy ms a step and its idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        float(out.reshape(-1)[-1])
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    steps = calls * steps_per_call
+    if not kernels:
+        log(f"{label}: the profiler recorded no device time; idle share not measured")
+        return None
+    busy = busy_us(kernels) / 1e6
+    share = 1 - busy / wall
+    log(f"{label}: {steps} steps, {1e3 * wall / steps:.3f} ms/step wall with the profiler "
+        f"on, device busy {1e3 * busy / steps:.3f} ms/step, idle share {share:.3f}, "
+        f"{len(kernels) / steps:.1f} kernels/step")
+    return share
+
+
+def unroll_path(kernels, dev):
+    """Phase 16: run_many (CUDA graphs of K steps) and the strategy search."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import strategy as st
+    from autodist_tpu_torch.examples import flagship_lm
+    from autodist_tpu_torch.examples import long_context_lm as lc
+    from autodist_tpu_torch.examples.benchmark import ncf as ncf_bench
+    from autodist_tpu_torch.models import transformer_lm as tlm
+
+    for k in kernels:
+        k.launches = 0
+    UNROLL_LAUNCHES.clear()
+    failures = []
+
+    # The flagship at its real shape, accumulation off (bench.py's sweep).
+    args = flagship_lm.parse_args(["--device", str(dev), "--accum", "1"])
+    cfg = flagship_lm.build(args)[0]
+    free_card()
+    tokens = args.micro_batch * args.seq_len
+    batches = [tlm.synthetic_batch(cfg, args.micro_batch, args.seq_len, seed=3000 + i)
+               for i in range(6)]
+    same, per_step, per_replay, _ = fused_against_steps(
+        lambda: flagship_lm.build(args)[1], batches, kernels, "flagship 384 x 256")
+    if not same or any(per_replay[n] != 2 * per_step[n] for n in per_step):
+        failures.append("flagship: run_many(2) is not two run() steps")
+    rates = {}
+    free_card()
+    _, step, batch = flagship_lm.build(args)
+    runner, state = step.runner, step.get_state()
+    float(runner.run(state, batch)[1])
+    for factor in FLAGSHIP_UNROLLS:
+        torch.cuda.reset_peak_memory_stats()
+        if factor == 0:     # run() itself, the per-step baseline
+            bank(kernels)
+            t0 = time.perf_counter()
+            for _ in range(FLAGSHIP_UNROLL_STEPS):
+                loss = runner.run(state, batch)[1]
+            float(loss)
+            rate = FLAGSHIP_UNROLL_STEPS / (time.perf_counter() - t0)
+            launches = {k.__name__: k.launches / FLAGSHIP_UNROLL_STEPS for k in kernels}
+        else:
+            rate, launches = unroll_rate(runner, state, runner.shard_block([batch] * factor),
+                                         FLAGSHIP_UNROLL_STEPS, kernels)
+        label = "run()" if factor == 0 else f"K={factor}"
+        rates[label] = (rate, launches)
+        log(f"unroll: flagship {label}: {rate * tokens:.1f} tokens/s ({rate:.4f} steps/s), "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, launches per "
+            f"step {launches}; card {card_line()}")
+    del step, runner, state, batch
+    fused_head = ("xent_fwd", "xent_dh", "xent_dwdb", "xent_pack_w")
+    if any(rates["K=4"][1][n] != rates["K=1"][1][n] or rates["K=1"][1][n] <= 0
+           for n in fused_head):
+        failures.append(f"flagship: fused-head launches per step at K=4 "
+                        f"{rates['K=4'][1]} are not K=1's {rates['K=1'][1]}")
+
+    # Long context (phase 6's model, flash, every block rematerialized).
+    free_card()
+    lc_args = lc.parse_args(["--seq_len", str(LC_SEQ), "--batch_size", str(LC_BATCH),
+                             "--device", str(dev)])
+    lc_cfg = lc.build(lc_args)[0]
+    free_card()
+    lc_batches = [tlm.synthetic_batch(lc_cfg, LC_BATCH, LC_SEQ, seed=4000 + i)
+                  for i in range(4)]
+    same, per_step, per_replay, _ = fused_against_steps(
+        lambda: lc.build(lc_args)[1], lc_batches, kernels, "long context 8 x 8,192")
+    flash = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    if not same or any(per_step[n] <= 0 or per_replay[n] != 2 * per_step[n] for n in flash):
+        failures.append("long context: run_many(2) is not two run() steps, or the flash "
+                        "launches per replay are not twice a step's")
+
+    # Phase 11's lowerings at phase 4's size: each captured or refused.
+    one_card = {"nodes": [{"address": "localhost", "gpus": [0]}]}
+    model_cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6,
+                                        d_ff=2048, max_len=512, fused_head=True,
+                                        tied_output=False, dtype=torch.bfloat16)
+    model, params = tlm.init_params(model_cfg, seed=0, device=dev)
+    lw_batches = [tlm.synthetic_batch(model_cfg, 64, 256, seed=5000 + i) for i in range(4)]
+
+    def lowering(builder, options, session):
+        def build():
+            ad = AutoDist(resource_info=one_card, device=dev,
+                          strategy_builder=getattr(st, builder)(**options) if builder
+                          else None)
+            return ad.function(tlm.make_loss_fn(model), params,
+                               lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
+                               example_batch=lw_batches[0], accumulation_steps=2, **session)
+        return build
+
+    captured, uncompressed = {}, None
+    for label, builder, options, session, codec in STRATEGY_LOWERINGS:
+        try:
+            # On one card every uncompressed lowering is AllReduce()'s step
+            # bit for bit (phase 11): its run() reference serves them all.
+            same, _, _, reference = fused_against_steps(
+                lowering(builder, options, session), lw_batches, kernels,
+                f"lowering {label}", reference=uncompressed if codec is None else None)
+            if codec is None:
+                uncompressed = reference
+            captured[label] = "captured" if same else "captured, DIFFERS"
+            if not same:
+                failures.append(f"lowering {label}: run_many differs from run()")
+        except RuntimeError as e:
+            captured[label] = f"raises: {e}"
+            log(f"unroll: lowering {label}: run_many raises: {e}")
+            free_card()
+    log(f"unroll: lowerings under run_many: {captured}")
+    del model, params
+    free_card()
+
+    # NCF at 65,536: the steps/s curve and the idle share at K = 1 and 8.
+    strategy = "Parallax"
+    for attempt in ("Parallax", "AllReduce"):
+        strategy = attempt
+        b = ncf_bench.build(ncf_bench.parse_args(["--device", str(dev), "--strategy",
+                                                  strategy]))
+        runner, state, batch = b.step.runner, b.step.get_state(), b.next_batch()
+        float(runner.run(state, batch)[1])
+        try:
+            curve = {}
+            for factor in NCF_UNROLLS:
+                curve[factor] = unroll_rate(runner, state,
+                                            runner.shard_block([batch] * factor),
+                                            NCF_UNROLL_STEPS, kernels)[0]
+        except RuntimeError as e:
+            log(f"unroll: ncf {strategy}: run_many raises ({e}); the curve runs under "
+                f"AllReduce() through the benchmark's --strategy flag")
+            failures.append(f"ncf {strategy} not captured")
+            b.close()
+            del b, runner, state, batch
+            free_card()
+            continue
+        eager, host_s = ncf_eager(runner, state, batch)
+        launches_per_step = runner.plan_costs(runner.logical_params(state), b.example)["launches"]
+        log(f"unroll: ncf {strategy} 65,536: steps/s run() {eager:.2f} "
+            f"({eager * ncf_bench.DEFAULT_BATCH:.1f} examples/s), by K "
+            + ", ".join(f"K={f} {r:.2f} ({r * ncf_bench.DEFAULT_BATCH:.1f} examples/s)"
+                        for f, r in curve.items()) + f"; card {card_line()}")
+        log(f"unroll: calibration: ncf run() enqueues a step in {1e3 * host_s:.4f} ms of "
+            f"host time, {launches_per_step} launches by plan_costs: "
+            f"host_s_per_dispatch {host_s / launches_per_step:.4e} s a launch")
+        idle_share(lambda: runner.run(state, batch)[1], NCF_PROFILE_STEPS, 1,
+                   f"unroll: ncf {strategy} K=1 profile")
+        block = runner.shard_block([batch] * 8)
+        idle_share(lambda: runner.run_many(state, block)[1],
+                   NCF_PROFILE_STEPS // 8, 8, f"unroll: ncf {strategy} K=8 profile")
+        b.close()
+        del b, runner, state, batch, block
+        free_card()
+        break
+    failures += search_path(dev)
+    bank(kernels)
+    launches = {k.__name__: UNROLL_LAUNCHES[k.__name__] for k in kernels}
+    if failures:
+        raise AssertionError("unroll: " + "; ".join(failures))
+    return launches
+
+
+def ncf_eager(runner, state, batch):
+    """NCF's ``run()``: steps/s over NCF_UNROLL_STEPS steps, and the host's
+    seconds to enqueue one step (the median of short runs started on an idle
+    card, before the launch queue can fill)."""
+    t0 = time.perf_counter()
+    for _ in range(NCF_UNROLL_STEPS):
+        loss = runner.run(state, batch)[1]
+    float(loss)
+    rate = NCF_UNROLL_STEPS / (time.perf_counter() - t0)
+    host = []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            loss = runner.run(state, batch)[1]
+        host.append((time.perf_counter() - t0) / 2)
+    float(loss)
+    return rate, sorted(host)[len(host) // 2]
+
+
+def search_path(dev):
+    """Phase 16b: the plan search on NCF at 65,536 through
+    ``AutoDist(strategy_builder="autotune")``, then ``train()``."""
+    from autodist_tpu_torch import AutoDist, PSLoadBalancing, const
+    from autodist_tpu_torch.examples.benchmark import ncf as ncf_bench
+    from autodist_tpu_torch.models import ncf
+    from autodist_tpu_torch.strategy import measure_candidate
+    from autodist_tpu_torch.training import train
+
+    failures = []
+    cfg = ncf.NeuMFConfig()
+    model, params = ncf.init_params(cfg, seed=0, device=dev)
+    example = ncf.synthetic_batch(cfg, ncf_bench.DEFAULT_BATCH)
+    loss_fn = ncf.make_loss_fn(model)
+    optimizer = lambda p: torch.optim.Adam(p, lr=1e-3)  # noqa: E731
+    top_k = const.env_int(const.AUTODIST_TUNE_TOPK, const.TUNE_TOPK_DEFAULT)
+    ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
+                  strategy_builder="autotune", device=dev)
+    runner = ad.create_distributed_session(loss_fn, params, optimizer, example_batch=example)
+    plan = runner.tuned_plan
+    if plan is None:
+        free_card()
+        return ["autotune: the search was not applied (tuned_plan is None): it failed and "
+                "the session kept the default builder"]
+    log(f"search: {plan.explain()}")
+    log(f"search: enumerated {plan.enumerated}, probed {plan.probed} (top_k {top_k}), "
+        f"search_s {plan.search_s:.2f}, winner {plan.name} at "
+        f"{plan.measured_steps_per_s:.2f} steps/s; card {card_line()}")
+    if plan.probed > top_k:
+        failures.append(f"autotune probed {plan.probed} > top_k {top_k}")
+    benign = ("oom:", "predicted ", "beyond top-k", "skipped:")
+    for c in plan.candidates:
+        error = c.probe.error if c.probe is not None else c.pruned
+        if error and not error.startswith(benign):
+            failures.append(f"autotune candidate {c.name} failed: {error}")
+        if c.probe is not None and c.probe.steps_per_sec and c.predicted:
+            log(f"search: {c.name}: predicted {1e3 * c.predicted['step_s']:.4f} ms/step "
+                f"({c.predicted['bound']}-bound), measured "
+                f"{1e3 / c.probe.steps_per_sec:.4f} ms/step")
+    default = measure_candidate(PSLoadBalancing(), loss_fn, params, optimizer, example,
+                                device=dev)
+    if default.steps_per_sec is None:
+        failures.append(f"the default plan failed: {default.error}")
+    else:
+        log(f"search: tuned {plan.measured_steps_per_s:.2f} steps/s against the default "
+            f"(PSLoadBalancing, per step) {default.steps_per_sec:.2f} "
+            f"({plan.measured_steps_per_s / default.steps_per_sec:.3f}x)")
+    blocks = []
+    run_many = runner.run_many
+
+    def counted(state, batch, fetches=None):
+        blocks.append(len(batch))
+        return run_many(state, batch, fetches)
+
+    runner.run_many = counted
+    state = train(runner, params, lambda i: example, steps=SEARCH_TRAIN_STEPS, log_every=0)
+    log(f"search: train() ran {state.step} steps in blocks {blocks} (the plan's unroll "
+        f"{plan.unroll})")
+    if state.step != SEARCH_TRAIN_STEPS or (plan.unroll > 1 and max(blocks or [0])
+                                            != plan.unroll) or (plan.unroll == 1 and blocks):
+        failures.append(f"train() did not adopt the plan's unroll {plan.unroll}: blocks "
+                        f"{blocks}")
+    del runner, state, ad, model, params
+    free_card()
+    return failures
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[argv.index("--only") + 1] if "--only" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -1741,6 +2145,14 @@ def main() -> int:
     if data_loader._build_native() is None:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
+    every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
+    if only == "unroll":
+        # Phase 16 alone (a shorter call while it is worked on); no kernel line.
+        log(f"unroll: launches {unroll_path(every, dev)}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     errs = check_kernels(fx, dev)
     timing = time_kernels(fx, dev)
@@ -1752,7 +2164,6 @@ def main() -> int:
     timing.update(time_carry(fa, dev))
     # The pack is counted with them (it runs in the forward's and dh's
     # wrappers), but it replaces no TPU kernel and has no row in the JSON line.
-    every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
     by_phase = {"flagship": main_path(every, dev),
                 "long_context": long_context_path(every, dev),
                 "sequence_parallel": sequence_parallel_path(every, dev),
@@ -1768,6 +2179,7 @@ def main() -> int:
     by_phase["images"], image_results = image_path(every, dev)
     by_phase["text"] = text_path(every, dev,
                                  image_results[("AllReduce", 128)]["images_per_sec"])
+    by_phase["unroll"] = unroll_path(every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

@@ -105,7 +105,7 @@ def test_errors_and_epochs_match_jax(tmp_path):
 
 def test_device_prefetch_feeds_a_runner():
     """``device_prefetch`` over the native loader yields the runner's laid
-    out batches in the loader's order; ``unroll > 1`` raises."""
+    out batches in the loader's order; ``unroll=2`` yields blocks of two."""
     from autodist_tpu_torch import AllReduce, AutoDist
     from autodist_tpu_torch.runner import ShardedBatch
 
@@ -124,5 +124,14 @@ def test_device_prefetch_feeds_a_runner():
     for got, host in zip(fed, want):
         assert isinstance(got, ShardedBatch)
         np.testing.assert_array_equal(got["img"].numpy(), host["img"])
-    with pytest.raises(NotImplementedError, match="unroll"):
-        tloader.device_prefetch(loader, step.runner, unroll=2)
+    from autodist_tpu_torch.runner import BatchBlock
+    loader = tloader.DataLoader(_arrays(), batch_size=BATCH, seed=2)
+    feed = tloader.device_prefetch(loader, step.runner, depth=2, unroll=2)
+    try:
+        block = next(feed)
+    finally:
+        feed.close()
+        loader.close()
+    assert isinstance(block, BatchBlock) and len(block) == 2
+    for i, host in enumerate(want[:2]):
+        np.testing.assert_array_equal(block.tree["img"][i].numpy(), host["img"])

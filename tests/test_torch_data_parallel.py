@@ -9,7 +9,8 @@ leave that group, and ranks 0 and 1 join a group of 2 that trains the
 flagship step with ``AllReduce`` (dp = 2) and 2-way accumulation on a
 masked batch whose mask gives the two ranks different token counts, train
 a small regression with ``has_aux`` and ``fetches=`` whose per-row and
-scalar results must come back global, then run the flagship entry point's
+scalar results must come back global (and through ``run_many``, stacked per
+step, bit for bit), then run the flagship entry point's
 tiny host smoke. Each child runs this file as
 a script (``_worker``), imports torch and the port only, and writes what it
 computed for the parent to compare. JAX runs on a 2-device data mesh and a
@@ -163,6 +164,18 @@ def _worker(workdir: pathlib.Path):
             (loss, aux), fetched = aux_step(_as_torch(b), fetches=_aux_fetch)
             results[f"aux{i}-loss"] = loss.numpy()
             results.update({f"aux{i}-{k}": v.numpy() for k, v in {**aux, **fetched}.items()})
+        # run_many over the same 2 ranks: one block of the aux batches.
+        many = AutoDist(resource_info=NODES[2], strategy_builder=AllReduce(),
+                        device="cpu").create_distributed_session(
+            _aux_loss, {"w": torch.tensor(w)}, lambda p: torch.optim.SGD(p, lr=0.1),
+            has_aux=True, accumulation_steps=ACCUM)
+        many_state = many.init({"w": torch.tensor(w)})
+        _, ((loss, aux), fetched) = many.run_many(
+            many_state, [_as_torch(b) for b in aux_batches], fetches=_aux_fetch)
+        results["many-loss"] = loss.numpy()
+        results.update({f"many-{k}": v.numpy() for k, v in {**aux, **fetched}.items()})
+        results["many-w"] = many_state.params["w"].detach().numpy()
+        results["aux-w"] = aux_step.get_state().params["w"].detach().numpy()
         from autodist_tpu_torch.examples import flagship_lm
         flagship_lm.main(["--device", "cpu", "--micro_batch", "2", "--seq_len", "16",
                           "--accum", "2", "--d_model", "32", "--n_layers", "1",
@@ -311,6 +324,18 @@ def test_two_rank_aux_and_fetches_are_global(dp_runs):
                 assert got[f"aux{i}-{key}"].shape == value.shape, key
                 np.testing.assert_allclose(got[f"aux{i}-{key}"], value, rtol=1e-5,
                                            atol=1e-6, err_msg=key)
+
+
+def test_two_rank_run_many_equals_run(dp_runs):
+    """``run_many`` over a block of the aux batches under dp = 2 with 2-way
+    accumulation gives, on both ranks, the ``run()`` steps' global losses,
+    aux and fetched results stacked on a leading step axis, bit for bit,
+    and the same weights after."""
+    for got in dp_runs()[0][:2]:
+        np.testing.assert_array_equal(got["many-w"], got["aux-w"])
+        for key in ("loss", "per_row", "pred_mean", "pred", "w_sq"):
+            want = np.stack([got[f"aux{i}-{key}"] for i in range(STEPS)])
+            np.testing.assert_array_equal(got[f"many-{key}"], want, err_msg=key)
 
 
 def test_two_rank_data_parallel_equals_one_process(dp_runs):

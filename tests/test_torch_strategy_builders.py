@@ -238,8 +238,9 @@ def test_flagship_index_leaves_equal_jax_detection():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item():
-    """Async PS, ExpertParallel, Pipeline and the autotuner raise, each
-    naming its ROADMAP.md item; nothing falls back to AllReduce."""
+    """Async PS, ExpertParallel and Pipeline raise, each naming its
+    ROADMAP.md item; nothing falls back to AllReduce. The autotuner is
+    ported: ``"autotune"`` is accepted, and any other name refused."""
     _, spec = _models(sparse=False)
     params = {k: torch.zeros(s) for k, s in SHAPES.items()}
     for builder in (tstrategy.PS(sync=False), tstrategy.PSLoadBalancing(staleness=1)):
@@ -251,8 +252,8 @@ def test_unported_parts_raise_naming_their_roadmap_item():
     for cls in (tstrategy.ExpertParallel, tstrategy.Pipeline):
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             cls()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        AutoDist(strategy_builder="autotune", device="cpu")
+    tuned = AutoDist(strategy_builder="autotune", device="cpu")
+    assert tuned._autotune and tuned._tuned_plan is None
     with pytest.raises(ValueError):
         AutoDist(strategy_builder="fastest", device="cpu")
     np.testing.assert_equal(spec.names, ["b", "emb", "s", "w1", "w2"])

@@ -23,6 +23,7 @@ import torch
 from autodist_tpu_torch import AllReduce, AutoDist, from_jax_params
 from autodist_tpu_torch.data import prefetch
 from autodist_tpu_torch.models import transformer_lm as tlm
+from autodist_tpu_torch.runner import BatchBlock
 from autodist_tpu_torch.training import train
 from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
@@ -198,10 +199,9 @@ def test_aux_and_fetches_match_jax():
 
 
 def test_unported_parts_raise(monkeypatch):
+    """The planes train() has not ported raise; unroll > 1 is ported and runs."""
     runner = _runner()
     params = from_jax_params(_jax_params())
-    with pytest.raises(NotImplementedError, match="unroll > 1"):
-        train(runner, params, _batch, steps=1, unroll=2)
     with pytest.raises(NotImplementedError, match="health_monitor"):
         train(runner, params, _batch, steps=1, health_monitor=object())
     for flag in ("AUTODIST_HEALTH", "AUTODIST_PROFILE", "AUTODIST_METRICS_PORT",
@@ -210,9 +210,11 @@ def test_unported_parts_raise(monkeypatch):
             m.setenv(flag, "1")
             with pytest.raises(NotImplementedError, match=flag):
                 train(runner, params, _batch, steps=1)
-    with pytest.raises(NotImplementedError, match="unroll > 1"):
-        prefetch.prefetch_to_device([_batch(0)], runner, unroll=2)
     assert runner.losses == []
+    with prefetch.prefetch_to_device([_batch(0), _batch(1)], runner, unroll=2) as feed:
+        block = next(feed)
+    assert isinstance(block, BatchBlock) and len(block) == 2
+    assert train(runner, params, _batch, steps=2, unroll=2).step == 2
 
 
 # ------------------------------------------------------------- the feed core
