@@ -29,8 +29,11 @@ the JAX package's self-contained examples and its ImageNet benchmark
 (``models.bert``, ``ncf``), their input (``data.text_corpus``, ``mlm``,
 ``movielens``), the benchmark logger (``utils.benchmark_logger``) and the
 rest of the benchmark suite (``examples.benchmark``: ``bert``, ``ncf``,
-``disk_input``, ``raw_torch_baseline``, ``run_all``). ``ROADMAP.md`` lists
-what is next.
+``disk_input``, ``raw_torch_baseline``, ``run_all``); and expert and
+pipeline parallelism: ``ExpertParallel`` with the MoE LM (``models.moe``)
+and ``Pipeline`` with the pipeline LM (``models.pipeline_lm``) over the
+GPipe, 1F1B and interleaved-1F1B schedules (:mod:`autodist_tpu_torch.parallel.pipeline`).
+``ROADMAP.md`` lists what is next.
 """
 
 from autodist_tpu_torch.autodist import AutoDist

@@ -40,6 +40,19 @@ def timed_steps(step, next_batch: Callable, batch_size: int, steps: int, log_eve
     return avg, final, torch.cuda.max_memory_allocated(device) if on_card else None
 
 
+def peak_bytes_by_rank(device: torch.device) -> Optional[list]:
+    """Every rank's peak device memory since the last reset, in rank order
+    (a collective under a process group; None on the host)."""
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device)
+    if not dist.is_initialized():
+        return [peak]
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    return peaks
+
+
 def card_mfu(count: Callable[[], float], steps_per_sec: float,
              device: torch.device) -> Tuple[Optional[float], Optional[float]]:
     """``(FLOPs a step on this card, MFU)`` against the H100's peak, with

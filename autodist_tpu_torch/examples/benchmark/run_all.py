@@ -8,9 +8,9 @@ throughput numbers (the port's counterpart of ``examples/benchmark/run_all.py``)
 
 Each row runs its entry point in a fresh subprocess (one AutoDist per
 process) on the card, and the sweep parses the last rate and MFU it prints.
-The rows are the JAX sweep's; ``lm1b_lstm`` and ``moe`` are not ported yet
-and print "not ported" with their ROADMAP item instead of a number (``--only``
-with one of them exits non-zero). ``--baseline FILE`` diffs each rate per
+The rows are the JAX sweep's; ``lm1b_lstm`` is not ported yet and prints
+"not ported" with its ROADMAP item instead of a number (``--only`` with it
+exits non-zero). ``--baseline FILE`` diffs each rate per
 card against a snapshot of recorded bests (``{"threshold_pct": 2.0,
 "rows": {name: {"rate": ...}}}``); there is no default: the repository's
 ``PERF_BASELINE.json`` holds TPU rates, which no H100 run is compared with.
@@ -61,7 +61,8 @@ CONFIGS = {
     "lm1b_lstm": "ROADMAP Queue 1 item 5",
     "ncf": (lambda s: ["-m", f"{PACKAGE}.benchmark.ncf", "--steps", s, "--log_every", s],
             "examples/s", EXAMPLES_PER_SEC),
-    "moe": "ROADMAP Queue 1 item 3",
+    "moe": (lambda s: ["-m", f"{PACKAGE}.moe_lm", "--batch_size", "512", "--accum", "4",
+                       "--steps", s, "--log_every", s], "tokens/s", RATE + r" tokens/sec"),
 }
 
 

@@ -287,8 +287,9 @@ def init_params(model: nn.Module, seed: int = 0,
                 ) -> Dict[str, torch.Tensor]:
     """flax's default initializers for every parameter of ``model``, drawn
     in its parameter order from a ``torch.Generator`` seeded with ``seed``:
-    a ``kernel`` ``lecun_normal`` over its input axes (a ``DenseGeneral``'s
-    ``in_shape``, else every dim but the last), an ``embedding`` table
+    a ``kernel`` (or an MoE's ``experts_*`` bank) ``lecun_normal`` over its
+    input axes (a ``DenseGeneral``'s ``in_shape``, else every dim but the
+    last), an ``embedding`` table
     normal with variance ``1 / dim`` (``nn.Embed``'s), ``pos_embed``
     normal(0.02), a ``scale`` 1 and a bias 0. The values differ from the JAX
     package's: feed both the same weights through ``from_jax_params``."""
@@ -297,7 +298,9 @@ def init_params(model: nn.Module, seed: int = 0,
     params = {}
     for key, p in model.named_parameters():
         owner, _, leaf = key.rpartition(".")
-        if leaf == "kernel":
+        if leaf == "kernel" or leaf.startswith("experts_"):
+            # An MoE bank [E, m, f] draws as flax's does: the expert axis
+            # counts as receptive field, a fan-in of E * m.
             in_shape = getattr(model.get_submodule(owner), "in_shape", p.shape[:-1])
             value = _lecun_normal(p.shape, math.prod(in_shape), g)
         elif leaf == "embedding":

@@ -17,7 +17,11 @@ Per parameter (``StateLayout.params[name]``):
   model-axis shard, or the whole tensor);
 - update: the part of the storage the optimizer updates on this rank,
   ``opt_pspec``'s slice (a ``reduce`` or all-data-axes shard of one tensor
-  axis under PS or ZeRO, else the whole storage).
+  axis under PS or ZeRO, else the whole storage);
+- what the loss reads (:meth:`StateLayout.compute_view`): a ``model``-axis
+  shard gathered to the logical shape (the JAX package's gather-then-compute),
+  but an ``expert``- or ``pipe``-axis shard as it is stored, since each rank
+  computes with only its experts or its stage (``COMPUTE_LOCAL_AXES``).
 """
 
 import dataclasses
@@ -27,9 +31,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel.mesh import DeviceMesh
 from autodist_tpu_torch.parallel.plan import PSpec, ParamPlan, ShardingPlan, entry_axes
+
+# Mesh axes whose shards the loss computes with in place (no gather).
+COMPUTE_LOCAL_AXES = (const.MESH_AXIS_EXPERT, const.MESH_AXIS_PIPE)
 
 
 def spec_ranges(pspec: PSpec, shape: Sequence[int], mesh: DeviceMesh,
@@ -89,6 +97,12 @@ class ParamLayout:
     def model_sharded(self) -> bool:
         return self.plan.pspec != ()
 
+    @property
+    def compute_local(self) -> bool:
+        """The loss reads this rank's storage itself (an ``expert`` or
+        ``pipe`` shard), not the gathered logical tensor."""
+        return self.model_sharded and self.plan.partition_mesh_axis in COMPUTE_LOCAL_AXES
+
 
 class StateLayout:
     """The layout of every parameter of a plan on this rank of ``mesh``."""
@@ -143,13 +157,27 @@ class StateLayout:
         return local
 
     def logical(self, key: str, storage: torch.Tensor) -> torch.Tensor:
-        """The parameter at its logical shape: model-axis storage gathered
-        and unpadded; replicated storage as it is."""
+        """The parameter at its logical shape: sharded storage gathered and
+        unpadded (a collective: every rank calls it); replicated storage as
+        it is."""
         pl = self.by_key[key]
         if not pl.model_sharded:
             return storage
         with torch.no_grad():
             return pl.plan.unpad(self.gather(storage.detach(), pl.plan.pspec))
+
+    def compute_view(self, key: str, storage: torch.Tensor) -> torch.Tensor:
+        """What the loss reads of a parameter: the storage itself where it is
+        whole or computed with in place (``compute_local``), else a fresh
+        leaf of the gathered logical tensor."""
+        pl = self.by_key[key]
+        if not pl.model_sharded or pl.compute_local:
+            return storage
+        return self.logical(key, storage).detach().requires_grad_(pl.trainable)
+
+    def grad_to_storage(self, key: str, grad: torch.Tensor) -> torch.Tensor:
+        """A gradient of :meth:`compute_view`'s tensor as the storage's."""
+        return grad if self.by_key[key].compute_local else self.to_storage(key, grad)
 
     # ------------------------------------------------------------- updates
     def to_update(self, key: str, storage: torch.Tensor) -> torch.Tensor:

@@ -7,12 +7,22 @@ data x seq mesh). Every set of the axes of more than one rank gets the
 process groups along it: the training path reduces over the data axes (and
 ``seq``), reduce-scatters and all-gathers a sharded update over ``reduce``
 or all data axes, and gathers model-axis storage over ``model``.
+
+A mesh is made current with ``with mesh:``, as the JAX runner steps inside
+``with mesh:`` (``autodist_tpu/parallel/pipeline.py:452-469``): the runner
+does so around every call of the loss, and model code finds its groups and
+coordinates through :func:`current_mesh` (the MoE's ``expert`` group, the
+pipeline's ``pipe`` ranks). A mesh may run some axes in this one process
+(``virtual``): :func:`replay_mesh` stands for every rank along them, which
+is how the pipeline schedules replay ``S`` stages on one card.
 """
 
 import collections
+import contextlib
+import contextvars
 import itertools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -60,19 +70,51 @@ def standard_mesh_shape(n_devices: int, axes: Optional[Dict[str, int]] = None
     return shape
 
 
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("current_mesh", default=None)
+
+
+def current_mesh() -> Optional["DeviceMesh"]:
+    """The mesh made current by the innermost ``with mesh:`` (None outside)."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def step_mesh(mesh: Optional["DeviceMesh"]):
+    """``mesh`` current (None: no mesh) while a step or an evaluation runs:
+    ``synchronization.global_mean`` reduces over its ranks, and model code
+    finds its groups there."""
+    token = _CURRENT.set(mesh)
+    try:
+        yield
+    finally:
+        _CURRENT.reset(token)
+
+
 class DeviceMesh:
     """A named grid of ranks, this process's place in it, and the process
     groups along its axes. ``group(axes)`` is the group of the ranks that
     differ from this one only along ``axes``: ``None`` when that is this
-    rank alone, the world group when it is every rank."""
+    rank alone, the world group when it is every rank. ``virtual`` names
+    axes whose ranks all run in this process (no group along them).
+    ``with mesh:`` makes it the current mesh."""
 
     def __init__(self, shape: "collections.OrderedDict[str, int]", rank: int = 0,
-                 groups: Optional[Dict[Tuple[str, ...], "dist.ProcessGroup"]] = None):
+                 groups: Optional[Dict[Tuple[str, ...], "dist.ProcessGroup"]] = None,
+                 virtual: Sequence[str] = ()):
         self.shape = collections.OrderedDict(shape)
         self.rank = rank
         self.coords = {a: int(c) for a, c in zip(
             self.shape, np.unravel_index(rank, tuple(self.shape.values())))}
         self._groups = dict(groups or {})
+        self.virtual = tuple(virtual)
+        self._tokens: List[contextvars.Token] = []
+
+    def __enter__(self) -> "DeviceMesh":
+        self._tokens.append(_CURRENT.set(self))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CURRENT.reset(self._tokens.pop())
 
     def axes_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape.get(a, 1) for a in axes)
@@ -90,6 +132,9 @@ class DeviceMesh:
         return idx
 
     def group(self, axes: Sequence[str]) -> Optional["dist.ProcessGroup"]:
+        if any(a in self.virtual for a in axes if self.shape.get(a, 1) > 1):
+            raise ValueError(f"mesh axes {tuple(axes)} run in this process ({self.virtual} "
+                             f"are virtual): they have no process group")
         live = self._live(axes)
         if not live:
             return None
@@ -147,3 +192,18 @@ def data_axis_size(mesh: DeviceMesh) -> int:
 def single_device_mesh() -> DeviceMesh:
     """A mesh of one rank (the original single-node step)."""
     return DeviceMesh(standard_mesh_shape(1, {const.MESH_AXIS_DATA: 1}))
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (the cost probe's and the sparse walk's
+    traces): collectives of model code skip it, as no group runs there."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def replay_mesh(axes: Dict[str, int]) -> DeviceMesh:
+    """A mesh of ``axes`` whose every axis of more than one rank runs in this
+    process: code that reads it computes every rank along those axes itself
+    (the pipeline schedules' one-process replay)."""
+    shape = standard_mesh_shape(math.prod(axes.values()), axes)
+    return DeviceMesh(shape, virtual=tuple(a for a, n in shape.items() if n > 1))

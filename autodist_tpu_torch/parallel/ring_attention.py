@@ -51,21 +51,28 @@ def ring_size_and_rank(group: Optional[dist.ProcessGroup]) -> Tuple[int, int]:
 
 
 def shift(tensors: Sequence[torch.Tensor], group: Optional[dist.ProcessGroup],
-          backward: bool = False) -> List[torch.Tensor]:
+          backward: bool = False, wrap: bool = True) -> List[torch.Tensor]:
     """Each tensor sent one hop around the ring (to rank + 1, from rank - 1;
     the other way with ``backward``), as fresh tensors. A ring of one
-    returns them as they are."""
+    returns them as they are. Without ``wrap`` the hop is a line: the last
+    rank (the first with ``backward``) sends nothing and the first receives
+    zeros, as ``lax.ppermute`` gives a rank that no pair names."""
     size, rank = ring_size_and_rank(group)
     if size == 1:
-        return list(tensors)
+        return list(tensors) if wrap else [torch.zeros_like(t) for t in tensors]
     step = -1 if backward else 1
+    sends = wrap or 0 <= rank + step < size
+    receives = wrap or 0 <= rank - step < size
     to = dist.get_global_rank(group, (rank + step) % size)
     frm = dist.get_global_rank(group, (rank - step) % size)
-    received = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in tensors]
+    received = [torch.empty_like(t, memory_format=torch.contiguous_format) if receives
+                else torch.zeros_like(t) for t in tensors]
     ops = []
     for t, r in zip(tensors, received):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), to, group))
-        ops.append(dist.P2POp(dist.irecv, r, frm, group))
+        if sends:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), to, group))
+        if receives:
+            ops.append(dist.P2POp(dist.irecv, r, frm, group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return received

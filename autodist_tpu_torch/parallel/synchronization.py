@@ -37,8 +37,6 @@ What that asks of a loss under data parallelism:
 The reported loss is averaged over the same ranks, so it is the global one.
 """
 
-import contextlib
-import contextvars
 import logging
 import zlib
 from typing import Callable, Dict, Mapping, Optional, Sequence
@@ -50,7 +48,8 @@ import torch.distributed as dist
 from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.parallel.layout import StateLayout
-from autodist_tpu_torch.parallel.mesh import DeviceMesh, single_device_mesh
+from autodist_tpu_torch.parallel.mesh import (DeviceMesh, current_mesh, single_device_mesh,
+                                              step_mesh)
 from autodist_tpu_torch.parallel.plan import (COMP_BF16, COMP_BF16_EF, COMP_NONE,
                                               COMP_POWER_SGD, DP_AXES, ShardingPlan)
 from autodist_tpu_torch.proto.strategy import AllReduceSynchronizer
@@ -60,45 +59,32 @@ _log = logging.getLogger("autodist_tpu_torch")
 SYNC_AXES = DP_AXES + (const.MESH_AXIS_SEQ,)
 SPEC_DCN = AllReduceSynchronizer.Spec.DCN
 
-_STEP_MESH: contextvars.ContextVar = contextvars.ContextVar("step_mesh", default=None)
-
-
-@contextlib.contextmanager
-def step_mesh(mesh: Optional[DeviceMesh]):
-    """The mesh whose step (or evaluation) is running: :func:`global_mean`
-    reduces over its ranks."""
-    token = _STEP_MESH.set(mesh)
-    try:
-        yield
-    finally:
-        _STEP_MESH.reset(token)
-
-
 def current_group(axes: Sequence[str] = DP_AXES) -> Optional["dist.ProcessGroup"]:
     """The process group along ``axes`` of the running step's mesh (None
     outside a step, or for a group of one rank)."""
-    mesh = _STEP_MESH.get()
+    mesh = current_mesh()
     return mesh.group(axes) if mesh is not None else None
 
 
 def global_mean(total: torch.Tensor, count: torch.Tensor, axes: Sequence[str] = DP_AXES,
                 group: Optional["dist.ProcessGroup"] = None) -> torch.Tensor:
     """``sum(total) / max(sum(count), 1)`` over the ranks of the running
-    step's mesh along ``axes``; outside a step, over ``group`` (None: this
+    step's mesh along ``axes`` (``total`` of any shape, summed element by
+    element; ``count`` a scalar); outside a step, over ``group`` (None: this
     rank alone). The value is that global mean on every rank; the gradient
     is this rank's share of it times the number of data ranks, which the
     runner's average over the data ranks turns back into the global mean's
     gradient."""
-    mesh = _STEP_MESH.get()
+    mesh = current_mesh()
     dp = 1
     if mesh is not None:
         group, dp = mesh.group(axes), mesh.axes_size(DP_AXES)
-    sums = torch.stack([total.detach(), count.detach().to(total.dtype)])
+    sums = torch.cat([total.detach().reshape(-1), count.detach().to(total.dtype).reshape(1)])
     if group is not None:
         dist.all_reduce(sums, group=group)
-    denom = torch.clamp(sums[1], min=1.0)
+    denom = torch.clamp(sums[-1], min=1.0)
     local = total * dp / denom
-    return local + (sums[0] / denom - local).detach()
+    return local + (sums[:-1].view_as(total) / denom - local).detach()
 
 
 def _detached(tree):
@@ -273,7 +259,7 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
 
     def implicit_sync(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
                       ef_state=None, batch=None) -> tuple:
-        grads = {k: layout.to_storage(k, g) for k, g in grads.items()}
+        grads = {k: layout.grad_to_storage(k, g) for k, g in grads.items()}
         by_axes: Dict[tuple, list] = {}
         for k in grads:
             pl = layout.by_key[k]

@@ -11,10 +11,18 @@ The state lives as the plan lays it out (:mod:`autodist_tpu_torch.parallel.layou
 
 - A parameter partitioned on a ``model`` axis of more than one rank is
   stored as this rank's shard, zero-padded where the dim does not tile; it
-  is all-gathered and unpadded before the user's loss, which always reads
-  logical shapes (compute stays replicated across the model ranks, as the
-  JAX package's values are), and its gradient is padded and sliced back to
-  the shard, so the pad region's gradient, moments and values stay 0.
+  is all-gathered and unpadded before the user's loss, which reads it at
+  its logical shape (compute stays replicated across the model ranks, as
+  the JAX package's values are), and its gradient is padded and sliced back
+  to the shard, so the pad region's gradient, moments and values stay 0.
+- A parameter partitioned on the ``expert`` or ``pipe`` axis (the
+  ``ExpertParallel`` and ``Pipeline`` builders) reaches the loss as this
+  rank's shard, ``[E/k, ...]`` or ``[L/S, ...]``: each rank computes with
+  only its experts or its stage, as under the JAX package's ``P("expert")``
+  sharding and ``shard_map`` over ``pipe``. The model finds its group on
+  the current mesh: the runner makes its mesh current (``with mesh:``)
+  around every call of the loss, in ``run``, in ``run_many``'s warm-up and
+  capture, in ``evaluate`` and in ``plan_costs``.
 - Under PS nodes, or with ``zero=`` / ``AUTODIST_ZERO`` under any plan, a
   parameter whose optimizer state shards (``opt_pspec``) is updated
   ZeRO-1 style: its gradient is reduce-scattered, the optimizer updates
@@ -351,16 +359,12 @@ class DistributedRunner:
         return {k: self.layout.logical(k, v) for k, v in params.items()}
 
     def _loss_view(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """What the loss reads: the storage where it is whole, else fresh
-        logical leaves gathered from the model-axis shards."""
+        """What the loss reads (:meth:`StateLayout.compute_view`): the
+        storage where it is whole or an ``expert``/``pipe`` shard, else
+        fresh logical leaves gathered from the model-axis shards."""
         if not self.layout.has_model_storage:
             return state.params
-        view = {}
-        for key, t in state.params.items():
-            pl = self.layout.by_key[key]
-            view[key] = (self.layout.logical(key, t).detach().requires_grad_(pl.trainable)
-                         if pl.model_sharded else t)
-        return view
+        return {key: self.layout.compute_view(key, t) for key, t in state.params.items()}
 
     # ------------------------------------------------------------------- batch
     @staticmethod
@@ -814,9 +818,15 @@ class DistributedRunner:
                 shape = (batch_dim // (k * dp),) + shape[1:]
             return torch.empty(shape, dtype=t.dtype)
 
+        def shape_of(name, key):
+            # What the loss reads: the local shard of an expert/pipe parameter.
+            pl = self.layout.by_key[key]
+            if pl.compute_local:
+                return tuple(sl.stop - sl.start for sl in pl.storage)
+            return self._model_spec[name].shape
+
         with FakeTensorMode():
-            params = {key: torch.empty(self._model_spec[name].shape,
-                                       dtype=self._model_spec[name].dtype)
+            params = {key: torch.empty(shape_of(name, key), dtype=self._model_spec[name].dtype)
                       .requires_grad_(key in trainable)
                       for name, key in self._model_spec.keys.items()}
             batch = _tree_map(fake, host)

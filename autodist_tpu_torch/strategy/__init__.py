@@ -1,17 +1,19 @@
 """Strategy builders of the port (``autodist_tpu/strategy/__init__.py:22-38``):
-the synchronous family of the JAX package's twelve, and the strategy search
-(``AutoStrategy``, the tuner and ``autotune``). ``ExpertParallel`` and
-``Pipeline`` come with the models that use them (``moe``, ``pipeline_lm``)
-and raise ``NotImplementedError`` until then."""
+the synchronous family of the JAX package's twelve, the single-axis builders
+``ExpertParallel`` and ``Pipeline`` (for :mod:`~autodist_tpu_torch.models.moe`
+and :mod:`~autodist_tpu_torch.models.pipeline_lm`), and the strategy search
+(``AutoStrategy``, the tuner and ``autotune``)."""
 
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.auto_strategy import AutoStrategy, choose_optimizer
 from autodist_tpu_torch.strategy.autotune import (Candidate, TunedPlan, autotune,
                                                   enumerate_candidates, plan_cache_key)
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder, StrategyCompiler
+from autodist_tpu_torch.strategy.expert_parallel_strategy import ExpertParallel
 from autodist_tpu_torch.strategy.parallax_strategy import Parallax
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import PartitionedAR
 from autodist_tpu_torch.strategy.partitioned_ps_strategy import PartitionedPS
+from autodist_tpu_torch.strategy.pipeline_strategy import Pipeline
 from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing, byte_size_load_fn
 from autodist_tpu_torch.strategy.ps_strategy import PS
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy import \
@@ -20,26 +22,6 @@ from autodist_tpu_torch.strategy.sequence_parallel_strategy import SequenceParal
 from autodist_tpu_torch.strategy.tuner import (CandidateResult, TuneResult, measure_candidate,
                                                tune_strategy)
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import UnevenPartitionedPS
-
-UNPORTED_ROADMAP = ("ROADMAP.md, Queue 1 item 3: ExpertParallel with moe, and Pipeline with "
-                    "pipeline_lm")
-
-
-class _Unported:
-    """A builder of the JAX package that the port has not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__} is not ported yet; it comes "
-                                  f"with the models that use it ({UNPORTED_ROADMAP})")
-
-
-class ExpertParallel(_Unported):
-    pass
-
-
-class Pipeline(_Unported):
-    pass
-
 
 __all__ = ["AllReduce", "AutoStrategy", "Candidate", "CandidateResult", "ExpertParallel",
            "PS", "PSLoadBalancing", "Parallax", "PartitionedAR", "PartitionedPS", "Pipeline",

@@ -90,6 +90,40 @@ class StrategyBuilder(abc.ABC):
                                         resource_spec.mesh_config or default_axes))
 
     @staticmethod
+    def _build_axis0_sharded(model_spec: ModelSpec, resource_spec: ResourceSpec,
+                             mesh_axis: str, axis_size: int, param_filter,
+                             ar_spec, ar_compressor, chunk_size: int) -> Strategy:
+        """The skeleton of the single-axis builders (``ExpertParallel``,
+        ``Pipeline``; ``autodist_tpu/strategy/base.py:119-150``): a
+        parameter passing ``param_filter`` gets a dim-0 partitioner of
+        ``axis_size`` shards on ``mesh_axis``, with ``axis_size``
+        ``part_config`` children that carry AllReduce synchronizers; every
+        other parameter gets an AllReduce node. The mesh is
+        ``{mesh_axis: axis_size, data: -1}`` unless the resource spec sets one."""
+        strategy = Strategy()
+        for i, spec in enumerate(model_spec.trainable.values()):
+            node = strategy_pb.NodeConfig(var_name=spec.name, sparse=spec.sparse)
+            strategy.proto.node_config.append(node)
+
+            def ar():
+                return strategy_pb.AllReduceSynchronizer(
+                    spec=ar_spec, compressor=ar_compressor, group=i // chunk_size)
+
+            if param_filter(spec):
+                node.partitioner = strategy_pb.PartitionConfig(
+                    num_shards=[axis_size] + [1] * (len(spec.shape) - 1), mesh_axis=mesh_axis)
+                node.part_config = [
+                    strategy_pb.NodeConfig(var_name=f"{spec.name}/part_{k}",
+                                           all_reduce_synchronizer=ar())
+                    for k in range(axis_size)]
+            else:
+                node.all_reduce_synchronizer = ar()
+        axes = {mesh_axis: axis_size, const.MESH_AXIS_DATA: -1}
+        StrategyBuilder._fill_mesh_config(
+            strategy, resource_spec, StrategyBuilder._resolved_axes(resource_spec, axes))
+        return strategy
+
+    @staticmethod
     def _fill_mesh_config(strategy: Strategy, resource_spec: ResourceSpec,
                           axes: Optional[dict] = None):
         """Record the mesh shape and replica devices in the graph-level config."""

@@ -7,8 +7,9 @@ ring of one card, and Ulysses on one card), and at seq 256 under every
 synchronous strategy; then the data plane, the image-classification
 family (the CNN zoo at full width through the ImageNet benchmark entry
 point), the text family with the rest of the benchmark suite (BERT, NCF,
-disk input, the raw baseline and the sweep), and ``run_many``'s CUDA graphs
-with the strategy search.
+disk input, the raw baseline and the sweep), ``run_many``'s CUDA graphs
+with the strategy search, and the MoE LM with expert parallelism and the
+pipeline schedules.
 
     python3 chip_smoke.py
 
@@ -245,11 +246,30 @@ exits non-zero without them, or when any phase fails. Phases:
    set (the search applied, not degraded to the default builder), no
    candidate may fail with an error, and ``train()`` for SEARCH_TRAIN_STEPS
    steps must run in blocks of the plan's ``unroll``.
-17. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll``), then the result line.
+17. Expert and pipeline parallelism (counts set to 0 just before the MoE's
+   counted steps). The MoE LM at the JAX sweep's ``moe`` row (512 x 256 in 4
+   micro-batches, d512 x 4, 8 experts, vocab 32,000, bf16, the fused head)
+   through ``moe_lm.build`` under ``ExpertParallel`` (an expert axis of 1 on
+   one card): MOE_COUNTED counted steps (each fused-head kernel must launch
+   4 times a step, the pack 8), tokens/s, MFU (one active expert a token),
+   peak memory and a profiler window of 2 steps (busy and idle share, the
+   top ten kernels); then ``run_all --only moe`` in its own process, parsed
+   as the sweep parses it. The expert axis replayed: at the sweep's
+   micro-batch (128 x 256) the 8 experts split into 4 shards of 2, each
+   shard's partial FFN run from the same h and combine and the partials
+   added, held with the gradients of h, combine and both banks against the
+   whole FFN (||shards - whole|| / ||whole|| at most PIPE_RTOL). The
+   pipeline schedules replayed (S = 4 virtual stages on one card, through
+   the port's own schedule functions) at the pipeline example's shape (16 x
+   256 in 4 micro-batches, d512 x 8, vocab 32,000, bf16): GPipe through
+   ``PipelineLM.apply`` and autograd, 1F1B, and interleaved 1F1B (v = 2),
+   each loss and every leaf's gradient against ``sequential_apply`` with
+   autograd (relative norm at most PIPE_RTOL), and each schedule's step time.
+18. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll`` and ``moe``), then the result line.
 
-``python3 chip_smoke.py --only unroll`` builds the kernels and runs phase 16
-alone, without the kernel line.
+``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``) builds the
+kernels and runs phase 16 (or 17) alone, without the kernel line.
 """
 
 import collections
@@ -368,6 +388,15 @@ NCF_UNROLLS = (1, 2, 4, 8)
 NCF_UNROLL_STEPS, NCF_PROFILE_STEPS = 64, 16
 # Phase 16b: train() steps after the search.
 SEARCH_TRAIN_STEPS = 16
+# Phase 17: the JAX sweep's moe row (examples/benchmark/run_all.py:77-80),
+# the expert replay's shards, and the pipeline example's default shape.
+MOE_SWEEP_ARGS = ["--batch_size", "512", "--accum", "4"]
+MOE_COUNTED, MOE_SWEEP_STEPS = 3, 5
+EXPERT_SHARDS = 4
+PIPE_SHAPE = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8, d_ff=2048, max_len=257,
+                  n_stages=4, num_microbatches=4)
+PIPE_BATCH, PIPE_SEQ = 16, 256
+PIPE_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -1753,6 +1782,149 @@ def text_path(kernels, dev, resnet_rate: float):
 
 
 
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def moe_pipe_path(kernels, dev):
+    """Phase 17: the MoE LM under ExpertParallel at the sweep's shape, the
+    expert axis and the pipeline schedules replayed on one card."""
+    import numpy as np
+
+    from autodist_tpu_torch.examples import moe_lm
+    from autodist_tpu_torch.examples.benchmark import run_all
+    from autodist_tpu_torch.models import moe, pipeline_lm as plm
+    from autodist_tpu_torch.parallel.mesh import replay_mesh
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    t_phase = time.perf_counter()
+    # --- the sweep's moe row in this process: launches a step, memory, a trace.
+    args = moe_lm.parse_args(["--device", str(dev)] + MOE_SWEEP_ARGS)
+    cfg, step, batch = moe_lm.build(args)
+    float(step(batch))                       # the first step: the lazy state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = counted_steps(step, [batch] * MOE_COUNTED, kernels)
+    per_step = {k: v / MOE_COUNTED for k, v in launches.items()}
+    tokens = args.batch_size * args.seq_len
+    flops = transformer_flops_per_token(cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.vocab_size,
+                                        args.seq_len) * tokens
+    sec = min(times)
+    log(f"moe: {args.batch_size} x {args.seq_len} ({args.accum} micro-batches), d{cfg.d_model} "
+        f"x {cfg.n_layers}, {cfg.n_experts} experts, vocab {cfg.vocab_size}: losses {losses}; "
+        f"step seconds {times}; {tokens / sec:.1f} tokens/s at the fastest step, MFU "
+        f"{mfu(flops / sec):.4f} of 989 TFLOP/s (one active expert a token); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; launches a step "
+        f"{per_step}; card {card_line()}")
+    want = {"xent_fwd": args.accum, "xent_dh": args.accum, "xent_dwdb": args.accum,
+            "xent_pack_w": 2 * args.accum}
+    wrong = {k: (per_step[k], n) for k, n in want.items() if per_step[k] != n}
+    if wrong:
+        raise AssertionError(f"moe: fused-head launches a step (got, want) {wrong}")
+    profile_steps(step, [batch] * 2, label="moe profile")
+    del step, batch
+    free_card()
+
+    # --- the row as the sweep runs it, in its own process.
+    t0 = time.perf_counter()
+    rows = run_all.main(["--only", "moe", "--steps", str(MOE_SWEEP_STEPS)])
+    log(f"moe: run_all --only moe --steps {MOE_SWEEP_STEPS}: {rows} "
+        f"({time.perf_counter() - t0:.1f} s); card {card_line()}")
+    if not rows or rows[0]["rate"] is None:
+        raise AssertionError(f"run_all: the moe row did not parse: {rows}")
+
+    # --- the expert axis replayed: 4 shards of 2 experts, partial FFNs summed.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s, m, f, e = args.batch_size // args.accum, args.seq_len, cfg.d_model, cfg.d_ff, \
+        cfg.n_experts
+    h = torch.randn(b, s, m, device=dev, generator=gen).to(torch.bfloat16).requires_grad_()
+    router = torch.randn(m, e, device=dev, generator=gen) * m ** -0.5
+    w_in = (torch.randn(e, m, f, device=dev, generator=gen) * (e * m) ** -0.5).requires_grad_()
+    w_out = (torch.randn(e, f, m, device=dev, generator=gen) * (e * f) ** -0.5).requires_grad_()
+    capacity = int(np.ceil(s * cfg.capacity_factor / e))
+    dispatch, combine, _ = moe.switch_route(h.float() @ router, capacity)
+    dispatch = dispatch.to(torch.bfloat16)
+    combine = combine.to(torch.bfloat16).detach().requires_grad_()
+    g_y = torch.randn(b, s, m, device=dev, generator=gen).to(torch.bfloat16)
+    inputs = (h, combine, w_in, w_out)
+
+    def run(shards):
+        per = e // shards
+        y = sum(moe.expert_ffn(h, dispatch[:, :, i * per:(i + 1) * per],
+                               combine[:, :, i * per:(i + 1) * per], w_in[i * per:(i + 1) * per],
+                               w_out[i * per:(i + 1) * per], torch.bfloat16)
+                for i in range(shards))
+        return y, torch.autograd.grad(y, inputs, g_y)
+
+    whole_y, whole_g = run(1)
+    shard_y, shard_g = run(EXPERT_SHARDS)
+    errs = {"y": rel_err(shard_y, whole_y)}
+    errs.update({name: rel_err(a, b_) for name, a, b_ in
+                 zip(("dh", "dcombine", "dw_in", "dw_out"), shard_g, whole_g)})
+    log(f"moe: expert axis replayed, {EXPERT_SHARDS} shards of {e // EXPERT_SHARDS} experts at "
+        f"{b} x {s} (capacity {capacity}): ||shards - whole|| / ||whole|| {errs}")
+    bad = {k: v for k, v in errs.items() if not v <= PIPE_RTOL}
+    if bad:
+        raise AssertionError(f"moe: the expert shards disagree with the whole FFN: {bad}")
+    del h, w_in, w_out, dispatch, combine, whole_g, shard_g, inputs
+    free_card()
+
+    # --- the pipeline schedules replayed: S virtual stages on one card.
+    pcfg = plm.PipelineLMConfig(**PIPE_SHAPE, dtype=torch.bfloat16)
+    model, params = plm.init_params(pcfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(a).to(dev) for k, a in
+             plm.synthetic_batch(pcfg, PIPE_BATCH, PIPE_SEQ).items()}
+    tokens = batch["tokens"].long()
+
+    def sequential(p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        logits = plm.sequential_apply(plm.PipelineLM(pcfg), leaves, tokens[:, :-1])
+        loss = plm._nll(logits, tokens[:, 1:]).mean()
+        return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    def gpipe(p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss = plm.make_loss_fn(model)(leaves, batch)
+        return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    icfg = dataclasses.replace(pcfg, n_chunks=2)
+    stored = dict(params, **{plm.BLOCKS + k: v for k, v in plm.blocks_from_execution_order(
+        icfg, plm._blocks(params)).items()})
+    want_loss, want = sequential(params)
+    want_stored = dict(want, **{plm.BLOCKS + k: v for k, v in plm.blocks_from_execution_order(
+        icfg, plm._blocks(want)).items()})
+    schedules = {"gpipe": (gpipe, params, want),
+                 "1f1b": (plm.make_onef_oneb_value_and_grad(model), params, want),
+                 "interleaved": (plm.make_onef_oneb_value_and_grad(plm.PipelineLM(icfg)),
+                                 stored, want_stored)}
+    with replay_mesh({"pipe": pcfg.n_stages}):
+        for name, (fn, p, ref) in schedules.items():
+            args_ = (p,) if name == "gpipe" else (p, batch)
+            fn(*args_)                                  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = fn(*args_)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            errs = {k: rel_err(grads[k], ref[k]) for k in ref}
+            loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+            worst = max(errs, key=errs.get)
+            log(f"pipeline {name}: S={pcfg.n_stages} x v={2 if name == 'interleaved' else 1}, "
+                f"{PIPE_BATCH} x {PIPE_SEQ} in {pcfg.num_microbatches} micro-batches, d"
+                f"{pcfg.d_model} x {pcfg.n_layers}: loss {float(loss):.6f} vs sequential "
+                f"{float(want_loss):.6f}; worst leaf {worst} {errs[worst]:.2e}; "
+                f"{ms:.3f} ms a step (replayed on one card)")
+            if not (loss_err <= PIPE_RTOL and errs[worst] <= PIPE_RTOL):
+                raise AssertionError(f"pipeline {name} disagrees with sequential_apply: loss "
+                                     f"{loss_err:.2e}, {worst} {errs[worst]:.2e}")
+    del model, params, stored, want, want_stored, schedules
+    free_card()
+    log(f"moe_pipe: phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def free_card():
     """Drop what the last run left on the card before the next one is built."""
     import gc
@@ -2146,9 +2318,10 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
-    if only == "unroll":
-        # Phase 16 alone (a shorter call while it is worked on); no kernel line.
-        log(f"unroll: launches {unroll_path(every, dev)}")
+    if only in ("unroll", "moe_pipe"):
+        # Phase 16 or 17 alone (a shorter call while it is worked on); no kernel line.
+        path = unroll_path if only == "unroll" else moe_pipe_path
+        log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -2180,6 +2353,7 @@ def main(argv=None) -> int:
     by_phase["text"] = text_path(every, dev,
                                  image_results[("AllReduce", 128)]["images_per_sec"])
     by_phase["unroll"] = unroll_path(every, dev)
+    by_phase["moe"] = moe_pipe_path(every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

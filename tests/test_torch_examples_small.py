@@ -19,7 +19,10 @@ bert, ncf, disk_input, raw_torch_baseline, run_all, and imagenet's run-info
 files) run a couple of steps each at tiny sizes on the host: their modes
 run end to end and report finite numbers, each rate line parses as
 ``run_all`` parses it, and ``run_all`` lists the JAX sweep's rows with the
-two it cannot run yet marked "not ported".
+one it cannot run yet marked "not ported". The parallelism entry points
+``moe_lm`` (one process) and ``pipeline_lm`` (the 2 gloo ranks of the
+spawn, a pipe of 2) train tiny models: the pipeline's losses equal the
+same steps replayed in one process (rtol 1e-4, Adam).
 """
 
 import functools
@@ -31,14 +34,18 @@ import numpy as np
 import pytest
 import torch
 
-from autodist_tpu_torch.examples import (image_classifier, linear_regression,
-                                         multiprocess_linear_regression, sentiment_classifier)
+from autodist_tpu_torch.examples import (image_classifier, linear_regression, moe_lm,
+                                         multiprocess_linear_regression, pipeline_lm,
+                                         sentiment_classifier)
 from autodist_tpu_torch.examples.benchmark import bert as bert_bench
 from autodist_tpu_torch.examples.benchmark import (disk_input, ncf, raw_torch_baseline,
                                                    run_all)
 from test_torch_ring_attention import join_gloo_group, ranks_running
 
 SENTIMENT_STEPS = 10
+PIPELINE_TINY = ["--device", "cpu", "--n_stages", "2", "--batch_size", "4", "--seq_len", "16",
+                 "--d_model", "32", "--n_layers", "2", "--microbatches", "2", "--vocab",
+                 "128", "--steps", "2"]
 
 
 def _two_rank_worker(workdir: pathlib.Path):
@@ -49,6 +56,8 @@ def _two_rank_worker(workdir: pathlib.Path):
     np.save(workdir / f"sentiment_rank{dist.get_rank()}.npy", np.array(losses))
     result = bert_bench.main(BERT_TINY + BERT_DP)
     np.save(workdir / f"bert_rank{dist.get_rank()}.npy", np.array([result["final_loss"]]))
+    result = pipeline_lm.main(PIPELINE_TINY)
+    np.save(workdir / f"pipeline_rank{dist.get_rank()}.npy", np.array([result["final_loss"]]))
     dist.destroy_process_group()
 
 
@@ -241,15 +250,58 @@ def test_run_all_lists_the_jax_rows_and_refuses_unported(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [line.split()[0] for line in lines] == list(jrun_all.CONFIGS)
     assert {line.split()[0]: line.split(None, 1)[1] for line in lines if " " in line} == {
-        "lm1b_lstm": "not ported (ROADMAP Queue 1 item 5)",
-        "moe": "not ported (ROADMAP Queue 1 item 3)"}
-    for argv in (["--only", "moe"], ["--only", "ncf,lm1b_lstm"], ["--update_baseline"]):
+        "lm1b_lstm": "not ported (ROADMAP Queue 1 item 5)"}
+    for argv in (["--only", "lm1b_lstm"], ["--only", "ncf,lm1b_lstm"], ["--update_baseline"]):
         with pytest.raises(SystemExit) as exc:
             run_all.main(argv)
         assert exc.value.code != 0
     flagship = run_all.parse_output("flagship", '{"value": 604406.3, "mfu": 0.1351}')
     assert (flagship["rate"], flagship["mfu_pct"]) == (604406.3, 13.51)
     assert run_all.parse_output("ncf", "nothing")["rate"] is None
+    moe = run_all.parse_output("moe", "moe: final loss 9.5; average 123,456.7 tokens/sec "
+                                      "(mesh={'data': 1})\nmfu 12.34% (1.0 TFLOP/s, 2 GFLOP/step)")
+    assert (moe["rate"], moe["mfu_pct"]) == (123456.7, 12.34)
+
+
+def test_moe_lm_trains_on_the_host(capsys):
+    """The MoE entry point at a tiny size with accumulation: a finite loss,
+    the JAX example's result line (as ``run_all``'s moe row parses it), and
+    no MFU on the host."""
+    result = moe_lm.main(["--device", "cpu", "--batch_size", "4", "--accum", "2", "--seq_len",
+                          "16", "--d_model", "32", "--n_layers", "1", "--vocab", "128",
+                          "--steps", "3", "--log_every", "1"])
+    out = capsys.readouterr().out
+    assert np.isfinite(result["final_loss"]) and result["mfu"] is None
+    assert result["mesh"] == {"data": 1} and "mfu not measured" in out
+    assert run_all.parse_output("moe", out)["rate"] == pytest.approx(
+        result["tokens_per_sec"], abs=0.05)
+
+
+def test_two_rank_pipeline_lm_equals_its_replay(two_ranks):
+    """``pipeline_lm`` under torchrun over 2 gloo ranks (a pipe of 2, GPipe):
+    both ranks report the loss of the same two Adam steps replayed in one
+    process."""
+    from autodist_tpu_torch.models import pipeline_lm as plm
+    from autodist_tpu_torch.parallel.mesh import replay_mesh
+    workdir, logs = two_ranks()
+    ranks = [np.load(workdir / f"pipeline_rank{r}.npy") for r in range(2)]
+    np.testing.assert_array_equal(ranks[0], ranks[1])
+    assert "pipeline: final loss" in logs[0] and "mesh={'pipe': 2}" in logs[0]
+    args = pipeline_lm.parse_args(PIPELINE_TINY)
+    cfg = plm.PipelineLMConfig(vocab_size=128, d_model=32, n_heads=8, n_layers=2, d_ff=128,
+                               max_len=17, n_stages=2, num_microbatches=2, dtype=torch.float32)
+    model, params = plm.init_params(cfg, seed=0, device="cpu")
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-3, eps=1e-8)
+    batch = {"tokens": torch.tensor(plm.synthetic_batch(cfg, args.batch_size, args.seq_len)[
+        "tokens"])}
+    with replay_mesh({"pipe": 2}):
+        for _ in range(args.steps):
+            opt.zero_grad()
+            loss = plm.make_loss_fn(model)(params, batch)
+            loss.backward()
+            opt.step()
+    np.testing.assert_allclose(ranks[0][0], float(loss.detach()), rtol=1e-4)
 
 
 def test_imagenet_benchmark_writes_run_info(tmp_path, monkeypatch):

@@ -238,9 +238,10 @@ def test_flagship_index_leaves_equal_jax_detection():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item():
-    """Async PS, ExpertParallel and Pipeline raise, each naming its
-    ROADMAP.md item; nothing falls back to AllReduce. The autotuner is
-    ported: ``"autotune"`` is accepted, and any other name refused."""
+    """Async PS raises naming its ROADMAP.md item; nothing falls back to
+    AllReduce. ``ExpertParallel`` and ``Pipeline`` are ported: they build,
+    and refuse what the JAX builders refuse. The autotuner is ported:
+    ``"autotune"`` is accepted, and any other name refused."""
     _, spec = _models(sparse=False)
     params = {k: torch.zeros(s) for k, s in SHAPES.items()}
     for builder in (tstrategy.PS(sync=False), tstrategy.PSLoadBalancing(staleness=1)):
@@ -249,9 +250,13 @@ def test_unported_parts_raise_naming_their_roadmap_item():
         with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             ad.create_distributed_session(lambda p, b: p["s"], params,
                                           lambda p: torch.optim.SGD(p, lr=0.1))
-    for cls in (tstrategy.ExpertParallel, tstrategy.Pipeline):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            cls()
+    for builder in (tstrategy.ExpertParallel(num_experts=2), tstrategy.Pipeline(n_stages=2)):
+        built = builder.build(spec, ResourceSpec(resource_info=RESOURCES["8"]))
+        assert [n.var_name for n in built.node_config] == spec.names
+    with pytest.raises(ValueError, match="num_experts must be >= 2"):
+        tstrategy.ExpertParallel(num_experts=1)
+    with pytest.raises(ValueError, match="n_stages must be >= 2"):
+        tstrategy.Pipeline(n_stages=1)
     tuned = AutoDist(strategy_builder="autotune", device="cpu")
     assert tuned._autotune and tuned._tuned_plan is None
     with pytest.raises(ValueError):
