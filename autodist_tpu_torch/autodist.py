@@ -1,21 +1,32 @@
-"""User API: the AutoDist class (``autodist_tpu/autodist.py:44,184-287,363-400``).
+"""User API: the AutoDist class (``autodist_tpu/autodist.py``).
 
-Ported: the synchronous single-node path, ``AutoDist(resource spec,
-builder)`` -> ``create_distributed_session`` or ``function``, under every
-synchronous builder of :mod:`autodist_tpu_torch.strategy` (default
-``PSLoadBalancing()``, as in the JAX package) and ``zero=`` /
-``AUTODIST_ZERO`` weight-update sharding, over a mesh of one or more ranks
-(one process per device, launched by torchrun: the mesh's device count
-comes from the resource spec, whose default is the world size or the
-visible cards); and the sequence-parallel session built on it
-(:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`);
-and the plan search (``strategy_builder="autotune"``, ``tune=True`` or
-``AUTODIST_TUNE``: :mod:`autodist_tpu_torch.strategy.autotune`). Async PS
-and cluster launch raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``AutoDist(resource spec, builder)`` -> ``create_distributed_session`` or
+``function``, under every builder of :mod:`autodist_tpu_torch.strategy`
+(default ``PSLoadBalancing()``, as in the JAX package):
+
+- synchronous plans run the :class:`DistributedRunner` over a mesh of one or
+  more ranks, one process per device, launched by torchrun or, from a
+  multi-node resource spec, by the :class:`~autodist_tpu_torch.coordinator.Coordinator`
+  (the ranks join one ``torch.distributed`` group), with ``zero=`` /
+  ``AUTODIST_ZERO`` weight-update sharding;
+- async plans (``PS(sync=False)``, ``staleness > 0``) run the
+  :class:`~autodist_tpu_torch.parallel.staleness.AsyncPSRunner`: in-process
+  workers, or on a multi-node spec one worker a process, meeting at the
+  chief's parameter service over the TCP transport;
+- the sequence-parallel session built on it
+  (:func:`autodist_tpu_torch.parallel.sequence.create_sequence_parallel_session`)
+  and the plan search (``strategy_builder="autotune"``, ``tune=True`` or
+  ``AUTODIST_TUNE``: :mod:`autodist_tpu_torch.strategy.autotune`).
+
+On a multi-node spec the chief builds the strategy, serializes it and
+re-executes the user's command on every other node with the worker role
+env; a worker process loads the strategy by its id
+(``AUTODIST_STRATEGY_ID``).
 """
 
+import atexit
 import logging
+import socket
 from typing import Callable, Mapping, Optional, Sequence, Union
 
 import torch
@@ -67,21 +78,83 @@ class AutoDist:
         else:
             self._resource_spec = ResourceSpec(resource_spec_file,
                                                resource_info=resource_info)
-        if self._resource_spec.num_nodes > 1:
-            raise NotImplementedError("multi-node cluster launch is not ported yet")
         self._strategy_builder = strategy_builder or PSLoadBalancing()
         self._strategy: Optional[Strategy] = None
         self._compiled: Optional[Strategy] = None
         self._model_signature = None
+        self._cluster = None
+        self._coordinator = None
+        self._ps_listen_sock = None
+        self._ps_address: Optional[str] = None
+        self._session = None
 
     @property
     def resource_spec(self) -> ResourceSpec:
         return self._resource_spec
 
+    @property
+    def is_chief(self) -> bool:
+        """Not a coordinator-launched worker (``AUTODIST_WORKER`` unset)."""
+        return not const.is_worker()
+
     def build_strategy(self, model_spec: ModelSpec) -> Strategy:
-        if self._strategy is None:
+        """Build the strategy (the chief) or load the chief's by the id the
+        coordinator shipped (a worker process)."""
+        if self._strategy is not None:
+            return self._strategy
+        if self.is_chief:
             self._strategy = self._strategy_builder.build(model_spec, self._resource_spec)
+        else:
+            strategy_id = const.env_str(const.AUTODIST_STRATEGY_ID)
+            if not strategy_id:
+                raise RuntimeError("Worker process has no AUTODIST_STRATEGY_ID; the "
+                                   "coordinator must ship the chief's strategy id")
+            self._strategy = Strategy.deserialize(strategy_id)
+            _log.info("Loaded strategy %s (worker)", strategy_id)
         return self._strategy
+
+    # ------------------------------------------------------------------ cluster
+    def _setup(self, strategy: Strategy, async_mode: bool) -> None:
+        """Multi-node setup at the first session (``autodist.py:134-167``):
+        the cluster spec; on the chief, the PS port reserved before its
+        address ships (async plans) and the worker processes launched;
+        synchronous plans then join one process group. A teardown is
+        registered at exit."""
+        if self._cluster is not None or self._resource_spec.num_nodes <= 1:
+            return
+        from autodist_tpu_torch.cluster import Cluster
+        from autodist_tpu_torch.coordinator import Coordinator
+        self._cluster = Cluster(self._resource_spec)
+        self._cluster.start()
+        if self.is_chief:
+            self._coordinator = Coordinator(strategy, self._cluster)
+            extra_env = None
+            if async_mode:
+                host = self._resource_spec.chief_address
+                sock = socket.socket()
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                sock.bind((host, 0))
+                self._ps_listen_sock = sock
+                self._ps_address = f"{host}:{sock.getsockname()[1]}"
+                extra_env = {const.AUTODIST_PS_ADDR: self._ps_address}
+            self._coordinator.launch_clients(extra_env=extra_env)
+        if not async_mode:
+            multihost.maybe_initialize_multihost(self.device, cluster=self._cluster)
+        atexit.register(self._teardown)
+
+    def _teardown(self) -> None:
+        """Join the workers (bounded), close the session's transport, then
+        terminate what the cluster launched (``autodist.py:169-182``)."""
+        try:
+            if self._coordinator is not None:
+                self._coordinator.join(timeout=10.0)
+        finally:
+            if self._session is not None and hasattr(self._session, "close"):
+                self._session.close()
+            # The exit hook holds this instance: let the session's state go.
+            self._session = None
+            if self._cluster is not None:
+                self._cluster.terminate()
 
     def _compile(self, model_spec: ModelSpec) -> Strategy:
         # One model per AutoDist instance: a strategy built for another model
@@ -105,7 +178,8 @@ class AutoDist:
                                    accumulation_steps: int = 1,
                                    batch_size: Optional[int] = None,
                                    zero: Optional[int] = None,
-                                   tune: Optional[bool] = None) -> DistributedRunner:
+                                   tune: Optional[bool] = None,
+                                   num_workers: Optional[int] = None) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
 
         ``params`` is a flat ``{state-dict key: tensor}`` dict; ``optimizer``
@@ -115,10 +189,18 @@ class AutoDist:
         ``example_batch`` (:meth:`ModelSpec.from_loss_fn`, which also finds
         each sparse parameter's index leaf, the sparse wire's indices);
         else no parameter is sparse. ``zero`` (default ``AUTODIST_ZERO``)
-        turns on ZeRO-style weight-update sharding over the data axes. A plan of PS nodes that
-        are not synchronous raises ``NotImplementedError``. A mesh of more
-        than one rank joins the process group from torchrun's environment
-        first; every rank calls this with the same arguments.
+        turns on ZeRO-style weight-update sharding over the data axes (under
+        an async plan, ``zero=N > 1`` shards the chief's apply N ways). A
+        synchronous mesh of more than one rank joins the process group from
+        torchrun's environment or the coordinator's first; every rank calls
+        this with the same arguments.
+
+        A plan of PS nodes that are not synchronous (``sync=False`` or
+        ``staleness > 0``) returns an
+        :class:`~autodist_tpu_torch.parallel.staleness.AsyncPSRunner`;
+        ``num_workers`` sizes its worker pool (default: one slot a process of
+        a multi-node cluster, else one). Such a plan takes no
+        ``accumulation_steps > 1``.
 
         ``tune`` (default: ``AutoDist(strategy_builder="autotune")`` or the
         ``AUTODIST_TUNE`` flag) runs the plan autotuner before the first
@@ -139,7 +221,29 @@ class AutoDist:
                 zero = self._tuned_plan.zero
         model_spec, compiled, plan = self._plan(loss_fn, params, optimizer, example_batch,
                                                 sparse_names)
-        if plan.num_devices > 1 and not plan.is_async:
+        if plan.is_async and accumulation_steps > 1:
+            # Before _setup: failing after the launch would leave workers behind.
+            raise ValueError("accumulation_steps > 1 is a synchronous-runner feature; the "
+                             "async/bounded-stale regime steps micro-batches as ordinary steps")
+        self._setup(compiled, async_mode=plan.is_async)
+        if plan.is_async:
+            from autodist_tpu_torch.parallel.staleness import AsyncPSRunner
+            if num_workers:
+                workers = num_workers
+            elif self._cluster is not None:
+                workers = self._cluster.num_processes
+            else:
+                workers = 1
+            runner = AsyncPSRunner(compiled, model_spec, loss_fn, optimizer, self.device,
+                                   plan=plan, has_aux=has_aux, num_workers=workers,
+                                   ps_address=self._ps_address
+                                   or const.env_str(const.AUTODIST_PS_ADDR) or None,
+                                   zero=zero, batch_size=batch_size)
+            runner._ps_listen_sock = self._ps_listen_sock
+            runner.tuned_plan = self._tuned_plan
+            self._session = runner
+            return runner
+        if plan.num_devices > 1 and self._cluster is None:
             multihost.maybe_initialize_multihost(self.device)
         runner = DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
                                    plan=plan, accumulation_steps=accumulation_steps,
@@ -214,14 +318,20 @@ class AutoDist:
                  sparse_names: Optional[Sequence[str]] = None,
                  has_aux: bool = False, accumulation_steps: int = 1,
                  batch_size: Optional[int] = None, zero: Optional[int] = None,
-                 tune: Optional[bool] = None) -> Callable:
+                 tune: Optional[bool] = None, num_workers: Optional[int] = None) -> Callable:
         """``step(batch, fetches=None) -> loss`` (what
         :meth:`DistributedRunner.run` fetches) carrying the training state
         inside; the first call's runner is reused by every later one.
         ``step.runner``, ``step.get_state()`` and ``step.evaluate(batch,
-        fn=None)`` expose it."""
+        fn=None)`` expose it. Under an async plan ``step`` is one worker's
+        loop (slot 0; ``num_workers`` sizes the pool, as in
+        :meth:`create_distributed_session`) and has no ``evaluate`` (a worker
+        process's state is a template)."""
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
             accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero,
-            tune=tune)
-        return step_function(runner, params)
+            tune=tune, num_workers=num_workers)
+        step = step_function(runner, params)
+        if runner.plan.is_async:
+            del step.evaluate
+        return step

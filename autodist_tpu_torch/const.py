@@ -2,6 +2,7 @@
 copy of the names it needs from ``autodist_tpu/const.py``)."""
 
 import os
+import tempfile
 
 # Mesh axis names (the strategy's MeshConfig records them).
 MESH_AXIS_DATA = "data"          # data parallelism (batch dim)
@@ -11,9 +12,9 @@ MESH_AXIS_SEQ = "seq"            # sequence/context parallelism axis
 MESH_AXIS_EXPERT = "expert"      # expert parallelism axis
 MESH_AXIS_PIPE = "pipe"          # pipeline parallelism axis
 
-# ZeRO-style weight-update sharding (arXiv 2004.13336) for the synchronous
-# runner: 0 off (the default), any other integer on. The JAX package's N > 1
-# also shards the async PS apply, which the port has not ported.
+# ZeRO-style weight-update sharding (arXiv 2004.13336): 0 off (the default),
+# any other integer on; under an async PS plan, N > 1 shards the chief's
+# apply over N concurrent shards (1 picks parallel/staleness.py's default).
 AUTODIST_ZERO = "AUTODIST_ZERO"
 
 # train()'s input pipeline: the prefetch queue's depth (0 = the synchronous
@@ -42,14 +43,56 @@ TUNE_BUDGET_DEFAULT = 32
 # file sink; empty, the framework logger.
 AUTODIST_BENCHMARK_LOG_DIR = "AUTODIST_BENCHMARK_LOG_DIR"
 
-# Planes of the JAX package's train() that the port has not ported: each one
-# armed in the environment makes train() raise instead of running without it.
+# Planes of the JAX package that the port has not ported (ROADMAP.md, Queue 1
+# item 7): each one armed in the environment makes train(), the PS server and
+# the recovery plane raise instead of running without it.
 UNPORTED_PLANES = {
     "AUTODIST_HEALTH": "the training-health monitors",
+    "AUTODIST_HEALTH_ACTION": "the training-health monitors' actions",
     "AUTODIST_PROFILE": "the performance-attribution plane",
     "AUTODIST_METRICS_PORT": "the OpenMetrics scrape endpoint",
     "AUTODIST_ALERT_ACTION": "the alert engine's actions",
+    "AUTODIST_RECORDER": "the flight recorder",
+    "AUTODIST_TRACE_PULL": "the cluster trace plane",
 }
+TELEMETRY_ROADMAP = "ROADMAP.md, Queue 1 item 7: the telemetry planes"
+
+# The working directory: serialized strategies (the chief-to-worker
+# handshake by id) and the cluster spec file.
+DEFAULT_WORKING_DIR = os.environ.get(
+    "AUTODIST_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu_torch"))
+DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+DEFAULT_COORDINATOR_PORT = 15000
+
+# The cluster and the async PS plane (the JAX package's ENV flags of the same
+# names and defaults, autodist_tpu/const.py:241-397): the role env the
+# coordinator sets on a worker process, the PS transport's knobs, the
+# recovery plane's policy and the fault-injection spec.
+AUTODIST_WORKER = "AUTODIST_WORKER"
+AUTODIST_STRATEGY_ID = "AUTODIST_STRATEGY_ID"
+AUTODIST_MIN_LOG_LEVEL = "AUTODIST_MIN_LOG_LEVEL"
+AUTODIST_IS_TESTING = "AUTODIST_IS_TESTING"
+AUTODIST_DEBUG_REMOTE = "AUTODIST_DEBUG_REMOTE"
+SYS_DATA_PATH = "SYS_DATA_PATH"
+SYS_RESOURCE_PATH = "SYS_RESOURCE_PATH"
+AUTODIST_COORDINATOR_ADDR = "AUTODIST_COORDINATOR_ADDR"
+AUTODIST_COORDINATOR_PORT = "AUTODIST_COORDINATOR_PORT"
+AUTODIST_NUM_PROCESSES = "AUTODIST_NUM_PROCESSES"
+AUTODIST_PROCESS_ID = "AUTODIST_PROCESS_ID"
+AUTODIST_PS_ADDR = "AUTODIST_PS_ADDR"
+AUTODIST_PS_OVERLAP = "AUTODIST_PS_OVERLAP"
+AUTODIST_NATIVE_TRANSPORT = "AUTODIST_NATIVE_TRANSPORT"
+AUTODIST_WATCHDOG = "AUTODIST_WATCHDOG"
+AUTODIST_WATCHDOG_SEC = "AUTODIST_WATCHDOG_SEC"
+AUTODIST_EVICT_AFTER_S = "AUTODIST_EVICT_AFTER_S"
+AUTODIST_WORKER_FAILURE = "AUTODIST_WORKER_FAILURE"
+AUTODIST_RECOVER_MAX = "AUTODIST_RECOVER_MAX"
+AUTODIST_WIRE_RETRIES = "AUTODIST_WIRE_RETRIES"
+AUTODIST_WIRE_BACKOFF_S = "AUTODIST_WIRE_BACKOFF_S"
+AUTODIST_FAULTS = "AUTODIST_FAULTS"
+AUTODIST_WIRE_DTYPE = "AUTODIST_WIRE_DTYPE"
+AUTODIST_COMPRESS_MIN_BYTES = "AUTODIST_COMPRESS_MIN_BYTES"
+AUTODIST_SPARSE_PUSH = "AUTODIST_SPARSE_PUSH"
 
 _OFF = ("", "0", "false", "no", "off")
 
@@ -63,6 +106,28 @@ def env_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default).strip()
 
 
+def env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "").strip()
+    return float(raw) if raw else default
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """A boolean flag: ``default`` when unset, else :func:`env_armed`'s parse."""
+    if name not in os.environ:
+        return default
+    return env_armed(name)
+
+
+def refuse_unported(names, where: str) -> None:
+    """Raise ``NotImplementedError`` when any of ``names`` (keys of
+    :data:`UNPORTED_PLANES`) is armed in the environment."""
+    armed = [f"{n} ({UNPORTED_PLANES[n]})" for n in names if env_armed(n)]
+    if armed:
+        raise NotImplementedError(f"{', '.join(armed)} armed in the environment, but "
+                                  f"{where} has no such plane yet ({TELEMETRY_ROADMAP}); "
+                                  f"unset it to run without it")
+
+
 def env_armed(name: str) -> bool:
     """Whether flag ``name`` is set to something other than off (the JAX
     package's boolean parse: empty, 0, false, no and off are off)."""
@@ -72,7 +137,7 @@ def env_armed(name: str) -> bool:
 def is_worker() -> bool:
     """True when this process was launched by a coordinator as a worker
     replica (``AUTODIST_WORKER`` non-empty)."""
-    return bool(os.environ.get("AUTODIST_WORKER", ""))
+    return bool(os.environ.get(AUTODIST_WORKER, ""))
 
 
 def is_chief_process() -> bool:

@@ -62,11 +62,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig, Callable,
-                                             object]:
+def build(args: argparse.Namespace, builder=None, resource_info: Optional[dict] = None,
+          **session) -> Tuple[transformer_lm.TransformerLMConfig, Callable, object]:
     """``(config, step, batch)``: the ``AutoDist.function`` step with fresh
     weights from seed 0 and the synthetic global batch, already laid out on
-    the device. The mesh is one data rank per process of the world."""
+    the device. The mesh is one data rank per process of the world.
+    ``builder`` (a strategy builder instance) overrides ``--strategy``,
+    ``resource_info`` the local default resource spec, and ``session``
+    goes to ``AutoDist.function`` (``num_workers=``, ``zero=``); the
+    ``AutoDist`` is ``step.autodist``."""
     device = resolve_device(args.device)
     cfg = transformer_lm.TransformerLMConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=8, n_layers=args.n_layers,
@@ -74,14 +78,17 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
         tied_output=False, fused_head=True)
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
-    builder = getattr(strategies, args.strategy)()
+    if builder is None:
+        builder = getattr(strategies, args.strategy)()
     # One micro-batch for the sparse walk (only its shapes and dtypes are
     # read), as bench.py passes its batch: at bf16 it marks pos_embed sparse.
-    step = AutoDist(strategy_builder=builder, device=device).function(
+    ad = AutoDist(resource_info=resource_info, strategy_builder=builder, device=device)
+    step = ad.function(
         transformer_lm.make_loss_fn(model), params,
         lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
         example_batch=transformer_lm.synthetic_batch(cfg, args.micro_batch, args.seq_len),
-        accumulation_steps=args.accum)
+        accumulation_steps=args.accum, **session)
+    step.autodist = ad
     batch = transformer_lm.synthetic_batch(
         cfg, args.micro_batch * step.runner.plan.dp_size * args.accum, args.seq_len)
     # Device-resident batch: measure the card, not the host link.

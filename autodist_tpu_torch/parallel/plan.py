@@ -43,8 +43,6 @@ COMP_POWER_SGD = AllReduceSynchronizer.Compressor.POWER_SGD
 Entry = Union[None, str, Tuple[str, ...]]
 PSpec = Tuple[Entry, ...]
 
-ASYNC_ROADMAP = "ROADMAP.md, Queue 1 item 4: the async PS plane"
-
 
 def entry_axes(entry: Entry) -> Tuple[str, ...]:
     """The mesh axes of one spec entry, major first."""
@@ -217,6 +215,20 @@ class ShardingPlan:
         ``staleness > 0``): the async PS plane, not one synchronous step."""
         return any(p.sync == SYNC_PS and (not p.synchronous or p.staleness > 0)
                    for p in self.params.values())
+
+    @property
+    def max_staleness(self) -> int:
+        return max((p.staleness for p in self.params.values()), default=0)
+
+    def local(self, strategy, model_spec: ModelSpec) -> "ShardingPlan":
+        """This plan on one device: every mesh axis of size 1 (the async PS
+        runner's, whose processes each run their own program)."""
+        if self.num_devices == 1:
+            return self
+        local = strategy.copy() if hasattr(strategy, "copy") else strategy
+        for axis in local.mesh_config.axes:
+            axis.size = 1
+        return ShardingPlan.from_strategy(local, model_spec)
 
     @property
     def all_params_replicated(self) -> bool:

@@ -37,9 +37,10 @@ What that asks of a loss under data parallelism:
 The reported loss is averaged over the same ranks, so it is the global one.
 """
 
+import dataclasses
 import logging
 import zlib
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +53,7 @@ from autodist_tpu_torch.parallel.mesh import (DeviceMesh, current_mesh, single_d
                                               step_mesh)
 from autodist_tpu_torch.parallel.plan import (COMP_BF16, COMP_BF16_EF, COMP_NONE,
                                               COMP_POWER_SGD, DP_AXES, ShardingPlan)
+from autodist_tpu_torch.parallel.wire import register_wire_dataclass
 from autodist_tpu_torch.proto.strategy import AllReduceSynchronizer
 
 _log = logging.getLogger("autodist_tpu_torch")
@@ -374,7 +376,8 @@ def make_grad_fn(sharding_plan: ShardingPlan, model_spec: ModelSpec,
 
 
 def _batch_leaf_by_name(batch, leaf_name: str):
-    """The batch leaf whose '/'-joined path is ``leaf_name`` (None if none)."""
+    """The batch leaf (a tensor or an array) whose '/'-joined path is
+    ``leaf_name`` (None if none)."""
     def walk(tree, path):
         if isinstance(tree, Mapping):
             for k, v in tree.items():
@@ -386,6 +389,142 @@ def _batch_leaf_by_name(batch, leaf_name: str):
             yield "/".join(path), tree
 
     for name, leaf in walk(batch, ()):
-        if name == leaf_name and isinstance(leaf, torch.Tensor):
+        if name == leaf_name and isinstance(leaf, (torch.Tensor, np.ndarray)):
             return leaf
     return None
+
+
+# --------------------------------------------------------- wire-push compression
+# The async PS plane's push codecs (``autodist_tpu/parallel/synchronization.py:
+# 491-654``): a transport concern only, the server's decode dequantizes and
+# ``apply_sparse`` densifies, so its apply path sees a dense tree.
+
+@dataclasses.dataclass
+class SparseRows:
+    """Row-sparse gradient wire frame: ``indices`` [k] the unique touched
+    rows, ``rows`` [k, ...] the gradient at them, ``shape`` the dense shape
+    the server scatter-applies into."""
+
+    indices: Any
+    rows: Any
+    shape: Any
+
+
+# The JAX package's key, so the two codecs exchange these frames.
+register_wire_dataclass(SparseRows, "autodist_tpu.parallel.synchronization:SparseRows")
+
+
+def densify_sparse_rows(tree):
+    """Every :class:`SparseRows` leaf of a dict/list/tuple tree back to its
+    dense gradient (zeros off the touched rows, scatter-added, so duplicate
+    indices sum)."""
+    if isinstance(tree, SparseRows):
+        rows = torch.as_tensor(tree.rows)
+        dense = torch.zeros(tuple(int(d) for d in tree.shape), dtype=rows.dtype)
+        if rows.numel():
+            dense.index_add_(0, torch.as_tensor(tree.indices).reshape(-1).to(torch.int64),
+                             rows)
+        return dense
+    if isinstance(tree, dict):
+        return {k: densify_sparse_rows(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(densify_sparse_rows(v) for v in tree)
+    return tree
+
+
+class WirePushCompressor:
+    """Host-side gradient compressor of the remote PS push
+    (``autodist_tpu/parallel/synchronization.py:530-654``). Per gradient:
+
+    - **sparse push** (exact): a parameter the plan marks row-sparse ships
+      as :class:`SparseRows`, only the rows the batch's index leaf touched;
+    - **quantized push** (lossy, with error feedback): a float gradient of
+      ``ndim >= 2`` and at least ``min_bytes`` ships as a ``wire.quantize``
+      frame; the residual ``x - dequantize(quantize(x))`` is kept per
+      parameter and added before the next quantize (``error_feedback=False``
+      is the divergent negative control);
+    - **bypass** (exact): everything else.
+
+    Gradients are ``{state-dict key: host tensor}``; ``sparse_params`` maps
+    a key to its batch index leaf. ``bytes_in``, ``bytes_out``,
+    ``bytes_saved`` and ``quantize_s`` accumulate."""
+
+    def __init__(self, wire_dtype: str = "", *, min_bytes: Optional[int] = None,
+                 error_feedback: bool = True, sparse_params: Optional[dict] = None):
+        from autodist_tpu_torch.parallel import wire as wire_lib
+        wire_dtype = str(wire_dtype or "").lower()
+        if wire_dtype in ("off", "none", "0"):
+            wire_dtype = ""
+        if wire_dtype and wire_dtype not in wire_lib.WIRE_DTYPES:
+            raise ValueError(f"unknown wire dtype {wire_dtype!r}; valid: "
+                             f"off, {', '.join(wire_lib.WIRE_DTYPES)}")
+        self.wire_dtype = wire_dtype
+        self.min_bytes = const.env_int(const.AUTODIST_COMPRESS_MIN_BYTES, 65536) \
+            if min_bytes is None else int(min_bytes)
+        self.error_feedback = bool(error_feedback)
+        self.sparse_params = dict(sparse_params or {})
+        self._residuals: Dict[str, torch.Tensor] = {}
+        self.bytes_in = 0
+        self.bytes_out = 0
+        self.bytes_saved = 0
+        self.quantize_s = 0.0
+
+    @property
+    def active(self) -> bool:
+        return bool(self.wire_dtype) or bool(self.sparse_params)
+
+    def _sparse_leaf(self, key: str, g: torch.Tensor, batch) -> Optional[SparseRows]:
+        idx = _batch_leaf_by_name(batch, self.sparse_params[key]) if batch is not None else None
+        if idx is None:
+            return None
+        vocab = g.shape[0]
+        flat = torch.as_tensor(idx).reshape(-1).to(device="cpu", dtype=torch.int64)
+        flat = torch.where(flat < 0, flat + vocab, flat)
+        uniq = torch.unique(flat[(flat >= 0) & (flat < vocab)], sorted=True)
+        return SparseRows(indices=uniq, rows=g[uniq].contiguous(),
+                          shape=tuple(int(d) for d in g.shape))
+
+    def compress(self, grads: Dict[str, torch.Tensor], batch=None):
+        """``(wire_tree, has_sparse)``: the tree to push, leaves replaced by
+        :class:`SparseRows` or ``wire.QuantizedArray`` where the regime
+        applies, and whether any went sparse (the worker then pushes with
+        the ``apply_sparse`` opcode)."""
+        import time as _time
+
+        from autodist_tpu_torch.parallel import wire as wire_lib
+        t0 = _time.perf_counter()
+        saved = 0
+        has_sparse = False
+        out = {}
+        for key, g in grads.items():
+            g = torch.as_tensor(g)
+            nbytes = g.numel() * g.element_size()
+            if key in self.sparse_params and g.dim() >= 2:
+                sp = self._sparse_leaf(key, g, batch)
+                if sp is not None:
+                    has_sparse = True
+                    out_b = (sp.rows.numel() * sp.rows.element_size()
+                             + sp.indices.numel() * sp.indices.element_size())
+                    self.bytes_in += nbytes
+                    self.bytes_out += out_b
+                    saved += max(0, nbytes - out_b)
+                    out[key] = sp
+                    continue
+            if (self.wire_dtype and g.is_floating_point() and g.dim() >= 2
+                    and nbytes >= self.min_bytes):
+                x = g
+                prev = self._residuals.get(key)
+                if prev is not None:
+                    x = g + prev
+                qa = wire_lib.quantize(x, self.wire_dtype)
+                if self.error_feedback:
+                    self._residuals[key] = x - wire_lib.dequantize(qa)
+                self.bytes_in += nbytes
+                self.bytes_out += qa.wire_nbytes
+                saved += max(0, nbytes - qa.wire_nbytes)
+                out[key] = qa
+                continue
+            out[key] = g
+        self.bytes_saved += saved
+        self.quantize_s += _time.perf_counter() - t0
+        return out, has_sparse

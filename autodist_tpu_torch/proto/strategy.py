@@ -10,6 +10,7 @@ port needs no protobuf runtime.
 
 import dataclasses
 import enum
+import typing
 from typing import List, Optional
 
 
@@ -29,6 +30,32 @@ class Message:
             elif value:  # proto3: zero, "" and False are not serialized
                 out[f.name] = value.name if isinstance(value, enum.Enum) else value
         return out
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Message":
+        """The message :meth:`to_dict` rendered (enums by name); a field left
+        out takes its default."""
+        hints = typing.get_type_hints(cls, localns=globals())
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in data:
+                continue
+            value, kind = data[f.name], hints[f.name]
+            args = [a for a in typing.get_args(kind) if a is not type(None)]
+            if typing.get_origin(kind) is list:
+                item = args[0]
+                kwargs[f.name] = [item.from_dict(v) if isinstance(item, type)
+                                  and issubclass(item, Message) else v for v in value]
+                continue
+            if args:   # Optional[X]
+                kind = args[0]
+            if isinstance(kind, type) and issubclass(kind, Message):
+                kwargs[f.name] = kind.from_dict(value)
+            elif isinstance(kind, type) and issubclass(kind, enum.Enum):
+                kwargs[f.name] = kind[value]
+            else:
+                kwargs[f.name] = value
+        return cls(**kwargs)
 
 
 @dataclasses.dataclass

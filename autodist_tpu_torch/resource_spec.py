@@ -170,6 +170,15 @@ class ResourceSpec:
     def num_accelerators(self) -> int:
         return len(self.accelerator_devices)
 
+    def ssh_config_for(self, address: str) -> Optional[SSHConfig]:
+        """The ssh group of the node at ``address`` (None: plain ssh)."""
+        for n in self.nodes:
+            if n.address == address:
+                if n.ssh_config_name is None:
+                    return None
+                return self.ssh_config_map[n.ssh_config_name]
+        raise KeyError(address)
+
     @property
     def num_nodes(self) -> int:
         return len(self.nodes)

@@ -80,7 +80,7 @@ from autodist_tpu_torch.ops import costs
 from autodist_tpu_torch.parallel import synchronization
 from autodist_tpu_torch.parallel.layout import StateLayout
 from autodist_tpu_torch.parallel.mesh import DeviceMesh, joined_mesh, single_device_mesh
-from autodist_tpu_torch.parallel.plan import ASYNC_ROADMAP, DP_AXES, ShardingPlan
+from autodist_tpu_torch.parallel.plan import DP_AXES, ShardingPlan
 
 _log = logging.getLogger("autodist_tpu_torch")
 
@@ -258,9 +258,12 @@ class TrainState:
 class DistributedRunner:
     """Synchronous data-parallel runner of a compiled strategy."""
 
-    # Every plan the port runs has the fused multi-step path (an async plan
-    # raises at construction until its regime is ported).
+    # Every synchronous plan has the fused multi-step path; the async PS
+    # runner (parallel/staleness.py) has none.
     supports_run_many = True
+    # Whether each process runs its own program, joined to no process group
+    # (the async PS runner's processes meet only at the parameter service).
+    independent = False
 
     def __init__(self, compiled_strategy, model_spec: ModelSpec, loss_fn: Callable,
                  optimizer: Callable, device: torch.device,
@@ -279,9 +282,6 @@ class DistributedRunner:
             raise ValueError("accumulation_steps must be >= 1")
         self.plan = plan if plan is not None \
             else ShardingPlan.from_strategy(compiled_strategy, model_spec)
-        if self.plan.is_async:
-            raise NotImplementedError(f"asynchronous PS (sync=False or staleness > 0) is "
-                                      f"not ported yet ({ASYNC_ROADMAP})")
         self.zero = const.env_int(const.AUTODIST_ZERO, 0) if zero is None else int(zero)
         if self.zero and not self.plan.zero:
             self.plan = self.plan.with_zero_update()
@@ -297,7 +297,7 @@ class DistributedRunner:
         self.layout = StateLayout(self.plan, model_spec, self.mesh or single_device_mesh())
         self._grad_fn = synchronization.make_grad_fn(
             self.plan, model_spec, self.mesh, loss_fn, has_aux=has_aux, layout=self.layout)
-        world = dist.get_world_size() if dist.is_initialized() else 1
+        world = dist.get_world_size() if dist.is_initialized() and not self.independent else 1
         if world != self.plan.num_devices:
             raise RuntimeError(f"the mesh {dict(self.plan.mesh_axes)} has "
                                f"{self.plan.num_devices} devices but {world} processes "
@@ -571,6 +571,18 @@ class DistributedRunner:
                 extra = _tree_map(
                     lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
                     fetches(params, _fold(sharded)))
+        self._apply_update(state, grads)
+        rows = self._rows(sharded)
+        if self._has_aux:
+            aux = self._global(aux, rows)
+        if fetches is not None:
+            extra = self._global(extra, rows)
+        return loss, aux, extra
+
+    def _apply_update(self, state: TrainState, grads: Mapping[str, torch.Tensor]) -> None:
+        """One optimizer step of ``state`` on ``grads`` (``{key: gradient of
+        the optimizer's tensor}``), in place, then the sharded updates
+        gathered back into the storage and the step counted."""
         for key, g in grads.items():
             state.opt_params[key].grad = g
         try:
@@ -586,12 +598,6 @@ class DistributedRunner:
         for keys in by_axes.values():
             self.layout.gather_updates(keys, state.opt_params, state.params)
         state.step += 1
-        rows = self._rows(sharded)
-        if self._has_aux:
-            aux = self._global(aux, rows)
-        if fetches is not None:
-            extra = self._global(extra, rows)
-        return loss, aux, extra
 
     # ------------------------------------------------------------ fused steps
     def _place_block_leaf(self, t: torch.Tensor) -> torch.Tensor:
@@ -902,7 +908,10 @@ def step_function(runner: DistributedRunner, params: Dict[str, torch.Tensor]) ->
     state = runner.init(params)
 
     def step(batch, fetches=None):
-        _, fetched = runner.run(state, batch, fetches=fetches)
+        # The synchronous runner returns the state it was given; the async
+        # one its service's current state.
+        nonlocal state
+        state, fetched = runner.run(state, batch, fetches=fetches)
         return fetched
 
     step.runner = runner

@@ -2,13 +2,17 @@
 
 The port's strategy is the dataclass schema of :mod:`autodist_tpu_torch.proto.strategy`.
 The compiler prunes, resolves the mesh and resolves PS destinations to
-``reduce:<k>`` coordinates. Serialization by id (the chief-to-worker
-handshake) belongs to the cluster slice (``ROADMAP.md``, Queue 1 item 4).
+``reduce:<k>`` coordinates. A strategy is serialized by id under the working
+directory's ``strategies/`` (the chief-to-worker handshake: the coordinator
+ships the id in ``AUTODIST_STRATEGY_ID``), as JSON of its ``to_dict`` (the
+card has no protobuf).
 """
 
 import abc
 import copy
 import datetime
+import json
+import os
 from typing import Optional
 
 from autodist_tpu_torch import const
@@ -48,6 +52,34 @@ class Strategy:
 
     def to_dict(self) -> dict:
         return self._proto.to_dict()
+
+    # --- serialization by id (reference strategy/base.py:78-99) ---
+
+    @staticmethod
+    def _path_for(strategy_id: str) -> str:
+        return os.path.join(const.DEFAULT_SERIALIZATION_DIR, strategy_id)
+
+    def serialize(self, path: Optional[str] = None) -> str:
+        """Write the strategy to ``path`` (default: its id under the working
+        directory's ``strategies/``); returns the path."""
+        path = path or self._path_for(self.id)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._proto.path = path
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(self._proto.to_dict(), f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def deserialize(cls, strategy_id: Optional[str] = None,
+                    path: Optional[str] = None) -> "Strategy":
+        if path is None:
+            if not strategy_id:
+                raise ValueError("Need a strategy id or path")
+            path = cls._path_for(strategy_id)
+        with open(path) as f:
+            return cls(strategy_pb.Strategy.from_dict(json.load(f)))
 
     def copy(self) -> "Strategy":
         return Strategy(copy.deepcopy(self._proto))

@@ -1,2 +1,3 @@
-"""The port's telemetry plane: the cost model for now; its metrics, spans and
-profiles wait for ``ROADMAP.md`` Queue 1 item 7."""
+"""The port's telemetry plane: the cost model and the histograms the
+staleness controller keeps; its registry, spans and profiles wait for
+``ROADMAP.md`` Queue 1 item 7."""

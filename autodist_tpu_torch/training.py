@@ -23,6 +23,7 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.checkpoint.saver import Saver
 from autodist_tpu_torch.data import prefetch as _prefetch
 from autodist_tpu_torch.runner import BatchBlock, MicroBatched, ShardedBatch, TrainState, _leaves
+from autodist_tpu_torch.testing import faults as _faults
 from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
 _log = logging.getLogger("autodist_tpu_torch")
@@ -166,6 +167,10 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
             except StopIteration:
                 return state
 
+    if unroll > 1 and not getattr(runner, "supports_run_many", True):
+        _log.warning("train: unroll=%d requested but %s has no fused multi-step path (async "
+                     "regime); falling back to per-step dispatch", unroll, type(runner).__name__)
+        unroll = 1
     feed = None
     try:
         if unroll > 1:
@@ -229,6 +234,10 @@ def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, star
         except StopIteration:
             _log.info("train: batch iterator exhausted at step %d", step_i)
             break
+        if _faults.armed() and _faults.should_fire("nan_grads", step=step_i):
+            # The fault harness: NaN floats through the real step.
+            _log.warning("faults: injecting NaN batch at step %d", step_i)
+            batch = _faults.corrupt_batch(batch)
         state, fetched = runner.run(state, batch)
         loss = fetched[0] if isinstance(fetched, tuple) else fetched
         if meter is None and log_every:
@@ -243,7 +252,9 @@ def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, star
                           meter.last_readback_s)
                 if on_metrics is not None:
                     on_metrics(step_i + 1, float(loss), rate)
-        if eval_every and (step_i + 1) % eval_every == 0:
+        if (eval_every and (step_i + 1) % eval_every == 0
+                and not getattr(runner, "_is_remote_worker", False)):
+            # An async worker process holds only a template of the state.
             val = runner.evaluate(state, eval_batch, eval_fn)
             if on_eval is not None:
                 on_eval(step_i + 1, val)

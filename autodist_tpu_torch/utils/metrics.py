@@ -1,12 +1,76 @@
-"""Throughput metering (the port's copy of ``autodist_tpu/utils/metrics.py:127-282``,
-``ThroughputMeter``): examples/s per log period and a run average, with the
-first steps excluded as warm-up and the period's readback wait recorded;
-``step_many`` meters a fused block of steps (``run_many``) at block
-granularity. The caller logs the period's rate.
+"""Throughput metering and wire accounting (the port's copy of
+``autodist_tpu/utils/metrics.py``): ``ThroughputMeter`` (``:157-282``) gives
+examples/s per log period and a run average, with the first steps excluded
+as warm-up and the period's readback wait recorded; ``step_many`` meters a
+fused block of steps (``run_many``) at block granularity. ``WireCounters``
+(``:41-124``) counts the PS transport's payload bytes, messages and codec
+seconds. The JAX package mirrors both into its telemetry registry, which
+waits for ``ROADMAP.md`` Queue 1 item 7.
 """
 
+import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Union
+
+
+class WireCounters:
+    """PS-transport accounting: payload bytes and message counts in both
+    directions, cumulative encode/decode seconds. One instance a socket
+    (client side) or aggregated across connections (server side, where the
+    increments are locked so concurrent handler threads lose no count)."""
+
+    __slots__ = ("bytes_sent", "bytes_received", "msgs_sent", "msgs_received",
+                 "encode_s", "decode_s", "_lock")
+
+    def __init__(self):
+        self.bytes_sent = 0
+        self.bytes_received = 0
+        self.msgs_sent = 0
+        self.msgs_received = 0
+        self.encode_s = 0.0
+        self.decode_s = 0.0
+        self._lock = threading.Lock()
+
+    def add_sent(self, nbytes: int, encode_s: float = 0.0):
+        with self._lock:
+            self.bytes_sent += nbytes
+            self.msgs_sent += 1
+            self.encode_s += encode_s
+
+    def add_received(self, nbytes: int, decode_s: float = 0.0):
+        with self._lock:
+            self.bytes_received += nbytes
+            self.msgs_received += 1
+            self.decode_s += decode_s
+
+    def snapshot(self) -> Dict[str, Union[int, float]]:
+        """The six counters under one lock hold (the ``stats`` opcode's
+        per-connection payload)."""
+        with self._lock:
+            return {"bytes_sent": self.bytes_sent, "bytes_received": self.bytes_received,
+                    "msgs_sent": self.msgs_sent, "msgs_received": self.msgs_received,
+                    "encode_s": self.encode_s, "decode_s": self.decode_s}
+
+    def merge(self, other: "WireCounters"):
+        """Fold another counter set into this one (a prefetched pull's bytes
+        are attributed when the pull is consumed)."""
+        with self._lock:
+            self.bytes_sent += other.bytes_sent
+            self.bytes_received += other.bytes_received
+            self.msgs_sent += other.msgs_sent
+            self.msgs_received += other.msgs_received
+            self.encode_s += other.encode_s
+            self.decode_s += other.decode_s
+
+    def format_line(self) -> str:
+        """``wire tx 12.3MB/45 rx 67.8MB/46 enc 1.2ms/msg dec 3.4ms/msg``."""
+        def mb(n):
+            return f"{n / 1e6:.1f}MB"
+        enc = 1e3 * self.encode_s / max(self.msgs_sent, 1)
+        dec = 1e3 * self.decode_s / max(self.msgs_received, 1)
+        return (f"wire tx {mb(self.bytes_sent)}/{self.msgs_sent} "
+                f"rx {mb(self.bytes_received)}/{self.msgs_received} "
+                f"enc {enc:.2f}ms/msg dec {dec:.2f}ms/msg")
 
 
 def _sync(value) -> float:

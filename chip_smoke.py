@@ -265,11 +265,44 @@ exits non-zero without them, or when any phase fails. Phases:
    ``PipelineLM.apply`` and autograd, 1F1B, and interleaved 1F1B (v = 2),
    each loss and every leaf's gradient against ``sequential_apply`` with
    autograd (relative norm at most PIPE_RTOL), and each schedule's step time.
-18. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll`` and ``moe``), then the result line.
+18. The async PS plane (``async_ps``; counts set to 0 before each part):
+   (a) the flagship at full width through ``examples.flagship_lm.build``
+   (one micro-batch of 384 x 256 a step, no accumulation), 3 steps under
+   ``PS(sync=False)`` with one worker must equal ``PS()`` bit for bit in
+   every parameter, each fused-head kernel launching once a step and the
+   pack twice; (b) two in-process workers under ``PS(staleness=2)`` from
+   two threads, 6 steps each: 12 updates applied, no gate entry finding a
+   lag above 2, every parameter finite, the last loss below the first, each
+   fused-head kernel launched 12 times; steps/s (host clock), the service's
+   apply ms and a 2-step profiler window; (c) a stale interleaving (workers
+   0 and 1 read version 0, worker 0 applies, worker 1 applies its gradient
+   of version 0) must equal bit for bit a plain replay (a plain
+   ``torch.optim.Adam`` stepped on the gradients of the recorded versions),
+   and the version worker 1 held must be unchanged; (d) ``zero=4`` (the
+   apply in 4 shards) must equal (a)'s unsharded service bit for bit; (e)
+   across processes through the Coordinator: the port's ``async_ps_train``
+   in its own process (chief and loopback worker on cuda:0),
+   ``applied_updates == 2 x steps``; then the flagship from a two-node
+   loopback spec under ``PS(sync=False)``: this process serves and does not
+   step, the Coordinator re-executes this script as the worker (whose
+   ``main`` runs only the worker half, prints to stderr and writes its
+   report under the working directory), which takes (a)'s 3 steps over the
+   TCP transport; the chief's parameters must equal (a)'s bit for bit (f32
+   over a lossless wire), the native transport must have carried the bytes,
+   and per step the pull and push bytes and ms are printed beside (a)'s
+   steps/s; then once more with ``AUTODIST_WIRE_DTYPE=bf16``: push bytes
+   about half, final loss within rtol 1e-2 of the exact run's; (f) (b)'s
+   run with ``worker_crash@step=2,worker=1``: the worker is retired, a
+   replacement is admitted (``add_worker``, seeded at the slowest live
+   count) and takes its remaining steps, every planned step applies and the
+   parameters are finite.
+19. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll``, ``moe`` and ``async_ps``), then the result line.
 
-``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``) builds the
-kernels and runs phase 16 (or 17) alone, without the kernel line.
+``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
+async_ps``) builds the kernels and runs phase 16 (or 17, 18) alone, without
+the kernel line. A process the Coordinator launched (``AUTODIST_WORKER``
+set) runs only phase 18 (e)'s worker half and prints no result line.
 """
 
 import collections
@@ -280,6 +313,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -397,6 +431,18 @@ PIPE_SHAPE = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8, d_ff=204
                   n_stages=4, num_microbatches=4)
 PIPE_BATCH, PIPE_SEQ = 16, 256
 PIPE_RTOL = 1e-2
+# Phase 18: (a)/(d)/(e) steps, (b)/(f) steps per worker, and the two-node
+# loopback spec of (e) (both "nodes" on card 0). Its working directory (the
+# strategy handed to the worker, the cluster spec, the worker's report) is
+# under the checkout's git-ignored build/.
+ASYNC_STEPS = 3
+ASYNC_THREAD_STEPS = 6
+ASYNC_ROWS, ASYNC_SEQ = 384, 256
+ASYNC_MODEL_ARGS = []             # flagship_lm flags (a host rehearsal shrinks the model)
+ASYNC_TWO_NODES = {"nodes": [{"address": "localhost", "gpus": [0], "chief": True},
+                             {"address": "127.0.0.1", "gpus": [0]}]}
+os.environ.setdefault("AUTODIST_WORKING_DIR", os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "build", "autodist_wd"))
 
 
 def log(msg: str) -> None:
@@ -2275,6 +2321,340 @@ def search_path(dev):
     return failures
 
 
+def async_args(dev):
+    """The flagship entry point's arguments at one micro-batch a step (an
+    async plan takes no accumulation)."""
+    from autodist_tpu_torch.examples import flagship_lm
+    return flagship_lm.parse_args(["--device", str(dev), "--accum", "1", "--micro_batch",
+                                   str(ASYNC_ROWS), "--seq_len", str(ASYNC_SEQ)]
+                                  + ASYNC_MODEL_ARGS)
+
+
+def async_batches(step, cfg, seeds):
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    return [step.runner.shard_batch(tlm.synthetic_batch(cfg, ASYNC_ROWS, ASYNC_SEQ, seed=s))
+            for s in seeds]
+
+
+def async_session(dev, builder, **session):
+    from autodist_tpu_torch.examples import flagship_lm
+    cfg, step, _ = flagship_lm.build(async_args(dev), builder=builder, **session)
+    return cfg, step
+
+
+def device_params(state):
+    return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def check_launches(launches, steps, label):
+    want = {"xent_fwd": steps, "xent_dh": steps, "xent_dwdb": steps, "xent_pack_w": 2 * steps}
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"{label}: launches {wrong}, want {want}")
+
+
+def async_ps_worker():
+    """Phase 18 (e)'s worker half, in the process the Coordinator launched:
+    the flagship from the two-node spec under PS(sync=False), (a)'s 3 steps
+    over the transport; the per-step pull and push bytes and seconds go to
+    stderr and to the report the chief reads. No result line."""
+    from autodist_tpu_torch import const
+    from autodist_tpu_torch.parallel import ps_transport
+    from autodist_tpu_torch.strategy import PS
+    dev = torch.device("cuda:0")
+    cfg, step = async_session(dev, PS(sync=False), resource_info=ASYNC_TWO_NODES)
+    batches = async_batches(step, cfg, range(ASYNC_STEPS))
+    rows, losses = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        remote = step.runner._remote_worker
+        sent0, recv0 = remote.wire_bytes if remote is not None else (0, 0)
+        ts = time.perf_counter()
+        losses.append(float(step(batch)))
+        remote = step.runner._remote_worker
+        sent1, recv1 = remote.wire_bytes
+        rows.append({"pull_bytes": recv1 - recv0, "push_bytes": sent1 - sent0,
+                     "pull_ms": 1e3 * remote.last_pull_s, "push_ms": 1e3 * remote.last_push_s,
+                     "step_ms": 1e3 * (time.perf_counter() - ts)})
+    wall = time.perf_counter() - t0
+    report = {"losses": losses, "steps": rows, "steps_per_s": ASYNC_STEPS / wall,
+              "steps_per_s_after_first": (ASYNC_STEPS - 1) / (wall - rows[0]["step_ms"] / 1e3),
+              "native_bytes": list(ps_transport.native_bytes()),
+              "wire_dtype": const.env_str(const.AUTODIST_WIRE_DTYPE)}
+    with open(os.path.join(const.DEFAULT_WORKING_DIR, "chip_async_worker.json"), "w") as f:
+        json.dump(report, f)
+    print(f"async_ps worker: {report}", file=sys.stderr, flush=True)
+    return 0
+
+
+def async_remote(dev, wire_dtype, reference_params):
+    """Phase 18 (e)'s chief half: serve the flagship to the worker process
+    the Coordinator launches, step nothing, and return the worker's report
+    and whether the final parameters equal ``reference_params``."""
+    from autodist_tpu_torch import const
+    from autodist_tpu_torch.strategy import PS
+    report_path = os.path.join(const.DEFAULT_WORKING_DIR, "chip_async_worker.json")
+    if os.path.exists(report_path):
+        os.remove(report_path)
+    if wire_dtype:
+        os.environ[const.AUTODIST_WIRE_DTYPE] = wire_dtype
+    else:
+        os.environ.pop(const.AUTODIST_WIRE_DTYPE, None)
+    t0 = time.perf_counter()
+    try:
+        _, step = async_session(dev, PS(sync=False), resource_info=ASYNC_TWO_NODES)
+        ad, runner = step.autodist, step.runner
+        if not ad._coordinator.join(timeout=600.0):
+            raise AssertionError("async_ps: the worker process did not finish in 600 s")
+        wall = time.perf_counter() - t0
+        applied = runner.service.updates_applied
+        same = same_params(device_params(runner.service.state), reference_params)
+        finite = all(torch.isfinite(v).all() for v in runner.service.state.params.values())
+        ad._teardown()
+    finally:
+        os.environ.pop(const.AUTODIST_WIRE_DTYPE, None)
+    with open(report_path) as f:
+        report = json.load(f)
+    if applied != ASYNC_STEPS or not finite:
+        raise AssertionError(f"async_ps remote ({wire_dtype or 'f32'}): {applied} updates "
+                             f"applied of {ASYNC_STEPS}, finite {finite}")
+    log(f"async_ps remote ({wire_dtype or 'f32'} wire): chief wall {wall:.1f} s (worker "
+        f"launch, build and {ASYNC_STEPS} steps); worker {report['steps_per_s']:.3f} steps/s "
+        f"({report['steps_per_s_after_first']:.3f} after its first); losses "
+        f"{report['losses']}; worker native bytes {report['native_bytes']}")
+    for i, row in enumerate(report["steps"]):
+        log(f"async_ps remote ({wire_dtype or 'f32'}) step {i}: pull {row['pull_bytes']} bytes "
+            f"in {row['pull_ms']:.3f} ms, push {row['push_bytes']} bytes in "
+            f"{row['push_ms']:.3f} ms, step {row['step_ms']:.3f} ms")
+    return report, same
+
+
+def async_in_process(counted, dev):
+    """Phase 18 (a)-(d), in this process: ``(a)'s params, (a)'s steps/s, the
+    two-worker run of (b)`` (which (f) runs again with a fault). ``counted(fn)``
+    runs ``fn`` with every launch count set to 0 first and returns ``(out,
+    launches)``."""
+    from autodist_tpu_torch.strategy import PS
+    from autodist_tpu_torch.testing import faults
+
+    # (a) One worker equals the synchronous step.
+    cfg, sync_step = async_session(dev, PS())
+    seeds = range(ASYNC_STEPS)
+    batches = async_batches(sync_step, cfg, seeds)
+    sync_losses = [float(sync_step(b)) for b in batches]
+    sync_params = device_params(sync_step.get_state())
+    del sync_step
+    free_card()
+    _, step = async_session(dev, PS(sync=False))
+    if type(step.runner).__name__ != "AsyncPSRunner":
+        raise AssertionError(f"async_ps: PS(sync=False) built {type(step.runner).__name__}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, launches = counted(lambda: [float(step(b)) for b in batches])
+    a_rate = ASYNC_STEPS / (time.perf_counter() - t0)
+    a_params = device_params(step.runner.service.state)
+    log(f"async_ps (a): sync losses {sync_losses}, async losses {losses}; launches "
+        f"{launches}; {a_rate:.3f} steps/s (host clock, first step included)")
+    if not same_params(a_params, sync_params):
+        raise AssertionError("async_ps (a): PS(sync=False) with one worker differs from PS()")
+    check_launches(launches, ASYNC_STEPS, "async_ps (a)")
+    log("async_ps (a): PS(sync=False), one worker, equals PS() bit for bit over "
+        f"{ASYNC_STEPS} steps")
+    del step, sync_params
+    free_card()
+
+    # (b) Two in-process workers under PS(staleness=2), from two threads.
+    def two_workers(fault=None):
+        _, step = async_session(dev, PS(staleness=2), num_workers=2)
+        runner = step.runner
+        work = {w: async_batches(step, cfg, range(100 * (w + 1), 100 * (w + 1)
+                                                  + ASYNC_THREAD_STEPS)) for w in (0, 1)}
+        apply_s, wait_s = [], []
+        service_apply, on_device = runner.service.apply, runner._apply_on_device
+
+        def timed_apply(grads):
+            # The service's whole apply: the wait for the card's execution
+            # lock (held by the other worker's gradients), the optimizer
+            # step and the published copy.
+            t = time.perf_counter()
+            out = service_apply(grads)
+            torch.cuda.synchronize()
+            wait_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_on_device(state, grads):
+            # The optimizer step alone, under the lock.
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = on_device(state, grads)
+            torch.cuda.synchronize()
+            apply_s.append(time.perf_counter() - t)
+            return out
+
+        runner.service.apply, runner._apply_on_device = timed_apply, timed_on_device
+        losses, errors = [], []
+
+        def drive(w):
+            try:
+                i = 0
+                handle = runner.worker(w)
+                while i < ASYNC_THREAD_STEPS:
+                    try:
+                        losses.append(float(handle.step(work[w][i], timeout=600.0)))
+                        i += 1
+                    except faults.WorkerCrashed:
+                        handle = runner.add_worker(w)   # the replacement
+                # A finished worker leaves the gate (as a worker process's
+                # disconnect retires it), so the other is never parked on it.
+                runner.controller.retire(w)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append((w, repr(e)))
+
+        if fault:
+            faults.install(fault)
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=drive, args=(w,)) for w in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900.0)
+            wall = time.perf_counter() - t0
+        finally:
+            faults.clear()
+        return step, runner, losses, errors, wall, (apply_s, wait_s)
+
+    (step, runner, b_losses, errors, wall, (apply_s, wait_s)), launches = counted(two_workers)
+    applied = runner.service.updates_applied
+    lag = runner.controller.max_lag()
+    finite = all(torch.isfinite(v).all() for v in runner.service.state.params.values())
+    log(f"async_ps (b): 2 workers x {ASYNC_THREAD_STEPS} steps: {applied} updates, largest lag "
+        f"{lag}, losses {b_losses}; {2 * ASYNC_THREAD_STEPS / wall:.3f} steps/s (host clock); "
+        f"the apply's optimizer step {1e3 * sum(apply_s) / len(apply_s):.3f} ms, the "
+        f"service's whole apply (lock wait and published copy included) "
+        f"{1e3 * sum(wait_s) / len(wait_s):.3f} ms (means of {len(apply_s)}, host clock, "
+        f"the card synchronized); launches {launches}")
+    if (errors or applied != 2 * ASYNC_THREAD_STEPS or lag > 2 or not finite
+            or not b_losses[-1] < b_losses[0]):
+        raise AssertionError(f"async_ps (b): errors {errors}, {applied} updates, lag {lag}, "
+                             f"finite {finite}, losses {b_losses}")
+    check_launches(launches, 2 * ASYNC_THREAD_STEPS, "async_ps (b)")
+    extra = async_batches(step, cfg, (900, 901))
+    runner.add_worker(0)   # back into the gate it left when it finished
+    profile_steps(lambda b: runner.worker(0).step(b), extra, label="async_ps profile")
+    del step, runner
+    free_card()
+
+    # (c) A stale interleaving replayed.
+    _, step = async_session(dev, PS(sync=False), num_workers=2)
+    runner = step.runner
+    service = runner.service
+    (v0, _, _), (v0b, _, _) = service.read(), service.read()
+    recorded = {k: v.detach().clone() for k, v in v0.items()}
+    grad = lambda params, b: runner.grad_fn(params, b, {})[0]  # noqa: E731
+    service.apply(grad(v0, batches[0]))
+    service.apply(grad(v0b, batches[1]))
+    held = same_params({k: v.detach() for k, v in v0b.items()}, recorded)
+    trainable = {k for k, v in v0.items() if v.requires_grad}
+    plain = {k: v.clone().requires_grad_(k in trainable) for k, v in recorded.items()}
+    opt = torch.optim.Adam([plain[k] for k in plain if k in trainable], lr=1e-3, eps=1e-8,
+                           capturable=dev.type == "cuda")
+    for b in batches[:2]:
+        replay_grads = grad({k: t.clone().requires_grad_(k in trainable)
+                             for k, t in recorded.items()}, b)
+        for k, g in replay_grads.items():
+            plain[k].grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    c_same = same_params(device_params(service.state), {k: v.detach() for k, v in plain.items()})
+    log(f"async_ps (c): stale interleaving: held version unchanged {held}; service equals the "
+        f"plain replay bit for bit {c_same}")
+    if not (held and c_same):
+        raise AssertionError("async_ps (c): the stale interleaving differs from its replay")
+    del step, runner, service, plain, opt, v0, v0b
+    free_card()
+
+    # (d) zero=4 against the unsharded service.
+    _, step = async_session(dev, PS(sync=False), zero=4)
+    d_losses, launches = counted(lambda: [float(step(b)) for b in batches])
+    service = step.runner.service
+    d_same = same_params(device_params(service.state), a_params)
+    log(f"async_ps (d): zero=4: {service.shards} shards, versions {service.shard_versions}, "
+        f"losses {d_losses}; equals the unsharded service bit for bit {d_same}")
+    if not d_same or service.shards != 4:
+        raise AssertionError("async_ps (d): the sharded apply differs from the unsharded one")
+    del step, service
+    free_card()
+    return a_params, a_rate, two_workers
+
+
+def async_ps_path(kernels, dev):
+    """Phase 18: the async PS plane on one card; the launches of its parts."""
+    from autodist_tpu_torch.parallel import ps_transport
+
+    launches_total = collections.Counter()
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        launches = {k.__name__: k.launches for k in kernels}
+        launches_total.update(launches)
+        return out, launches
+
+    a_params, a_rate, two_workers = async_in_process(counted, dev)
+
+    # (e) Across processes, through the Coordinator.
+    out = os.path.join(os.environ["AUTODIST_WORKING_DIR"], "async_ps_train.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "autodist_tpu_torch.examples.async_ps_train",
+                           "--device", str(dev), "--out", out],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"async_ps_train failed: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        summary = json.load(f)
+    log(f"async_ps (e): async_ps_train in {time.perf_counter() - t0:.1f} s: {summary}")
+    if summary["applied_updates"] != 2 * summary["chief_steps"]:
+        raise AssertionError(f"async_ps_train: {summary}")
+    native0 = ps_transport.native_bytes()
+    (report, e_same), launches = counted(lambda: async_remote(dev, "", a_params))
+    native = ps_transport.native_bytes()
+    log(f"async_ps (e): chief native bytes sent {native[0] - native0[0]} received "
+        f"{native[1] - native0[1]}; (a)'s in-process rate {a_rate:.3f} steps/s; chief-side "
+        f"launches {launches}; equals (a) bit for bit {e_same}")
+    if not e_same:
+        raise AssertionError("async_ps (e): the chief's params differ from (a)'s one-worker run")
+    if native[0] - native0[0] <= 0 or native[1] - native0[1] <= 0 or \
+            min(report["native_bytes"]) <= 0:
+        raise AssertionError(f"async_ps (e): the native transport carried no bytes "
+                             f"(chief {native0} -> {native}, worker {report['native_bytes']})")
+    bf16, _ = async_remote(dev, "bf16", a_params)
+    ratio = bf16["steps"][-1]["push_bytes"] / report["steps"][-1]["push_bytes"]
+    loss_gap = abs(bf16["losses"][-1] - report["losses"][-1]) / abs(report["losses"][-1])
+    log(f"async_ps (e): bf16 push bytes {ratio:.4f} of f32's; final loss {bf16['losses'][-1]} "
+        f"vs {report['losses'][-1]} (relative {loss_gap:.2e})")
+    if not (0.45 < ratio < 0.55) or loss_gap > 1e-2:
+        raise AssertionError(f"async_ps (e): bf16 push ratio {ratio}, loss gap {loss_gap}")
+    free_card()
+
+    # (f) Recovery: a worker crash in (b)'s run.
+    (step, runner, f_losses, errors, wall, _), launches = counted(
+        lambda: two_workers("worker_crash@step=2,worker=1"))
+    applied = runner.service.updates_applied
+    finite = all(torch.isfinite(v).all() for v in runner.service.state.params.values())
+    from autodist_tpu_torch.parallel import recovery
+    log(f"async_ps (f): worker_crash@step=2,worker=1: {applied} updates, finite {finite}, "
+        f"errors {errors}, recovery {recovery.recovery_snapshot()['counts']}, gate steps "
+        f"{runner.controller.steps}")
+    if errors or applied != 2 * ASYNC_THREAD_STEPS or not finite:
+        raise AssertionError(f"async_ps (f): {applied} updates, errors {errors}")
+    del step, runner
+    free_card()
+    return dict(launches_total)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
@@ -2282,6 +2662,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
+    if os.environ.get("AUTODIST_WORKER"):
+        # Launched by phase 18's Coordinator: the worker half only, no result.
+        return async_ps_worker()
     from autodist_tpu_torch.ops import _build
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_xent as fx
@@ -2318,9 +2701,10 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
-    if only in ("unroll", "moe_pipe"):
-        # Phase 16 or 17 alone (a shorter call while it is worked on); no kernel line.
-        path = unroll_path if only == "unroll" else moe_pipe_path
+    if only in ("unroll", "moe_pipe", "async_ps"):
+        # Phase 16, 17 or 18 alone (a shorter call while it is worked on); no kernel line.
+        path = {"unroll": unroll_path, "moe_pipe": moe_pipe_path,
+                "async_ps": async_ps_path}[only]
         log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -2354,6 +2738,7 @@ def main(argv=None) -> int:
                                  image_results[("AllReduce", 128)]["images_per_sec"])
     by_phase["unroll"] = unroll_path(every, dev)
     by_phase["moe"] = moe_pipe_path(every, dev)
+    by_phase["async_ps"] = async_ps_path(every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

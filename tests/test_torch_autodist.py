@@ -210,7 +210,8 @@ def test_resource_spec_yaml_and_dict_agree(tmp_path):
 
 
 _PORT = pathlib.Path(autodist_tpu_torch.__file__).parent
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "autodist_tpu")
+# Neither ml_dtypes nor google.protobuf is on the card's machine.
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "autodist_tpu", "ml_dtypes", "google")
 
 
 def _imports(tree):

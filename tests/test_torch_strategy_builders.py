@@ -238,18 +238,20 @@ def test_flagship_index_leaves_equal_jax_detection():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item():
-    """Async PS raises naming its ROADMAP.md item; nothing falls back to
-    AllReduce. ``ExpertParallel`` and ``Pipeline`` are ported: they build,
-    and refuse what the JAX builders refuse. The autotuner is ported:
+    """Async PS is ported: its plans run the async runner, and nothing falls
+    back to AllReduce. ``ExpertParallel`` and ``Pipeline`` are ported: they
+    build, and refuse what the JAX builders refuse. The autotuner is ported:
     ``"autotune"`` is accepted, and any other name refused."""
+    from autodist_tpu_torch.parallel.staleness import AsyncPSRunner
     _, spec = _models(sparse=False)
     params = {k: torch.zeros(s) for k, s in SHAPES.items()}
-    for builder in (tstrategy.PS(sync=False), tstrategy.PSLoadBalancing(staleness=1)):
+    for builder, bound in ((tstrategy.PS(sync=False), 0),
+                           (tstrategy.PSLoadBalancing(staleness=1), 1)):
         ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
                       strategy_builder=builder, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            ad.create_distributed_session(lambda p, b: p["s"], params,
-                                          lambda p: torch.optim.SGD(p, lr=0.1))
+        runner = ad.create_distributed_session(lambda p, b: p["s"], params,
+                                               lambda p: torch.optim.SGD(p, lr=0.1))
+        assert isinstance(runner, AsyncPSRunner) and runner.staleness == bound
     for builder in (tstrategy.ExpertParallel(num_experts=2), tstrategy.Pipeline(n_stages=2)):
         built = builder.build(spec, ResourceSpec(resource_info=RESOURCES["8"]))
         assert [n.var_name for n in built.node_config] == spec.names
