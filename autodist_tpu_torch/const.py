@@ -54,6 +54,9 @@ UNPORTED_PLANES = {
     "AUTODIST_ALERT_ACTION": "the alert engine's actions",
     "AUTODIST_RECORDER": "the flight recorder",
     "AUTODIST_TRACE_PULL": "the cluster trace plane",
+    "AUTODIST_TELEMETRY": "the telemetry registry and its spans",
+    "AUTODIST_METRICS_DIR": "the metrics history's JSONL store",
+    "AUTODIST_DUMP_GRAPHS": "the per-stage graph dumps",
 }
 TELEMETRY_ROADMAP = "ROADMAP.md, Queue 1 item 7: the telemetry planes"
 

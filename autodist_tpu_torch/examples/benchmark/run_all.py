@@ -8,9 +8,10 @@ throughput numbers (the port's counterpart of ``examples/benchmark/run_all.py``)
 
 Each row runs its entry point in a fresh subprocess (one AutoDist per
 process) on the card, and the sweep parses the last rate and MFU it prints.
-The rows are the JAX sweep's; ``lm1b_lstm`` is not ported yet and prints
-"not ported" with its ROADMAP item instead of a number (``--only`` with it
-exits non-zero). ``--baseline FILE`` diffs each rate per
+The rows are the JAX sweep's, ``lm1b_lstm`` included (``lm1b_train --model
+lstm``, words/s). A row that is not ported would print "not ported" with
+its ROADMAP item instead of a number (``--only`` with it exits non-zero);
+none is left. ``--baseline FILE`` diffs each rate per
 card against a snapshot of recorded bests (``{"threshold_pct": 2.0,
 "rows": {name: {"rate": ...}}}``); there is no default: the repository's
 ``PERF_BASELINE.json`` holds TPU rates, which no H100 run is compared with.
@@ -58,7 +59,8 @@ CONFIGS = {
                   "examples/s", EXAMPLES_PER_SEC),
     "bert_large": (_bert("--size", "large", "--batch_size", "128"),
                    "examples/s", EXAMPLES_PER_SEC),
-    "lm1b_lstm": "ROADMAP Queue 1 item 5",
+    "lm1b_lstm": (lambda s: ["-m", f"{PACKAGE}.lm1b.lm1b_train", "--model", "lstm",
+                             "--steps", s, "--log_every", s], "words/s", RATE + r" words/sec"),
     "ncf": (lambda s: ["-m", f"{PACKAGE}.benchmark.ncf", "--steps", s, "--log_every", s],
             "examples/s", EXAMPLES_PER_SEC),
     "moe": (lambda s: ["-m", f"{PACKAGE}.moe_lm", "--batch_size", "512", "--accum", "4",

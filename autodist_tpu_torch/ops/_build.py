@@ -4,7 +4,7 @@ plain C interface, loaded with ``ctypes``.
 Each source under ``ops/csrc/`` becomes ``build/lib<name>-<digest>.so`` at the
 checkout's root (``build/`` is git-ignored), compiled for Hopper
 (``sm_90a``) at first use. The digest covers the source, the headers beside
-it (``*.cuh``, such as ``hopper.cuh``, which both sources include) and the
+it (``*.cuh``, such as ``hopper.cuh``, which the TMA sources include) and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as built. Nothing is compiled at import time: the CPU-only test
 machines have no ``nvcc``.
@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = {"fused_xent": _CSRC / "fused_xent.cu",
-           "flash_attention": _CSRC / "flash_attention.cu"}
+           "flash_attention": _CSRC / "flash_attention.cu",
+           "lstm_cell": _CSRC / "lstm_cell.cu"}
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -114,6 +114,7 @@
 #include <math.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -759,6 +760,601 @@ xent_dwdb_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__
   cluster_sync();
 }
 
+// ------------------------------------------------------------- wide widths
+//
+// D = 768 and 1,024. The D = 512 designs do not grow: at D = 1,024 the
+// forward's resident h (128 rows) is 256 KB, and dh's and dw/db's
+// accumulators ([64, D] f32) are 512 registers a thread for two consumers.
+// So each wide kernel runs as a cluster of two blocks:
+// - Forward (xent_fwd_wide_kernel): a block holds 64 rows (h resident,
+//   KC x 8 KB) and both consumers compute all 64 of them, consumer c over
+//   columns [128c, 128c + 128) of each 256-column vocab tile. The two
+//   blocks of a cluster hold neighbouring row blocks and share each w
+//   stage (32 KB): each producer loads half of it and multicasts, as dw/db
+//   does with h at D = 512, so L2 -> SM traffic of w stays that of 128-row
+//   blocks. The consumers' (max, sum) pairs of a row merge at the end.
+// - dh and dw/db (xent_dh_wide_kernel, xent_dwdb_wide_kernel): the two
+//   blocks of a cluster own the two halves of d, each with the D = 512
+//   kernel's per-block budgets (h or w resident for its half; its own
+//   half's chunks streamed). Consumer c of block r owns d quarter 2r + c
+//   (HC = D / 256 chunks of 64): its partial scores over that quarter,
+//   then the sum of the four: within the block through x (one way at a
+//   time: 8 KB), then across the pair with st.async into the partner's
+//   recv (one 8 KB tile a consumer, completing on its rfull barrier; it
+//   hands the buffer back through rempty once read). Both blocks then hold
+//   the same full scores, bit for bit (one addition, commutative), compute
+//   the same P and each accumulates its own half of dh or dw; db is written
+//   by rank 0. The ring holds a consumer's HC chunks as one group, two
+//   tiles of groups: 224 KB of shared memory at D = 1,024.
+
+constexpr int WIDE_BM = 64;            // forward: rows a block
+constexpr int WIDE_TN = 256;           // forward: vocab columns a tile, 128 a consumer
+constexpr unsigned WIDE_STAGE_BYTES = WIDE_TN * 64 * 2;
+
+template <int CH>
+struct FwdWideSmem {
+  static constexpr int STAGES = CH >= 16 ? 3 : 4;
+  alignas(1024) bf16 h[CH][WIDE_BM * 64];        // [d chunk][row][64 d], swizzled
+  alignas(1024) bf16 w[STAGES][WIDE_TN * 64];    // vd: [256 vocab][64 d]; dv: [4][64 d][64 vocab]
+  float ml[2][WIDE_BM][2];                       // each consumer's (max, sum) of a row
+  uint64_t h_full, full[STAGES], empty[STAGES];
+};
+static_assert(sizeof(FwdWideSmem<16>) + 1024 <= 232448, "over the 227 KB a block may use");
+static_assert(sizeof(FwdWideSmem<12>) + 1024 <= 232448, "over the 227 KB a block may use");
+
+template <bool VD, int CH>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FWD_THREADS, 1)
+xent_fwd_wide_kernel(const __grid_constant__ CUtensorMap hm,
+                     const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
+                     float* __restrict__ lse, int n, int v) {
+  using Smem = FwdWideSmem<CH>;
+  constexpr int S = Smem::STAGES;
+  extern __shared__ unsigned char fwd_wide_raw[];
+  Smem& sm = align1024<Smem>(fwd_wide_raw);
+  const int n0 = blockIdx.x * WIDE_BM;
+  const int n_tiles = (v + WIDE_TN - 1) / WIDE_TN;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.h_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 16);  // lane 0 of each consumer warp of the cluster
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int rank = int(cluster_ctarank());
+      mbar_expect_tx(&sm.h_full, CH * WIDE_BM * 64 * 2);
+      for (int j = 0; j < CH; ++j) tma_load(sm.h[j], &hm, &sm.h_full, 64 * j, n0);
+      // This block's half of each stage (128 vocab columns), multicast to
+      // both blocks; a stage is refilled once every consumer of the
+      // cluster has released it.
+      int stage = 0, parity = 0;
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll 1
+        for (int j = 0; j < CH; ++j) {
+          mbar_wait(&sm.empty[stage], parity ^ 1);
+          mbar_expect_tx(&sm.full[stage], WIDE_STAGE_BYTES);
+          const int c0 = t * WIDE_TN + 128 * rank;
+          if (VD) {
+            tma_load_multicast(sm.w[stage] + rank * 128 * 64, &wm, &sm.full[stage], 64 * j, c0,
+                               3);
+          } else {
+            for (int q = 0; q < 2; ++q)
+              tma_load_multicast(sm.w[stage] + (2 * rank + q) * 64 * 64, &wm, &sm.full[stage],
+                                 c0 + 64 * q, 64 * j, 3);
+          }
+          if (++stage == S) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col = (lane % 4) * 2;
+    float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, mc[2];
+    float s[16][4], x[16][4];
+    int stage = 0, parity = 0;
+    mbar_wait(&sm.h_full, 0);
+    // One d chunk of the tile's scores; the stage before it is released
+    // once its products have landed.
+    auto chunk = [&](int j) {
+      mbar_wait(&sm.full[stage], parity);
+      const uint64_t da = sw128_desc(sm.h[j]);
+      const uint64_t db = sw128_desc(sm.w[stage] + c * 128 * 64);
+      const uint64_t db_mn = sw128_desc(sm.w[stage] + c * 128 * 64, 8192);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (VD)
+          wgmma_m64n128k16_ss<0>(s, da + 2 * kk, db + 2 * kk, j | kk);
+        else
+          wgmma_m64n128k16_ss<1>(s, da + 2 * kk, db_mn + 128 * kk, j | kk);
+      }
+      wgmma_commit();
+    };
+    auto release = [&]() {
+      wgmma_wait<1>();
+      if (lane == 0)
+        for (int rank = 0; rank < 2; ++rank)
+          mbar_arrive_cluster(&sm.empty[stage == 0 ? S - 1 : stage - 1], rank);
+    };
+    auto next_stage = [&]() {
+      if (++stage == S) {
+        stage = 0;
+        parity ^= 1;
+      }
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      wgmma_fence();
+      // The first five chunks carry the last tile's softmax pieces; the rest
+      // are a loop, so that no more than five chunks' descriptors are live.
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        chunk(j);
+        if (t > 0) lse_piece(j, x, m, l, mc, (t - 1) * WIDE_TN + 128 * c, col, v, b);
+        if (j > 0) release();
+        next_stage();
+      }
+#pragma unroll 1
+      for (int j = 5; j < CH; ++j) {
+        chunk(j);
+        release();
+        next_stage();
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (lane == 0)
+        for (int rank = 0; rank < 2; ++rank)
+          mbar_arrive_cluster(&sm.empty[stage == 0 ? S - 1 : stage - 1], rank);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[nt][e] = s[nt][e];
+    }
+#pragma unroll
+    for (int p = 0; p <= 4; ++p)
+      lse_piece(p, x, m, l, mc, (n_tiles - 1) * WIDE_TN + 128 * c, col, v, b);
+
+    // The quad's (m, l) per row, then the two consumers' through shared memory.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mm = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, 2));
+      float ll = l[i] * ex2((m[i] - mm) * LOG2E);
+      ll += __shfl_xor_sync(0xffffffffu, ll, 1);
+      ll += __shfl_xor_sync(0xffffffffu, ll, 2);
+      m[i] = mm;
+      l[i] = ll;
+    }
+    const int r = warp * 16 + lane / 4;
+    if (lane % 4 == 0)
+      for (int i = 0; i < 2; ++i) {
+        sm.ml[c][r + 8 * i][0] = m[i];
+        sm.ml[c][r + 8 * i][1] = l[i];
+      }
+    named_sync(1);
+    if (c == 0 && lane % 4 == 0)
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = sm.ml[1][r + 8 * i][0], l1 = sm.ml[1][r + 8 * i][1];
+        const float mm = fmaxf(m[i], m1);
+        const float ll = l[i] * ex2((m[i] - mm) * LOG2E) + l1 * ex2((m1 - mm) * LOG2E);
+        const int row = n0 + r + 8 * i;
+        if (row < n) lse[row] = mm + logf(fmaxf(ll, 1e-30f));
+      }
+  }
+  cluster_sync();
+}
+
+// Shared memory of the wide dh (RESIDENT = h) and dw/db (RESIDENT = w)
+// kernels: the resident operand's half of d, the ring of the streamed one
+// (four groups: [2 (t & 1) + consumer][chunk]), the P tile and the
+// exchange buffers.
+template <int HC>
+struct PairSmem {
+  alignas(1024) bf16 resident[2 * HC][64 * 64];  // [d chunk][64 rows or vocab][64 d]
+  alignas(1024) bf16 ring[4][HC][64 * 64];
+  alignas(1024) bf16 p[64 * 64];                 // g * softmax, [row][64 vocab], swizzled
+  float x[16][128];                              // within the block, one way at a time; then db
+  float4 recv[2][4][128];                        // the partner's partial: [consumer][q][thread]
+  uint64_t res_full, full[4], empty[4], rfull[2], rempty[2];
+};
+static_assert(sizeof(PairSmem<4>) + 1024 <= 232448, "over the 227 KB a block may use");
+
+// Consumer c's full scores z of columns [32c, 32c + 32) of the tile (this
+// thread's rows r and r + 8, columns 32c + 8q + col (+1)) from its partial
+// scores s over its quarter of d: the other consumer's partial of those
+// columns through x (consumer 0 writes first; consumer 1 reads its slots,
+// then writes its own into them), then the partner block's sum through
+// recv. t is the tile (or stripe) index, which sets the barriers' phases.
+template <int HC>
+__device__ __forceinline__ void pair_scores(PairSmem<HC>& sm, const float (&s)[8][4], int c,
+                                            int tid, int t, unsigned partner,
+                                            float (&z)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) z[k / 4][k % 4] = c ? s[4 + k / 4][k % 4] : s[k / 4][k % 4];
+  if (c == 0)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) sm.x[k][tid] = s[4 + k / 4][k % 4];
+  named_sync(1);
+  if (c == 1)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      z[k / 4][k % 4] += sm.x[k][tid];
+      sm.x[k][tid] = s[k / 4][k % 4];
+    }
+  named_sync(3);
+  if (c == 0)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) z[k / 4][k % 4] += sm.x[k][tid];
+  // The partner's recv[c] is free once it has read the last tile's.
+  if (t > 0) mbar_wait(&sm.rempty[c], (t - 1) & 1);
+  if (tid == 0) mbar_expect_tx(&sm.rfull[c], 128 * 4 * sizeof(float4));
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    st_async_cluster(&sm.recv[c][q][tid], &sm.rfull[c], partner, z[q][0], z[q][1], z[q][2],
+                     z[q][3]);
+  mbar_wait(&sm.rfull[c], t & 1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 o = sm.recv[c][q][tid];
+    z[q][0] += o.x;
+    z[q][1] += o.y;
+    z[q][2] += o.z;
+    z[q][3] += o.w;
+  }
+}
+
+// bf16 (p0, p1) at row rr, tile column kcol (even) of the swizzled P tile.
+__device__ __forceinline__ void store_p(bf16* p, int rr, int kcol, float p0, float p1) {
+  const int off = rr * 128 + (((kcol >> 3) ^ (rr & 7)) << 4) + (kcol & 7) * 2;
+  *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<unsigned char*>(p) + off) =
+      __floats2bfloat162_rn(p0, p1);
+}
+
+// dh at D = 256 HC: the cluster's two blocks share a 64-row stripe, block
+// r computing dh[:, r D / 2 : (r + 1) D / 2].
+template <bool VD, int HC>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(DH_THREADS, 1)
+xent_dh_wide_kernel(const __grid_constant__ CUtensorMap hm,
+                    const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    bf16* __restrict__ dh, int n, int v) {
+  constexpr int DW = 256 * HC;  // the model width
+  constexpr unsigned GROUP_BYTES = HC * 64 * 64 * 2;
+  extern __shared__ unsigned char dh_wide_raw[];
+  PairSmem<HC>& sm = align1024<PairSmem<HC>>(dh_wide_raw);
+  const int n0 = (blockIdx.x >> 1) * DH_BM;
+  const int n_tiles = (v + DH_TN - 1) / DH_TN;
+  const unsigned rank = cluster_ctarank(), partner = rank ^ 1u;
+  const int d0 = int(rank) * 2 * HC;  // this block's first d chunk
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 4);  // lane 0 of each warp of the group's consumer
+    }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&sm.rfull[c], 1);
+      mbar_init(&sm.rempty[c], 1);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.res_full, 2 * GROUP_BYTES);
+      for (int j = 0; j < 2 * HC; ++j) tma_load(sm.resident[j], &hm, &sm.res_full, 64 * (d0 + j), n0);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t)
+#pragma unroll 1
+        for (int c = 0; c < 2; ++c) {
+          const int grp = 2 * (t & 1) + c;
+          mbar_wait(&sm.empty[grp], ((t >> 1) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[grp], GROUP_BYTES);
+          for (int q = 0; q < HC; ++q) {
+            const int dc = 64 * (d0 + c * HC + q);
+            if (VD)
+              tma_load(sm.ring[grp][q], &wm, &sm.full[grp], dc, t * DH_TN);
+            else
+              tma_load(sm.ring[grp][q], &wm, &sm.full[grp], t * DH_TN, dc);
+          }
+        }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col = (lane % 4) * 2;
+    const int r = warp * 16 + lane / 4;  // this thread's rows of the stripe: r, r + 8
+    float row_lse[2], row_g[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = n0 + r + 8 * i < n;
+      row_lse[i] = ok ? lse[n0 + r + 8 * i] : 0.f;
+      row_g[i] = ok ? g[n0 + r + 8 * i] : 0.f;  // g = 0: rows past n give p = 0
+    }
+    float acc[8 * HC][4];  // dh columns D / 2 rank + 64 HC c + 8 nt + col (+1)
+#pragma unroll
+    for (int nt = 0; nt < 8 * HC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    float s[8][4], z[4][4];
+    mbar_wait(&sm.res_full, 0);
+    const uint64_t dp = sw128_desc(sm.p);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int grp = 2 * (t & 1) + c;
+      mbar_wait(&sm.full[grp], (t >> 1) & 1);
+      // Partial scores over this consumer's quarter of d, queued behind the
+      // last tile's P . w^T.
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < HC; ++q) {
+        const uint64_t da = sw128_desc(sm.resident[c * HC + q]);
+        const uint64_t dbw = sw128_desc(sm.ring[grp][q]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (VD)
+            wgmma_m64n64k16_ss<0>(s, da + 2 * kk, dbw + 2 * kk, q | kk);
+          else
+            wgmma_m64n64k16_ss<1>(s, da + 2 * kk, dbw + 128 * kk, q | kk);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(acc);
+      if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) & 1) + c]);
+      // This thread's P columns' bias, or -inf past v (p = 0): loaded
+      // outside any wgmma stage, their latency under the exchange.
+      float bias[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int vv = t * DH_TN + 32 * c + 8 * q + col + e;
+          bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
+        }
+      pair_scores(sm, s, c, tid, t, partner, z);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kcol = 32 * c + 8 * q + col;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y = ex2(fmaf(z[q][2 * i + e] + bias[q][e], LOG2E, -row_lse[i] * LOG2E));
+            pv[e] = bias[q][e] != -INFINITY ? row_g[i] * y : 0.f;
+          }
+          store_p(sm.p, r + 8 * i, kcol, pv[0], pv[1]);
+        }
+      }
+      fence_proxy_async();  // the P stores, visible to wgmma
+      named_sync(2);
+      if (tid == 0) mbar_arrive_cluster(&sm.rempty[c], partner);  // recv[c] read
+      // dh[:, this quarter] += P . w^T, as the D = 512 kernel.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (VD)
+          wgmma_wide_ss<1>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0], 8192) + 128 * kk, 1);
+        else
+          wgmma_wide_ss<0>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0]) + 2 * kk, 1);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = n0 + r + 8 * i;
+      if (row >= n) continue;
+      bf16* out = dh + size_t(row) * DW + 64 * (d0 + c * HC) + col;
+#pragma unroll
+      for (int nt = 0; nt < 8 * HC; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
+            __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
+    }
+  }
+  cluster_sync();
+}
+
+// dw/db at D = 256 HC: the cluster's two blocks share 64 vocab columns,
+// block r computing dw over its half of d; rank 0 writes db.
+template <bool VD, int HC>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(DW_THREADS, 1)
+xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
+                      const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
+                      const float* __restrict__ lse, const float* __restrict__ g,
+                      float* __restrict__ dw, float* __restrict__ db, int n, int v) {
+  constexpr int DW = 256 * HC;
+  constexpr unsigned GROUP_BYTES = HC * 64 * 64 * 2;
+  extern __shared__ unsigned char dw_wide_raw[];
+  PairSmem<HC>& sm = align1024<PairSmem<HC>>(dw_wide_raw);
+  const int v0 = (blockIdx.x >> 1) * DW_TN;
+  const int n_stripes = (n + DW_BM - 1) / DW_BM;
+  const unsigned rank = cluster_ctarank(), partner = rank ^ 1u;
+  const int d0 = int(rank) * 2 * HC;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 4);
+    }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&sm.rfull[c], 1);
+      mbar_init(&sm.rempty[c], 1);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.res_full, 2 * GROUP_BYTES);
+      for (int j = 0; j < 2 * HC; ++j) {
+        if (VD)
+          tma_load(sm.resident[j], &wm, &sm.res_full, 64 * (d0 + j), v0);
+        else
+          tma_load(sm.resident[j], &wm, &sm.res_full, v0, 64 * (d0 + j));
+      }
+#pragma unroll 1
+      for (int t = 0; t < n_stripes; ++t)
+#pragma unroll 1
+        for (int c = 0; c < 2; ++c) {
+          const int grp = 2 * (t & 1) + c;
+          mbar_wait(&sm.empty[grp], ((t >> 1) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[grp], GROUP_BYTES);
+          for (int q = 0; q < HC; ++q)
+            tma_load(sm.ring[grp][q], &hm, &sm.full[grp], 64 * (d0 + c * HC + q), t * DW_BM);
+        }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col = (lane % 4) * 2;
+    const int r = warp * 16 + lane / 4;
+    float bias[4][2], db_part[4][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int vv = v0 + 32 * c + 8 * q + col + e;
+        bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
+        db_part[q][e] = 0.f;
+      }
+    float row_lse2[2], row_g[2], next_lse2[2], next_g[2];
+    bool ok[2], next_ok[2];
+    auto read_rows = [&](int t, float (&l2)[2], float (&gg)[2], bool (&in)[2]) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = t * DW_BM + r + 8 * i;
+        in[i] = row < n;
+        l2[i] = in[i] ? lse[row] * LOG2E : 0.f;
+        gg[i] = in[i] ? g[row] : 0.f;
+      }
+    };
+    read_rows(0, next_lse2, next_g, next_ok);
+    float acc[8 * HC][4];  // dw^T: vocab rows r (+8), d columns of this quarter
+#pragma unroll
+    for (int nt = 0; nt < 8 * HC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    float s[8][4], z[4][4];
+    const uint64_t dp = sw128_desc(sm.p);
+    mbar_wait(&sm.res_full, 0);
+    for (int t = 0; t < n_stripes; ++t) {
+      const int grp = 2 * (t & 1) + c;
+      mbar_wait(&sm.full[grp], (t >> 1) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < HC; ++q) {
+        const uint64_t da = sw128_desc(sm.ring[grp][q]);
+        const uint64_t dbw = sw128_desc(sm.resident[c * HC + q]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (VD)
+            wgmma_m64n64k16_ss<0>(s, da + 2 * kk, dbw + 2 * kk, q | kk);
+          else
+            wgmma_m64n64k16_ss<1>(s, da + 2 * kk, dbw + 128 * kk, q | kk);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the last stripe's dw product: its group is free
+      fence_regs(acc);
+      if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) & 1) + c]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        row_lse2[i] = next_lse2[i];
+        row_g[i] = next_g[i];
+        ok[i] = next_ok[i];
+      }
+      read_rows(t + 1, next_lse2, next_g, next_ok);
+      wgmma_wait<0>();
+      fence_regs(s);
+      pair_scores(sm, s, c, tid, t, partner, z);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kcol = 32 * c + 8 * q + col;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y = ex2(fmaf(z[q][2 * i + e] + bias[q][e], LOG2E, -row_lse2[i]));
+            pv[e] = ok[i] && bias[q][e] != -INFINITY ? row_g[i] * y : 0.f;
+            db_part[q][e] += pv[e];
+          }
+          store_p(sm.p, r + 8 * i, kcol, pv[0], pv[1]);
+        }
+      }
+      fence_proxy_async();
+      named_sync(2);
+      if (tid == 0) mbar_arrive_cluster(&sm.rempty[c], partner);
+      // dw^T[:, this quarter] += P^T h, as the D = 512 kernel.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_wide_ss<1, 1>(acc, dp + 128 * kk, sw128_desc(sm.ring[grp][0], 8192) + 128 * kk, 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int vv = v0 + r + 8 * i;
+      if (vv >= v) continue;
+      const int dcol = 64 * (d0 + c * HC) + col;
+      if (VD) {
+        float* out = dw + size_t(vv) * DW + dcol;
+#pragma unroll
+        for (int nt = 0; nt < 8 * HC; ++nt)
+          *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+      } else {
+        float* out = dw + size_t(dcol) * v + vv;
+#pragma unroll
+        for (int nt = 0; nt < 8 * HC; ++nt) {
+          out[size_t(8 * nt) * v] = acc[nt][2 * i];
+          out[size_t(8 * nt + 1) * v] = acc[nt][2 * i + 1];
+        }
+      }
+    }
+    // db, as the D = 512 kernel (x is free after the walk's last named
+    // barrier): both blocks hold the same p, rank 0 writes.
+    float(&part)[2][4][32] = *reinterpret_cast<float(*)[2][4][32]>(&sm.x[0][0]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = db_part[q][e];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        if (lane < 4) part[c][warp][8 * q + col + e] = x;
+      }
+    named_sync(1);
+    if (rank == 0 && tid < 32 && v0 + 32 * c + tid < v)
+      db[v0 + 32 * c + tid] = part[c][0][tid] + part[c][1][tid] + part[c][2][tid] + part[c][3][tid];
+  }
+  cluster_sync();
+}
+
 // ---------------------------------------------------------------- launchers
 
 int launch_pack(const float* w, bf16* wp, int d, int v, bool vd, cudaStream_t stream) {
@@ -770,72 +1366,122 @@ int launch_pack(const float* w, bf16* wp, int d, int v, bool vd, cudaStream_t st
   return int(cudaGetLastError());
 }
 
-// Tensor maps of h (box: `rows` rows of 64 columns) and of the packed table
-// (box: tn vocab rows of 64 d for vd, 64 d rows of 64 vocab for dv).
-bool maps(CUtensorMap* hm, CUtensorMap* wm, const void* h, const void* wp, int n, int v, bool vd,
-          int rows, int tn) {
-  return matrix_map(hm, h, n, KERNEL_D, rows) &&
-         (vd ? matrix_map(wm, wp, v, KERNEL_D, tn)
-             : matrix_map(wm, wp, KERNEL_D, packed_cols(v), 64));
+// Tensor maps of h [n, d] (box: `rows` rows of 64 columns) and of the
+// packed table (box: tn vocab rows of 64 d for vd, 64 d rows of 64 vocab
+// for dv).
+bool maps(CUtensorMap* hm, CUtensorMap* wm, const void* h, const void* wp, int n, int d, int v,
+          bool vd, int rows, int tn) {
+  return matrix_map(hm, h, n, d, rows) &&
+         (vd ? matrix_map(wm, wp, v, d, tn) : matrix_map(wm, wp, d, packed_cols(v), 64));
 }
 
+// The dynamic shared memory of each kernel, and its grid: the wide
+// kernels' grids are whole clusters of two.
+template <bool VD, int CH>
+struct Fwd {
+  static constexpr auto kernel() { return xent_fwd_wide_kernel<VD, CH>; }
+  static constexpr size_t smem = sizeof(FwdWideSmem<CH>) + 1024;
+  static constexpr int rows = WIDE_BM, tn = 128;
+  static int blocks(int n) { return (n + 2 * WIDE_BM - 1) / (2 * WIDE_BM) * 2; }
+};
 template <bool VD>
+struct Fwd<VD, KERNEL_D / 64> {
+  static constexpr auto kernel() { return xent_fwd_kernel<VD>; }
+  static constexpr size_t smem = FWD_SMEM;
+  static constexpr int rows = FWD_BM, tn = FWD_TN;
+  static int blocks(int n) { return (n + FWD_BM - 1) / FWD_BM; }
+};
+
+template <bool VD, int CH>
 int launch_fwd(const void* h, const void* wp, const float* b, float* lse, int n, int v,
                cudaStream_t stream) {
+  using F = Fwd<VD, CH>;
   CUtensorMap hm, wm;
-  if (!maps(&hm, &wm, h, wp, n, v, VD, FWD_BM, FWD_TN)) return int(cudaErrorInvalidValue);
-  auto kernel = xent_fwd_kernel<VD>;
-  const cudaError_t err = set_smem(kernel, FWD_SMEM);
+  if (!maps(&hm, &wm, h, wp, n, 64 * CH, v, VD, F::rows, F::tn)) return int(cudaErrorInvalidValue);
+  auto kernel = F::kernel();
+  const cudaError_t err = set_smem(kernel, F::smem);
   if (err != cudaSuccess) return int(err);
-  kernel<<<(n + FWD_BM - 1) / FWD_BM, FWD_THREADS, FWD_SMEM, stream>>>(hm, wm, b, lse, n, v);
+  kernel<<<F::blocks(n), FWD_THREADS, F::smem, stream>>>(hm, wm, b, lse, n, v);
   return int(cudaGetLastError());
 }
 
-template <bool VD>
+template <bool VD, int CH>
 int launch_dh(const void* h, const void* wp, const float* b, const float* lse, const float* g,
               bf16* dh, int n, int v, cudaStream_t stream) {
   CUtensorMap hm, wm;
-  if (!maps(&hm, &wm, h, wp, n, v, VD, DH_BM, DH_TN)) return int(cudaErrorInvalidValue);
-  auto kernel = xent_dh_kernel<VD>;
-  const cudaError_t err = set_smem(kernel, DH_SMEM);
-  if (err != cudaSuccess) return int(err);
-  kernel<<<(n + DH_BM - 1) / DH_BM, DH_THREADS, DH_SMEM, stream>>>(hm, wm, b, lse, g, dh, n, v);
+  if (!maps(&hm, &wm, h, wp, n, 64 * CH, v, VD, DH_BM, DH_TN)) return int(cudaErrorInvalidValue);
+  const int row_blocks = (n + DH_BM - 1) / DH_BM;
+  if constexpr (CH == KERNEL_D / 64) {
+    auto kernel = xent_dh_kernel<VD>;
+    const cudaError_t err = set_smem(kernel, DH_SMEM);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<row_blocks, DH_THREADS, DH_SMEM, stream>>>(hm, wm, b, lse, g, dh, n, v);
+  } else {
+    auto kernel = xent_dh_wide_kernel<VD, CH / 4>;
+    constexpr size_t smem = sizeof(PairSmem<CH / 4>) + 1024;
+    const cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<2 * row_blocks, DH_THREADS, smem, stream>>>(hm, wm, b, lse, g, dh, n, v);
+  }
   return int(cudaGetLastError());
 }
 
-template <bool VD>
+template <bool VD, int CH>
 int launch_dwdb(const void* h, const void* wp, const float* b, const float* lse, const float* g,
                 float* dw, float* db, int n, int v, cudaStream_t stream) {
   CUtensorMap hm, wm;
-  if (!maps(&hm, &wm, h, wp, n, v, VD, DW_BM, DW_TN)) return int(cudaErrorInvalidValue);
-  auto kernel = xent_dwdb_kernel<VD>;
-  const cudaError_t err = set_smem(kernel, DW_SMEM);
-  if (err != cudaSuccess) return int(err);
+  if (!maps(&hm, &wm, h, wp, n, 64 * CH, v, VD, DW_BM, DW_TN)) return int(cudaErrorInvalidValue);
   const int tiles = (v + DW_TN - 1) / DW_TN;
-  const int blocks = (tiles + DW_CLUSTER - 1) / DW_CLUSTER * DW_CLUSTER;  // whole clusters
-  kernel<<<blocks, DW_THREADS, DW_SMEM, stream>>>(hm, wm, b, lse, g, dw, db, n, v);
+  if constexpr (CH == KERNEL_D / 64) {
+    auto kernel = xent_dwdb_kernel<VD>;
+    const cudaError_t err = set_smem(kernel, DW_SMEM);
+    if (err != cudaSuccess) return int(err);
+    const int blocks = (tiles + DW_CLUSTER - 1) / DW_CLUSTER * DW_CLUSTER;  // whole clusters
+    kernel<<<blocks, DW_THREADS, DW_SMEM, stream>>>(hm, wm, b, lse, g, dw, db, n, v);
+  } else {
+    auto kernel = xent_dwdb_wide_kernel<VD, CH / 4>;
+    constexpr size_t smem = sizeof(PairSmem<CH / 4>) + 1024;
+    const cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<2 * tiles, DW_THREADS, smem, stream>>>(hm, wm, b, lse, g, dw, db, n, v);
+  }
   return int(cudaGetLastError());
 }
 
-// What every entry point takes: d = 512 (the only width instantiated), a
-// non-empty problem, a 16-byte aligned h (TMA and the 16-byte row copies),
-// and an 8-byte aligned bias (read two columns at a time).
+// One of the instantiated widths: 512 (the D = 512 kernels), 768 and 1,024
+// (the wide ones); `f` is called with the width's chunk count as a
+// template argument.
+template <typename F>
+int by_width(int d, F&& f) {
+  switch (d) {
+    case 512: return f(std::integral_constant<int, 8>());
+    case 768: return f(std::integral_constant<int, 12>());
+    case 1024: return f(std::integral_constant<int, 16>());
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// What every entry point takes: an instantiated width, a non-empty problem,
+// a 16-byte aligned h (TMA and the 16-byte row copies), and an 8-byte
+// aligned bias (read two columns at a time).
 bool args_ok(const void* h, const float* b, int n, int d, int v) {
-  return d == KERNEL_D && n > 0 && v > 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 8 == 0;
+  return (d == 512 || d == 768 || d == 1024) && n > 0 && v > 0 &&
+         reinterpret_cast<uintptr_t>(h) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 8 == 0;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each returns a cudaError_t (0 on
 // success; cudaErrorInvalidValue for arguments args_ok refuses, or when a
-// tensor map cannot be encoded). h is bf16 [n, d]; w is f32 [d, v]
-// (w_vd == 0) or [v, d] (w_vd == 1); wp is w packed by xent_pack_w: bf16
-// [d, v rounded up to a multiple of 8] or [v, d], 16-byte aligned; b is f32
-// [v] or null; lse and g are f32 [n]; dw is f32 in w's layout, db f32 [v].
+// tensor map cannot be encoded). h is bf16 [n, d], d one of 512, 768 and
+// 1,024; w is f32 [d, v] (w_vd == 0) or [v, d] (w_vd == 1); wp is w packed
+// by xent_pack_w: bf16 [d, v rounded up to a multiple of 8] or [v, d],
+// 16-byte aligned; b is f32 [v] or null; lse and g are f32 [n]; dw is f32
+// in w's layout, db f32 [v].
 
 extern "C" int xent_pack_w(const float* w, void* wp, int d, int v, int w_vd, void* stream) {
-  if (d != KERNEL_D || v <= 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+  if (!(d == 512 || d == 768 || d == 1024) || v <= 0 ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0)
     return int(cudaErrorInvalidValue);
   return launch_pack(w, static_cast<bf16*>(wp), d, v, w_vd != 0,
                      static_cast<cudaStream_t>(stream));
@@ -845,8 +1491,10 @@ extern "C" int xent_fwd(const void* h, const void* wp, const float* b, float* ls
                         int v, int w_vd, void* stream) {
   if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_vd ? launch_fwd<true>(h, wp, b, lse, n, v, s)
-              : launch_fwd<false>(h, wp, b, lse, n, v, s);
+  return by_width(d, [&](auto kc) {
+    return w_vd ? launch_fwd<true, decltype(kc)::value>(h, wp, b, lse, n, v, s)
+                : launch_fwd<false, decltype(kc)::value>(h, wp, b, lse, n, v, s);
+  });
 }
 
 extern "C" int xent_dh(const void* h, const void* wp, const float* b, const float* lse,
@@ -854,8 +1502,10 @@ extern "C" int xent_dh(const void* h, const void* wp, const float* b, const floa
   if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* out = static_cast<bf16*>(dh);
-  return w_vd ? launch_dh<true>(h, wp, b, lse, g, out, n, v, s)
-              : launch_dh<false>(h, wp, b, lse, g, out, n, v, s);
+  return by_width(d, [&](auto kc) {
+    return w_vd ? launch_dh<true, decltype(kc)::value>(h, wp, b, lse, g, out, n, v, s)
+                : launch_dh<false, decltype(kc)::value>(h, wp, b, lse, g, out, n, v, s);
+  });
 }
 
 extern "C" int xent_dwdb(const void* h, const void* wp, const float* b, const float* lse,
@@ -863,8 +1513,10 @@ extern "C" int xent_dwdb(const void* h, const void* wp, const float* b, const fl
                          void* stream) {
   if (!args_ok(h, b, n, d, v)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_vd ? launch_dwdb<true>(h, wp, b, lse, g, dw, db, n, v, s)
-              : launch_dwdb<false>(h, wp, b, lse, g, dw, db, n, v, s);
+  return by_width(d, [&](auto kc) {
+    return w_vd ? launch_dwdb<true, decltype(kc)::value>(h, wp, b, lse, g, dw, db, n, v, s)
+                : launch_dwdb<false, decltype(kc)::value>(h, wp, b, lse, g, dw, db, n, v, s);
+  });
 }
 
 // How many clusters of the dw/db kernel the card holds at once (its waves

@@ -113,6 +113,25 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
       : "memory");
 }
 
+// Four floats into `dst`'s offset in block `rank` of the cluster, their 16
+// bytes completing a transaction on the mbarrier at `bar`'s offset there:
+// the receiver arms that barrier with the bytes it expects
+// (mbar_expect_tx) and waits on it, as for a TMA copy, which makes the
+// stores visible to it.
+__device__ __forceinline__ void st_async_cluster(void* dst, uint64_t* bar, unsigned rank,
+                                                 float a, float b, float c, float d) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 rdst, rbar;\n"
+      "mapa.shared::cluster.u32 rdst, %0, %2;\n"
+      "mapa.shared::cluster.u32 rbar, %1, %2;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [rdst], "
+      "{%3, %4, %5, %6}, [rbar];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "r"(smem_u32(bar)), "r"(rank), "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
+}
+
 // Named barriers over two consumer warpgroups (256 threads); id 0 is
 // __syncthreads'.
 __device__ __forceinline__ void named_sync(int id) {
@@ -256,6 +275,43 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&s)[32][4], uint64_t 
         ACC4(s, 25), ACC4(s, 26), ACC4(s, 27), ACC4(s, 28), ACC4(s, 29), ACC4(s, 30),
         ACC4(s, 31)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// s[64 x 192] (+)= A[64 x 16] . B[16 x 192]: wgmma_m64n256k16_ss at N = 192.
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n192k16_ss(float (&s)[24][4], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n"
+      "}\n"
+      : ACC4(s, 0), ACC4(s, 1), ACC4(s, 2), ACC4(s, 3), ACC4(s, 4), ACC4(s, 5), ACC4(s, 6),
+        ACC4(s, 7), ACC4(s, 8), ACC4(s, 9), ACC4(s, 10), ACC4(s, 11), ACC4(s, 12),
+        ACC4(s, 13), ACC4(s, 14), ACC4(s, 15), ACC4(s, 16), ACC4(s, 17), ACC4(s, 18),
+        ACC4(s, 19), ACC4(s, 20), ACC4(s, 21), ACC4(s, 22), ACC4(s, 23)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// The product of a consumer's [64 x 64 HC] accumulator, HC = 3 or 4: one
+// overload per width.
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_wide_ss(float (&s)[32][4], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  wgmma_m64n256k16_ss<TRANS_B, TRANS_A>(s, da, db, accumulate);
+}
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_wide_ss(float (&s)[24][4], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  wgmma_m64n192k16_ss<TRANS_B, TRANS_A>(s, da, db, accumulate);
 }
 
 // o[64 x 64] (+)= A[64 x 16] . B[16 x 64], A as bf16 fragments in

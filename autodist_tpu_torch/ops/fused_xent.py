@@ -16,6 +16,13 @@ All three kernels read it as packed by a fourth kernel
 and hands the table to both of its kernels. ``dw`` comes back in the stored
 layout and dtype.
 
+The kernels are built for ``D`` in :data:`KERNEL_WIDTHS` (512, 768 and
+1,024; another width on the card raises) and take bf16 ``h``. An f32 ``h``
+(lm1b's LSTM hands the head f32 states) is rounded to bf16 once a call and
+the kernels run on that, with f32 accumulation; ``dh`` comes back in f32.
+The plain versions compute in ``h``'s own dtype, so on the CPU an f32 ``h``
+gives f32 products throughout, as the JAX kernels do.
+
 Each kernel has a wrapper (:func:`xent_fwd`, :func:`xent_dh`,
 :func:`xent_dwdb`, :func:`xent_pack_w`) that counts its launches in a
 ``launches`` attribute. A wrapper given CPU tensors computes the kernel's
@@ -35,8 +42,9 @@ from autodist_tpu_torch.ops import _build, costs
 # Vocab columns per step of the plain versions: bounds their [N, chunk] f32
 # logits buffer.
 PLAIN_V_CHUNK = 4096
-# The only model width the kernels are instantiated for (csrc/fused_xent.cu).
-KERNEL_D = 512
+# The model widths the kernels are instantiated for (csrc/fused_xent.cu).
+KERNEL_WIDTHS = (512, 768, 1024)
+WIDTHS_ROADMAP = "ROADMAP.md, Queue 2 item 1: the fused head at other widths"
 # The packed "dv" table's rows are padded to a multiple of this many columns:
 # TMA reads rows whose byte stride is a multiple of 16.
 PACK_COLS = 8
@@ -161,20 +169,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_width(d: int) -> None:
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"the fused-xent kernels are built for D in {KERNEL_WIDTHS}, "
+                         f"got D = {d} ({WIDTHS_ROADMAP})")
+
+
+def kernel_h(h: torch.Tensor) -> torch.Tensor:
+    """``h`` as the kernels read it: an f32 ``h`` rounded to bf16 (once a
+    call), a bf16 one as it is."""
+    return h.to(torch.bfloat16) if h.dtype == torch.float32 else h
+
+
 def _check_kernel_args(h, w, b, vd: bool, *vectors) -> Tuple[int, int, int]:
-    """What the kernels take: bf16 ``h [N, 512]`` (16-byte aligned), f32 ``w``
-    in either layout, optional f32 ``b [V]`` (8-byte aligned), f32 ``[N]``
-    vectors; all contiguous, on h's card."""
+    """What the kernels take: bf16 ``h [N, D]`` (D in :data:`KERNEL_WIDTHS`,
+    16-byte aligned; see :func:`kernel_h`), f32 ``w`` in either layout,
+    optional f32 ``b [V]`` (8-byte aligned), f32 ``[N]`` vectors; all
+    contiguous, on h's card."""
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError("h and w must be 2-D")
     n, d, v = _dims(h, w, vd)
     if h.dtype != torch.bfloat16:
-        raise TypeError(f"the fused-xent kernels take bf16 h, got {h.dtype}")
+        raise TypeError(f"the fused-xent kernels take bf16 or f32 h, got {h.dtype}")
     if w.dtype != torch.float32:
         raise TypeError(f"the fused-xent kernels take an f32 table, got {w.dtype}")
-    if d != KERNEL_D:
-        raise ValueError(f"the fused-xent kernels are built for D = {KERNEL_D}, "
-                         f"got D = {d}")
+    _check_width(d)
     if b is not None and (b.dtype != torch.float32 or tuple(b.shape) != (v,)):
         raise ValueError(f"b must be f32 [{v}], got {b.dtype} {tuple(b.shape)}")
     for t in vectors:
@@ -240,9 +259,7 @@ def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
         raise ValueError(f"the pack kernel takes a contiguous f32 2-D table, got "
                          f"{w.dtype} {tuple(w.shape)}")
     v, d = tuple(w.shape) if vd else tuple(w.shape[::-1])
-    if d != KERNEL_D:
-        raise ValueError(f"the fused-xent kernels are built for D = {KERNEL_D}, "
-                         f"got D = {d}")
+    _check_width(d)
     shape = (v, d) if vd else (d, packed_cols(v))
     wp = torch.empty(shape, dtype=torch.bfloat16, device=w.device)
     with torch.cuda.device(w.device):
@@ -254,12 +271,13 @@ def xent_pack_w(w, w_layout: str = "dv") -> torch.Tensor:
 
 def xent_fwd(h, w, b, w_layout: str = "dv") -> torch.Tensor:
     """f32 ``[N]`` ``logsumexp(h @ w + b)``. CUDA: the pack, then the
-    forward kernel (replaces ``_fwd_kernel``); CPU:
+    forward kernel (replaces ``_fwd_kernel``) on :func:`kernel_h`'s h; CPU:
     :func:`matmul_logsumexp_plain`."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
         with _probe_cost("xent_fwd", h, w, b, w_layout, packs=1):
             return matmul_logsumexp_plain(h, w, b, w_layout)
+    h = kernel_h(h)
     n, d, v = _check_kernel_args(h, w, b, vd)
     lse = torch.empty((n,), dtype=torch.float32, device=h.device)
     if n:
@@ -287,11 +305,13 @@ def _packed(w, w_layout: str, wp) -> torch.Tensor:
 def xent_dh(h, w, b, lse, g, w_layout: str = "dv", wp=None) -> torch.Tensor:
     """``dh`` of ``sum(g * lse)`` in h's dtype. CUDA: the pack (unless ``wp``,
     :func:`xent_pack_w`'s table of w, is given), then the dh kernel (replaces
-    ``_dh_kernel``); CPU: :func:`lse_backward_plain`, reading ``wp`` if given."""
+    ``_dh_kernel``) on :func:`kernel_h`'s h; CPU: :func:`lse_backward_plain`,
+    reading ``wp`` if given."""
     vd = _w_vd(w_layout)
     if h.device.type == "cpu":
         with _probe_cost("xent_dh", h, w, b, w_layout, packs=int(wp is None)):
             return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[0]
+    dtype, h = h.dtype, kernel_h(h)
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     dh = torch.empty((n, d), dtype=h.dtype, device=h.device)
     if n:
@@ -301,7 +321,7 @@ def xent_dh(h, w, b, lse, g, w_layout: str = "dv", wp=None) -> torch.Tensor:
                     _ptr(dh), n, d, v, int(vd),
                     torch.cuda.current_stream().cuda_stream)
         xent_dh.launches += 1
-    return dh
+    return dh.to(dtype)
 
 
 def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv", wp=None):
@@ -313,6 +333,7 @@ def xent_dwdb(h, w, b, lse, g, w_layout: str = "dv", wp=None):
     if h.device.type == "cpu":
         with _probe_cost("xent_dwdb", h, w, b, w_layout, packs=int(wp is None)):
             return lse_backward_plain(h, w, b, lse, g, w_layout, wp=wp)[1:]
+    h = kernel_h(h)
     n, d, v = _check_kernel_args(h, w, b, vd, lse, g)
     if n == 0:
         return torch.zeros_like(w), torch.zeros((v,), dtype=torch.float32,
@@ -339,6 +360,11 @@ KERNELS = (xent_fwd, xent_dh, xent_dwdb)
 class _MatmulLogsumexp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, b, w_layout):
+        # On the card an f32 h is rounded once, here, and the backward's two
+        # kernels read the same bf16 copy; dh is returned in h's dtype.
+        ctx.h_dtype = h.dtype
+        if h.device.type != "cpu":
+            h = kernel_h(h)
         lse = xent_fwd(h, w, b, w_layout)
         ctx.save_for_backward(h, w, b, lse)
         ctx.w_layout = w_layout
@@ -355,7 +381,7 @@ class _MatmulLogsumexp(torch.autograd.Function):
             wp = xent_pack_w(w, ctx.w_layout)
         dh = xent_dh(h, w, b, lse, g, ctx.w_layout, wp=wp)
         dw, db = xent_dwdb(h, w, b, lse, g, ctx.w_layout, wp=wp)
-        return dh, dw, (db if b is not None else None), None
+        return dh.to(ctx.h_dtype), dw, (db if b is not None else None), None
 
 
 def matmul_logsumexp(h, w, b=None, w_layout: str = "dv") -> torch.Tensor:

@@ -378,7 +378,8 @@ class PSServer:
         if runner.service is None:
             raise RuntimeError("Call runner.init(params) before serving")
         const.refuse_unported(("AUTODIST_METRICS_PORT", "AUTODIST_RECORDER",
-                               "AUTODIST_TRACE_PULL"), "the PS server")
+                               "AUTODIST_TRACE_PULL", "AUTODIST_TELEMETRY",
+                               "AUTODIST_METRICS_DIR"), "the PS server")
         _native_transport()   # build (or refuse) before the first connection
         self._runner = runner
         self._t_started = time.monotonic()

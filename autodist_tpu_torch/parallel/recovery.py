@@ -50,7 +50,8 @@ EVICT_KINDS = ("stall", "disconnect")
 
 
 # The planes rollback would report to (ROADMAP.md, Queue 1 item 7).
-UNPORTED_HOOKS = ("AUTODIST_HEALTH_ACTION", "AUTODIST_ALERT_ACTION", "AUTODIST_RECORDER")
+UNPORTED_HOOKS = ("AUTODIST_HEALTH_ACTION", "AUTODIST_ALERT_ACTION", "AUTODIST_RECORDER",
+                  "AUTODIST_TELEMETRY")
 
 
 class _RecoveryLog:

@@ -28,8 +28,8 @@ from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
 _log = logging.getLogger("autodist_tpu_torch")
 
-PLANES_ROADMAP = "ROADMAP.md, Queue 1: train()'s health, recover, profiling, history and " \
-                 "openmetrics hooks"
+PLANES_ROADMAP = "ROADMAP.md, Queue 1 item 7: train()'s health, recover, profiling, " \
+                 "history, telemetry and openmetrics hooks"
 
 
 def _make_meter(first_batch, batch_size: Optional[int], log_every: int,

@@ -35,7 +35,12 @@ exits non-zero without them, or when any phase fails. Phases:
    and 193, where a cluster's second block holds no column or one), and
    the main paths' own shapes ("dv", no bias, V = 32,000): N = 8,192 (the
    flagship micro-batch here) and 65,536 (the long-context step). The pack
-   kernel must equal its plain version bit for bit. Tolerance: lse within
+   kernel must equal its plain version bit for bit. The same at the wide
+   widths, D = 768 and 1,024 (``XENT_WIDE``): both layouts, with and
+   without a bias, 1,000 x 4,001 and the same N/V edges; and lm1b's full
+   softmax, f32 h at D = 1,024, "vd" with a bias, N = 2,048 by V = 793,471,
+   held against the plain version fed the bf16 rounding of h and against
+   the plain version at f32 h. Tolerance: lse within
    0.01 absolute; dh, dw and db within TILE_RTOL in every tile (see
    ``worst_tile``). Then each kernel is timed at the flagship micro-batch
    (N = 98,304) beside its plain version, the one PyTorch call computing
@@ -44,7 +49,11 @@ exits non-zero without them, or when any phase fails. Phases:
    bound. dw/db must give the same bits twice on those inputs; it is also
    timed on a table packed beforehand, beside cuBLAS's products of the same
    work (``h @ wp`` into a materialised bf16 [N, V] S, then ``h.T @ S``), a
-   yardstick for the text only.
+   yardstick for the text only. At D = 1,024 each kernel is timed at
+   ``scale_lm``'s d1024 x 12 head (N = 32,768, V = 32,000, "dv"), the
+   forward beside ``logsumexp(h @ w.to(bf16))``, and at lm1b's full
+   softmax (N = 32,768, V = 793,471, "vd", a bias, f32 h), beside the
+   bounds; no library call there (its logits would be about 104 GB).
 4. The flagship at full width (d512 x 6 layers, 8 heads, d_ff 2048, vocab
    32,000, seq 256, untied fused head, bf16 activations, f32 params) through
    ``AutoDist(resource_info=..., strategy_builder=AllReduce()).function``
@@ -296,12 +305,26 @@ exits non-zero without them, or when any phase fails. Phases:
    replacement is admitted (``add_worker``, seeded at the slowest live
    count) and takes its remaining steps, every planned step applies and the
    parameters are finite.
-19. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll``, ``moe`` and ``async_ps``), then the result line.
+19. The LM family beyond d512 (``--only lm_family`` alone): (a)
+   ``lm1b_train --model lstm`` at its defaults (batch 128 under Adam, seq
+   256, embedding 512, hidden 1,024, 6 layers, vocab 32,000, 1,024
+   negatives, ``Parallax``): the sparse walk's seconds, words/s and MFU
+   over counted steps, a profiler window (kernel classes, idle share);
+   (b) ``--full_softmax --vocab 793471`` at the defaults: words/s, the
+   fused head's launches a step (1 each, the pack 2), peak memory, and at
+   a cut of V (32,000) the fused loss within rtol 1e-2 of the plain f32
+   head's on the same weights and batch; (c) ``scale_lm`` at d768 x 12 bs
+   192, d1024 x 12 bs 128 and d1024 x 24 bs 96: tokens/s, MFU and the
+   fused head's launches a step, and at d1024 x 12 the fused loss within
+   rtol 1e-2 of the plain head's; (d) ``run_all --only lm1b_lstm`` in its
+   own process.
+20. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll``, ``moe``, ``async_ps`` and ``lm_family``; the
+   fused head's also at D = 1,024), then the result line.
 
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
-async_ps``) builds the kernels and runs phase 16 (or 17, 18) alone, without
-the kernel line. A process the Coordinator launched (``AUTODIST_WORKER``
+async_ps``, ``--only lm_family``) builds the kernels and runs phase 16 (or
+17, 18, 19) alone, without the kernel line. A process the Coordinator launched (``AUTODIST_WORKER``
 set) runs only phase 18 (e)'s worker half and prints no result line.
 """
 
@@ -368,8 +391,13 @@ XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
 # and 65 (the first cluster's second block holds no column, or one), 129
 # (the second cluster's second block holds none) and 193 (one).
 XENT_DWDB_EDGES = tuple((n, v) for n in (1, 63, 65) for v in (63, 65, 129, 193))
-# A spill in this kernel fails phase 2.
-NO_SPILL = "xent_dwdb_kernel"
+# The wide kernels' widths (D = 768 and 1,024): the same cases as at 512,
+# and lm1b's full softmax (f32 h, "vd", a bias) at N rows by its vocabulary.
+XENT_WIDE = (768, 1024)
+LM1B_VOCAB = 793471
+LM1B_CHECK_ROWS = 2048
+# A spill in these kernels fails phase 2.
+NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel")
 # Phase 12: the Ulysses replay's shards (4 seq ranks: 2 of the 8 heads each).
 ULYSSES_SHARDS = 4
 # Phase 14: ResNet-50 benchmark runs (strategy, images a card, timed steps).
@@ -441,6 +469,15 @@ ASYNC_ROWS, ASYNC_SEQ = 384, 256
 ASYNC_MODEL_ARGS = []             # flagship_lm flags (a host rehearsal shrinks the model)
 ASYNC_TWO_NODES = {"nodes": [{"address": "localhost", "gpus": [0], "chief": True},
                              {"address": "127.0.0.1", "gpus": [0]}]}
+# Phase 19: counted steps of lm1b's sampled and full-softmax runs; the cut
+# of V at which the fused loss meets the plain f32 head; scale_lm's sizes
+# (d_model, layers, batch) and timed steps; the sweep row's steps.
+LM1B_STEPS, LM1B_FULL_STEPS = 3, 2
+LM1B_CUT_VOCAB = 32000
+SCALE_RUNS = ((768, 12, 192), (1024, 12, 128), (1024, 24, 96))
+SCALE_STEPS = 3
+LM1B_SWEEP_STEPS = 3
+LM_FAMILY_ARGS, SCALE_ARGS = [], []   # lm1b_train and scale_lm flags a host rehearsal adds
 os.environ.setdefault("AUTODIST_WORKING_DIR", os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "build", "autodist_wd"))
 
@@ -466,9 +503,16 @@ def ptxas_summary(build_log: str):
             mangled = line.split("for ", 1)[1].strip()
             kernel = next((k for k in ("flash_fwd_carry_kernel", "flash_fwd_kernel",
                                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                                       "xent_fwd_kernel", "xent_dh_kernel", "xent_dwdb_kernel",
-                                       "xent_pack_kernel")
+                                       "xent_fwd_wide_kernel", "xent_dh_wide_kernel",
+                                       "xent_dwdb_wide_kernel", "xent_fwd_kernel",
+                                       "xent_dh_kernel", "xent_dwdb_kernel",
+                                       "xent_pack_kernel", "lstm_fwd_kernel",
+                                       "lstm_bwd_kernel")
                            if k in mangled), mangled)
+            # A wide kernel's template arguments: the layout and its chunk count.
+            args = re.search(r"_wide_kernelILb([01])ELi(\d+)E", mangled)
+            if args:
+                kernel += f"<{'vd' if args.group(1) == '1' else 'dv'}, {args.group(2)}>"
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             used = lines[i + 2].split("Used", 1)[-1].strip() if i + 2 < len(lines) else ""
             yield f"{kernel}: {used}; {frame}"
@@ -502,9 +546,9 @@ def rate(r) -> str:
     return f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the bound"
 
 
-def inputs(n, v, layout, bias, gen, dev):
-    h = (torch.randn(n, D, generator=gen) * 0.5).to(dev, torch.bfloat16)
-    w = torch.randn(D, v, generator=gen) * 0.05
+def inputs(n, v, layout, bias, gen, dev, d=D, h_dtype=torch.bfloat16):
+    h = (torch.randn(n, d, generator=gen) * 0.5).to(dev, h_dtype)
+    w = torch.randn(d, v, generator=gen) * 0.05
     w = (w.T.contiguous() if layout == "vd" else w).to(dev)
     b = (torch.randn(v, generator=gen) * 0.1).to(dev) if bias else None
     g = torch.rand(n, generator=gen).to(dev)
@@ -519,8 +563,14 @@ def check_kernels(fx, dev):
     cases += [(n, v, layout, bias) for n, v in XENT_EDGES + XENT_DWDB_EDGES
               for layout in ("dv", "vd") for bias in (True, False)]
     cases += [(MAIN_MICRO_ROWS, V, "dv", False), (LC_BATCH * LC_SEQ, V, "dv", False)]
-    for n, v, layout, bias in cases:
-        h, w, b, g = inputs(n, v, layout, bias, gen, dev)
+    cases = [(D, torch.bfloat16) + c for c in cases]
+    for d in XENT_WIDE:
+        cases += [(d, torch.bfloat16, n, v, layout, bias)
+                  for n, v in ((1000, 4001),) + XENT_EDGES + XENT_DWDB_EDGES
+                  for layout in ("dv", "vd") for bias in (True, False)]
+    cases.append((1024, torch.float32, LM1B_CHECK_ROWS, LM1B_VOCAB, "vd", True))
+    for d, h_dtype, n, v, layout, bias in cases:
+        h, w, b, g = inputs(n, v, layout, bias, gen, dev, d, h_dtype)
         packed = fx.xent_pack_w(w, layout)
         torch.cuda.synchronize()
         if not torch.equal(packed, fx.pack_w_plain(w, layout)):
@@ -530,20 +580,31 @@ def check_kernels(fx, dev):
         dh = fx.xent_dh(h, w, b, lse, g, layout)
         dw, db = fx.xent_dwdb(h, w, b, lse, g, layout)
         torch.cuda.synchronize()
-        ref_lse = fx.matmul_logsumexp_plain(h, w, b, layout)
-        ref_dh, ref_dw, ref_db = fx.lse_backward_plain(h, w, b, lse, g, layout)
+        if dh.dtype != h.dtype:
+            raise AssertionError(f"dh came back {dh.dtype} for {h.dtype} h")
+        # The kernels read f32 h rounded to bf16: the plain versions get the
+        # same rounding, and the lse is also held against f32 h's.
+        hk = fx.kernel_h(h)
+        ref_lse = fx.matmul_logsumexp_plain(hk, w, b, layout)
+        ref_dh, ref_dw, ref_db = fx.lse_backward_plain(hk, w, b, lse, g, layout)
         e_lse = (lse - ref_lse).abs().max().item()
+        if hk is not h:
+            e_f32 = (lse - fx.matmul_logsumexp_plain(h, w, b, layout)).abs().max().item()
+            log(f"check d={d} f32 h: lse against the plain version at f32 h {e_f32:.3g}")
+            if not e_f32 <= LSE_ATOL:
+                raise AssertionError(f"f32 h: lse {e_f32} from the f32 plain version")
         v_dim = 0 if layout == "vd" else 1
         e = {name: compare(got, want, dim)
              for name, got, want, dim in (("dh", dh, ref_dh, 0), ("dw", dw, ref_dw, v_dim),
                                           ("db", db, ref_db, 0))}
-        log(f"check n={n} v={v} layout={layout} bias={bias}: lse {e_lse:.3g}; "
+        log(f"check d={d} h={str(h.dtype)[6:]} n={n} v={v} layout={layout} bias={bias}: "
+            f"lse {e_lse:.3g}; "
             + "; ".join(f"{k} {describe(c)}" for k, c in e.items()))
         ok = math.isfinite(e_lse) and e_lse <= LSE_ATOL and all(
             c[2] <= TILE_RTOL for c in e.values())
         if not ok:
-            raise AssertionError(f"kernel disagrees with its plain version at n={n} "
-                                 f"v={v} layout={layout} bias={bias}")
+            raise AssertionError(f"kernel disagrees with its plain version at d={d} n={n} "
+                                 f"v={v} layout={layout} bias={bias} h={h.dtype}")
         errs["xent_fwd"] = max(errs["xent_fwd"], e_lse)
         errs["xent_dh"] = max(errs["xent_dh"], e["dh"][0])
         errs["xent_dwdb"] = max(errs["xent_dwdb"], e["dw"][0], e["db"][0])
@@ -624,7 +685,64 @@ def time_kernels(fx, dev):
         f"xent_fwd {time_ms(lambda: fx.xent_fwd(hm, w, None), 5):.3f} ms, "
         f"xent_dh {time_ms(lambda: fx.xent_dh(hm, w, None, lm, gm), 5):.3f} ms, "
         f"xent_dwdb {time_ms(lambda: fx.xent_dwdb(hm, w, None, lm, gm), 5):.3f} ms")
+    del h, w, lse, g, hm, lm, gm
+    free_card()
+    for label, wide in time_wide(fx, dev).items():
+        for name, r in wide.items():
+            rows[name].setdefault("wide", {})[label] = r
     return rows
+
+
+def time_wide(fx, dev):
+    """Phase 3b at D = 1,024: each kernel at scale_lm's d1024 head (N =
+    32,768, V = 32,000, "dv", no bias; the forward beside the library call)
+    and at lm1b's full softmax (N = 32,768, V = 793,471, "vd", a bias, f32
+    h: the wrappers' bf16 rounding of h is in their times; no library call,
+    whose logits would be about 104 GB). ``{label: {kernel: row}}``."""
+    gen = torch.Generator().manual_seed(2)
+    out = {}
+    for label, n, v, layout, bias, h_dtype in (
+            ("scale_lm d1024", 32768, V, "dv", False, torch.bfloat16),
+            ("lm1b full softmax", 32768, LM1B_VOCAB, "vd", True, torch.float32)):
+        d = 1024
+        h, w, b, _ = inputs(n, v, layout, bias, gen, dev, d, h_dtype)
+        g = torch.full((n,), 1.0 / n, device=dev)
+        lse = fx.xent_fwd(h, w, b, layout)
+        hb = h.element_size()
+        in_bytes = n * d * hb + d * v * 4 + (v * 4 if bias else 0)
+        ops = 2.0 * n * d * v
+        reps = 3 if v == V else 1
+        rows = {
+            "xent_fwd": dict(flops=ops, ms=time_ms(lambda: fx.xent_fwd(h, w, b, layout), reps),
+                             bound=bound(in_bytes + n * 4, ops), library_ms=None),
+            "xent_dh": dict(flops=2 * ops,
+                            ms=time_ms(lambda: fx.xent_dh(h, w, b, lse, g, layout), reps),
+                            bound=bound(in_bytes + 2 * n * 4 + n * d * hb, 2 * ops),
+                            library_ms=None),
+            "xent_dwdb": dict(flops=2 * ops,
+                              ms=time_ms(lambda: fx.xent_dwdb(h, w, b, lse, g, layout), reps),
+                              bound=bound(in_bytes + 2 * n * 4 + d * v * 4 + v * 4, 2 * ops),
+                              library_ms=None),
+        }
+        if v == V:
+            rows["xent_fwd"]["library_ms"] = time_ms(
+                lambda: torch.logsumexp(h @ w.to(h.dtype), -1), 3)
+            rows["xent_fwd"]["plain_ms"] = time_ms(
+                lambda: fx.matmul_logsumexp_plain(h, w, b, layout), 1)
+            plain_bwd = time_ms(lambda: fx.lse_backward_plain(h, w, b, lse, g, layout), 1)
+            rows["xent_dh"]["plain_ms"] = rows["xent_dwdb"]["plain_ms"] = plain_bwd
+            if not rows["xent_fwd"]["ms"] < rows["xent_fwd"]["library_ms"]:
+                raise AssertionError(f"{label}: the forward kernel is slower than the "
+                                     f"library call: {rows['xent_fwd']}")
+        for name, r in rows.items():
+            log(f"time {name} D={d} N={n} V={v} {layout} bias={bias} h={str(h.dtype)[6:]} "
+                f"({label}): kernel {r['ms']:.3f} ms ({rate(r)}), plain {r.get('plain_ms')} ms, "
+                f"library {r['library_ms']} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); "
+                f"card {card_line()}")
+        out[label] = rows
+        del h, w, b, g, lse
+        free_card()
+    return out
 
 
 def dwdb_yardstick(fx, h, w, lse, g, row):
@@ -2655,6 +2773,211 @@ def async_ps_path(kernels, dev):
     return dict(launches_total)
 
 
+def check_cell_launches(launches, want, label):
+    got = (launches["lstm_cell_fwd"], launches["lstm_cell_bwd"])
+    if got != (want, want):
+        raise AssertionError(f"{label}: lstm cell launches {got}, want {want} each way")
+
+
+def check_lstm_cell(lc, dev, batch=128, steps=256, hidden=1024):
+    """Phase 19's cell kernels against their plain versions at lm1b's shape
+    (B = 128, H = 1,024, bf16 gates), on the strided step slices the
+    recurrence hands them: every output within TILE_RTOL in every tile, the
+    carry's gradient too. Returns the largest absolute error; logs their
+    times beside the plain versions'."""
+    gen = torch.Generator().manual_seed(3)
+    g4, bf = 4 * hidden, torch.bfloat16
+    x_gates = (torch.randn(batch, steps, g4, generator=gen) * 0.5).to(dev, bf)
+    cs = (torch.randn(batch, steps, hidden, generator=gen) * 0.5).to(dev)
+    hs = torch.empty(batch, steps, hidden, device=dev)
+    acts = torch.empty(batch, steps, g4, dtype=bf, device=dev)
+    yh = (torch.randn(batch, g4, generator=gen) * 0.5).to(dev, bf)
+    bh = (torch.randn(g4, generator=gen) * 0.1).to(dev, bf)
+    t = 5
+    h_t = lc.lstm_cell_fwd(yh, bh, x_gates[:, t], cs[:, t - 1], cs[:, t], hs[:, t], acts[:, t])
+    want = lc.cell_fwd_plain(yh, bh, x_gates[:, t], cs[:, t - 1])
+    fwd = [compare(got, w, 0) for got, w in zip((cs[:, t], hs[:, t], h_t, acts[:, t]), want)]
+    dhs = torch.randn(batch, steps, hidden, generator=gen).to(dev)
+    dh_rec = (torch.randn(batch, hidden, generator=gen) * 0.1).to(dev, bf)
+    dc0 = torch.randn(batch, hidden, generator=gen).to(dev)
+    dys = torch.empty_like(acts)
+    want_dy, want_dc = lc.cell_bwd_plain(dhs[:, t], dh_rec, dc0, acts[:, t], cs[:, t],
+                                         cs[:, t - 1])
+    dc = dc0.clone()
+    lc.lstm_cell_bwd(dhs[:, t], dh_rec, dc, acts[:, t], cs[:, t], cs[:, t - 1], dys[:, t])
+    bwd = [compare(dys[:, t], want_dy, 0), compare(dc, want_dc, 0)]
+    torch.cuda.synchronize()
+    fwd_ms = time_ms(lambda: lc.lstm_cell_fwd(yh, bh, x_gates[:, t], cs[:, t - 1], cs[:, t],
+                                              hs[:, t], acts[:, t]), 50)
+    bwd_ms = time_ms(lambda: lc.lstm_cell_bwd(dhs[:, t], dh_rec, dc0.clone(), acts[:, t],
+                                              cs[:, t], cs[:, t - 1], dys[:, t]), 50)
+    plain_ms = time_ms(lambda: lc.cell_fwd_plain(yh, bh, x_gates[:, t], cs[:, t - 1]), 50)
+    log(f"check lstm cell B={batch} H={hidden} bf16: forward (c, h, h bf16, gates) "
+        + "; ".join(describe(c) for c in fwd) + "; backward (dy, dc) "
+        + "; ".join(describe(c) for c in bwd)
+        + f"; forward {fwd_ms:.4f} ms (plain {plain_ms:.4f}), backward {bwd_ms:.4f} ms "
+        f"(bound {bound(batch * hidden * (3 * 4 * 2 + 4 * 2 + 4 * 3 + 2), 0)[0]:.4f} ms, "
+        f"bytes); card {card_line()}")
+    if not all(c[2] <= TILE_RTOL for c in fwd + bwd):
+        raise AssertionError("the lstm cell kernels disagree with their plain versions")
+    # The whole recurrence, forward and backward, on the card's path (the
+    # steps' addresses computed) against the host's (the plain versions).
+    x = (torch.randn(16, 12, 256, generator=gen) * 0.5).to(bf)
+    whs = (torch.randn(64, 256, generator=gen) * 0.2).to(bf)
+    bhs = (torch.randn(256, generator=gen) * 0.1).to(bf)
+    coef = torch.randn(16, 12, 64, generator=gen)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        leaves = [t.to(where).requires_grad_(True) for t in (x, whs, bhs)]
+        hseq = lc.lstm_recurrence(*leaves)
+        (hseq * coef.to(where)).sum().backward()
+        runs.append([hseq.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    seq = [compare(a, b, 0) for a, b in zip(*runs)]
+    log(f"check lstm recurrence B=16 T=12 H=64 bf16, card against host: h, dx, dwh, dbh "
+        + "; ".join(describe(c) for c in seq))
+    if not all(c[2] <= TILE_RTOL for c in seq):
+        raise AssertionError("the lstm recurrence on the card disagrees with the host's")
+    return max(c[0] for c in fwd + bwd)
+
+
+def lm_family_path(kernels, dev):
+    """Phase 19: lm1b's LSTM LM (sampled and full softmax), scale_lm's three
+    sizes and the sweep's lm1b_lstm row. Returns the fused head's launches
+    over (b) and (c)."""
+    import numpy as np
+
+    from autodist_tpu_torch.examples import scale_lm
+    from autodist_tpu_torch.examples.benchmark import run_all
+    from autodist_tpu_torch.examples.lm1b import lm1b_train
+    from autodist_tpu_torch.model_spec import ModelSpec
+    from autodist_tpu_torch.models import lstm_lm, transformer_lm as tlm
+    from autodist_tpu_torch.ops import lstm_cell
+    from autodist_tpu_torch.utils.flops import (loss_and_grad_flops, mfu,
+                                                transformer_flops_per_token)
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    card = card_line()
+    check_lstm_cell(lstm_cell, dev)
+    kernels = tuple(kernels) + lstm_cell.KERNELS
+
+    def lm1b(extra, steps):
+        args = lm1b_train.parse_args(["--model", "lstm", "--device", str(dev)] + extra
+                                     + LM_FAMILY_ARGS)
+        run = lm1b_train.build(args)
+        batch = run.step.runner.shard_batch(run.example)
+        float(run.step(batch))                       # the first step: the lazy state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, launches = counted_steps(run.step, [batch] * steps, kernels)
+        words = args.batch_size * args.seq_len * steps / sum(times)
+        return args, run, batch, losses, words, launches
+
+    # (a) the sampled softmax at the defaults: the cell kernels run once a
+    # step of each layer, each way.
+    args, run, batch, losses, words, launches = lm1b([], LM1B_STEPS)
+    check_cell_launches(launches, args.n_layers * args.seq_len * LM1B_STEPS, "lm1b")
+    t0 = time.perf_counter()
+    spec = ModelSpec.from_loss_fn(run.loss_fn, run.params, run.example)
+    walk_s = time.perf_counter() - t0
+    sparse = sorted(n for n, p in spec.params.items() if p.sparse)
+    flops = loss_and_grad_flops(run.loss_fn, run.step.runner.logical_params(
+        run.step.get_state()), batch)
+    tokens = args.batch_size * args.seq_len
+    log(f"lm1b lstm (sampled, {run.cfg.num_sampled} negatives): batch {args.batch_size} x "
+        f"{args.seq_len}, emb {run.cfg.emb_dim}, hidden {run.cfg.hidden_dim}, "
+        f"{run.cfg.n_layers} layers, vocab {run.cfg.vocab_size}, {run.choice.reason}: losses "
+        f"{losses}; {words:.1f} words/s; MFU {mfu(flops * words / tokens):.4f} "
+        f"({flops / 1e9:.1f} GFLOP a step counted); set-up {run.setup_s:.1f} s, of which "
+        f"the sparse walk alone {walk_s:.1f} s (sparse: {sparse}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; lstm cell launches {launches}; "
+        f"card {card}")
+    if "lm/embed/embedding" not in sparse:
+        raise AssertionError(f"lm1b: the walk did not mark the embedding sparse: {sparse}")
+    profile_steps(run.step, [batch], label="lm1b lstm profile")
+    del run, batch, spec
+    free_card()
+
+    # (b) the exact softmax at lm1b's vocabulary through the fused head.
+    args, run, batch, losses, words, launches = lm1b(
+        ["--full_softmax", "--vocab", str(LM1B_VOCAB)], LM1B_FULL_STEPS)
+    run_dtype = run.cfg.dtype
+    total.update(launches)
+    per_step = {k: v / LM1B_FULL_STEPS for k, v in launches.items()}
+    log(f"lm1b lstm full softmax: batch {args.batch_size} x {args.seq_len}, vocab "
+        f"{run.cfg.vocab_size}, {run.choice.reason}: losses {losses}; {words:.1f} words/s; "
+        f"launches a step {per_step}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
+    check_launches(launches, LM1B_FULL_STEPS, "lm1b full softmax")
+    del run, batch
+    free_card()
+    # The fused loss against the plain f32 head at a cut of V, same weights and batch.
+    cfg = lstm_lm.LSTMLMConfig(vocab_size=LM1B_CUT_VOCAB, emb_dim=args.d_model,
+                               hidden_dim=2 * args.d_model, n_layers=args.n_layers,
+                               dtype=run_dtype)
+    model, params = lstm_lm.init_params(cfg, seed=0, device=dev)
+    example = lstm_lm.synthetic_batch(cfg, args.batch_size, args.seq_len, sampled=False)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in example.items()}
+    with torch.no_grad():
+        fused = float(lstm_lm.make_fused_full_softmax_loss_fn(model)(params, tb))
+        plain = float(lstm_lm.make_loss_fn(model)(params, tb))
+    log(f"lm1b full softmax at V = {LM1B_CUT_VOCAB}: fused head (bf16 h) {fused:.6f}, plain "
+        f"f32 head {plain:.6f}, rel {abs(fused - plain) / abs(plain):.3g}")
+    if not abs(fused - plain) <= 1e-2 * abs(plain):
+        raise AssertionError(f"lm1b: fused loss {fused} vs the plain f32 head's {plain}")
+    del model, params, tb
+    free_card()
+
+    # (c) scale_lm's three sizes.
+    for d, layers, bs in SCALE_RUNS:
+        argv = ["--device", str(dev), "--d_model", str(d), "--n_layers", str(layers),
+                "--batch_size", str(bs), "--steps", str(SCALE_STEPS)] + SCALE_ARGS
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rate_ = scale_lm.main(argv)
+        launches = {k.__name__: k.launches for k in kernels}
+        total.update(launches)
+        steps = SCALE_STEPS + scale_lm.WARMUP_STEPS
+        sargs = scale_lm.parse_args(argv)
+        fpt = transformer_flops_per_token(d, layers, 4 * d, sargs.vocab, sargs.seq_len)
+        log(f"scale_lm d{d} x {layers} bs{bs}: {rate_:.1f} tokens/s, MFU "
+            f"{mfu(fpt * rate_):.4f}; fused-head launches a step "
+            f"{ {k: v / steps for k, v in launches.items()} }; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
+        check_launches(launches, steps, f"scale_lm d{d} x {layers}")
+        free_card()
+    # The first step's loss: the fused head against the plain one at d1024 x 12.
+    d, layers, bs = SCALE_RUNS[1]
+    args = scale_lm.parse_args(["--device", str(dev), "--d_model", str(d), "--n_layers",
+                                str(layers), "--batch_size", str(bs)] + SCALE_ARGS)
+    losses = {}
+    for fused_head in (True, False):
+        cfg = dataclasses.replace(scale_lm.model_config(args, on_card=True),
+                                  fused_head=fused_head)
+        model, params = tlm.init_params(cfg, seed=0, device=dev)
+        tb = {k: torch.from_numpy(v).to(dev)
+              for k, v in tlm.synthetic_batch(cfg, bs, args.seq_len).items()}
+        with torch.no_grad():
+            losses[fused_head] = float(tlm.make_loss_fn(model)(params, tb))
+        del model, params, tb
+        free_card()
+    log(f"scale_lm d{d} x {layers} first-step loss: fused head {losses[True]:.6f}, plain head "
+        f"{losses[False]:.6f}")
+    if not abs(losses[True] - losses[False]) <= 1e-2 * abs(losses[False]):
+        raise AssertionError(f"scale_lm: fused loss {losses[True]} vs plain {losses[False]}")
+
+    # (d) the sweep's row, in its own process.
+    t0 = time.perf_counter()
+    rows = run_all.main(["--only", "lm1b_lstm", "--steps", str(LM1B_SWEEP_STEPS)])
+    log(f"lm1b: run_all --only lm1b_lstm --steps {LM1B_SWEEP_STEPS}: {rows} "
+        f"({time.perf_counter() - t0:.1f} s); card {card}")
+    if not rows or rows[0]["rate"] is None or not np.isfinite(rows[0]["rate"]):
+        raise AssertionError(f"run_all lm1b_lstm reported no rate: {rows}")
+    log(f"lm_family: phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
@@ -2701,44 +3024,56 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
-    if only in ("unroll", "moe_pipe", "async_ps"):
-        # Phase 16, 17 or 18 alone (a shorter call while it is worked on); no kernel line.
+    if only in ("unroll", "moe_pipe", "async_ps", "lm_family"):
+        # Phase 16, 17, 18 or 19 alone (a shorter call while it is worked on); no kernel line.
         path = {"unroll": unroll_path, "moe_pipe": moe_pipe_path,
-                "async_ps": async_ps_path}[only]
+                "async_ps": async_ps_path, "lm_family": lm_family_path}[only]
         log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    errs = check_kernels(fx, dev)
-    timing = time_kernels(fx, dev)
-    errs.update(check_flash(fa, dev))
-    timing.update(time_flash(fa, dev))
-    errs.update(check_carry(fa, dev))
-    ring_err = check_ring_replay(fa, dev)
+    t_run = time.perf_counter()
+
+    def timed(label, fn, *args):
+        """``fn(*args)``, its seconds logged (where a shorter run must cut depth)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase time: {label} {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_run:.1f} s since the checks began)")
+        return out
+
+    errs = timed("3a fused head checks", check_kernels, fx, dev)
+    timing = timed("3b fused head times", time_kernels, fx, dev)
+    errs.update(timed("5 flash checks", check_flash, fa, dev))
+    timing.update(timed("5 flash times", time_flash, fa, dev))
+    errs.update(timed("7 carry checks", check_carry, fa, dev))
+    ring_err = timed("7 ring replay", check_ring_replay, fa, dev)
     errs["flash_fwd_carry"] = max(errs["flash_fwd_carry"], ring_err)
-    timing.update(time_carry(fa, dev))
+    timing.update(timed("7 carry times", time_carry, fa, dev))
     # The pack is counted with them (it runs in the forward's and dh's
     # wrappers), but it replaces no TPU kernel and has no row in the JSON line.
-    by_phase = {"flagship": main_path(every, dev),
-                "long_context": long_context_path(every, dev),
-                "sequence_parallel": sequence_parallel_path(every, dev),
-                "flagship_full": flagship_full_path(every, dev),
-                "train": train_path(every, dev),
-                "strategies": strategies_path(every, dev),
-                "ulysses": ulysses_path(every, dev)}
-    ulysses_err = check_ulysses_replay(fa, dev)
+    by_phase = {"flagship": timed("4 flagship", main_path, every, dev),
+                "long_context": timed("6 long context", long_context_path, every, dev),
+                "sequence_parallel": timed("8 sequence parallel", sequence_parallel_path,
+                                           every, dev),
+                "flagship_full": timed("9 flagship uncut", flagship_full_path, every, dev),
+                "train": timed("10 train", train_path, every, dev),
+                "strategies": timed("11 strategies", strategies_path, every, dev),
+                "ulysses": timed("12 ulysses", ulysses_path, every, dev)}
+    ulysses_err = timed("12 ulysses replay", check_ulysses_replay, fa, dev)
     errs["flash_fwd"] = max(errs["flash_fwd"], ulysses_err["flash_fwd"])
     errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], ulysses_err["flash_bwd_dkdv"])
     errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], ulysses_err["flash_bwd_dq"])
-    data_plane_path()
-    by_phase["images"], image_results = image_path(every, dev)
-    by_phase["text"] = text_path(every, dev,
-                                 image_results[("AllReduce", 128)]["images_per_sec"])
-    by_phase["unroll"] = unroll_path(every, dev)
-    by_phase["moe"] = moe_pipe_path(every, dev)
-    by_phase["async_ps"] = async_ps_path(every, dev)
+    timed("13 data plane", data_plane_path)
+    by_phase["images"], image_results = timed("14 images", image_path, every, dev)
+    by_phase["text"] = timed("15 text", text_path, every, dev,
+                             image_results[("AllReduce", 128)]["images_per_sec"])
+    by_phase["unroll"] = timed("16 unroll", unroll_path, every, dev)
+    by_phase["moe"] = timed("17 moe and pipelines", moe_pipe_path, every, dev)
+    by_phase["async_ps"] = timed("18 async ps", async_ps_path, every, dev)
+    by_phase["lm_family"] = timed("19 lm family", lm_family_path, every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel
@@ -2768,7 +3103,13 @@ def main(argv=None) -> int:
                 "bound_ms": timing[fn]["bound"][0],
                 "bound_by": timing[fn]["bound"][1],
                 "library_ms": timing[fn]["library_ms"],
-                "tflops": timing[fn]["tflops"], "bound_share": timing[fn]["bound_share"]}
+                "tflops": timing[fn]["tflops"], "bound_share": timing[fn]["bound_share"],
+                **({"by_width": {label: {"d": 1024, "ms": r["ms"], "bound_ms": r["bound"][0],
+                                         "bound_by": r["bound"][1],
+                                         "plain_ms": r.get("plain_ms"),
+                                         "library_ms": r["library_ms"]}
+                                 for label, r in timing[fn]["wide"].items()}}
+                   if "wide" in timing[fn] else {})}
                for name, (fn, src, replaces, phase) in sites.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -264,3 +264,20 @@ def test_unported_parts_raise_naming_their_roadmap_item():
     with pytest.raises(ValueError):
         AutoDist(strategy_builder="fastest", device="cpu")
     np.testing.assert_equal(spec.names, ["b", "emb", "s", "w1", "w2"])
+
+
+@pytest.mark.parametrize("flag", ["AUTODIST_TELEMETRY", "AUTODIST_METRICS_DIR",
+                                  "AUTODIST_DUMP_GRAPHS"])
+def test_telemetry_flags_raise_naming_queue_1_item_7(flag, monkeypatch):
+    """The three telemetry flags the JAX package reads (spans, the metrics
+    history's store, the graph dumps) make train() raise, naming the item
+    that ports them, instead of running without them."""
+    from autodist_tpu_torch.training import train
+    ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
+                  strategy_builder=tstrategy.AllReduce(), device="cpu")
+    params = {"w": torch.ones(3)}
+    runner = ad.create_distributed_session(lambda p, b: (p["w"] * b["x"]).sum(), params,
+                                           lambda p: torch.optim.SGD(p, lr=0.1))
+    monkeypatch.setenv(flag, "/tmp/metrics" if flag == "AUTODIST_METRICS_DIR" else "1")
+    with pytest.raises(NotImplementedError, match=f"{flag}.*Queue 1 item 7"):
+        train(runner, params, lambda i: {"x": torch.ones(3)}, steps=1)
