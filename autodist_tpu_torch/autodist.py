@@ -179,7 +179,8 @@ class AutoDist:
                                    batch_size: Optional[int] = None,
                                    zero: Optional[int] = None,
                                    tune: Optional[bool] = None,
-                                   num_workers: Optional[int] = None) -> DistributedRunner:
+                                   num_workers: Optional[int] = None,
+                                   health: Optional[bool] = None) -> DistributedRunner:
         """Compile the strategy for this model and return the runner.
 
         ``params`` is a flat ``{state-dict key: tensor}`` dict; ``optimizer``
@@ -193,7 +194,9 @@ class AutoDist:
         an async plan, ``zero=N > 1`` shards the chief's apply N ways). A
         synchronous mesh of more than one rank joins the process group from
         torchrun's environment or the coordinator's first; every rank calls
-        this with the same arguments.
+        this with the same arguments. ``health`` (default
+        ``AUTODIST_HEALTH``) makes a synchronous runner compute the
+        training-health bundle every step (``runner.last_health``).
 
         A plan of PS nodes that are not synchronous (``sync=False`` or
         ``staleness > 0``) returns an
@@ -247,7 +250,8 @@ class AutoDist:
             multihost.maybe_initialize_multihost(self.device)
         runner = DistributedRunner(compiled, model_spec, loss_fn, optimizer, self.device,
                                    plan=plan, accumulation_steps=accumulation_steps,
-                                   batch_size=batch_size, has_aux=has_aux, zero=zero)
+                                   batch_size=batch_size, has_aux=has_aux, zero=zero,
+                                   health=health)
         runner.tuned_plan = self._tuned_plan
         return runner
 
@@ -302,6 +306,9 @@ class AutoDist:
             return
         self._tuned_plan = plan
         self._strategy_builder = plan.make_builder()
+        # Profiles and flight-recorder manifests name the plan a run executed.
+        from autodist_tpu_torch.telemetry import profiling as _profiling
+        _profiling.set_applied_plan(dict(plan.to_dict(), name=plan.name))
         _log.info("AutoDist: applying tuned plan %s (%s)", plan.name,
                   "cache hit" if plan.from_cache else f"searched in {plan.search_s:.2f}s")
 
@@ -318,7 +325,8 @@ class AutoDist:
                  sparse_names: Optional[Sequence[str]] = None,
                  has_aux: bool = False, accumulation_steps: int = 1,
                  batch_size: Optional[int] = None, zero: Optional[int] = None,
-                 tune: Optional[bool] = None, num_workers: Optional[int] = None) -> Callable:
+                 tune: Optional[bool] = None, num_workers: Optional[int] = None,
+                 health: Optional[bool] = None) -> Callable:
         """``step(batch, fetches=None) -> loss`` (what
         :meth:`DistributedRunner.run` fetches) carrying the training state
         inside; the first call's runner is reused by every later one.
@@ -330,7 +338,7 @@ class AutoDist:
         runner = self.create_distributed_session(
             loss_fn, params, optimizer, example_batch, sparse_names, has_aux,
             accumulation_steps=accumulation_steps, batch_size=batch_size, zero=zero,
-            tune=tune, num_workers=num_workers)
+            tune=tune, num_workers=num_workers, health=health)
         step = step_function(runner, params)
         if runner.plan.is_async:
             del step.evaluate

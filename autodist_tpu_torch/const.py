@@ -28,8 +28,8 @@ PREFETCH_WORKERS = "AUTODIST_PREFETCH_WORKERS"
 # cache file ("" = none); at most AUTODIST_TUNE_TOPK candidates are measured
 # of at most AUTODIST_TUNE_BUDGET ranked. AUTODIST_MEM_BUDGET overrides the
 # per-device memory budget in bytes when no card says (0 = unset).
-# AUTODIST_PROFILE_DIR is read for profiles to calibrate from; no port
-# module writes one yet.
+# AUTODIST_PROFILE_DIR is where train() writes its profile under
+# AUTODIST_PROFILE, and where the autotuner reads profiles to calibrate from.
 AUTODIST_TUNE = "AUTODIST_TUNE"
 AUTODIST_PLAN_CACHE = "AUTODIST_PLAN_CACHE"
 AUTODIST_TUNE_TOPK = "AUTODIST_TUNE_TOPK"
@@ -43,28 +43,15 @@ TUNE_BUDGET_DEFAULT = 32
 # file sink; empty, the framework logger.
 AUTODIST_BENCHMARK_LOG_DIR = "AUTODIST_BENCHMARK_LOG_DIR"
 
-# Planes of the JAX package that the port has not ported (ROADMAP.md, Queue 1
-# item 7): each one armed in the environment makes train(), the PS server and
-# the recovery plane raise instead of running without it.
-UNPORTED_PLANES = {
-    "AUTODIST_HEALTH": "the training-health monitors",
-    "AUTODIST_HEALTH_ACTION": "the training-health monitors' actions",
-    "AUTODIST_PROFILE": "the performance-attribution plane",
-    "AUTODIST_METRICS_PORT": "the OpenMetrics scrape endpoint",
-    "AUTODIST_ALERT_ACTION": "the alert engine's actions",
-    "AUTODIST_RECORDER": "the flight recorder",
-    "AUTODIST_TRACE_PULL": "the cluster trace plane",
-    "AUTODIST_TELEMETRY": "the telemetry registry and its spans",
-    "AUTODIST_METRICS_DIR": "the metrics history's JSONL store",
-    "AUTODIST_DUMP_GRAPHS": "the per-stage graph dumps",
-}
-TELEMETRY_ROADMAP = "ROADMAP.md, Queue 1 item 7: the telemetry planes"
 
 # The working directory: serialized strategies (the chief-to-worker
 # handshake by id) and the cluster spec file.
 DEFAULT_WORKING_DIR = os.environ.get(
     "AUTODIST_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu_torch"))
 DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
+DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
+DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
 DEFAULT_COORDINATOR_PORT = 15000
 
 # The cluster and the async PS plane (the JAX package's ENV flags of the same
@@ -99,8 +86,8 @@ AUTODIST_SPARSE_PUSH = "AUTODIST_SPARSE_PUSH"
 
 _OFF = ("", "0", "false", "no", "off")
 
-
 def env_int(name: str, default: int) -> int:
+    """An integer flag: ``default`` when unset or blank."""
     raw = os.environ.get(name, "").strip()
     return int(raw) if raw else default
 
@@ -110,6 +97,7 @@ def env_str(name: str, default: str = "") -> str:
 
 
 def env_float(name: str, default: float) -> float:
+    """A float flag: ``default`` when unset or blank."""
     raw = os.environ.get(name, "").strip()
     return float(raw) if raw else default
 
@@ -121,26 +109,83 @@ def env_flag(name: str, default: bool) -> bool:
     return env_armed(name)
 
 
-def refuse_unported(names, where: str) -> None:
-    """Raise ``NotImplementedError`` when any of ``names`` (keys of
-    :data:`UNPORTED_PLANES`) is armed in the environment."""
-    armed = [f"{n} ({UNPORTED_PLANES[n]})" for n in names if env_armed(n)]
-    if armed:
-        raise NotImplementedError(f"{', '.join(armed)} armed in the environment, but "
-                                  f"{where} has no such plane yet ({TELEMETRY_ROADMAP}); "
-                                  f"unset it to run without it")
-
-
 def env_armed(name: str) -> bool:
     """Whether flag ``name`` is set to something other than off (the JAX
     package's boolean parse: empty, 0, false, no and off are off)."""
     return os.environ.get(name, "").strip().lower() not in _OFF
 
 
+# The telemetry planes' flags and the others the copied modules read
+# (autodist_tpu/const.py:241-404), with the JAX package's defaults.
+# ``ENV.<NAME>.val`` reads one through the env_* parser of its default's
+# type, so a flag parses the same whichever way a module reads it.
+_ENV_DEFAULTS = {
+    "AUTODIST_MIN_LOG_LEVEL": "INFO",
+    "AUTODIST_PROCESS_ID": 0,
+    "AUTODIST_WORKER": "",
+    "AUTODIST_DUMP_GRAPHS": False,
+    "AUTODIST_PEAK_FLOPS": "",
+    "AUTODIST_PEAK_MEMBW": "",
+    "AUTODIST_TELEMETRY": False,
+    "AUTODIST_TELEMETRY_RING": 65536,
+    "AUTODIST_TRACE_PULL": False,
+    "AUTODIST_HEALTH": False,
+    "AUTODIST_HEALTH_ACTION": "warn",
+    "AUTODIST_HEALTH_ZMAX": 6.0,
+    "AUTODIST_RECORDER": False,
+    "AUTODIST_RECORDER_DIR": "",
+    "AUTODIST_RECORDER_KEEP": 8,
+    "AUTODIST_RECORDER_MIN_S": 30.0,
+    "AUTODIST_PROFILE": False,
+    "AUTODIST_PROFILE_DIR": "",
+    "AUTODIST_METRICS_DIR": "",
+    "AUTODIST_METRICS_PORT": "",
+    "AUTODIST_METRICS_INTERVAL_S": 0.0,
+    "AUTODIST_ALERT_RULES": "",
+    "AUTODIST_ALERT_ACTION": "warn",
+    "AUTODIST_RECOVER_MAX": 3,
+    "AUTODIST_SANITIZE": "",
+    "AUTODIST_REQTRACE": False,
+    "AUTODIST_REQTRACE_RING": 4096,
+    "AUTODIST_MEM_BUDGET": 0,
+    "AUTODIST_MEM_PRESSURE": 0.92,
+}
+
+
+class _Flag:
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    @property
+    def val(self):
+        """The flag's value: its table default when unset, else parsed by the
+        env_* helper of the default's type."""
+        default = _ENV_DEFAULTS[self.name]
+        if isinstance(default, bool):
+            return env_flag(self.name, default)
+        if isinstance(default, int):
+            return env_int(self.name, default)
+        if isinstance(default, float):
+            return env_float(self.name, default)
+        return env_str(self.name, default)
+
+
+class ENV:
+    """``ENV.AUTODIST_HEALTH.val`` and the like, for every flag of
+    :data:`_ENV_DEFAULTS`."""
+
+
+for _name in _ENV_DEFAULTS:
+    setattr(ENV, _name, _Flag(_name))
+del _name
+
+
 def is_worker() -> bool:
     """True when this process was launched by a coordinator as a worker
     replica (``AUTODIST_WORKER`` non-empty)."""
-    return bool(os.environ.get(AUTODIST_WORKER, ""))
+    return bool(ENV.AUTODIST_WORKER.val)
 
 
 def is_chief_process() -> bool:

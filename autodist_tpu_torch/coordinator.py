@@ -131,7 +131,7 @@ class Coordinator:
                 const.AUTODIST_COORDINATOR_PORT, const.DEFAULT_COORDINATOR_PORT)),
             const.AUTODIST_NUM_PROCESSES: str(num_processes),
             const.AUTODIST_PROCESS_ID: str(process_id),
-            const.AUTODIST_MIN_LOG_LEVEL: const.env_str(const.AUTODIST_MIN_LOG_LEVEL, "INFO"),
+            const.AUTODIST_MIN_LOG_LEVEL: const.ENV.AUTODIST_MIN_LOG_LEVEL.val,
         }
         if const.env_armed(const.AUTODIST_IS_TESTING):
             env[const.AUTODIST_IS_TESTING] = "1"

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.runner import (BatchBlock, MicroBatched, ShardedBatch, _leaves,
                                        _tree_map)
 
@@ -158,7 +158,14 @@ class PrefetchProducer:
     buffered ahead; a producer-side exception re-raises at ``next()`` in its
     position (items pulled after it are dropped); exhaustion ends iteration;
     ``close()`` is prompt and idempotent, and iterating a closed producer
-    raises :class:`QueueClosed`."""
+    raises :class:`QueueClosed`.
+
+    Telemetry (``autodist_tpu/data/prefetch.py:228-236``): the
+    ``data.producer_wait`` counter (seconds the producer spent pulling from
+    the host source: the slow-loader signal), the ``data.producer_batches``
+    counter and ``data.queue_depth`` gauge always; with spans on, a
+    ``data.prefetch`` span per transformed item and its ``prefetch``
+    memory-plane claim."""
 
     JOIN_S = 30.0
     NEXT_TIMEOUT_S = 86400.0  # a wedged producer must not park next() forever
@@ -180,6 +187,10 @@ class PrefetchProducer:
         self._stop = threading.Event()
         self._src_done = False
         self._consumer_done = False
+        self._name = name
+        self._wait_c = telemetry.counter("data.producer_wait")
+        self._batch_c = telemetry.counter("data.producer_batches")
+        self._depth_g = telemetry.gauge("data.queue_depth")
         self._threads = [threading.Thread(target=self._work, daemon=True,
                                           name=f"{name}-{i}") for i in range(workers)]
         for t in self._threads:
@@ -193,6 +204,7 @@ class PrefetchProducer:
                     return
                 seq = self._next_seq
                 self._next_seq += 1
+                t0 = time.perf_counter()
                 try:
                     value = self._pull()
                 except StopIteration:
@@ -201,9 +213,19 @@ class PrefetchProducer:
                 except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
                     self._src_done = True
                     kind, value = "error", e
+                wait_s = time.perf_counter() - t0
+            if kind == "item":
+                self._wait_c.inc(wait_s)
+                self._batch_c.inc()
             if kind == "item" and self._transform is not None:
                 try:
-                    value = self._transform(value)
+                    with telemetry.span("data.prefetch", seq=seq):
+                        value = self._transform(value)
+                    if telemetry.enabled():
+                        # The staged batch's census claim, a key a sequence
+                        # (consumed claims prune as new ones arrive).
+                        from autodist_tpu_torch.telemetry import memplane
+                        memplane.tag("prefetch", value, key=f"{self._name}.{seq}")
                 except BaseException as e:  # noqa: BLE001 - same contract
                     with self._src_lock:
                         self._src_done = True
@@ -221,6 +243,7 @@ class PrefetchProducer:
                 self._turn.wait(BoundedQueue.POLL_S)
         if not self._stop.is_set():
             self._queue.put(payload)
+            self._depth_g.set(len(self._queue))
         with self._turn:
             self._next_emit = max(self._next_emit, seq + 1)
             self._turn.notify_all()
@@ -242,6 +265,7 @@ class PrefetchProducer:
                     raise RuntimeError(f"prefetch consumer waited {self.NEXT_TIMEOUT_S:.0f}s "
                                        f"with no item, end marker or error")
                 continue
+            self._depth_g.set(len(self._queue))
             kind, value = item
             if kind == "item":
                 return value

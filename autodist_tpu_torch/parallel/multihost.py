@@ -36,7 +36,7 @@ def _coordinator_env(cluster) -> Optional[Tuple[str, int, int]]:
     chief's cluster spec; None when neither names more than one process."""
     address = const.env_str(const.AUTODIST_COORDINATOR_ADDR)
     world = const.env_int(const.AUTODIST_NUM_PROCESSES, 1)
-    rank = const.env_int(const.AUTODIST_PROCESS_ID, 0)
+    rank = const.ENV.AUTODIST_PROCESS_ID.val
     if not address and cluster is not None and cluster.num_processes > 1:
         address, world, rank = cluster.cluster_spec["coordinator"], cluster.num_processes, 0
     if not address or world <= 1:

@@ -18,9 +18,12 @@ package's bytes): nothing on the socket is unpickled. Each goes behind an
 8-byte big-endian header whose top byte is the frame version (0) and whose
 low 56 bits are the payload length. Opcodes, request and reply shapes are
 the JAX package's (``:811-905``), so a port worker talks to a JAX chief and
-a JAX worker to a port chief. The telemetry opcodes (``trace``,
-``push_trace``, ``reqtrace``, ``record``) get the unknown-op error frame
-naming ``ROADMAP.md`` Queue 1 item 7, and the client raises for them.
+a JAX worker to a port chief. The telemetry planes ride them as in the JAX
+package: ``trace`` (the server's span ring), ``push_trace`` (a worker's
+ring, clock-offset stamped, deposited on the chief; automatic at close
+under ``AUTODIST_TRACE_PULL``), ``record`` (a flight-recorder snapshot on
+the chief), ``ping`` (the clock-offset probe), the registry and events in
+the ``stats`` and ``status`` replies, and the ``ps.*`` client spans.
 
 The bytes move through the native plane (``native/transport.cc``, built
 with ``g++`` into the checkout's ``build/`` at first use, GIL released): a
@@ -47,10 +50,11 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.parallel import recovery as _recovery
 from autodist_tpu_torch.parallel import wire
 from autodist_tpu_torch.testing import faults as _faults
+from autodist_tpu_torch.testing.sanitizer import san_lock
 from autodist_tpu_torch.utils.metrics import WireCounters
 
 _log = logging.getLogger("autodist_tpu_torch")
@@ -59,9 +63,6 @@ _HDR = struct.Struct("!Q")
 _FRAME_VERSION = 0
 _FRAME_LEN_MAX = (1 << 56) - 1
 _IOV_BATCH = 64
-
-# The opcodes of the JAX package's telemetry planes (ROADMAP.md, Queue 1 item 7).
-TELEMETRY_OPS = ("trace", "push_trace", "reqtrace", "record")
 
 # ---------------------------------------------------------------- native plane
 _TR_LIB = None
@@ -228,11 +229,27 @@ def _frame_len(header: bytes) -> int:
     return word & _FRAME_LEN_MAX
 
 
+_RECVBUF_TEL = None
+
+
+def _recvbuf_counters():
+    """The registry's (fresh, recycled) counters, None while telemetry is
+    off (one enabled check a message)."""
+    if not telemetry.enabled():
+        return None
+    global _RECVBUF_TEL
+    if _RECVBUF_TEL is None:
+        _RECVBUF_TEL = (telemetry.counter("ps.recvbuf.fresh"),
+                        telemetry.counter("ps.recvbuf.recycled"))
+    return _RECVBUF_TEL
+
+
 class _RecvBuffer:
     """A connection's recycled receive buffer. ``take(n)`` reuses the buffer
     only when nothing else references it (``sys.getrefcount == 2``): tensors
     the decoder aliased into the previous message hold it, so a consumer that
-    kept them gets a fresh buffer instead of an overwritten one."""
+    kept them gets a fresh buffer instead of an overwritten one. The two
+    outcomes count as ``ps.recvbuf.fresh`` and ``ps.recvbuf.recycled``."""
 
     __slots__ = ("_buf", "fresh_allocs", "recycles")
     _MIN_BYTES = 1 << 16
@@ -243,11 +260,16 @@ class _RecvBuffer:
         self.recycles = 0
 
     def take(self, n: int) -> memoryview:
+        tel = _recvbuf_counters()
         if self._buf is None or len(self._buf) < n or sys.getrefcount(self._buf) != 2:
             self._buf = bytearray(max(n, self._MIN_BYTES))
             self.fresh_allocs += 1
+            if tel is not None:
+                tel[0].inc()
         else:
             self.recycles += 1
+            if tel is not None:
+                tel[1].inc()
         return memoryview(self._buf)[:n]
 
 
@@ -289,7 +311,8 @@ class _WorkerStats:
     __slots__ = ("wire", "last_seen")
 
     def __init__(self):
-        self.wire = WireCounters()
+        # A second view of the server's traffic: not mirrored into the registry.
+        self.wire = WireCounters(mirror=False)
         self.last_seen = time.monotonic()
 
 
@@ -299,7 +322,10 @@ class _StragglerWatchdog:
     ``STALL_INTERVALS`` intervals (stalled) or sitting at lag 0 for that many
     ticks while a peer is parked at the bound (the straggler), warns at most
     every ``WARN_EVERY_S`` a worker, and with ``evict_after``
-    (``AUTODIST_EVICT_AFTER_S``) retires a worker stalled that long."""
+    (``AUTODIST_EVICT_AFTER_S``) retires a worker stalled that long. Each
+    tick books the ``ps.worker.last_seen_s.w<id>`` gauges; each flag the
+    ``ps.straggler.flags`` counter, a ``ps.anomaly.<kind>`` event and an
+    armed flight recorder's snapshot."""
 
     STALL_INTERVALS = 3.0
     WARN_EVERY_S = 60.0
@@ -338,6 +364,9 @@ class _StragglerWatchdog:
         bound = controller.bound if controller is not None else math.inf
         if controller is not None:
             ages = {wid: age for wid, age in ages.items() if wid in lags}
+        reg = telemetry.registry()
+        for wid, age in ages.items():
+            reg.gauge(f"ps.worker.last_seen_s.w{wid}").set(round(age, 3))
         flagged = {wid: ("stall", age) for wid, age in ages.items() if age > self._stall_after}
         straggling = set()
         if math.isfinite(bound) and len(lags) >= 2 and max(lags.values()) >= bound:
@@ -348,6 +377,10 @@ class _StragglerWatchdog:
             if self._straggler_ticks[wid] >= self.STALL_INTERVALS and wid not in flagged:
                 flagged[wid] = ("straggler", ages.get(wid, 0.0))
         for wid, (kind, age) in sorted(flagged.items(), key=lambda kv: str(kv[0])):
+            reg.counter("ps.straggler.flags").inc()
+            reg.event(f"ps.anomaly.{kind}", worker=wid, last_seen_s=round(age, 3))
+            from autodist_tpu_torch.telemetry import recorder as _recorder
+            _recorder.maybe_record(f"ps.{kind}.w{wid}", server=server)
             if (kind == "stall" and self._evict_after is not None and age > self._evict_after
                     and controller is not None):
                 _recovery.evict(controller, wid, kind="stall", age_s=age, server=server)
@@ -377,12 +410,13 @@ class PSServer:
                  listen_sock: Optional[socket.socket] = None, watchdog: Optional[bool] = None):
         if runner.service is None:
             raise RuntimeError("Call runner.init(params) before serving")
-        const.refuse_unported(("AUTODIST_METRICS_PORT", "AUTODIST_RECORDER",
-                               "AUTODIST_TRACE_PULL", "AUTODIST_TELEMETRY",
-                               "AUTODIST_METRICS_DIR"), "the PS server")
         _native_transport()   # build (or refuse) before the first connection
         self._runner = runner
         self._t_started = time.monotonic()
+        # Span rings the workers deposited (push_trace), by worker id: the
+        # chief's half of telemetry.collect_cluster_trace.
+        self._worker_traces: dict = {}
+        self._trace_lock = san_lock()
         self.wire = WireCounters()
         self._worker_stats: dict = {}
         self._worker_stats_lock = threading.Lock()
@@ -457,6 +491,12 @@ class PSServer:
             watchdog = const.env_flag(const.AUTODIST_WATCHDOG, True)
         self._watchdog = _StragglerWatchdog(
             self, const.env_float(const.AUTODIST_WATCHDOG_SEC, 10.0)) if watchdog else None
+        # AUTODIST_METRICS_PORT serves /metrics and /healthz from this
+        # process; the metric history's wall-clock sampler is its only beat.
+        from autodist_tpu_torch.telemetry import history as _history
+        from autodist_tpu_torch.telemetry import openmetrics as _openmetrics
+        _openmetrics.maybe_serve()
+        _history.maybe_arm()
         _log.info("PSServer listening on %s:%d", *self._server.server_address[:2])
 
     @property
@@ -471,9 +511,10 @@ class PSServer:
             return ws
 
     def stats_snapshot(self) -> dict:
-        """The ``stats`` reply: the JAX package's fields that the port has
-        (aggregate wire counters, uptime, per-worker wire traffic, last-seen
-        age and staleness histograms, and the shards' versions)."""
+        """The ``stats`` reply (``ps_transport.py:709-738``): the registry
+        snapshot, the aggregate wire counters, uptime, the structured
+        anomaly events, per-worker wire traffic, last-seen age and staleness
+        histograms, and the shards' versions."""
         now = time.monotonic()
         with self._worker_stats_lock:
             ws_items = sorted(self._worker_stats.items())
@@ -484,19 +525,27 @@ class PSServer:
         if controller is not None:
             for wid, snap in controller.staleness_snapshot().items():
                 per_worker.setdefault(wid, {})["staleness"] = snap
-        snap = {"wire": self.wire.snapshot(), "uptime_s": round(now - self._t_started, 3),
-                "per_worker": per_worker}
+        snap = {"registry": telemetry.snapshot(), "wire": self.wire.snapshot(),
+                "uptime_s": round(now - self._t_started, 3),
+                "anomalies": telemetry.events(), "per_worker": per_worker}
         shard_versions = getattr(getattr(self._runner, "service", None), "shard_versions", None)
         if shard_versions is not None:
             snap["shard_versions"] = list(shard_versions)
         return snap
 
     def status_snapshot(self) -> dict:
-        """The ``status`` reply: the stats, ``kind``, the recovery section,
-        the gate's instantaneous lags and bound, and the service version."""
+        """The ``status`` reply (``ps_transport.py:740-775``, what
+        ``tools/adtop.py`` renders): the stats with their events under
+        ``events``, ``kind``, the alert, recovery and memory sections, the
+        gate's instantaneous lags and bound, and the service version."""
+        from autodist_tpu_torch.telemetry import alerts as _alerts
+        from autodist_tpu_torch.telemetry import memplane as _memplane
         snap = self.stats_snapshot()
         snap["kind"] = "ps"
+        snap["events"] = snap.pop("anomalies", [])
+        snap["alerts"] = _alerts.alerts_snapshot()
         snap["recovery"] = _recovery.recovery_snapshot()
+        snap["memory"] = _memplane.memory_snapshot()
         controller = getattr(self._runner, "controller", None)
         if controller is not None:
             bound = controller.bound
@@ -507,6 +556,22 @@ class PSServer:
         if version is not None:
             snap["version"] = int(version)
         return snap
+
+    def _store_worker_trace(self, worker_id, state):
+        """The ``push_trace`` sink: keep a worker's ring (latest wins), its
+        array columns copied out of the recycled receive buffer."""
+        if not isinstance(state, dict) or "t0_ns" not in state:
+            raise TypeError("push_trace payload is not a trace-state dict")
+        state = {k: (np.array(v) if isinstance(v, np.ndarray)
+                     else v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in state.items()}
+        with self._trace_lock:
+            self._worker_traces[worker_id] = state
+
+    def worker_traces(self) -> dict:
+        """``{worker_id: trace-state}`` of every ring the workers pushed."""
+        with self._trace_lock:
+            return dict(self._worker_traces)
 
     def _dispatch(self, msg):
         if not isinstance(msg, tuple) or not msg or not isinstance(msg[0], str):
@@ -557,12 +622,19 @@ class PSServer:
                 return ("ok", self.stats_snapshot())
             if op == "status":
                 return ("ok", self.status_snapshot())
+            if op == "record":
+                # A manual flight-recorder snapshot, now (no debounce).
+                from autodist_tpu_torch.telemetry import recorder as _recorder
+                reason = str(msg[1]) if len(msg) > 1 and msg[1] else "manual"
+                return ("ok", _recorder.get_or_create().record(reason, server=self))
             if op == "ping":
                 return ("ok", msg[1], time.time_ns())
-            if op in TELEMETRY_OPS:
-                return ("error", "PSClientError",
-                        f"unknown op {op!r}: the port's telemetry planes are not ported yet "
-                        f"({const.TELEMETRY_ROADMAP})")
+            if op == "trace":
+                since = msg[1] if len(msg) > 1 else None
+                return ("ok", telemetry.local_trace_state(since_ns=since))
+            if op == "push_trace":
+                self._store_worker_trace(msg[1], msg[2])
+                return ("ok", True)
             return ("error", "PSClientError", f"unknown op {op!r}")
         except Exception as e:  # noqa: BLE001 — ship the failure to the worker, keep serving
             return ("error", type(e).__name__, str(e))
@@ -668,9 +740,6 @@ class _PSClient:
         Transient failures of idempotent opcodes reconnect and retry; a
         reply-wait timeout never retries (the reply may still come)."""
         op = msg[0] if isinstance(msg, tuple) and msg else None
-        if op in TELEMETRY_OPS:
-            raise NotImplementedError(f"the {op!r} opcode belongs to the telemetry planes, "
-                                      f"which the port has not ported ({const.TELEMETRY_ROADMAP})")
         attempt = 0
         with self._lock:
             while True:
@@ -751,14 +820,21 @@ class RemotePSWorker:
     prefetches the next version with ``read_min`` while this step's push and
     gate round trips run; the prefetched tree is used only after
     ``read_if_newer`` confirms it is current, so every step sees what a
-    serial client would. ``runner=None`` gives a protocol-only handle."""
+    serial client would. ``runner=None`` gives a protocol-only handle.
+
+    ``clock_offset_ns`` (from :meth:`estimate_clock_offset`, None until
+    then) is what to ADD to this process's wall clock to land on the
+    chief's: the cluster trace plane rebases this worker's spans with it."""
 
     PREFETCH_TIMEOUT = 30.0
+    CLOCK_PING_ROUNDS = 7
 
     def __init__(self, address, runner, worker_id: int, overlap: Optional[bool] = None,
                  wire_dtype: Optional[str] = None, compressor=None):
         self._client = _PSClient(address)
         self._runner = runner
+        self.clock_offset_ns: Optional[int] = None
+        self.clock_offset_err_ns: Optional[int] = None
         self.worker_id = worker_id
         self.steps_completed = 0
         self.last_version_read = -1
@@ -831,13 +907,14 @@ class RemotePSWorker:
         self._cached_pull = None
         self.last_version_read = -1
         wid = self.register()
-        try:
-            params, ef_state, version = self._client.call("read_min", 0, -1,
-                                                          self.PREFETCH_TIMEOUT)
-        except PSClientError as e:
-            if "unknown op" not in str(e):
-                raise
-            params, ef_state, version = self._client.call("read")
+        with telemetry.span("ps.rejoin", worker=wid):
+            try:
+                params, ef_state, version = self._client.call("read_min", 0, -1,
+                                                              self.PREFETCH_TIMEOUT)
+            except PSClientError as e:
+                if "unknown op" not in str(e):
+                    raise
+                params, ef_state, version = self._client.call("read")
         if params is not None:
             self._cached_pull = (self._materialize(params), ef_state)
             self.last_version_read = version
@@ -865,19 +942,23 @@ class RemotePSWorker:
 
         def run():
             try:
-                if use_read_min:
-                    reply = client.call_raw(("read_min", have + 1, have, self.PREFETCH_TIMEOUT),
-                                            pf.counters)
-                    if reply[0] == "error" and len(reply) > 2 and "unknown op" in str(reply[2]):
-                        self._server_has_read_min = False
-                        reply = client.call_raw(("read_if_newer", have), pf.counters)
-                else:
-                    reply = client.call_raw(("read_if_newer", have), pf.counters)
-                if reply[0] == "ok" and reply[1] is not None:
-                    reply = (reply[0], self._materialize(reply[1])) + tuple(reply[2:])
-                pf.result = reply
+                with telemetry.span("ps.prefetch", worker=self.worker_id):
+                    run_pull()
             except BaseException as e:  # noqa: BLE001 — surfaced (or discarded) at join
                 pf.error = e
+
+        def run_pull():
+            if use_read_min:
+                reply = client.call_raw(("read_min", have + 1, have, self.PREFETCH_TIMEOUT),
+                                        pf.counters)
+                if reply[0] == "error" and len(reply) > 2 and "unknown op" in str(reply[2]):
+                    self._server_has_read_min = False
+                    reply = client.call_raw(("read_if_newer", have), pf.counters)
+            else:
+                reply = client.call_raw(("read_if_newer", have), pf.counters)
+            if reply[0] == "ok" and reply[1] is not None:
+                reply = (reply[0], self._materialize(reply[1])) + tuple(reply[2:])
+            pf.result = reply
 
         pf.thread = threading.Thread(target=run, daemon=True, name="ps-pull-prefetch")
         pf.thread.start()
@@ -939,28 +1020,35 @@ class RemotePSWorker:
                 raise _faults.WorkerCrashed(f"remote worker {self.worker_id} crashed by fault "
                                             f"injection at step {self.steps_completed}")
         try:
-            self._client.call("start_step", self.worker_id, timeout)
+            with telemetry.span("ps.gate", worker=self.worker_id):
+                self._client.call("start_step", self.worker_id, timeout)
         except WorkerEvicted:
             _log.warning("PS worker %s was evicted from the staleness gate; rejoining with "
                          "live-param catch-up", self.worker_id)
             self.rejoin()
-            self._client.call("start_step", self.worker_id, timeout)
+            with telemetry.span("ps.gate", worker=self.worker_id):
+                self._client.call("start_step", self.worker_id, timeout)
         t0 = time.perf_counter()
-        params, _, _ = self._pull()
+        with telemetry.span("ps.pull", worker=self.worker_id):
+            params, _, _ = self._pull()
         t1 = time.perf_counter()
         with _device_scope(r.device):
-            sharded = r.shard_batch(batch)
-            grads, loss, aux = r.grad_fn(params, sharded, {})
-            grads = _to_host(grads)
+            with telemetry.span("ps.shard"):
+                sharded = r.shard_batch(batch)
+            with telemetry.span("ps.grad"):
+                grads, loss, aux = r.grad_fn(params, sharded, {})
+                grads = _to_host(grads)
         self._start_prefetch()
         t2 = time.perf_counter()
         push_op = "apply"
         if self._compressor is not None:
-            grads, has_sparse = self._compressor.compress(grads, batch=batch)
+            with telemetry.span("ps.compress", worker=self.worker_id):
+                grads, has_sparse = self._compressor.compress(grads, batch=batch)
             if has_sparse:
                 push_op = "apply_sparse"
-        self._client.call(push_op, grads)
-        self._client.call("finish_step", self.worker_id)
+        with telemetry.span("ps.push", worker=self.worker_id):
+            self._client.call(push_op, grads)
+            self._client.call("finish_step", self.worker_id)
         # Host seconds of this step's pull (to the card) and push (the
         # compression, the gradients' frames and the apply's acknowledgement).
         self.last_pull_s, self.last_push_s = t1 - t0, time.perf_counter() - t2
@@ -976,6 +1064,43 @@ class RemotePSWorker:
     def status(self) -> dict:
         """The chief's ``status`` snapshot."""
         return self._client.call("status")[0]
+
+    def record(self, reason: str = "manual") -> Optional[str]:
+        """A flight-recorder snapshot ON THE CHIEF (the ``record`` opcode, no
+        debounce); returns the chief-side snapshot directory."""
+        return self._client.call("record", reason)[0]
+
+    def estimate_clock_offset(self, rounds: Optional[int] = None):
+        """The chief-clock offset: ``rounds`` ``ping`` exchanges, each an NTP
+        midpoint sample; the median offset and its RTT-bounded uncertainty
+        are kept (``clock_offset_ns``, ``clock_offset_err_ns``) and
+        returned (:func:`autodist_tpu_torch.telemetry.cluster.ntp_offset`)."""
+        from autodist_tpu_torch.telemetry import cluster as _cluster
+        samples = []
+        for _ in range(rounds or self.CLOCK_PING_ROUNDS):
+            t0 = time.time_ns()
+            _, server_ns = self._client.call("ping", t0)
+            samples.append((t0, server_ns, time.time_ns()))
+        self.clock_offset_ns, self.clock_offset_err_ns = _cluster.ntp_offset(samples)
+        return self.clock_offset_ns, self.clock_offset_err_ns
+
+    def trace(self, since_ns: Optional[int] = None) -> dict:
+        """The CHIEF's span ring (the ``trace`` opcode), a trace state for
+        ``telemetry.merge_trace_states``."""
+        return self._client.call("trace", since_ns)[0]
+
+    def push_trace(self, since_ns: Optional[int] = None) -> int:
+        """Deposit this process's span ring on the chief (``push_trace``),
+        stamped with the clock offset (estimated once), for the chief's
+        ``collect_cluster_trace``; returns the spans pushed. Automatic at
+        :meth:`close` under ``AUTODIST_TRACE_PULL=1``."""
+        if self.clock_offset_ns is None:
+            self.estimate_clock_offset()
+        from autodist_tpu_torch.telemetry import cluster as _cluster
+        state = _cluster.local_trace_state(since_ns=since_ns, worker_id=self.worker_id,
+                                           clock_offset_ns=self.clock_offset_ns)
+        self._client.call("push_trace", self.worker_id, state)
+        return len(state["name_idx"])
 
     @property
     def version(self) -> int:
@@ -999,6 +1124,13 @@ class RemotePSWorker:
             pass
 
     def close(self):
+        if const.ENV.AUTODIST_TRACE_PULL.val and telemetry.enabled():
+            # The last act on the live connection: the chief keeps this
+            # worker's lane after the process is gone.
+            try:
+                self.push_trace()
+            except (ConnectionError, OSError, PSClientError) as e:
+                _log.debug("trace push at close failed: %s", e)
         pf, self._prefetch = self._prefetch, None
         if self._pull_client is not None:
             self._pull_client.close()

@@ -1,39 +1,53 @@
 """Chief-side recovery plane (the port's copy of
-``autodist_tpu/parallel/recovery.py``): the policy layer that makes the
-async PS plane's detectors act.
+``autodist_tpu/parallel/recovery.py``): the policy layer that makes
+detectors ACT.
 
-- **Auto-eviction** (:func:`evict`): the PS watchdog retires a worker whose
+PRs 5/8/11 built the detection substrate — the PS watchdog flags stalls
+(``ps.anomaly.*``), the health monitors flag sick numerics
+(``health.anomaly``), the alert engine fires on drift, and the flight
+recorder snapshots the evidence — but until this module the only actions
+anywhere were warn, record and halt, and the coordinator hard-killed the
+chief on any worker exit (the reference's fail-fast ``coordinator.py:98-110``
+faithfully reproduced). At pod scale machine loss is routine, not
+exceptional (Scale MLPerf-0.6 pods, arXiv 1909.09756); this module closes
+the detect→act loop:
+
+- **Auto-eviction** (:func:`evict`): the watchdog retires a worker whose
   stall outlasts ``AUTODIST_EVICT_AFTER_S`` from the staleness gate, so the
-  live workers resume; the evicted worker's parked gate call fails typed
-  (``WorkerEvicted``) and its client rejoins on its own.
+  live workers resume instead of parking at the bound forever. The evicted
+  worker's parked gate RPC fails typed
+  (:class:`~autodist_tpu_torch.parallel.staleness.WorkerEvicted`), and the client
+  auto-rejoins — a wrongly-evicted victim recovers on its own.
 - **Rejoin bookkeeping** (:func:`log_rejoin`): a replacement (or wrongly
-  evicted) worker re-registers at the slowest live step count and catches
-  up on the chief's live params over ``read_min``, with no checkpoint.
-- **Rollback** (:class:`SnapshotRing`, :func:`rollback`): a bounded ring of
-  last-known-good states and the bounded re-adoption of the newest one.
+  evicted) worker re-registers, seeded at the slowest live step count, and
+  catches up on the chief's LIVE params over ``read_min`` — checkpoint-free.
+- **Rollback** (:class:`SnapshotRing` + :func:`rollback`): under
+  ``AUTODIST_HEALTH_ACTION=recover`` (or ``AUTODIST_ALERT_ACTION=recover``)
+  ``train()`` keeps a bounded in-memory ring of last-known-good states taken
+  at health-clean log boundaries; an anomaly rolls back to the newest good
+  one and resumes, bounded by ``AUTODIST_RECOVER_MAX`` attempts before
+  escalating to the existing halt.
 - **Respawn backoff** (:func:`backoff_s`): the coordinator's
-  ``AUTODIST_WORKER_FAILURE=respawn`` relaunches a dead worker after a
-  bounded, jittered exponential backoff.
+  ``AUTODIST_WORKER_FAILURE=respawn`` policy relaunches a dead worker with
+  bounded exponential backoff instead of ``os._exit(1)``.
 
-Everything it does is booked in a bounded in-process log
-(:func:`recovery_snapshot`, the ``status`` opcode's ``recovery`` section).
-The JAX package also counts into its telemetry registry, snapshots through
-the flight recorder and escalates a health anomaly to ``HealthHalt``; those
-planes wait for ``ROADMAP.md`` Queue 1 item 7, and arming them
-(``AUTODIST_HEALTH_ACTION``, ``AUTODIST_ALERT_ACTION``, ``AUTODIST_RECORDER``)
-makes :func:`rollback` and the PS server raise.
+Everything the plane DOES is booked: ``recover.{evicted,rejoined,rollback,
+respawn}`` counters + structured events in the shared registry, a bounded
+in-process :func:`recovery_snapshot` the ``status`` opcode ships (rendered
+by ``adtop``/``adfleet``), and flight-recorder snapshots through the
+debounce. The module is deliberately torch-free and import-light — policy,
+not mechanism; the gate/transport/train loop own the mechanisms.
 """
 
 import collections
-import logging
 import random
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from autodist_tpu_torch import const
-
-_log = logging.getLogger("autodist_tpu_torch")
+from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.testing.sanitizer import san_lock
 
 __all__ = ["SnapshotRing", "evict", "rollback", "backoff_s",
            "log_eviction", "log_rejoin", "log_rollback", "log_respawn",
@@ -49,9 +63,14 @@ KEEP_RECORDS = 16
 EVICT_KINDS = ("stall", "disconnect")
 
 
-# The planes rollback would report to (ROADMAP.md, Queue 1 item 7).
-UNPORTED_HOOKS = ("AUTODIST_HEALTH_ACTION", "AUTODIST_ALERT_ACTION", "AUTODIST_RECORDER",
-                  "AUTODIST_TELEMETRY")
+def _counter(name: str):
+    from autodist_tpu_torch.telemetry import metrics as _metrics
+    return _metrics.counter(name)
+
+
+def _event(name: str, **fields):
+    from autodist_tpu_torch.telemetry import metrics as _metrics
+    _metrics.event(name, **fields)
 
 
 class _RecoveryLog:
@@ -60,7 +79,7 @@ class _RecoveryLog:
     category; total counts survive the deque bound."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = san_lock()
         self._evictions = collections.deque(maxlen=KEEP_RECORDS)
         self._rejoins = collections.deque(maxlen=KEEP_RECORDS)
         self._rollbacks = collections.deque(maxlen=KEEP_RECORDS)
@@ -125,10 +144,14 @@ def log_eviction(worker_id, kind: str = "stall",
     ``stall`` evictions additionally emit a ``recover.evicted`` event —
     disconnect retires fire on every clean teardown too, and an event per
     normal close would drown the ring)."""
+    _counter("recover.evicted").inc()
     rec = {"worker": worker_id, "kind": kind}
     if age_s is not None:
         rec["age_s"] = round(float(age_s), 3)
     rec = _LOG.add("evicted", "_evictions", rec)
+    if kind == "stall":
+        _event("recover.evicted", **{k: v for k, v in rec.items()
+                                     if k != "t_wall_s"})
     return rec
 
 
@@ -136,29 +159,38 @@ def log_rejoin(worker_id, generation: int,
                seeded_step: Optional[int] = None) -> Dict[str, Any]:
     """Book one membership rejoin (a previously-retired slot re-registered,
     seeded at the slowest live step count)."""
+    _counter("recover.rejoined").inc()
     _LOG.note_generation(worker_id, generation)
     rec = {"worker": worker_id, "generation": int(generation)}
     if seeded_step is not None:
         rec["seeded_step"] = int(seeded_step)
     rec = _LOG.add("rejoined", "_rejoins", rec)
+    _event("recover.rejoined", **{k: v for k, v in rec.items()
+                                  if k != "t_wall_s"})
     return rec
 
 
 def log_rollback(from_step, to_step: int, attempt: int) -> Dict[str, Any]:
     """Book one recover-action rollback (bad state discarded, last-known-good
     re-adopted)."""
+    _counter("recover.rollback").inc()
     rec = _LOG.add("rollbacks", "_rollbacks",
                    {"from_step": from_step, "to_step": int(to_step),
                     "attempt": int(attempt)})
+    _event("recover.rollback", **{k: v for k, v in rec.items()
+                                  if k != "t_wall_s"})
     return rec
 
 
 def log_respawn(address: str, attempt: int,
                 backoff: float) -> Dict[str, Any]:
     """Book one coordinator worker respawn."""
+    _counter("recover.respawn").inc()
     rec = _LOG.add("respawns", "_respawns",
                    {"address": str(address), "attempt": int(attempt),
                     "backoff_s": round(float(backoff), 3)})
+    _event("recover.respawn", **{k: v for k, v in rec.items()
+                                 if k != "t_wall_s"})
     return rec
 
 
@@ -167,7 +199,7 @@ def log_respawn(address: str, attempt: int,
 def backoff_s(attempt: int, base_s: float, cap_s: float = 30.0) -> float:
     """Jittered bounded exponential backoff: ``min(cap, base * 2^attempt)``
     scaled by a uniform [0.5, 1.0) jitter so a fleet of retriers never
-    thunders in lockstep. Always <= ``cap_s`` (bounded)."""
+    thunders in lockstep. Always <= ``cap_s`` (bounded — GL005's spirit)."""
     if base_s <= 0.0:
         return 0.0
     return min(float(cap_s), float(base_s) * (2.0 ** max(0, int(attempt)))) \
@@ -186,7 +218,8 @@ def evict(controller, worker_id, kind: str = "stall",
     """Retire ``worker_id`` from the staleness gate NOW and book the act:
     the frozen step count stops pinning ``min(steps)`` (live workers parked
     at the bound resume), the worker's own parked gate RPC fails typed
-    (``WorkerEvicted`` — the client's cue to rejoin).
+    (``WorkerEvicted`` — the client's cue to rejoin), and an armed flight
+    recorder snapshots the moment through its debounce.
 
     The retire is unconditional (no generation token): the eviction evidence
     is seconds of silence, and the tiny race against a concurrent re-register
@@ -195,24 +228,27 @@ def evict(controller, worker_id, kind: str = "stall",
     the worker was already retired (nothing to book — counts track gate
     ACTIONS, never no-ops)."""
     if not controller.retire(worker_id):
-        _log.info("recover: worker %s already retired; eviction is a "
-                  "no-op", worker_id)
+        logging.info("recover: worker %s already retired; eviction is a "
+                     "no-op", worker_id)
         return None
     rec = log_eviction(worker_id, kind=kind, age_s=age_s)
-    _log.warning(
+    logging.warning(
         "recover: EVICTED worker %s from the staleness gate (%s%s) — live "
         "workers resume; the worker may rejoin via register", worker_id,
         kind, f", silent {age_s:.1f}s" if age_s is not None else "")
+    from autodist_tpu_torch.telemetry import recorder as _recorder
+    _recorder.maybe_record(f"recover.evict.w{worker_id}", server=server)
     return rec
 
 
 class SnapshotRing:
     """Bounded in-memory ring of last-known-good ``(step, state)`` pairs.
 
-    A caller pushes at every boundary that closed healthy. ``copy_fn`` is
-    applied to each pushed state: the port's runners update their state in
-    place, so a bare reference would change under the ring; the caller
-    supplies a deep copy. ``keep`` bounds
+    ``train()`` pushes at every log boundary that closed HEALTHY (no anomaly
+    raised, no alert fired). ``copy_fn`` is applied to each pushed state —
+    the port's runners update their state IN PLACE, so a bare reference
+    would change under the ring; ``train()`` supplies a deep copy on the
+    state's device. ``keep`` bounds
     the pinned device memory to K extra states; the default 2 keeps one
     boundary of slack for a SLOW-BURN anomaly — when a rollback to the
     newest snapshot fails again at the same incident, :func:`rollback`
@@ -241,15 +277,18 @@ class SnapshotRing:
 
     def checkout(self):
         """``(step, state)`` of the newest good snapshot with the state
-        copied back out (``copy_fn`` again), so a second rollback to the same
-        snapshot finds the ring entry unchanged. None when empty."""
+        COPIED back out (``copy_fn`` again) — the resumed loop updates the
+        state it is handed in place, and a second rollback to the same
+        snapshot must find the ring entry unchanged. None when empty."""
         if not self._ring:
             return None
         step, state = self._ring[-1]
         return (step, self._copy(state) if self._copy is not None else state)
 
     def states(self) -> List[Any]:
-        """The retained snapshot states, oldest first."""
+        """The retained snapshot states, oldest first — the memory plane's
+        census input (``memplane.tag("snapshots", ring.states())``): the
+        ring's deep copies are pinned device memory no other owner claims."""
         return [state for _, state in self._ring]
 
     def drop_newest(self):
@@ -266,7 +305,7 @@ class SnapshotRing:
 
 def recover_max() -> int:
     """The rollback/respawn attempt budget (``AUTODIST_RECOVER_MAX``)."""
-    return max(1, const.env_int(const.AUTODIST_RECOVER_MAX, 3))
+    return max(1, int(const.ENV.AUTODIST_RECOVER_MAX.val))
 
 
 def rollback(exc, ring: Optional[SnapshotRing], attempt: int,
@@ -276,11 +315,12 @@ def rollback(exc, ring: Optional[SnapshotRing], attempt: int,
     ESCALATE to the existing halt when the attempt budget is spent or no
     good snapshot exists.
 
-    ``exc`` is the signal that interrupted the run; escalation re-raises
-    it, so recover degrades to halt, never to silence. The JAX package's
-    health and alert signals and its recorder wait for ``ROADMAP.md`` Queue
-    1 item 7: arming one of them in the environment raises here."""
-    const.refuse_unported(UNPORTED_HOOKS, "the recovery plane")
+    ``exc`` is the signal that interrupted the run (``HealthRecover`` or
+    ``AlertRecover``); escalation re-raises it as the exact halt type the
+    halt action would have produced, live state attached — recover degrades
+    to halt, never to silence."""
+    from autodist_tpu_torch.telemetry import health as _health
+    from autodist_tpu_torch.telemetry import recorder as _recorder
     if ring is not None and attempt > 1:
         # Same-incident retry: the newest snapshot was already resumed from
         # and the anomaly re-fired — a slow-burn corruption may predate it,
@@ -292,15 +332,21 @@ def rollback(exc, ring: Optional[SnapshotRing], attempt: int,
         reason = ("no healthy snapshot in the ring" if good is None else
                   f"attempt {attempt} exceeds AUTODIST_RECOVER_MAX="
                   f"{max_attempts}")
-        _log.error("recover: cannot roll back (%s) — escalating to halt",
-                   reason)
+        logging.error("recover: cannot roll back (%s) — escalating to halt",
+                      reason)
+        if isinstance(exc, _health.HealthRecover):
+            raise _health.HealthHalt(exc.step, exc.state,
+                                     exc.anomalies) from exc
         raise exc
     to_step, state = good
     log_rollback(from_step, to_step, attempt)
-    _log.warning(
+    logging.warning(
         "recover: rolling back from step %s to last-known-good step %d "
         "(attempt %d/%d) and resuming", from_step, to_step, attempt,
         max_attempts)
+    # Snapshot the evidence (the bad state is still live on `exc`) through
+    # the debounce — an anomaly storm mid-recovery costs one dir per window.
+    _recorder.maybe_record(f"recover.rollback.s{to_step}")
     # Async-PS regimes: the parameter service owns the state — re-seed it
     # explicitly (the sync runner adopts the returned state on its next run).
     restore = getattr(runner, "restore", None)

@@ -39,7 +39,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.parallel import recovery as _recovery
 from autodist_tpu_torch.parallel.mesh import single_device_mesh
 from autodist_tpu_torch.parallel.plan import ShardingPlan
@@ -52,6 +52,20 @@ _log = logging.getLogger("autodist_tpu_torch")
 # Default server-side apply shard count when ZeRO is requested without an
 # explicit count (AUTODIST_ZERO=1 / zero=1).
 DEFAULT_PS_SHARDS = 4
+
+
+_STALENESS_TEL = None
+
+
+def _staleness_registry_hist():
+    """The process-wide ``ps.staleness`` registry histogram, None while
+    telemetry is off (one enabled check a gate entry)."""
+    if not telemetry.enabled():
+        return None
+    global _STALENESS_TEL
+    if _STALENESS_TEL is None:
+        _STALENESS_TEL = telemetry.histogram("ps.staleness", COUNT_BUCKETS)
+    return _STALENESS_TEL
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -228,9 +242,14 @@ class StalenessController:
                 hist = self._lag_hists[worker_id] = Histogram(
                     f"ps.staleness.worker{worker_id}", COUNT_BUCKETS)
             hist.observe(lag)
+            tel = _staleness_registry_hist()
+            if tel is not None:
+                tel.observe(lag)
             self._max_lag = max(self._max_lag, lag)
-            if not self._cond.wait_for(
-                    lambda: worker_id in self._retired or self._runnable(worker_id), timeout):
+            with telemetry.span("ps.gate_wait", worker=worker_id):
+                runnable = self._cond.wait_for(
+                    lambda: worker_id in self._retired or self._runnable(worker_id), timeout)
+            if not runnable:
                 raise StalenessTimeout(
                     f"worker {worker_id} at step {self._steps[worker_id]} still >= "
                     f"{self._bound} ahead of the slowest worker after {timeout}s")
@@ -327,8 +346,9 @@ class ParameterService:
         """Apply one worker's gradients; returns the new version. Readers
         keep reading the previous version until the new one is published."""
         with self._write_mutex:
-            state = self._apply_fn(self._state, grads)
-            params = _publish(state.params)
+            with telemetry.span("ps.apply"):
+                state = self._apply_fn(self._state, grads)
+                params = _publish(state.params)
             with self._lock:
                 self._state, self._params = state, params
                 self._version += 1
@@ -437,12 +457,15 @@ class ShardedParameterService(ParameterService):
                         tensors[n].grad = None
                 return _publish({n: tensors[n] for n in names})
 
-            published = self._exec(run)
+            with telemetry.span("ps.apply", shard=s, shards=self.shards):
+                published = self._exec(run)
             with self._lock:
                 self._flat.update(published)
                 self._shard_version[s] += 1
                 self._version += 1
                 self._lock.notify_all()
+                if telemetry.enabled():
+                    telemetry.gauge(f"ps.shard_version.s{s}").set(self._shard_version[s])
 
     def apply(self, grads: Dict[str, torch.Tensor]) -> int:
         """Apply one worker's gradients across the S shards; returns the
@@ -590,6 +613,7 @@ class AsyncWorker:
         self.last_version_read = version
         with _device_scope(r.device):
             sharded = r.shard_batch(batch)
+            r._maybe_dump_async_graphs(params, sharded, ef_state)
             # Gradient programs run one at a time, complete before the apply.
             with r._collective_lock:
                 grads, loss, aux = r.grad_fn(params, sharded, ef_state)
@@ -653,6 +677,7 @@ class AsyncPSRunner(DistributedRunner):
         self._membership_lock = threading.Lock()
         # Gradient and apply programs run one at a time in this process.
         self._collective_lock = threading.Lock()
+        self._dump_lock = threading.Lock()
         _log.info("AsyncPSRunner: %d worker(s), staleness=%s%s", self.num_workers,
                   self.staleness or "unbounded",
                   f", transport={ps_address}" if ps_address else "")
@@ -780,6 +805,39 @@ class AsyncPSRunner(DistributedRunner):
                           optimizer=state.optimizer, ef_state=state.ef_state,
                           opt_params=state.opt_params, layout=state.layout)
 
+    def _maybe_dump_async_graphs(self, params, sharded, ef_state):
+        """``AUTODIST_DUMP_GRAPHS`` for the async regime
+        (``staleness.py:1074-1092``), once, from whichever worker steps
+        first: ``0-original`` the user's loss, ``1-distributed`` the gated
+        gradient step the workers run, both traced on fake tensors."""
+        if not const.ENV.AUTODIST_DUMP_GRAPHS.val:
+            return
+        with self._dump_lock:
+            if self._dumped:
+                return
+            self._dumped = True
+        from autodist_tpu_torch.utils import tracing
+        tracing.dump_stage("async_step", "0-original", self._loss_fn, params, dict(sharded))
+        tracing.dump_stage("async_step", "1-distributed",
+                           lambda p, b: self.grad_fn.local(p, b)[:2], params, dict(sharded))
+
+    def collect_cluster_trace(self, path: str, since_ns=None) -> str:
+        """The cluster timeline (``staleness.py:974-996``): this process's
+        span ring merged with every ring the remote workers pushed
+        (``AUTODIST_TRACE_PULL=1``), one clock-rebased ``pid`` lane a worker,
+        as Chrome trace JSON at ``path``. On a worker process: its own ring,
+        rebased by its estimated chief-clock offset, and the chief's, pulled
+        over the ``trace`` opcode."""
+        rw = self._remote_worker
+        if rw is not None:
+            if rw.clock_offset_ns is None:
+                rw.estimate_clock_offset()
+            local = telemetry.local_trace_state(since_ns, worker_id=rw.worker_id,
+                                                clock_offset_ns=rw.clock_offset_ns)
+            return telemetry.merge_trace_states([local, rw.trace(since_ns)], path)
+        return telemetry.collect_cluster_trace(path, server=self._ps_server,
+                                               since_ns=since_ns)
+
     def restore(self, state: TrainState):
         """Adopt a (checkpoint-restored) state as the service's."""
         if self.service is None:
@@ -804,7 +862,7 @@ class AsyncPSRunner(DistributedRunner):
                 from autodist_tpu_torch.parallel.ps_transport import RemotePSWorker
                 self._remote_worker = RemotePSWorker(
                     self._ps_address, self,
-                    worker_id=const.env_int(const.AUTODIST_PROCESS_ID, 0))
+                    worker_id=const.ENV.AUTODIST_PROCESS_ID.val)
             return state, self._remote_worker.step(batch, timeout=self.DEFAULT_STEP_TIMEOUT)
         if state is not None and self.service is not None and state is not self._last_returned:
             self.service.adopt(state, self._place)

@@ -491,9 +491,10 @@ class WirePushCompressor:
         the ``apply_sparse`` opcode)."""
         import time as _time
 
+        from autodist_tpu_torch import telemetry
         from autodist_tpu_torch.parallel import wire as wire_lib
         t0 = _time.perf_counter()
-        saved = 0
+        saved = quantized = 0
         has_sparse = False
         out = {}
         for key, g in grads.items():
@@ -522,9 +523,15 @@ class WirePushCompressor:
                 self.bytes_in += nbytes
                 self.bytes_out += qa.wire_nbytes
                 saved += max(0, nbytes - qa.wire_nbytes)
+                quantized += nbytes
                 out[key] = qa
                 continue
             out[key] = g
+        dt = _time.perf_counter() - t0
         self.bytes_saved += saved
-        self.quantize_s += _time.perf_counter() - t0
+        self.quantize_s += dt
+        if telemetry.enabled():
+            telemetry.counter("ps.wire.bytes_saved").inc(saved)
+            telemetry.counter("ps.wire.bytes_quantized").inc(quantized)
+            telemetry.counter("wire.quantize_s").inc(dt)
         return out, has_sparse

@@ -62,25 +62,43 @@ tests' path, and gloo ranks) the K steps run in order.
 nothing on the card: it traces one step's loss and gradient on fake CPU
 tensors and the optimizer's update on meta tensors, counting FLOPs, bytes
 and launches (:mod:`autodist_tpu_torch.ops.costs`).
+
+Telemetry (``runner.py:138-170,792-835,954-1081``): with spans on, every
+dispatch runs in a ``runner.run.dispatch`` / ``runner.run_many.dispatch``
+span, and the first dispatch of a new shape signature (``jit.compile``)
+counts ``jit.cache_miss`` and adds its seconds to ``jit.compile_s``. The
+port has no compiler: these count the BUILD of a signature, its first
+eager call or a graph capture (with the eager warm-up that precedes a
+runner's first capture), and with the attribution plane on that build
+records the signature's ``plan_costs`` as its program cost. With
+``health`` (default ``AUTODIST_HEALTH``) each step computes the health
+bundle on the device (:func:`autodist_tpu_torch.telemetry.health.device_bundle`),
+kept as :attr:`DistributedRunner.last_health` for the train loop to read
+at its log boundaries; ``run_many`` reduces its K bundles inside the
+captured graph. With health off a step makes not one more launch.
 """
 
 import collections
 import dataclasses
 import logging
+import time
 import types
+import zlib
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.ops import costs
 from autodist_tpu_torch.parallel import synchronization
 from autodist_tpu_torch.parallel.layout import StateLayout
 from autodist_tpu_torch.parallel.mesh import DeviceMesh, joined_mesh, single_device_mesh
-from autodist_tpu_torch.parallel.plan import DP_AXES, ShardingPlan
+from autodist_tpu_torch.parallel.plan import DP_AXES, ShardingPlan, entry_axes
+from autodist_tpu_torch.telemetry import health as _health
+from autodist_tpu_torch.telemetry import profiling as _profiling
 
 _log = logging.getLogger("autodist_tpu_torch")
 
@@ -226,6 +244,7 @@ class _CapturedBlock:
         self.launches, self.hyper = launches, hyper
 
     def replay(self, state, block: "BatchBlock"):
+        """The block's steps; ``(losses, aux, fetched, bundle)``."""
         def put(dst, src):
             if isinstance(dst, MicroBatched):
                 dst.value.copy_(src.value, non_blocking=True)
@@ -237,6 +256,34 @@ class _CapturedBlock:
         costs.add_launches(self.launches)
         state.step += block.length
         return _clone_outputs(self.outputs)
+
+
+class _CompileProbe:
+    """Times the first dispatch of a shape signature and books it as a build
+    (``runner.py:138-170``): wraps the dispatch span in a ``jit.compile``
+    span, and on exit bumps ``jit.cache_miss``, adds the seconds to
+    ``jit.compile_s`` and hands them to ``cost_cb`` (the program-cost record
+    of the attribution plane). Built only while telemetry is on."""
+
+    __slots__ = ("_inner", "_t0", "_cost_cb")
+
+    def __init__(self, inner, cost_cb=None):
+        self._inner = inner
+        self._t0 = 0.0
+        self._cost_cb = cost_cb
+
+    def __enter__(self):
+        self._inner.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        telemetry.counter("jit.cache_miss").inc()
+        telemetry.counter("jit.compile_s").inc(dt)
+        if self._cost_cb is not None and exc[0] is None:
+            self._cost_cb(dt)
+        return self._inner.__exit__(*exc)
 
 
 @dataclasses.dataclass
@@ -269,7 +316,8 @@ class DistributedRunner:
                  optimizer: Callable, device: torch.device,
                  plan: Optional[ShardingPlan] = None, accumulation_steps: int = 1,
                  batch_size: Optional[int] = None, mesh: Optional[DeviceMesh] = None,
-                 has_aux: bool = False, zero: Optional[int] = None):
+                 has_aux: bool = False, zero: Optional[int] = None,
+                 health: Optional[bool] = None):
         """``optimizer`` is a factory: ``optimizer(list_of_params)`` returns a
         ``torch.optim.Optimizer`` (``lambda p: torch.optim.Adam(p, lr=1e-3)``).
         ``mesh`` defaults to the plan's mesh over the joined process group.
@@ -277,7 +325,8 @@ class DistributedRunner:
         size must be the mesh's device count. With ``has_aux`` the loss
         returns ``(loss, aux)``. ``zero`` (default ``AUTODIST_ZERO``, 0 off)
         shards the optimizer state and update of every parameter with a
-        free axis that tiles over all the data ranks."""
+        free axis that tiles over all the data ranks. ``health`` (default
+        ``AUTODIST_HEALTH``) computes the health bundle every step."""
         if accumulation_steps < 1:
             raise ValueError("accumulation_steps must be >= 1")
         self.plan = plan if plan is not None \
@@ -313,6 +362,15 @@ class DistributedRunner:
         self._graph_state: Optional["TrainState"] = None
         self._graph_pool = None
         self._warm = False
+        # The health bundle of the last step (or the last block, reduced): a
+        # float32[4] on the device, read by train() at its log boundaries.
+        self.health = bool(const.ENV.AUTODIST_HEALTH.val if health is None else health)
+        self.last_health = None
+        self._health_weights = None
+        # Shape signatures built so far (the jit.* counters' key), and
+        # whether the graph dumps of AUTODIST_DUMP_GRAPHS were written.
+        self._compile_sigs = set()
+        self._dumped = False
 
     # ------------------------------------------------------------------- state
     def init(self, params: Dict[str, torch.Tensor]) -> TrainState:
@@ -548,10 +606,20 @@ class DistributedRunner:
         fetched results are made global under data parallelism: a leaf of
         this rank's rows is all-gathered over the data ranks into the global
         ``[rows, ...]`` array, any other leaf averaged over them."""
-        sharded = self.shard_batch(batch)
-        out = self._step(state, sharded, fetches)
+        with telemetry.span("runner.shard_batch"):
+            sharded = self.shard_batch(batch)
+        if not self._dumped and const.ENV.AUTODIST_DUMP_GRAPHS.val:
+            self._dump_graphs(sharded)
+        try:
+            with self._dispatch_span("runner.run.dispatch", "step", fetches, sharded):
+                loss, aux, extra, bundle = self._step(state, sharded, fetches)
+        except Exception as e:  # noqa: BLE001 — OOM forensics, then re-raise
+            self._maybe_record_oom("runner.run", e)
+            raise
         self._warm = True
-        return state, self._fetched(*out, fetches)
+        if self.health:
+            self.last_health = bundle
+        return state, self._fetched(loss, aux, extra, fetches)
 
     def _fetched(self, loss, aux, extra, fetches):
         default = (loss, aux) if self._has_aux else loss
@@ -559,7 +627,8 @@ class DistributedRunner:
 
     def _step(self, state: TrainState, sharded, fetches: Optional[Callable]):
         """The step body that :meth:`run` runs and :meth:`run_many` runs K
-        times (or captures): ``(loss, aux, fetched)``, made global."""
+        times (or captures): ``(loss, aux, fetched, bundle)``, made global;
+        ``bundle`` is the health bundle, or None with health off."""
         params = self._loss_view(state)
         if self._accum > 1:
             grads, loss, aux = self._accumulate(params, sharded, state.ef_state)
@@ -571,13 +640,55 @@ class DistributedRunner:
                 extra = _tree_map(
                     lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
                     fetches(params, _fold(sharded)))
+        bundle = None
+        if self.health:
+            # The params' norm before the update (the JAX package's
+            # convention), and a copy of the tensors the optimizer updates in
+            # place, whose change is the update.
+            upd_w, par_w, group = self._replication()
+            floats = [(k, t) for k, t in state.params.items() if t.is_floating_point()]
+            p2 = _health.sq_norm([t for _, t in floats],
+                                 None if group is None else [par_w[k] for k, _ in floats],
+                                 loss.device)
+            keys = list(grads)
+            before = torch._foreach_mul([state.opt_params[k].detach() for k in keys], 1.0)
         self._apply_update(state, grads)
+        if self.health:
+            updates = torch._foreach_sub([state.opt_params[k].detach() for k in keys], before)
+            w = None if group is None else [upd_w[k] for k in keys]
+            bundle = _health.bundle_of([_health.sq_norm([grads[k] for k in keys], w, loss.device),
+                                        _health.sq_norm(updates, w, loss.device), p2],
+                                       loss, group)
         rows = self._rows(sharded)
         if self._has_aux:
             aux = self._global(aux, rows)
         if fetches is not None:
             extra = self._global(extra, rows)
-        return loss, aux, extra
+        return loss, aux, extra, bundle
+
+    def _replication(self):
+        """Per tensor of the bundle's three trees, the number of ranks that
+        hold its shard (grads and updates: the optimizer's tensors; params:
+        the storage), and the group to sum the partial norms over (None when
+        every rank holds every tensor whole)."""
+        if self._health_weights is None:
+            mesh = self.mesh or single_device_mesh()
+            world = self.plan.num_devices
+            storage, update = {}, {}
+            for key, pl in self.layout.by_key.items():
+                storage[key] = mesh.axes_size([a for entry in pl.plan.pspec
+                                               for a in entry_axes(entry)])
+                update[key] = storage[key] * (mesh.axes_size(pl.update_axes)
+                                              if pl.sharded_update else 1)
+            group = None
+            if world > 1 and any(n > 1 for n in update.values()):
+                try:
+                    group = mesh.group(tuple(mesh.shape))
+                except ValueError:   # a replayed (in-process) mesh has no group
+                    group = None
+            self._health_weights = ({k: world / n for k, n in update.items()},
+                                    {k: world / n for k, n in storage.items()}, group)
+        return self._health_weights
 
     def _apply_update(self, state: TrainState, grads: Mapping[str, torch.Tensor]) -> None:
         """One optimizer step of ``state`` on ``grads`` (``{key: gradient of
@@ -692,29 +803,46 @@ class DistributedRunner:
         from that step's pre-update params). On a CUDA device the K steps
         are one captured graph (see the module docstring); a plan that
         cannot be captured raises ``RuntimeError`` naming the cause."""
-        block = batches if isinstance(batches, BatchBlock) else self.shard_block(batches)
-        if self.device.type == "cuda":
-            out = self._run_graphed(state, block, fetches)
+        if isinstance(batches, BatchBlock):
+            block = batches
         else:
-            out = self._stacked([self._step(state, block.step(i), fetches)
-                                 for i in range(block.length)], fetches)
-        return state, self._fetched(*out, fetches)
+            with telemetry.span("runner.shard_block"):
+                block = self.shard_block(batches)
+        try:
+            with self._dispatch_span("runner.run_many.dispatch", "many", fetches, block.tree,
+                                     steps=block.length):
+                if self.device.type == "cuda":
+                    out = self._run_graphed(state, block, fetches)
+                else:
+                    out = self._stacked([self._step(state, block.step(i), fetches)
+                                         for i in range(block.length)], fetches)
+        except Exception as e:  # noqa: BLE001 — OOM forensics, then re-raise
+            self._maybe_record_oom("runner.run_many", e)
+            raise
+        losses, aux, extra, bundle = out
+        if self.health:
+            self.last_health = bundle
+        return state, self._fetched(losses, aux, extra, fetches)
 
     def _stacked(self, outs, fetches):
+        """The K steps' outputs stacked; their health bundles reduced on the
+        device (:func:`autodist_tpu_torch.telemetry.health.reduce_bundle`)."""
         losses = torch.stack([o[0] for o in outs])
         aux = _stack_trees([o[1] for o in outs]) if self._has_aux else ()
         extra = _stack_trees([o[2] for o in outs]) if fetches is not None else None
-        return losses, aux, extra
+        bundle = _health.reduce_bundle(torch.stack([o[3] for o in outs])) \
+            if self.health else None
+        return losses, aux, extra, bundle
 
     def _run_graphed(self, state: TrainState, block: BatchBlock, fetches):
         """The block through its captured graph: captured first where none
-        holds this (K, fetches, signature) for this state and these optimizer
+        holds this (K, fetches, health, signature) for this state and these optimizer
         settings, after an eager warm-up on a side stream when no step has run
         on the card yet (that block's steps are the warm-up's)."""
         if self._graph_state is not state:
             self._graphs.clear()
             self._graph_state = state
-        key = (block.length, fetches, _signature(block.tree))
+        key = (block.length, fetches, self.health, _signature(block.tree))
         hyper = _hyperparameters(state.optimizer)
         graph = self._graphs.get(key)
         if graph is not None and graph.hyper == hyper:
@@ -805,15 +933,21 @@ class DistributedRunner:
                     "steps": unroll, "dispatches": 1, "launches": 1, "source": "fake-trace"}
         return dict(cost, steps=1, dispatches=1, source="fake-trace")
 
-    def _step_cost(self, example_batch) -> Dict[str, Any]:
+    def _step_cost(self, example_batch, split: Optional[int] = None) -> Dict[str, Any]:
+        """One step's cost on ``example_batch``: the global batch, whose
+        leading batch dim is split ``k * dp`` ways to one micro-batch of this
+        rank, or ``split`` ways (``k`` for a batch already laid out)."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         k, dp = self._accum, self._dp
+        split = k * dp if split is None else split
         host = _tree_map(lambda l: torch.as_tensor(l) if isinstance(l, np.ndarray) else l,
                          _fold(example_batch))
         batch_dim = None
-        if k * dp > 1:
-            batch_dim = self._infer_batch_dim(self._leading_dims(host), k * dp)
+        if split > 1:
+            batch_dim = self._infer_batch_dim(self._leading_dims(host), split)
+            if split != k * dp and self._batch_size is not None:
+                batch_dim = self._batch_size // dp   # batch_size= is global
         trainable = {self._model_spec.keys[n] for n in self._model_spec.trainable}
 
         def fake(t):
@@ -821,18 +955,12 @@ class DistributedRunner:
                 return t
             shape = tuple(t.shape)
             if batch_dim and shape and shape[0] == batch_dim:
-                shape = (batch_dim // (k * dp),) + shape[1:]
+                shape = (batch_dim // split,) + shape[1:]
             return torch.empty(shape, dtype=t.dtype)
 
-        def shape_of(name, key):
-            # What the loss reads: the local shard of an expert/pipe parameter.
-            pl = self.layout.by_key[key]
-            if pl.compute_local:
-                return tuple(sl.stop - sl.start for sl in pl.storage)
-            return self._model_spec[name].shape
-
         with FakeTensorMode():
-            params = {key: torch.empty(shape_of(name, key), dtype=self._model_spec[name].dtype)
+            params = {key: torch.empty(self._compute_shape(name, key),
+                                       dtype=self._model_spec[name].dtype)
                       .requires_grad_(key in trainable)
                       for name, key in self._model_spec.keys.items()}
             batch = _tree_map(fake, host)
@@ -874,6 +1002,110 @@ class DistributedRunner:
                       "not counted", type(optimizer).__name__, e)
             return costs.StepCost()
         return cost
+
+    # ----------------------------------------------------------- telemetry
+    @staticmethod
+    def _compile_signature(kind: str, fetches, batch) -> str:
+        """A dispatch's shape signature: kind, fetch fn, and every leaf's
+        dtype and shape (``runner.py:708-722``); a new one is a build."""
+        parts = [kind, "none" if fetches is None else f"id{id(fetches)}",
+                 str(_structure(batch))]
+        for leaf in _leaves(batch):
+            v = leaf.value if isinstance(leaf, MicroBatched) else leaf
+            parts.append(f"{'m' if isinstance(leaf, MicroBatched) else ''}"
+                         f"{getattr(v, 'dtype', type(v).__name__)}"
+                         f"{tuple(getattr(v, 'shape', ()))}")
+        return "|".join(parts)
+
+    def _dispatch_span(self, name: str, kind: str, fetches, batch, steps: int = 1):
+        """The span around a dispatch (``runner.py:798-835``). Telemetry on:
+        the dispatch counts against its signature's program-cost record, and
+        the first dispatch of a new signature becomes a ``jit.compile`` span
+        (a crc32 of the signature) booking ``jit.cache_miss`` and
+        ``jit.compile_s``, and with the attribution plane on, recording the
+        signature's ``plan_costs`` (its first step: ``batch`` of a block
+        carries a leading step axis), and on a card booking the dispatch's
+        device time (``profiling.device_timed``). Off: the shared no-op
+        span."""
+        if not telemetry.enabled():
+            return telemetry.span(name)
+        sig = self._compile_signature(kind, fetches, batch)
+        digest = format(zlib.crc32(sig.encode()), "08x")
+        _profiling.note_dispatch(digest, kind, steps)
+        span_args = {"steps": steps} if kind == "many" else {}
+        if sig in self._compile_sigs:
+            return _profiling.device_timed(telemetry.span(name, **span_args), self.device)
+        self._compile_sigs.add(sig)
+        cost_cb = None
+        if _profiling.active():
+            def cost_cb(compile_s):
+                step_batch = _tree_map(
+                    lambda l: MicroBatched(l.value[0]) if isinstance(l, MicroBatched)
+                    else l[0] if isinstance(l, torch.Tensor) else l, batch) \
+                    if kind == "many" else batch
+                _profiling.record_program_cost(digest, kind, steps,
+                                               self._program_cost(step_batch, steps),
+                                               compile_s=compile_s)
+        return _profiling.device_timed(
+            _CompileProbe(telemetry.span("jit.compile", kind=kind, sig=digest, **span_args),
+                          cost_cb), self.device)
+
+    def _program_cost(self, sharded, steps: int) -> Optional[Dict[str, Any]]:
+        """``plan_costs`` of a dispatch of ``steps`` steps on a laid-out
+        batch (one step's), for the attribution plane's record."""
+        try:
+            cost = self._step_cost(sharded, split=self._accum)
+        except Exception as e:  # noqa: BLE001 — accounting never breaks a step
+            _log.debug("program cost: the step did not trace (%s)", e)
+            return None
+        return {"flops": cost["flops"] * steps,
+                "bytes_accessed": cost["bytes_accessed"] * steps,
+                "output_bytes": None, "source": "fake-trace"}
+
+    @staticmethod
+    def _maybe_record_oom(where: str, exc: BaseException) -> None:
+        """OOM forensics at the dispatch sites (``runner.py:783-796``): a
+        step that died of ``torch.cuda.OutOfMemoryError`` books ``mem.oom``
+        and triggers the flight recorder; the caller re-raises either way."""
+        try:
+            from autodist_tpu_torch.telemetry import memplane as _memplane
+            if _memplane.is_oom_error(exc):
+                _memplane.record_oom(where, exc)
+        except Exception:  # noqa: BLE001 — diagnostics must never mask
+            pass
+
+    def _dump_graphs(self, sharded) -> None:
+        """``AUTODIST_DUMP_GRAPHS`` (``runner.py:1066-1081``): the FX graphs
+        of the user's loss (``0-original``) and of the step, gradient and
+        update (``1-distributed``), traced on fake tensors of this rank's
+        shapes (one micro-batch), so the state is untouched."""
+        from autodist_tpu_torch.utils import tracing
+        self._dumped = True
+        micro = _tree_map(lambda l: l.value[0] if isinstance(l, MicroBatched) else l, sharded)
+        shapes = {key: torch.empty(self._compute_shape(name, key),
+                                   dtype=self._model_spec[name].dtype, device="meta")
+                  .requires_grad_(name in self._model_spec.trainable)
+                  for name, key in self._model_spec.keys.items()}
+        trainable = [self._model_spec.keys[n] for n in self._model_spec.trainable]
+        tracing.dump_stage("train_step", "0-original", self._loss_fn, shapes, dict(micro))
+
+        def step(params, batch):
+            grads, loss, _ = self._grad_fn.local(params, batch)
+            optimizer = self._optimizer([params[k] for k in trainable])
+            for k in trainable:
+                params[k].grad = grads[k]
+            optimizer.step()
+            return loss, [params[k] for k in trainable]
+
+        tracing.dump_stage("train_step", "1-distributed", step, shapes, dict(micro))
+
+    def _compute_shape(self, name: str, key: str) -> tuple:
+        """What the loss reads of a parameter: its logical shape, or the
+        local shard of an ``expert``/``pipe`` parameter."""
+        pl = self.layout.by_key[key]
+        if pl.compute_local:
+            return tuple(sl.stop - sl.start for sl in pl.storage)
+        return tuple(self._model_spec[name].shape)
 
     def evaluate(self, state: TrainState, batch, fn: Optional[Callable] = None):
         """``fn(params, batch)`` (default: the loss) on the logical params and

@@ -47,32 +47,19 @@ from autodist_tpu_torch.strategy.ps_lb_strategy import byte_size_load_fn
 _log = logging.getLogger("autodist_tpu_torch")
 
 _ADAM_STATE_MULTIPLIER = 3          # params + two moments: the no-optimizer assumption
-_DEFAULT_BUDGET_BYTES = 8 << 30     # the warned fallback when nothing is known
-_BUDGET_FRACTION = 0.8              # of the card's memory, the rest for activations
-_warned_default = [False]
 
 _AR = AllReduceSynchronizer
 
 
 def _device_memory_budget() -> int:
-    """Usable per-device memory: 80% of the card's memory
-    (``torch.cuda.mem_get_info``), else the ``AUTODIST_MEM_BUDGET`` override
-    in bytes, else an 8 GiB default with a warning (``memplane.device_budget``
-    in the JAX package)."""
-    if torch.cuda.is_available():
-        try:
-            return int(torch.cuda.mem_get_info()[1] * _BUDGET_FRACTION)
-        except RuntimeError as e:
-            _log.debug("memory budget: the card's memory is unreadable (%s)", e)
-    env = const.env_int(const.AUTODIST_MEM_BUDGET, 0)
-    if env > 0:
-        return env
-    if not _warned_default[0]:
-        _warned_default[0] = True
-        _log.warning("memory budget: no card and no %s; the memory rules (AutoStrategy's "
-                     "regime, the autotuner's pre-flight) run on the %d GiB default",
-                     const.AUTODIST_MEM_BUDGET, _DEFAULT_BUDGET_BYTES >> 30)
-    return _DEFAULT_BUDGET_BYTES
+    """Usable per-device memory through the memory plane
+    (:func:`autodist_tpu_torch.telemetry.memplane.device_budget`, the one
+    budget the plane and the autotuner's pre-flight share): 80% of the
+    card's memory, else the ``AUTODIST_MEM_BUDGET`` override in bytes, else
+    a warned 8 GiB default, its source booked as ``mem.budget_source``."""
+    from autodist_tpu_torch.telemetry import memplane
+    budget, _source = memplane.device_budget()
+    return budget
 
 
 def _fmt_bytes(n: int) -> str:

@@ -23,9 +23,11 @@ One two-stage search over the joint strategy x execution-knob space:
 
 ``AutoDist(strategy_builder="autotune")`` and
 ``create_distributed_session(..., tune=True)`` are the entry points. The
-JAX package also emits ``tune.*`` spans and gauges; they wait for the
-port's telemetry plane (``ROADMAP.md``, Queue 1 item 7), and
-:meth:`TunedPlan.explain` and the log lines carry the same facts.
+search books the JAX package's ``tune.*`` spans, counters and gauges
+(``tune.search``, ``tune.predict``, ``tune.compile_probe``, ``tune.probe``;
+``tune.cache_hit``/``tune.cache_miss``; ``tune.candidates``,
+``tune.pruned``, ``tune.pruned_oom``, ``tune.probed``,
+``tune.best_steps_per_s``, ``tune.search_s``).
 
 The port prices an eager step's host cost by its launches (``plan_costs``'
 ``launches``: the ATen ops of one step that launch work on the card, each a
@@ -46,7 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import StrategyBuilder, num_devices
 from autodist_tpu_torch.strategy.tuner import CandidateResult, measure_candidate
@@ -486,10 +488,11 @@ def _predicted_resident_bytes(cand: Candidate, dense_bytes: int, opt_bytes: Opti
 def _load_calibration(calibration: Optional[costmodel.Calibration]
                       ) -> Tuple[costmodel.Calibration, str]:
     """An explicit calibration, else the newest ``AUTODIST_PROFILE_DIR``
-    profile's, else the bundled one."""
+    profile's, else the bundled one. A profile whose fitted rates exceed the
+    card's peaks (:func:`_unphysical`) is skipped with a warning."""
     if calibration is not None:
         return calibration, "explicit"
-    prof_dir = const.env_str(const.AUTODIST_PROFILE_DIR)
+    prof_dir = const.ENV.AUTODIST_PROFILE_DIR.val
     if prof_dir and os.path.isdir(prof_dir):
         def mtime(path):
             try:
@@ -502,12 +505,35 @@ def _load_calibration(calibration: Optional[costmodel.Calibration]
         for path in reversed(profiles):
             try:
                 with open(path) as f:
-                    calib = costmodel.calibrate(json.load(f))
-                if calib.flops_per_s or calib.host_s_per_dispatch:
-                    return calib, f"profile:{os.path.basename(path)}"
+                    doc = json.load(f)
+                calib = costmodel.calibrate(doc)
+                if not (calib.flops_per_s or calib.host_s_per_dispatch):
+                    continue
+                why = _unphysical(calib, doc)
+                if why:
+                    _log.warning("autotune: skipping profile %s: %s", path, why)
+                    continue
+                return calib, f"profile:{os.path.basename(path)}"
             except (OSError, ValueError, TypeError):
                 continue
     return DEFAULT_CALIBRATION, "bundled-default"
+
+
+def _unphysical(calib: costmodel.Calibration, doc: Dict[str, Any]) -> str:
+    """Why ``calib`` cannot be a rate this card sustained ("" when it can):
+    a fitted FLOP/s or bytes/s above the peak of ``telemetry.peak_spec()``,
+    or of the profile's own ``peaks`` where this process knows none. Such a
+    fit comes from a profile whose compute share is too small, e.g. when the
+    launch queue is full and the enqueue's wait is booked as host time."""
+    spec = telemetry.peak_spec()
+    own = doc.get("peaks") or {}
+    for name, fitted, peak in (
+            ("FLOP/s", calib.flops_per_s, spec.flops_per_s or own.get("flops_per_s")),
+            ("bytes/s", calib.bytes_per_s,
+             spec.membw_bytes_per_s or own.get("membw_bytes_per_s"))):
+        if fitted and peak and fitted > peak:
+            return f"fitted {name} {fitted:.4g} exceeds the peak {peak:.4g}"
+    return ""
 
 
 def _wire_terms(model_spec, cand: Candidate) -> Tuple[float, float]:
@@ -559,12 +585,13 @@ def _probe_base_costs(cands: List[Candidate], loss_fn, params, optimizer, exampl
             continue
         ad = runner = None
         try:
-            ad = AutoDist(resource_spec, cand.make_builder(), device=device)
-            runner = ad.create_distributed_session(
-                loss_fn, params, optimizer, example_batch=example_batch,
-                sparse_names=sparse_names, has_aux=has_aux,
-                accumulation_steps=cand.accumulation_steps, zero=cand.zero, tune=False)
-            cost = runner.plan_costs(params, example_batch, unroll=1)
+            with telemetry.span("tune.compile_probe", candidate=cand.name):
+                ad = AutoDist(resource_spec, cand.make_builder(), device=device)
+                runner = ad.create_distributed_session(
+                    loss_fn, params, optimizer, example_batch=example_batch,
+                    sparse_names=sparse_names, has_aux=has_aux,
+                    accumulation_steps=cand.accumulation_steps, zero=cand.zero, tune=False)
+                cost = runner.plan_costs(params, example_batch, unroll=1)
             base_costs[key] = cost if cost is not None else \
                 "probe: the step did not trace (no cost)"
             if cand.builder_spec["name"] == "PSLoadBalancing" and isinstance(cost, dict):
@@ -634,85 +661,97 @@ def autotune(loss_fn: Callable, params: Any, optimizer: Callable, example_batch:
 
     cached = load_cached_plan(plan_cache, key)
     if cached is not None:
+        telemetry.counter("tune.cache_hit").inc()
         _log.info("autotune: plan cache hit [%s] -> %s (predicted %s, measured %s steps/s); "
                   "no probe steps", key, cached.name, (cached.predicted or {}).get("step_s"),
                   cached.measured_steps_per_s)
         return cached
 
-    # Stage 1: enumerate, probe the bases' costs, predict, prune.
-    cands = enumerate_candidates(
-        model_spec, resource_spec, optimizer, unrolls=unrolls,
-        accums=tuple(accumulation_steps), include_async=include_async, budget=budget,
-        prefetch_depths=prefetch_depths, loader_s_per_step=loader_s_per_step)
-    calib, calib_src = _load_calibration(calibration)
-    _log.info("autotune [%s]: %d candidates, calibration %s", key, len(cands), calib_src)
-    base_costs = _probe_base_costs(cands, loss_fn, params, optimizer, example_batch,
-                                   resource_spec, sparse_names, has_aux, device)
-    for c in cands:
-        if c.pruned:
-            continue
-        base = base_costs.get(c.base_key())
-        if not isinstance(base, dict):
-            c.pruned = str(base)
-            continue
-        comm_bytes, quantize_bytes = _wire_terms(model_spec, c)
-        c.predicted = costmodel.predict(
-            _derive_record(base, c.unroll), calib, comm_bytes_per_step=comm_bytes,
-            loader_s_per_step=loader_s_per_step, prefetch_depth=c.prefetch_depth,
-            quantize_bytes_per_step=quantize_bytes,
-            resident_bytes=float(c.resident_bytes or 0))
-    predicted = [c for c in cands if c.predicted is not None]
-    if not predicted:
-        raise RuntimeError("autotune: no candidate could be cost-probed:\n"
-                           + "\n".join(f"  {c.name}: {c.pruned}" for c in cands))
-    best_pred = min(c.predicted["step_s"] for c in predicted)
-    survivors: List[Candidate] = []
-    # prefetch_depth changes the host pipeline, not the step: a depth twin of
-    # a survivor shares its measurement instead of a top-k slot.
-    probe_sharers: List[Tuple[Candidate, Candidate]] = []
-    probed_programs: Dict[Tuple, Candidate] = {}
-    for c in sorted(predicted, key=lambda c: c.predicted["step_s"]):
-        if c.asynchronous:
-            c.pruned = ("skipped: async candidate — predicted only, not measurable by the "
-                        "synchronous probe loop")
-        elif c.predicted["step_s"] > (1.0 + margin) * best_pred:
-            c.pruned = (f"predicted {c.predicted['step_s'] * 1e3:.3f} ms/step, > "
-                        f"{1.0 + margin:.2f}x the frontrunner ({best_pred * 1e3:.3f} ms)")
-        else:
-            program = (c.base_key(), c.unroll, c.overlap)
-            twin = probed_programs.get(program)
-            if twin is not None:
-                probe_sharers.append((c, twin))
-            elif len(survivors) >= top_k:
-                c.pruned = f"beyond top-k={top_k}"
+    telemetry.counter("tune.cache_miss").inc()
+    with telemetry.span("tune.search", key=key):
+        # Stage 1: enumerate, probe the bases' costs, predict, prune.
+        cands = enumerate_candidates(
+            model_spec, resource_spec, optimizer, unrolls=unrolls,
+            accums=tuple(accumulation_steps), include_async=include_async, budget=budget,
+            prefetch_depths=prefetch_depths, loader_s_per_step=loader_s_per_step)
+        calib, calib_src = _load_calibration(calibration)
+        _log.info("autotune [%s]: %d candidates, calibration %s", key, len(cands), calib_src)
+        with telemetry.span("tune.predict", candidates=len(cands)):
+            base_costs = _probe_base_costs(cands, loss_fn, params, optimizer, example_batch,
+                                           resource_spec, sparse_names, has_aux, device)
+            for c in cands:
+                if c.pruned:
+                    continue
+                base = base_costs.get(c.base_key())
+                if not isinstance(base, dict):
+                    c.pruned = str(base)
+                    continue
+                comm_bytes, quantize_bytes = _wire_terms(model_spec, c)
+                c.predicted = costmodel.predict(
+                    _derive_record(base, c.unroll), calib, comm_bytes_per_step=comm_bytes,
+                    loader_s_per_step=loader_s_per_step, prefetch_depth=c.prefetch_depth,
+                    quantize_bytes_per_step=quantize_bytes,
+                    resident_bytes=float(c.resident_bytes or 0))
+        predicted = [c for c in cands if c.predicted is not None]
+        if not predicted:
+            raise RuntimeError("autotune: no candidate could be cost-probed:\n"
+                               + "\n".join(f"  {c.name}: {c.pruned}" for c in cands))
+        best_pred = min(c.predicted["step_s"] for c in predicted)
+        survivors: List[Candidate] = []
+        # prefetch_depth changes the host pipeline, not the step: a depth twin of
+        # a survivor shares its measurement instead of a top-k slot.
+        probe_sharers: List[Tuple[Candidate, Candidate]] = []
+        probed_programs: Dict[Tuple, Candidate] = {}
+        for c in sorted(predicted, key=lambda c: c.predicted["step_s"]):
+            if c.asynchronous:
+                c.pruned = ("skipped: async candidate — predicted only, not measurable by the "
+                            "synchronous probe loop")
+            elif c.predicted["step_s"] > (1.0 + margin) * best_pred:
+                c.pruned = (f"predicted {c.predicted['step_s'] * 1e3:.3f} ms/step, > "
+                            f"{1.0 + margin:.2f}x the frontrunner ({best_pred * 1e3:.3f} ms)")
             else:
-                survivors.append(c)
-                probed_programs[program] = c
+                program = (c.base_key(), c.unroll, c.overlap)
+                twin = probed_programs.get(program)
+                if twin is not None:
+                    probe_sharers.append((c, twin))
+                elif len(survivors) >= top_k:
+                    c.pruned = f"beyond top-k={top_k}"
+                else:
+                    survivors.append(c)
+                    probed_programs[program] = c
 
-    # Stage 2: measure the survivors with real steps.
-    for c in survivors:
-        c.probe = measure_candidate(
-            c.make_builder(), loss_fn, params, optimizer, example_batch, name=c.name,
-            resource_spec=resource_spec, warmup_steps=warmup_steps,
-            measure_steps=measure_steps, sparse_names=sparse_names, has_aux=has_aux,
-            accumulation_steps=c.accumulation_steps, unroll=c.unroll, zero=c.zero,
-            device=device)
-    for c, twin in probe_sharers:
-        c.probe = twin.probe
-    measured = [c for c in survivors + [s for s, _ in probe_sharers]
-                if c.probe is not None and c.probe.steps_per_sec is not None]
-    if not measured:
-        raise RuntimeError("autotune: every stage-2 probe failed or was skipped:\n"
-                           + "\n".join(f"  {c.name}: {c.probe.error}" for c in survivors))
+        # The gauges reconcile: candidates = pruned + survivors + sharers.
+        telemetry.gauge("tune.candidates").set(len(cands))
+        telemetry.gauge("tune.pruned").set(len(cands) - len(survivors) - len(probe_sharers))
+        telemetry.gauge("tune.pruned_oom").set(
+            sum(1 for c in cands if (c.pruned or "").startswith("oom")))
 
-    def effective_steps_per_s(c: Candidate) -> float:
-        # The probe feeds a resident batch: a declared loader cost comes
-        # back as the candidate's priced residual data wait.
-        sps = c.probe.steps_per_sec
-        data_s = ((c.predicted or {}).get("breakdown") or {}).get("data_wait_s") or 0.0
-        return 1.0 / (1.0 / sps + data_s) if data_s > 0 else sps
+        # Stage 2: measure the survivors with real steps.
+        for c in survivors:
+            with telemetry.span("tune.probe", candidate=c.name):
+                c.probe = measure_candidate(
+                    c.make_builder(), loss_fn, params, optimizer, example_batch,
+                    name=c.name, resource_spec=resource_spec, warmup_steps=warmup_steps,
+                    measure_steps=measure_steps, sparse_names=sparse_names,
+                    has_aux=has_aux, accumulation_steps=c.accumulation_steps,
+                    unroll=c.unroll, zero=c.zero, device=device)
+        telemetry.gauge("tune.probed").set(len(survivors))
+        for c, twin in probe_sharers:
+            c.probe = twin.probe
+        measured = [c for c in survivors + [s for s, _ in probe_sharers]
+                    if c.probe is not None and c.probe.steps_per_sec is not None]
+        if not measured:
+            raise RuntimeError("autotune: every stage-2 probe failed or was skipped:\n"
+                               + "\n".join(f"  {c.name}: {c.probe.error}" for c in survivors))
 
-    winner = max(measured, key=effective_steps_per_s)
+        def effective_steps_per_s(c: Candidate) -> float:
+            # The probe feeds a resident batch: a declared loader cost comes
+            # back as the candidate's priced residual data wait.
+            sps = c.probe.steps_per_sec
+            data_s = ((c.predicted or {}).get("breakdown") or {}).get("data_wait_s") or 0.0
+            return 1.0 / (1.0 / sps + data_s) if data_s > 0 else sps
+
+        winner = max(measured, key=effective_steps_per_s)
     plan = TunedPlan(
         builder_spec=winner.builder_spec, unroll=winner.unroll,
         accumulation_steps=winner.accumulation_steps, zero=winner.zero,
@@ -721,6 +760,8 @@ def autotune(loss_fn: Callable, params: Any, optimizer: Callable, example_batch:
         measured_steps_per_s=winner.probe.steps_per_sec, cache_key=key,
         search_s=time.perf_counter() - t_start, enumerated=len(cands),
         probed=len(survivors), candidates=cands)
+    telemetry.gauge("tune.best_steps_per_s").set(plan.measured_steps_per_s)
+    telemetry.gauge("tune.search_s").set(plan.search_s)
     if plan_cache:
         store_plan(plan_cache, plan)
     _log.info("autotune winner [%s]: %s (%.2f steps/s measured, %.2f ms predicted, %d/%d "

@@ -7,29 +7,94 @@ fused loop of ``unroll=K`` (``_unrolled_loop``), which runs blocks of K
 steps through ``runner.run_many`` (one CUDA graph replay a block on the
 card) while the host gathers the next block.
 
-Not ported yet, and each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``health_monitor``, the recover ring, and the planes
-the environment can arm (``const.UNPORTED_PLANES``).
+The telemetry planes hook in at the JAX package's sites: the
+``train.data_wait``, ``train.dispatch``, ``train.eval`` and
+``train.checkpoint`` spans; at each log boundary the attribution period
+(``train.attr.*``, ``train.mfu``), ``train.steps_per_s``, the memory plane's
+census tags, ``sample_device_memory``, ``emit_metrics``, the health monitor
+(``health_monitor=`` or ``AUTODIST_HEALTH``) and the metric history's sample
+(whose alert engine may halt the run); the final flush and the profile
+write. Under ``AUTODIST_HEALTH_ACTION=recover`` (or the alert engine's
+``recover``) a ring of deep-copied last-known-good states taken at healthy
+log boundaries is the rollback target of an anomaly.
 """
 
+import copy
 import logging
 import os
 from typing import Any, Callable, Iterable, Optional, Union
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, telemetry
 from autodist_tpu_torch.checkpoint.saver import Saver
 from autodist_tpu_torch.data import prefetch as _prefetch
+from autodist_tpu_torch.parallel import recovery as _recovery
 from autodist_tpu_torch.runner import BatchBlock, MicroBatched, ShardedBatch, TrainState, _leaves
+from autodist_tpu_torch.telemetry import health as _health
+from autodist_tpu_torch.telemetry import history as _history
+from autodist_tpu_torch.telemetry import memplane as _memplane
+from autodist_tpu_torch.telemetry import openmetrics as _openmetrics
+from autodist_tpu_torch.telemetry import profiling as _profiling
 from autodist_tpu_torch.testing import faults as _faults
 from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
 _log = logging.getLogger("autodist_tpu_torch")
 
-PLANES_ROADMAP = "ROADMAP.md, Queue 1 item 7: train()'s health, recover, profiling, " \
-                 "history, telemetry and openmetrics hooks"
+
+def _observe_health(monitor, runner, step: int, losses, state: TrainState):
+    """Feed the health monitor at a log boundary, where the loss readback
+    already synced: ``losses`` are the period's per-step losses (device
+    tensors, read here), the bundle the runner's latest (one read of four
+    floats). Raises :class:`telemetry.HealthRecover` under
+    ``AUTODIST_HEALTH_ACTION=recover`` (``train()`` rolls back) or
+    :class:`telemetry.HealthHalt` under ``halt``, with the live state."""
+    bundle = getattr(runner, "last_health", None)
+    if bundle is not None:
+        bundle = bundle.detach().cpu().numpy()
+    flat = torch.cat([torch.as_tensor(l).detach().reshape(-1).float() for l in losses]
+                     ).cpu().numpy() if losses else np.zeros(0, np.float32)
+    anomalies = monitor.observe(step, flat, bundle)
+    if anomalies and monitor.should_recover:
+        raise _health.HealthRecover(step, state, anomalies)
+    if anomalies and monitor.should_halt:
+        raise _health.HealthHalt(step, state, anomalies)
+
+
+def _copy_state(state: TrainState) -> TrainState:
+    """A deep copy of ``state`` on its device (parameters, the optimizer and
+    its state, the codecs' state), sharing only the layout: the runner
+    updates its state in place, so a ring entry must own its tensors."""
+    return copy.deepcopy(state, memo={id(state.layout): state.layout})
+
+
+def _boundary(runner, state: TrainState, step: int, rate: float, meter, monitor,
+              pending_losses, ring) -> None:
+    """The log boundary's planes, in the JAX package's order
+    (``autodist_tpu/training.py:458-520``): the steps/s gauge, the memory
+    census and samples, the metrics rows, the health monitor, the history
+    sample (an alert halt propagates with the live state), and, the boundary
+    having closed healthy, the recover ring's snapshot."""
+    telemetry.gauge("train.steps_per_s").set(round(rate / meter.batch_size, 4))
+    if telemetry.enabled():
+        _memplane.tag("params", state.params)
+        _memplane.tag("opt_state", state.optimizer)
+        telemetry.sample_device_memory(opt_state=state.optimizer)
+        telemetry.emit_metrics(global_step=step)
+    if monitor is not None:
+        _observe_health(monitor, runner, step, pending_losses, state)
+        pending_losses.clear()
+    try:
+        _history.maybe_sample(step)
+    except telemetry.AlertHalt as e:
+        e.state = state
+        raise
+    if ring is not None:
+        ring.push(step, state)
+        if telemetry.enabled():
+            _memplane.tag("snapshots", ring.states())
 
 
 def _make_meter(first_batch, batch_size: Optional[int], log_every: int,
@@ -50,18 +115,6 @@ def _make_meter(first_batch, batch_size: Optional[int], log_every: int,
         if isinstance(first_batch, ShardedBatch):
             n *= dp
     return ThroughputMeter(batch_size=n, log_every=log_every)
-
-
-def _refuse_unported(health_monitor) -> None:
-    if health_monitor is not None:
-        raise NotImplementedError(f"train(health_monitor=...) is not ported yet "
-                                  f"({PLANES_ROADMAP})")
-    armed = [f"{name} ({what})" for name, what in const.UNPORTED_PLANES.items()
-             if const.env_armed(name)]
-    if armed:
-        raise NotImplementedError(f"{', '.join(armed)} armed in the environment, but "
-                                  f"train() has no such plane yet ({PLANES_ROADMAP}); "
-                                  f"unset it to train without it")
 
 
 def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
@@ -119,8 +172,19 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
     block is the meter's warm-up; ``on_metrics`` gets the block's last
     loss). With ``prefetch_depth`` the feed assembles and places blocks
     ``prefetch_depth`` blocks ahead. On the card a plan that
-    ``run_many`` cannot capture raises its ``RuntimeError``."""
-    _refuse_unported(health_monitor)
+    ``run_many`` cannot capture raises its ``RuntimeError``.
+
+    ``health_monitor`` overrides the ``AUTODIST_HEALTH`` default (a
+    :class:`telemetry.HealthMonitor`): it consumes each log period's
+    per-step losses and the runner's health bundle at the boundary where the
+    loss readback already syncs, and its anomalies follow
+    ``AUTODIST_HEALTH_ACTION`` (``halt`` raises :class:`telemetry.HealthHalt`
+    with the live state). Monitoring needs ``log_every > 0``. Under
+    ``AUTODIST_HEALTH_ACTION=recover`` (or ``AUTODIST_ALERT_ACTION=recover``)
+    an anomaly rolls back to the newest deep-copied state of a healthy
+    boundary and resumes (replaying the rolled-back steps exactly with a
+    callable ``batches``), at most ``AUTODIST_RECOVER_MAX`` attempts an
+    incident before escalating to the halt."""
     tuned = getattr(runner, "tuned_plan", None)
     if unroll is None:
         unroll = int(getattr(tuned, "unroll", 1) or 1)
@@ -142,6 +206,8 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
         raise ValueError("eval_every needs an eval_batch")
     if is_chief is None:
         is_chief = const.is_chief_process()
+    # AUTODIST_METRICS_PORT serves /metrics and /healthz from the trainer too.
+    _openmetrics.maybe_serve()
     # Saves are collective across ranks: every rank calls save, rank 0 writes.
     save_participant = is_chief or (dist.is_initialized() and dist.get_world_size() > 1)
     saver = Saver(max_to_keep=max_to_keep) if checkpoint_dir else None
@@ -167,38 +233,88 @@ def train(runner, params, batches: Union[Callable[[int], Any], Iterable[Any]],
             except StopIteration:
                 return state
 
+    monitor = health_monitor if health_monitor is not None \
+        else _health.HealthMonitor.from_env()
+    if monitor is not None and not log_every:
+        _log.warning("train: health monitors need log_every > 0 (the bundle readback "
+                     "rides log boundaries); disabling them for this run")
+        monitor = None
     if unroll > 1 and not getattr(runner, "supports_run_many", True):
         _log.warning("train: unroll=%d requested but %s has no fused multi-step path (async "
                      "regime); falling back to per-step dispatch", unroll, type(runner).__name__)
         unroll = 1
-    feed = None
-    try:
-        if unroll > 1:
-            next_boundary = _boundary_fn(steps, save_every if saver is not None else 0,
-                                         eval_every)
+    recover_armed = ((monitor is not None and monitor.config.action == "recover")
+                     or str(const.ENV.AUTODIST_ALERT_ACTION.val) == "recover")
+    ring = _recovery.SnapshotRing(copy_fn=_copy_state) if recover_armed else None
+    if ring is not None and batch_iter is not None:
+        _log.warning("train: recover action with an ITERABLE batch source: a rollback cannot "
+                     "replay consumed batches, so the resumed loop continues on the next "
+                     "unconsumed ones (pass a callable batches(step) for exact replay)")
+
+    def run_attempt(attempt_state: TrainState) -> TrainState:
+        """One pass of the loop from ``attempt_state``'s own step; the feeds
+        are built per attempt, so a rollback's replay pulls the rolled-back
+        steps."""
+        start_i = attempt_state.step
+        feed = None
+        try:
+            if unroll > 1:
+                next_boundary = _boundary_fn(steps, save_every if saver is not None else 0,
+                                             eval_every)
+                if prefetch_depth > 0:
+                    feed = _BlockFeed(runner, next_batch, batch_iter, start_i, steps, unroll,
+                                      next_boundary, prefetch_depth)
+                return _unrolled_loop(runner, attempt_state, next_batch, batch_iter, start_i,
+                                      steps, unroll, saver, prefix_base, save_participant,
+                                      save_every, async_save, log_every, batch_size,
+                                      on_metrics, eval_every, eval_batch, eval_fn, on_eval,
+                                      sharded, feed, monitor, ring)
             if prefetch_depth > 0:
-                feed = _BlockFeed(runner, next_batch, batch_iter, start, steps, unroll,
-                                  next_boundary, prefetch_depth)
-            state = _unrolled_loop(runner, state, next_batch, batch_iter, start, steps,
-                                   unroll, saver, prefix_base, save_participant, save_every,
-                                   async_save, log_every, batch_size, on_metrics, eval_every,
-                                   eval_batch, eval_fn, on_eval, sharded, feed)
-        else:
-            if prefetch_depth > 0:
-                feed = _step_feed(runner, next_batch, batch_iter, start, steps,
+                feed = _step_feed(runner, next_batch, batch_iter, start_i, steps,
                                   prefetch_depth)
-            state = _per_step_loop(runner, state, feed, next_batch, batch_iter, start, steps,
-                                   saver, prefix_base, save_participant, save_every,
-                                   async_save, log_every, batch_size, on_metrics, eval_every,
-                                   eval_batch, eval_fn, on_eval, sharded)
-    finally:
-        if feed is not None:
-            feed.close()
+            return _per_step_loop(runner, attempt_state, feed, next_batch, batch_iter, start_i,
+                                  steps, saver, prefix_base, save_participant, save_every,
+                                  async_save, log_every, batch_size, on_metrics, eval_every,
+                                  eval_batch, eval_fn, on_eval, sharded, monitor, ring)
+        finally:
+            if feed is not None:
+                feed.close()
+
+    attempt = 0
+    last_fail_step = None
+    while True:
+        try:
+            state = run_attempt(state)
+            break
+        except (_health.HealthRecover, telemetry.AlertRecover) as e:
+            # The attempt budget is per incident: an anomaly at a later step
+            # than the last means the earlier one was overcome, so it resets
+            # (``autodist_tpu/training.py:355-385``).
+            fail_step = getattr(e, "step", None)
+            if fail_step is not None and last_fail_step is not None \
+                    and fail_step > last_fail_step:
+                attempt = 0
+            if fail_step is not None:
+                last_fail_step = fail_step
+            attempt += 1
+            state = _recovery.rollback(e, ring, attempt, _recovery.recover_max(),
+                                       runner=runner)
+    # The end-of-run attribution period and history sample come before the
+    # final save, whose seconds would otherwise land in the tail period.
+    if _profiling.active():
+        _profiling.observe_period(state.step, require_steps=True)
+    try:
+        _history.maybe_sample(state.step, reason="final", force=True)
+    except telemetry.AlertHalt as e:
+        e.state = state
+        raise
     # The final save stays synchronous: returning means the state is on disk.
     if saver is not None and save_participant and state.step > start:
-        saver.save(state, prefix_base, sharded=sharded)
+        with telemetry.span("train.checkpoint", final=True):
+            saver.save(state, prefix_base, sharded=sharded)
     if saver is not None:
         saver.wait()
+    _profiling.maybe_write_profile()
     return state
 
 
@@ -220,17 +336,21 @@ def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, star
                    steps: int, saver, prefix_base, save_participant, save_every: int,
                    async_save: bool, log_every: int, batch_size: Optional[int], on_metrics,
                    eval_every: int, eval_batch, eval_fn, on_eval,
-                   sharded: Optional[bool]) -> TrainState:
-    """One dispatch per step, fed synchronously or from ``feed``."""
+                   sharded: Optional[bool], monitor=None, ring=None) -> TrainState:
+    """One dispatch per step, fed synchronously or from ``feed``. With a
+    health monitor the per-step losses stay on the device until the
+    boundary reads them together."""
     meter = None
+    pending_losses = []
     for step_i in range(start, steps):
         try:
-            if feed is not None:
-                batch = next(feed)
-            elif next_batch is not None:
-                batch = next_batch(step_i)
-            else:
-                batch = next(batch_iter)
+            with telemetry.span("train.data_wait"):
+                if feed is not None:
+                    batch = next(feed)
+                elif next_batch is not None:
+                    batch = next_batch(step_i)
+                else:
+                    batch = next(batch_iter)
         except StopIteration:
             _log.info("train: batch iterator exhausted at step %d", step_i)
             break
@@ -238,29 +358,44 @@ def _per_step_loop(runner, state: TrainState, feed, next_batch, batch_iter, star
             # The fault harness: NaN floats through the real step.
             _log.warning("faults: injecting NaN batch at step %d", step_i)
             batch = _faults.corrupt_batch(batch)
-        state, fetched = runner.run(state, batch)
+        with telemetry.span("train.dispatch"):
+            state, fetched = runner.run(state, batch)
         loss = fetched[0] if isinstance(fetched, tuple) else fetched
+        if monitor is not None:
+            pending_losses.append(loss)
         if meter is None and log_every:
             meter = _make_meter(batch, batch_size, log_every, runner.plan.dp_size)
         if meter is not None:
             # The meter reads the loss back only at its period boundaries.
             rate = meter.step(sync=loss)
             if rate is not None:
-                _log.info("train: step %d loss %.4f %.1f examples/s | q %d rb %.3fs",
+                attr = _profiling.observe_period(step_i + 1) if _profiling.active() else None
+                stats = getattr(runner, "wire_stats", None)
+                stats = stats() if callable(stats) else None
+                _log.info("train: step %d loss %.4f %.1f examples/s | q %d rb %.3fs%s%s",
                           step_i + 1, float(loss), rate,
                           feed.queue_depth() if feed is not None else 0,
-                          meter.last_readback_s)
+                          meter.last_readback_s,
+                          f" | {stats.format_line()}" if stats else "",
+                          _profiling.format_attr_line(attr))
+                _boundary(runner, state, step_i + 1, rate, meter, monitor, pending_losses,
+                          ring)
                 if on_metrics is not None:
                     on_metrics(step_i + 1, float(loss), rate)
         if (eval_every and (step_i + 1) % eval_every == 0
                 and not getattr(runner, "_is_remote_worker", False)):
             # An async worker process holds only a template of the state.
-            val = runner.evaluate(state, eval_batch, eval_fn)
+            with telemetry.span("train.eval"):
+                val = runner.evaluate(state, eval_batch, eval_fn)
             if on_eval is not None:
                 on_eval(step_i + 1, val)
         if (saver is not None and save_participant and save_every
                 and (step_i + 1) % save_every == 0 and step_i + 1 < steps):
-            saver.save(state, prefix_base, async_write=async_save, sharded=sharded)
+            with telemetry.span("train.checkpoint"):
+                saver.save(state, prefix_base, async_write=async_save, sharded=sharded)
+    if monitor is not None and pending_losses:
+        # A NaN in the final partial period still reaches the monitor.
+        _observe_health(monitor, runner, state.step, pending_losses, state)
     if meter is not None:
         meter.finish()
     return state
@@ -348,7 +483,7 @@ def _unrolled_loop(runner, state: TrainState, next_batch, batch_iter, start: int
                    save_every: int, async_save: bool, log_every: int,
                    batch_size: Optional[int], on_metrics, eval_every: int, eval_batch,
                    eval_fn, on_eval, sharded: Optional[bool],
-                   feed: Optional[_BlockFeed] = None) -> TrainState:
+                   feed: Optional[_BlockFeed] = None, monitor=None, ring=None) -> TrainState:
     """Blocks of up to ``unroll`` steps through ``runner.run_many``
     (``autodist_tpu/training.py:646-808``), ended at every save and eval
     cadence point and at ``steps``; the next block is gathered and placed
@@ -362,48 +497,66 @@ def _unrolled_loop(runner, state: TrainState, next_batch, batch_iter, start: int
     def gather(i: int) -> Optional[BatchBlock]:
         nonlocal exhausted, first_batch
         if feed is not None:
-            block = feed.next_block()
+            with telemetry.span("train.data_wait"):
+                block = feed.next_block()
             if first_batch is None:
                 first_batch = feed.first_batch
             return block
         if exhausted or i >= steps:
             return None
-        blk, exhausted = _pull_block(next_batch, batch_iter, i,
-                                     min(unroll, next_boundary(i) - i))
+        with telemetry.span("train.data_wait"):
+            blk, exhausted = _pull_block(next_batch, batch_iter, i,
+                                         min(unroll, next_boundary(i) - i))
         if not blk:
             return None
         if first_batch is None:
             first_batch = blk[0]
-        return runner.shard_block(blk)
+        with telemetry.span("runner.shard_block"):
+            return runner.shard_block(blk)
 
     meter = None
     step_i = start
+    # The period's per-block loss stacks, read at the boundary with the
+    # block-reduced health bundle.
+    pending_losses = []
     block = gather(step_i)
     while block is not None:
-        state, fetched = runner.run_many(state, block)
+        with telemetry.span("train.dispatch", steps=block.length):
+            state, fetched = runner.run_many(state, block)
         losses = fetched[0] if isinstance(fetched, tuple) else fetched
+        if monitor is not None:
+            pending_losses.append(losses)
         step_i += block.length
         next_block = gather(step_i)
         queue_depth = (1 if next_block is not None else 0) \
             + (feed.queue_depth() if feed is not None else 0)
+        if telemetry.enabled():
+            telemetry.gauge("train.dispatch_queue_depth").set(queue_depth)
         if meter is None and log_every:
             meter = _make_meter(first_batch, batch_size, log_every, runner.plan.dp_size)
         if meter is not None:
             rate = meter.step_many(block.length, sync=losses)
             if rate is not None:
+                attr = _profiling.observe_period(step_i) if _profiling.active() else None
                 last = float(losses[-1])
-                _log.info("train: step %d loss %.4f %.1f examples/s | q %d rb %.3fs",
-                          step_i, last, rate, queue_depth, meter.last_readback_s)
+                _log.info("train: step %d loss %.4f %.1f examples/s | q %d rb %.3fs%s",
+                          step_i, last, rate, queue_depth, meter.last_readback_s,
+                          _profiling.format_attr_line(attr))
+                _boundary(runner, state, step_i, rate, meter, monitor, pending_losses, ring)
                 if on_metrics is not None:
                     on_metrics(step_i, last, rate)
         if eval_every and step_i % eval_every == 0:
-            val = runner.evaluate(state, eval_batch, eval_fn)
+            with telemetry.span("train.eval"):
+                val = runner.evaluate(state, eval_batch, eval_fn)
             if on_eval is not None:
                 on_eval(step_i, val)
         if (saver is not None and save_participant and save_every
                 and step_i % save_every == 0 and step_i < steps):
-            saver.save(state, prefix_base, async_write=async_save, sharded=sharded)
+            with telemetry.span("train.checkpoint"):
+                saver.save(state, prefix_base, async_write=async_save, sharded=sharded)
         block = next_block
+    if monitor is not None and pending_losses:
+        _observe_health(monitor, runner, step_i, pending_losses, state)
     if meter is not None:
         meter.finish()
     return state

@@ -4,44 +4,77 @@ examples/s per log period and a run average, with the first steps excluded
 as warm-up and the period's readback wait recorded; ``step_many`` meters a
 fused block of steps (``run_many``) at block granularity. ``WireCounters``
 (``:41-124``) counts the PS transport's payload bytes, messages and codec
-seconds. The JAX package mirrors both into its telemetry registry, which
-waits for ``ROADMAP.md`` Queue 1 item 7.
+seconds. With telemetry on, both mirror into the registry: the readback
+as the ``train.readback_wait`` span and ``train.readback_wait_s`` counter,
+the wire as the ``ps.wire.*`` counters.
 """
 
-import threading
 import time
 from typing import Dict, List, Optional, Union
+
+from autodist_tpu_torch import telemetry
+from autodist_tpu_torch.testing.sanitizer import san_lock
+
+_WIRE_TEL = None
+
+
+def _wire_registry():
+    """The registry's process-wide ``ps.wire.*`` counters, or None while
+    telemetry is off (one ``enabled`` check an increment)."""
+    if not telemetry.enabled():
+        return None
+    global _WIRE_TEL
+    if _WIRE_TEL is None:
+        reg = telemetry.registry()
+        _WIRE_TEL = tuple(reg.counter(f"ps.wire.{n}") for n in (
+            "bytes_sent", "msgs_sent", "encode_s", "bytes_received", "msgs_received",
+            "decode_s"))
+    return _WIRE_TEL
 
 
 class WireCounters:
     """PS-transport accounting: payload bytes and message counts in both
     directions, cumulative encode/decode seconds. One instance a socket
     (client side) or aggregated across connections (server side, where the
-    increments are locked so concurrent handler threads lose no count)."""
+    increments are locked so concurrent handler threads lose no count).
+    ``mirror=False`` keeps a second view of the same traffic (the server's
+    per-worker breakdown) out of the registry's ``ps.wire.*`` counters;
+    :meth:`merge` never mirrors, its counts mirrored as they streamed."""
 
     __slots__ = ("bytes_sent", "bytes_received", "msgs_sent", "msgs_received",
-                 "encode_s", "decode_s", "_lock")
+                 "encode_s", "decode_s", "_lock", "_mirror")
 
-    def __init__(self):
+    def __init__(self, mirror: bool = True):
         self.bytes_sent = 0
         self.bytes_received = 0
         self.msgs_sent = 0
         self.msgs_received = 0
         self.encode_s = 0.0
         self.decode_s = 0.0
-        self._lock = threading.Lock()
+        self._lock = san_lock()
+        self._mirror = mirror
 
     def add_sent(self, nbytes: int, encode_s: float = 0.0):
         with self._lock:
             self.bytes_sent += nbytes
             self.msgs_sent += 1
             self.encode_s += encode_s
+        tel = _wire_registry() if self._mirror else None
+        if tel is not None:
+            tel[0].inc(nbytes)
+            tel[1].inc()
+            tel[2].inc(encode_s)
 
     def add_received(self, nbytes: int, decode_s: float = 0.0):
         with self._lock:
             self.bytes_received += nbytes
             self.msgs_received += 1
             self.decode_s += decode_s
+        tel = _wire_registry() if self._mirror else None
+        if tel is not None:
+            tel[3].inc(nbytes)
+            tel[4].inc()
+            tel[5].inc(decode_s)
 
     def snapshot(self) -> Dict[str, Union[int, float]]:
         """The six counters under one lock hold (the ``stats`` opcode's
@@ -82,8 +115,12 @@ def _sync(value) -> float:
         return 0.0
     t0 = time.perf_counter()
     if hasattr(value, "reshape"):
-        value.reshape(-1)[-1].item()
-    return time.perf_counter() - t0
+        with telemetry.span("train.readback_wait"):
+            value.reshape(-1)[-1].item()
+    elapsed = time.perf_counter() - t0
+    if telemetry.enabled():
+        telemetry.counter("train.readback_wait_s").inc(elapsed)
+    return elapsed
 
 
 class ThroughputMeter:

@@ -318,14 +318,45 @@ exits non-zero without them, or when any phase fails. Phases:
    fused head's launches a step, and at d1024 x 12 the fused loss within
    rtol 1e-2 of the plain head's; (d) ``run_all --only lm1b_lstm`` in its
    own process.
-20. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll``, ``moe``, ``async_ps`` and ``lm_family``; the
-   fused head's also at D = 1,024), then the result line.
+20. The telemetry planes (``--only telemetry`` alone), around the flagship
+   d512 x 6 at vocab 32,000 through ``train()``, at micro 64 x seq 256 x
+   accum 2 (the real 384 x 256 x 8 step takes 1.25 s; the phase runs about
+   90 steps), its batches carrying an all-ones float ``mask``: (a) every
+   plane off, then every plane armed (``AUTODIST_TELEMETRY``, ``_PROFILE``,
+   ``_HEALTH``, ``_METRICS_DIR``, ``_METRICS_PORT`` on a free loopback port,
+   ``_RECORDER``): tokens/s, device kernels and busy ms a step, what health
+   adds, and a disabled span's cost times the spans a step as a share of
+   the step; (d) ``train.mfu`` within 10% of the phase's own MFU (a
+   ``FlopCounterMode`` count, the fused head's kernels counted by their own
+   operations, over the measured step time, against ``peak_spec``), the
+   attribution shares, and the profile written to ``AUTODIST_PROFILE_DIR``
+   calibrating the autotuner (source ``profile:...``); (e) the census of
+   params and optimizer state equals their tensors' bytes, the budget's
+   source is "measured", a 1 TiB ``torch.empty`` raises
+   ``OutOfMemoryError``, which ``record_oom`` books; (f) ``tracing.trace``
+   around two ``train()`` steps writes a device trace naming
+   ``xent_fwd_kernel`` and host spans with ``train.dispatch``, and a
+   ``/metrics`` scrape lists ``train.steps_per_s`` and ``train.mfu``; (b)
+   the health bundle of one step against the norms computed on the host
+   (rtol 1e-3), and under ``train(unroll=8)`` the graph's reduced bundle
+   against eight eager steps'; (c) ``AUTODIST_HEALTH_ACTION=recover`` with
+   ``AUTODIST_FAULTS=nan_grads@step=5`` per step and a batch poisoned once
+   under ``unroll=8``: the run rolls back, finishes, and its params equal a
+   clean run's bit for bit; (g) phase 18's server and one worker process
+   (``CHIP_SMOKE_WORKER=telemetry``) with spans on and
+   ``AUTODIST_TRACE_PULL=1``: the merged cluster trace has two lanes, and
+   the worker's step splits by its ``ps.*`` spans, its parameter copies
+   timed apart.
+21. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll``, ``moe``, ``async_ps``, ``lm_family`` and
+   ``telemetry``; the fused head's also at D = 1,024), then the result line.
 
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
-async_ps``, ``--only lm_family``) builds the kernels and runs phase 16 (or
-17, 18, 19) alone, without the kernel line. A process the Coordinator launched (``AUTODIST_WORKER``
-set) runs only phase 18 (e)'s worker half and prints no result line.
+async_ps``, ``--only lm_family``, ``--only telemetry``) builds the kernels
+and runs phase 16 (or 17, 18, 19, 20) alone, without the kernel line. A
+process the Coordinator launched (``AUTODIST_WORKER`` set) runs only phase
+18 (e)'s worker half, or phase 20 (g)'s with ``CHIP_SMOKE_WORKER=telemetry``,
+and prints no result line.
 """
 
 import collections
@@ -2978,6 +3009,462 @@ def lm_family_path(kernels, dev):
     return dict(total)
 
 
+# Phase 20: the flagship's step at a cut batch (the real 384 x 256 x 8 step
+# takes 1.25 s, and the phase's runs total about 90 steps).
+TEL_MICRO, TEL_ACCUM, TEL_SEQ = 64, 2, 256
+TEL_STEPS, TEL_LOG_EVERY = 13, 4          # (a)'s runs: periods close at 5, 9, 13
+TEL_SPAN_REPS = 200_000                   # disabled spans timed
+TEL_UNROLL = 8
+TEL_REMOTE_STEPS = 4
+
+
+def tel_bench():
+    """Phase 20's helpers: the shape, batches, session and plane arming of
+    ``python -m autodist_tpu_torch.examples.benchmark.telemetry``."""
+    from autodist_tpu_torch.examples.benchmark import telemetry
+    return telemetry
+
+
+def tel_config():
+    return tel_bench().config(vocab=V, d_model=D)
+
+
+def tel_batch(cfg, i, poison=False):
+    return tel_bench().make_batch(cfg, i, TEL_MICRO * TEL_ACCUM, TEL_SEQ, poison=poison)
+
+
+def tel_runner(model, params, dev, health=None):
+    return tel_bench().session(model, params, dev, TEL_ACCUM, health=health)
+
+
+def tel_train(runner, params, batches, steps, **kw):
+    """``train()``; ``(state, tokens/s of each log period)``."""
+    return tel_bench().train_rates(runner, params, batches, steps, TEL_SEQ, **kw)
+
+
+def tel_profile(runner, state, batches):
+    """Device kernels and busy ms a step over ``run()`` steps of
+    ``batches[1:]`` (``batches[0]`` in the profiler's warm-up), and the
+    window's kernels by name."""
+    from autodist_tpu_torch.examples.benchmark import step_kernels
+    per_step, busy_ms, names, _ = step_kernels.kernels_a_step(runner, state, batches)
+    return per_step, busy_ms, names
+
+
+def host_norms(tensors) -> float:
+    return math.sqrt(sum(float(torch.linalg.vector_norm(t.detach().double().cpu())) ** 2
+                         for t in tensors))
+
+
+def tel_check_bundle(runner, state, batch):
+    """(b) per step: one ``run()``; the bundle against the norms computed on
+    the host (f64) from the same gradients (recomputed from the params
+    before the step), the step's change and the params before it."""
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    sharded = runner.shard_batch(batch)
+    leaves = {k: v.clone().requires_grad_(k in state.opt_params) for k, v in before.items()}
+    grads, _, _ = runner._accumulate(leaves, sharded, state.ef_state)
+    runner.run(state, batch)
+    got = runner.last_health.detach().cpu().numpy()
+    want = [0.0, host_norms(grads.values()),
+            host_norms(state.params[k].detach() - before[k] for k in grads),
+            host_norms(t for t in before.values() if t.is_floating_point())]
+    err = max(abs(float(g) - w) / max(abs(w), 1e-30) for g, w in zip(got[1:], want[1:]))
+    log(f"telemetry (b): bundle {got.tolist()} vs host {want}: largest relative gap "
+        f"{err:.2e}; card {card_line()}")
+    if got[0] != 0 or err > 1e-3:
+        raise AssertionError(f"telemetry (b): the bundle disagrees with the host norms ({err})")
+
+
+def tel_recover(model, params, dev, unroll):
+    """(c): a NaN step under ``AUTODIST_HEALTH_ACTION=recover`` rolls back and
+    the run ends equal to a clean one; the fault is ``AUTODIST_FAULTS``'
+    ``nan_grads`` per step (the batch's float mask NaN-filled), a batch
+    poisoned on its first pull under ``unroll``. ``(rollback seconds, graph
+    captures of the healed run)``."""
+    from autodist_tpu_torch import telemetry
+    from autodist_tpu_torch.testing import faults
+    from autodist_tpu_torch.training import train
+    cfg = tel_config()
+    steps, log_every = (8, 2) if unroll == 1 else (3 * TEL_UNROLL, TEL_UNROLL)
+    fault_at = 5 if unroll == 1 else 2 * TEL_UNROLL + TEL_UNROLL // 2
+    fired = []
+
+    def poisoned(i):
+        poison = unroll > 1 and i == fault_at and not fired
+        if poison:
+            fired.append(i)
+        return tel_batch(cfg, i, poison=poison)
+
+    def run(batches, env):
+        with tel_bench().Planes(None):
+            os.environ.update(env)
+            try:
+                runner = tel_runner(model, params, dev, health=True)
+                monitor = telemetry.HealthMonitor()
+                t0 = time.perf_counter()
+                state = train(runner, params, batches, steps=steps, log_every=log_every,
+                              unroll=unroll, health_monitor=monitor)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+                faults.clear()
+        return state, monitor, wall, runner
+
+    clean, mon, clean_s, _ = run(lambda i: tel_batch(cfg, i), {})
+    env = {"AUTODIST_HEALTH_ACTION": "recover"}
+    if unroll == 1:
+        env["AUTODIST_FAULTS"] = f"nan_grads@step={fault_at}"
+        faults.install(faults.parse(env["AUTODIST_FAULTS"]))
+    healed, hmon, healed_s, runner = run(poisoned, env)
+    same = same_params({k: v.detach() for k, v in healed.params.items()},
+                       {k: v.detach() for k, v in clean.params.items()})
+    kinds = [a["kind"] for a in hmon.anomalies]
+    log(f"telemetry (c) unroll={unroll}: fault at step {fault_at + 1}, anomalies {kinds}; "
+        f"healed run {healed_s:.2f} s against a clean {clean_s:.2f} s ({steps} steps, "
+        f"log_every {log_every}: the rollback's deep copies, replayed steps and, under "
+        f"unroll, the graph's re-capture cost {healed_s - clean_s:.2f} s); final params "
+        f"equal the clean run's bit for bit: {same}; graphs held after the rollback "
+        f"{len(runner._graphs)}; card {card_line()}")
+    if not (same and healed.step == steps and kinds and set(kinds) == {"nonfinite"}
+            and not mon.anomalies):
+        raise AssertionError(f"telemetry (c) unroll={unroll}: the rollback did not heal "
+                             f"the run (same {same}, anomalies {kinds})")
+    return healed_s - clean_s
+
+
+def tel_oom(dev) -> bool:
+    """A 1 TiB allocation on the card: it must raise ``OutOfMemoryError``,
+    which the memory plane recognises and books; whether it recognised it."""
+    from autodist_tpu_torch.telemetry import memplane
+    try:
+        torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        memplane.record_oom("chip_smoke", e)
+        return memplane.is_oom_error(e)
+    raise AssertionError("telemetry (e): a 1 TiB torch.empty did not raise")
+
+
+def telemetry_worker():
+    """Phase 20 (g)'s worker half (``CHIP_SMOKE_WORKER=telemetry``): the
+    flagship over the transport for ``TEL_REMOTE_STEPS`` steps with spans
+    on, the step's split by its ``ps.*`` spans, and the copies timed apart;
+    closing the runner pushes the span ring to the chief
+    (``AUTODIST_TRACE_PULL``)."""
+    from autodist_tpu_torch import const, telemetry
+    from autodist_tpu_torch.parallel import ps_transport
+    from autodist_tpu_torch.strategy import PS
+    telemetry.enable()
+    dev = torch.device("cuda:0")
+    cfg, step = async_session(dev, PS(sync=False), resource_info=ASYNC_TWO_NODES)
+    batches = async_batches(step, cfg, range(TEL_REMOTE_STEPS))
+    t0_ns = time.perf_counter_ns()
+    rows = []
+    for batch in batches:
+        ts = time.perf_counter()
+        float(step(batch))
+        rows.append(1e3 * (time.perf_counter() - ts))
+    spans = collections.defaultdict(list)
+    for name, _, t0, dur, _ in telemetry.snapshot_spans():
+        if name.startswith("ps.") and t0 >= t0_ns:
+            spans[name].append(dur / 1e6)
+    remote = step.runner._remote_worker
+    params = remote._cached_pull[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = ps_transport._to_host(params)
+    d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    {k: v.to(dev) for k, v in host.items()}
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    step.runner.close()      # under AUTODIST_TRACE_PULL: pushes this ring to the chief
+    report = {"step_ms": rows, "spans_ms": {k: v for k, v in sorted(spans.items())},
+              "copy_ms": {"device_to_host": 1e3 * d2h, "host_to_device": 1e3 * h2d},
+              "param_bytes": sum(v.numel() * v.element_size() for v in host.values()),
+              "clock_offset_ns": remote.clock_offset_ns,
+              "clock_offset_err_ns": remote.clock_offset_err_ns}
+    with open(os.path.join(const.DEFAULT_WORKING_DIR, "chip_telemetry_worker.json"), "w") as f:
+        json.dump(report, f)
+    print(f"telemetry worker: {report}", file=sys.stderr, flush=True)
+    return 0
+
+
+def tel_remote(dev, tmp):
+    """(g) the chief half: serve the flagship to one worker process with
+    spans on and ``AUTODIST_TRACE_PULL=1``, merge the cluster trace."""
+    from autodist_tpu_torch import const, telemetry
+    from autodist_tpu_torch.strategy import PS
+    report_path = os.path.join(const.DEFAULT_WORKING_DIR, "chip_telemetry_worker.json")
+    if os.path.exists(report_path):
+        os.remove(report_path)
+    env = {"AUTODIST_TELEMETRY": "1", "AUTODIST_TRACE_PULL": "1",
+           "CHIP_SMOKE_WORKER": "telemetry"}
+    os.environ.update(env)
+    telemetry.enable()
+    try:
+        _, step = async_session(dev, PS(sync=False), resource_info=ASYNC_TWO_NODES)
+        ad, runner = step.autodist, step.runner
+        if not ad._coordinator.join(timeout=600.0):
+            raise AssertionError("telemetry (g): the worker process did not finish in 600 s")
+        path = runner.collect_cluster_trace(os.path.join(tmp, "cluster.json"))
+        ad._teardown()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        telemetry.disable()
+    with open(path) as f:
+        lanes = {e["pid"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+    with open(report_path) as f:
+        report = json.load(f)
+    log(f"telemetry (g): the cluster trace merges {len(lanes)} lanes; worker step ms "
+        f"{[round(x, 3) for x in report['step_ms']]}; clock offset {report['clock_offset_ns']} "
+        f"+- {report['clock_offset_err_ns']} ns; card {card_line()}")
+    for name, durs in report["spans_ms"].items():
+        log(f"telemetry (g):   {name}: {len(durs)} spans, ms {[round(x, 3) for x in durs]}")
+    log(f"telemetry (g):   copies of the {report['param_bytes']} parameter bytes: device to "
+        f"host {report['copy_ms']['device_to_host']:.3f} ms, host to device "
+        f"{report['copy_ms']['host_to_device']:.3f} ms")
+    if len(lanes) != 2:
+        raise AssertionError(f"telemetry (g): the cluster trace has lanes {lanes}, want 2")
+
+
+def telemetry_path(kernels, dev):
+    """Phase 20: the telemetry planes around the flagship's train()."""
+    import tempfile
+    import urllib.request
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from autodist_tpu_torch import telemetry
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.ops import fused_xent as fx
+    from autodist_tpu_torch.strategy.autotune import _load_calibration
+    from autodist_tpu_torch.telemetry import health, memplane, openmetrics, profiling
+    from autodist_tpu_torch.utils import tracing
+
+    cfg = tel_config()
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    tokens = TEL_MICRO * TEL_ACCUM * TEL_SEQ
+    log(f"telemetry: the flagship d512 x 6, vocab {V}, at micro {TEL_MICRO} x seq {TEL_SEQ} x "
+        f"accum {TEL_ACCUM} ({tokens} tokens a step; the real 384 x 256 x 8 step is 1.25 s, "
+        f"too long for the phase's ~90 steps); card {card_line()}")
+    batches = lambda i: tel_batch(cfg, i)  # noqa: E731
+    for k in kernels:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        exporter = openmetrics.MetricsExporter(port=0, host="127.0.0.1")
+        openmetrics.set_exporter(exporter)
+        armed = tel_bench().armed_env(tmp, exporter.address[1])
+        try:
+            # (a) Cost: every plane off and every plane armed, in turns (off,
+            # armed, armed, off), before any profiler window: once a profiler
+            # session has run, the process's launches stay slower.
+            rates = {"off": [], "armed": []}
+            for turn, which in enumerate(("off", "armed", "armed", "off")):
+                with tel_bench().Planes(armed if which == "armed" else None):
+                    r = tel_runner(model, params, dev)
+                    telemetry.clear()
+                    profiling.reset()
+                    _, period_rates = tel_train(r, params, batches, TEL_STEPS,
+                                                log_every=TEL_LOG_EVERY)
+                    rates[which].append(tel_bench().mean_after_first(period_rates))
+                    if turn == 2:   # the second armed run: its gauges and spans
+                        on_rates = period_rates
+                        spans_per_step = len(telemetry.snapshot_spans()) / TEL_STEPS
+                        mfu_gauge = telemetry.gauge("train.mfu").value
+                        attr = {p: telemetry.gauge(f"train.attr.{p}").value
+                                for p in profiling.ATTR_PHASES}
+                        recorded = {sig: (rec.flops, rec.dispatches, rec.source)
+                                    for sig, rec in profiling.program_costs().items()}
+                del r
+                free_card()
+            off_rate = sum(rates["off"]) / 2
+            on_rate = sum(rates["armed"]) / 2
+            with tel_bench().Planes(None):
+                off = tel_runner(model, params, dev)
+                st = off.init(params)
+                off.run(st, batches(0))
+                off_kernels, off_busy, off_names = tel_profile(
+                    off, st, [batches(i) for i in (1, 2, 3)])
+                span_t0 = time.perf_counter()
+                for _ in range(TEL_SPAN_REPS):
+                    with telemetry.span("x"):
+                        pass
+                span_ns = 1e9 * (time.perf_counter() - span_t0) / TEL_SPAN_REPS
+                del off, st
+            free_card()
+            with tel_bench().Planes(armed):
+                # Health off, every other plane armed: the same kernels a
+                # step as every plane off (the planes add host work only).
+                quiet = tel_runner(model, params, dev, health=False)
+                quiet_state = quiet.init(params)
+                quiet.run(quiet_state, batches(0))
+                quiet_kernels, _, quiet_names = tel_profile(
+                    quiet, quiet_state, [batches(i) for i in (1, 2, 3)])
+                del quiet, quiet_state
+                free_card()
+                log(f"telemetry (a): health off, the other planes armed: {quiet_kernels:.0f} "
+                    f"device kernels a step against {off_kernels:.0f} with every plane off; "
+                    f"the same kernels by name: {quiet_names == off_names}; card "
+                    f"{card_line()}")
+                if quiet_names != off_names:
+                    diff = (quiet_names - off_names) + (off_names - quiet_names)
+                    raise AssertionError(f"telemetry (a): with health off the armed planes "
+                                         f"change the step's kernels: {dict(diff)}")
+                on = tel_runner(model, params, dev)
+                on_state = on.init(params)
+                on.run(on_state, batches(0))
+                on_kernels, on_busy, _ = tel_profile(on, on_state,
+                                                     [batches(i) for i in (1, 2, 3)])
+                step_s = TEL_SEQ * TEL_MICRO * TEL_ACCUM / on_rate
+                log(f"telemetry (a): in turns off, armed, armed, off: planes off "
+                    f"{[round(x, 1) for x in rates['off']]} tokens/s, every plane armed "
+                    f"{[round(x, 1) for x in rates['armed']]} ({on_rate / off_rate:.4f} of off "
+                    f"on the means); off {off_kernels:.0f} device kernels and {off_busy:.3f} "
+                    f"busy ms a step, armed {on_kernels:.0f} and {on_busy:.3f}: health adds "
+                    f"{on_kernels - off_kernels:.0f} launches and {on_busy - off_busy:.3f} "
+                    f"device ms a step; a disabled span {span_ns:.1f} ns x "
+                    f"{spans_per_step:.1f} spans a step = "
+                    f"{span_ns * spans_per_step / 1e9 / step_s:.2e} of the step; card "
+                    f"{card_line()}")
+
+                # (d) Attribution: train.mfu against the phase's own count.
+                # The phase's own count: FlopCounterMode over the step's loss
+                # and gradient traced on fake CPU tensors, where the fused
+                # head runs its plain version; the card runs the head's
+                # kernels, so their own operation counts replace the plain
+                # head's (counted apart the same way).
+                n = TEL_MICRO * TEL_SEQ
+                head_w = params["lm_head.kernel"]
+                with FakeTensorMode():
+                    fake = {k: torch.empty(v.shape, dtype=v.dtype).requires_grad_()
+                            for k, v in params.items()}
+                    micro = {"tokens": torch.empty((TEL_MICRO, TEL_SEQ + 1), dtype=torch.int32),
+                             "mask": torch.empty((TEL_MICRO, TEL_SEQ + 1))}
+                    with FlopCounterMode(display=False) as counter:
+                        loss = tlm.make_loss_fn(model)(fake, micro)
+                        torch.autograd.grad(loss, list(fake.values()))
+                    h = torch.empty((n, D), dtype=torch.bfloat16, requires_grad=True)
+                    w = torch.empty(tuple(head_w.shape), dtype=head_w.dtype,
+                                    requires_grad=True)
+                    with FlopCounterMode(display=False) as head_counter:
+                        nll = fx.fused_softmax_xent(h, w, torch.zeros(n, dtype=torch.long))
+                        torch.autograd.grad(nll.sum(), [h, w])
+                counted = counter.get_total_flops()
+                head_plain = head_counter.get_total_flops()
+                head = sum(fx._kernel_cost(name, n, D, V, False)[1]
+                           for name in ("xent_fwd", "xent_dh", "xent_dwdb"))
+                own_flops = TEL_ACCUM * (counted - head_plain + head)
+                peak = profiling.peak_spec(dev)
+                # The gauge is the last period's: its step time.
+                last_step_s = tokens / on_rates[-1]
+                own_mfu = own_flops / last_step_s / peak.flops_per_s
+                calib, source = _load_calibration(None)
+                log(f"telemetry (d): train.mfu {mfu_gauge} against the phase's own "
+                    f"{own_mfu:.4f} (FlopCounterMode {own_flops:.4e} a step over the last "
+                    f"period's {last_step_s:.4f} s, peak {peak.to_dict()}); program costs "
+                    f"{recorded}; attribution shares {attr}; "
+                    f"calibration from the profile: {source} {calib}; card {card_line()}")
+                if not (mfu_gauge and abs(mfu_gauge - own_mfu) <= 0.1 * own_mfu):
+                    raise AssertionError(f"telemetry (d): train.mfu {mfu_gauge} vs {own_mfu}")
+                if not source.startswith("profile:"):
+                    raise AssertionError(f"telemetry (d): calibration source {source}")
+
+                # (e) Memory.
+                memplane.tag("params", on_state.params)
+                memplane.tag("opt_state", on_state.optimizer)
+                census = memplane.census()
+                p_bytes = sum(t.numel() * t.element_size() for t in on_state.params.values())
+                o_bytes = sum(t.numel() * t.element_size()
+                              for s in on_state.optimizer.state.values()
+                              for t in s.values() if isinstance(t, torch.Tensor))
+                budget, budget_source = memplane.device_budget()
+                oom_before = telemetry.counter("mem.oom").value
+                booked = tel_oom(dev)
+                oom_booked = telemetry.counter("mem.oom").value - oom_before
+                log(f"telemetry (e): census params {census.get('params')} vs {p_bytes} bytes, "
+                    f"opt_state {census.get('opt_state')} vs {o_bytes}; budget {budget} "
+                    f"({budget_source}); the 1 TiB allocation raised OutOfMemoryError, "
+                    f"recognised {booked}, mem.oom +{oom_booked}; card {card_line()}")
+                if (census.get("params"), census.get("opt_state")) != (p_bytes, o_bytes) \
+                        or budget_source != "measured" or not booked or oom_booked != 1:
+                    raise AssertionError("telemetry (e): the memory plane disagrees")
+
+                # (f) Traces and the scrape.
+                trace_dir = os.path.join(tmp, "trace")
+                with tracing.trace(trace_dir=trace_dir, with_host_spans=True):
+                    tel_train(on, params, batches, 2, log_every=1)
+                with open(os.path.join(trace_dir, "device_trace.json")) as f:
+                    names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+                with open(os.path.join(trace_dir, "host_spans_w0.json")) as f:
+                    host = {e["name"] for e in json.load(f)["traceEvents"]}
+                url = "http://127.0.0.1:%d/metrics" % exporter.address[1]
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    scrape = r.read().decode()
+                has = {m: m.replace(".", "_") in scrape for m in ("train.steps_per_s",
+                                                                  "train.mfu")}
+                log(f"telemetry (f): device trace kernels include xent_fwd_kernel "
+                    f"{any('xent_fwd_kernel' in n for n in names)}; host spans "
+                    f"{sorted(host)[:12]}; /metrics lists {has}")
+                if not (any("xent_fwd_kernel" in n for n in names) and "train.dispatch" in host
+                        and all(has.values())):
+                    raise AssertionError("telemetry (f): a trace or the scrape lacks its names")
+            del on, on_state
+            free_card()
+
+            # (b) The bundle per step, and reduced in the graph under unroll.
+            with tel_bench().Planes(None):
+                r = tel_runner(model, params, dev, health=True)
+                st = r.init(params)
+                r.run(st, batches(0))
+                tel_check_bundle(r, st, batches(1))
+                del r, st
+                free_card()
+                per_step = tel_runner(model, params, dev, health=True)
+                st = per_step.init(params)
+                eager = []
+                for i in range(TEL_UNROLL):
+                    per_step.run(st, batches(i))
+                    eager.append(per_step.last_health.clone())
+                want = health.reduce_bundle(torch.stack(eager)).cpu()
+                del per_step, st
+                free_card()
+                fused = tel_runner(model, params, dev, health=True)
+                t0 = time.perf_counter()
+                tel_train(fused, params, batches, TEL_UNROLL, unroll=TEL_UNROLL,
+                          log_every=TEL_UNROLL)
+                torch.cuda.synchronize()
+                got = fused.last_health.cpu()
+                log(f"telemetry (b) unroll={TEL_UNROLL}: the graph's reduced bundle "
+                    f"{got.tolist()} vs the max of {TEL_UNROLL} eager steps' {want.tolist()} "
+                    f"(train() with the warm-up block and capture {time.perf_counter() - t0:.2f}"
+                    f" s); card {card_line()}")
+                if not torch.allclose(got, want, rtol=1e-3, equal_nan=False):
+                    raise AssertionError("telemetry (b): the reduced bundle disagrees")
+                del fused
+                free_card()
+
+            # (c) Recovery, per step and under unroll.
+            for unroll in (1, TEL_UNROLL):
+                tel_recover(model, params, dev, unroll)
+                free_card()
+        finally:
+            openmetrics.set_exporter(None)
+        launches = {k.__name__: k.launches for k in kernels}
+
+        # (g) The remote async step, traced.
+        tel_remote(dev, tmp)
+    free_card()
+    missing = [name for name, count in launches.items() if name.startswith("xent_") and not count]
+    if missing:
+        raise AssertionError(f"telemetry: the flagship never launched {missing}")
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
@@ -2986,7 +3473,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if os.environ.get("AUTODIST_WORKER"):
-        # Launched by phase 18's Coordinator: the worker half only, no result.
+        # Launched by phase 18's or 20's Coordinator: the worker half only, no result.
+        if os.environ.get("CHIP_SMOKE_WORKER") == "telemetry":
+            return telemetry_worker()
         return async_ps_worker()
     from autodist_tpu_torch.ops import _build
     from autodist_tpu_torch.ops import flash_attention as fa
@@ -3024,10 +3513,12 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
-    if only in ("unroll", "moe_pipe", "async_ps", "lm_family"):
-        # Phase 16, 17, 18 or 19 alone (a shorter call while it is worked on); no kernel line.
+    if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry"):
+        # Phase 16, 17, 18, 19 or 20 alone (a shorter call while it is worked on); no kernel
+        # line.
         path = {"unroll": unroll_path, "moe_pipe": moe_pipe_path,
-                "async_ps": async_ps_path, "lm_family": lm_family_path}[only]
+                "async_ps": async_ps_path, "lm_family": lm_family_path,
+                "telemetry": telemetry_path}[only]
         log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3074,6 +3565,7 @@ def main(argv=None) -> int:
     by_phase["moe"] = timed("17 moe and pipelines", moe_pipe_path, every, dev)
     by_phase["async_ps"] = timed("18 async ps", async_ps_path, every, dev)
     by_phase["lm_family"] = timed("19 lm family", lm_family_path, every, dev)
+    by_phase["telemetry"] = timed("20 telemetry", telemetry_path, every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

@@ -10,6 +10,7 @@ import random
 import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -128,8 +129,8 @@ def _linear_runner():
 
 def test_recovery_and_fault_harness():
     """Backoff stays bounded; an eviction books once; the snapshot ring
-    bounds and copies; rollback escalates by re-raising, and refuses the
-    planes it has no port of; the fault grammar parses and fires exactly
+    bounds and copies; rollback escalates by re-raising, and snapshots
+    through an armed flight recorder; the fault grammar parses and fires exactly
     ``count`` times; ``nan_grads`` NaN-fills a batch's floats (ints kept)
     through train()'s step."""
     assert all(0.0 <= recovery.backoff_s(a, 0.2, cap_s=2.0) <= 2.0 for a in range(20))
@@ -150,12 +151,19 @@ def test_recovery_and_fault_harness():
     assert recovery.rollback(signal, ring, attempt=1, max_attempts=2)["w"][0] == 3.0
     with pytest.raises(RuntimeError, match="anomaly"):
         recovery.rollback(signal, ring, attempt=3, max_attempts=2)
-    os.environ["AUTODIST_RECORDER"] = "1"
-    try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            recovery.rollback(signal, ring, attempt=1, max_attempts=2)
-    finally:
-        del os.environ["AUTODIST_RECORDER"]
+    # With the flight recorder armed, a rollback snapshots the evidence (the
+    # escalated attempt above dropped step 3, so the newest is step 2).
+    from autodist_tpu_torch.telemetry import recorder
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["AUTODIST_RECORDER"] = "1"
+        os.environ["AUTODIST_RECORDER_DIR"] = tmp
+        try:
+            recorder.set_recorder(None)
+            assert recovery.rollback(signal, ring, attempt=1, max_attempts=2)["w"][0] == 2.0
+            assert any("recover.rollback.s2" in d for d in os.listdir(tmp))
+        finally:
+            recorder.set_recorder(None)
+            del os.environ["AUTODIST_RECORDER"], os.environ["AUTODIST_RECORDER_DIR"]
     points = faults.parse("worker_crash@step=3,worker=1;wire_reset@op=read,count=2")
     assert [(p.kind, p.step, p.worker, p.op, p.count) for p in points] == \
         [("worker_crash", 3, 1, None, 1), ("wire_reset", None, None, "read", 2)]

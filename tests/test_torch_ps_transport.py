@@ -4,6 +4,9 @@ JAX client against the port's ``PSServer``, over the native plane and the
 Python one; the telemetry opcodes; and a port worker stepping over the
 transport against the in-process one."""
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,7 @@ from autodist_tpu.parallel import ps_transport as jax_transport
 from autodist_tpu.parallel import staleness as jax_staleness
 from autodist_tpu.parallel import synchronization as jax_sync
 from autodist_tpu.runner import TrainState as JaxTrainState
-from autodist_tpu_torch import AutoDist
+from autodist_tpu_torch import AutoDist, telemetry
 from autodist_tpu_torch.parallel import ps_transport as transport
 from autodist_tpu_torch.parallel import staleness
 from autodist_tpu_torch.parallel import synchronization as sync
@@ -130,22 +133,62 @@ def test_port_and_jax_endpoints_serve_each_other(native, monkeypatch):
     assert [r[1] for r in (runs[0][2], runs[0][7], runs[0][9])] == [0, 1, 2]
 
 
-def test_telemetry_opcodes_get_the_unknown_op_frame_naming_their_item():
-    server = transport.PSServer(_PortStub(), watchdog=False)
-    jclient = jax_transport._PSClient("%s:%d" % server.address)
-    client = transport._PSClient("%s:%d" % server.address)
+def test_telemetry_opcodes_get_the_unknown_op_frame_naming_their_item(tmp_path, monkeypatch):
+    """The telemetry opcodes against a port server and a JAX server: with the
+    same span ring behind both, ``trace`` replies byte-identical frames;
+    ``push_trace`` acknowledges alike and the deposited ring merges into a
+    two-lane cluster trace; ``reqtrace`` gets the same unknown-op frame (a
+    PS server serves no requests); ``record`` writes a snapshot directory on
+    each; the port client's ``estimate_clock_offset`` and ``trace`` work
+    against both."""
+    from autodist_tpu.parallel import wire as jax_wire
+    from autodist_tpu.telemetry import spans as jax_spans
+    from autodist_tpu_torch.parallel import wire as port_wire
+    from autodist_tpu_torch.telemetry import spans as port_spans
+    columns = (4242, 10, ["ps.push"], [7], [0, 0], [0, 0], [11, 25], [3, 4], [None, {"w": 1}],
+               {7: "main"}, 1_000, 900)
+    monkeypatch.setattr(jax_spans, "_export_columns", lambda since=None: columns)
+    monkeypatch.setattr(port_spans, "_export_columns", lambda since=None: columns)
+    monkeypatch.setenv("AUTODIST_RECORDER_DIR", str(tmp_path))
+    monkeypatch.setattr("autodist_tpu.telemetry.recorder._RECORDER", None)
+    monkeypatch.setattr("autodist_tpu_torch.telemetry.recorder._RECORDER", None)
+    servers = [transport.PSServer(_PortStub(), watchdog=False),
+               jax_transport.PSServer(_JaxStub(), watchdog=False)]
+    clients = [jax_transport._PSClient("%s:%d" % srv.address) for srv in servers]
     try:
-        for op in ("trace", "push_trace", "reqtrace", "record"):
-            reply = jclient.call_raw((op,), jclient.wire)
-            assert reply[:2] == ("error", "PSClientError")
-            assert "unknown op" in reply[2] and "Queue 1 item 7" in reply[2]
-            with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-                client.call(op)
-        assert jclient.call("ping", 5)[0] == 5
+        frames = []
+        for jclient in clients:
+            trace = jclient.call_raw(("trace", None), jclient.wire)
+            state = dict(trace[1], worker_id=3)
+            frames.append([jax_wire.encode(trace),
+                           jax_wire.encode(jclient.call_raw(("push_trace", 3, state),
+                                                            jclient.wire)),
+                           jax_wire.encode(jclient.call_raw(("reqtrace",), jclient.wire))])
+            path = jclient.call("record", "manual")[0]
+            assert sorted(os.listdir(path)) == sorted(
+                ["manifest.json", "metrics.json", "events.jsonl", "trace.json"])
+        assert frames[0] == frames[1]
+        assert port_wire.decode(frames[0][2])[:2] == ("error", "PSClientError")
+        assert list(servers[0].worker_traces()) == [3]
+        merged = telemetry.collect_cluster_trace(str(tmp_path / "cluster.json"),
+                                                 server=servers[0])
+        with open(merged) as f:
+            lanes = {e["pid"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+        assert len(lanes) == 2
+        for srv in servers:
+            worker = transport.RemotePSWorker("%s:%d" % srv.address, runner=None, worker_id=0,
+                                              overlap=False)
+            try:
+                offset, err = worker.estimate_clock_offset(rounds=3)
+                assert abs(offset) <= err + 50_000_000
+                assert list(worker.trace()["names"]) == ["ps.push"]
+            finally:
+                worker.close()
     finally:
-        client.close()
-        jclient.close()
-        server.close()
+        for c in clients:
+            c.close()
+        for srv in servers:
+            srv.close()
 
 
 def _loss(p, b):

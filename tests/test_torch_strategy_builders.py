@@ -7,6 +7,8 @@ and optimizer-state partition specs with and without ZeRO, the policies of
 flagship loss's walked index leaves against JAX's detection, and what
 raises instead of running."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -268,16 +270,41 @@ def test_unported_parts_raise_naming_their_roadmap_item():
 
 @pytest.mark.parametrize("flag", ["AUTODIST_TELEMETRY", "AUTODIST_METRICS_DIR",
                                   "AUTODIST_DUMP_GRAPHS"])
-def test_telemetry_flags_raise_naming_queue_1_item_7(flag, monkeypatch):
-    """The three telemetry flags the JAX package reads (spans, the metrics
-    history's store, the graph dumps) make train() raise, naming the item
-    that ports them, instead of running without them."""
+def test_telemetry_flags_raise_naming_queue_1_item_7(flag, monkeypatch, tmp_path):
+    """The three telemetry flags the JAX package reads each produce their
+    output through train(): spans in the ring (``train.dispatch`` among
+    them), a metrics-history shard under ``AUTODIST_METRICS_DIR``, and the
+    FX graphs of the loss and the step under the working dir's graphs/."""
+    from autodist_tpu_torch import const, telemetry
+    from autodist_tpu_torch.telemetry import history
     from autodist_tpu_torch.training import train
     ad = AutoDist(resource_info={"nodes": [{"address": "localhost", "gpus": [0]}]},
                   strategy_builder=tstrategy.AllReduce(), device="cpu")
     params = {"w": torch.ones(3)}
     runner = ad.create_distributed_session(lambda p, b: (p["w"] * b["x"]).sum(), params,
                                            lambda p: torch.optim.SGD(p, lr=0.1))
-    monkeypatch.setenv(flag, "/tmp/metrics" if flag == "AUTODIST_METRICS_DIR" else "1")
-    with pytest.raises(NotImplementedError, match=f"{flag}.*Queue 1 item 7"):
-        train(runner, params, lambda i: {"x": torch.ones(3)}, steps=1)
+    monkeypatch.setenv(flag, str(tmp_path / "metrics") if flag == "AUTODIST_METRICS_DIR"
+                       else "1")
+    monkeypatch.setattr(const, "DEFAULT_GRAPH_DUMP_DIR", str(tmp_path / "graphs"))
+    history.set_history(None)
+    was = telemetry.enabled()
+    if flag == "AUTODIST_TELEMETRY":
+        telemetry.enable()   # what the flag does at import
+    try:
+        state = train(runner, params, lambda i: {"x": torch.ones(3)}, steps=2, log_every=1)
+        assert state.step == 2
+        if flag == "AUTODIST_TELEMETRY":
+            assert {"train.dispatch", "runner.run.dispatch", "jit.compile"} <= \
+                {s[0] for s in telemetry.snapshot_spans()}
+        elif flag == "AUTODIST_METRICS_DIR":
+            shards = os.listdir(tmp_path / "metrics")
+            assert shards and all(n.startswith("metrics-") and n.endswith(".jsonl")
+                                  for n in shards)
+        else:
+            dumped = sorted(os.listdir(tmp_path / "graphs" / "train_step"))
+            assert dumped == ["0-original.fx.txt", "1-distributed.fx.txt"]
+            assert "aten" in (tmp_path / "graphs" / "train_step" / "1-distributed.fx.txt").read_text()
+    finally:
+        history.set_history(None)
+        if not was:
+            telemetry.disable()

@@ -13,8 +13,10 @@ synchronous one. Against JAX ``train()``, everything f32: the losses rtol
 
 import functools
 import json
+import os
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -198,23 +200,61 @@ def test_aux_and_fetches_match_jax():
     assert not taux["twice"].requires_grad
 
 
-def test_unported_parts_raise(monkeypatch):
-    """The planes train() has not ported raise; unroll > 1 is ported and runs."""
-    runner = _runner()
+def test_unported_parts_raise(monkeypatch, tmp_path):
+    """What was refused before the telemetry planes were ported now runs:
+    ``health_monitor=`` (the monitor sees every step's loss and the bundle),
+    and ``AUTODIST_HEALTH`` (a monitor from the environment and a runner
+    that computes the bundle), ``AUTODIST_PROFILE`` (a profile under
+    ``AUTODIST_PROFILE_DIR``), ``AUTODIST_METRICS_PORT`` (a scrape endpoint
+    on a free loopback port) and ``AUTODIST_ALERT_ACTION``; each leaves the
+    params equal to a plain run's. unroll > 1 runs as well."""
+    from autodist_tpu_torch import telemetry
+    from autodist_tpu_torch.telemetry import openmetrics, profiling
     params = from_jax_params(_jax_params())
-    with pytest.raises(NotImplementedError, match="health_monitor"):
-        train(runner, params, _batch, steps=1, health_monitor=object())
-    for flag in ("AUTODIST_HEALTH", "AUTODIST_PROFILE", "AUTODIST_METRICS_PORT",
-                 "AUTODIST_ALERT_ACTION"):
-        with monkeypatch.context() as m:
-            m.setenv(flag, "1")
-            with pytest.raises(NotImplementedError, match=flag):
-                train(runner, params, _batch, steps=1)
-    assert runner.losses == []
-    with prefetch.prefetch_to_device([_batch(0), _batch(1)], runner, unroll=2) as feed:
+    plain = train(_runner(), params, _batch, steps=2, log_every=1)
+    monitor = telemetry.HealthMonitor(telemetry.HealthConfig(action="warn"))
+    runner = _runner()
+    runner.health = True
+    state = train(runner, params, _batch, steps=2, log_every=1, health_monitor=monitor)
+    assert monitor.anomalies == [] and runner.last_health.shape == (4,)
+    assert torch.equal(state.params["lm_head.kernel"], plain.params["lm_head.kernel"])
+    was = telemetry.enabled()
+    # The scrape endpoint binds loopback on a free port; the flag names it.
+    exporter = openmetrics.MetricsExporter(port=0, host="127.0.0.1")
+    openmetrics.set_exporter(exporter)
+    try:
+        for flag, value in (("AUTODIST_HEALTH", "1"), ("AUTODIST_PROFILE", "1"),
+                            ("AUTODIST_METRICS_PORT", str(exporter.address[1])),
+                            ("AUTODIST_ALERT_ACTION", "warn")):
+            with monkeypatch.context() as m:
+                m.setenv(flag, value)
+                m.setenv("AUTODIST_PROFILE_DIR", str(tmp_path / flag))
+                if flag == "AUTODIST_PROFILE":
+                    profiling.enable()
+                try:
+                    runner = _runner()
+                    state = train(runner, params, _batch, steps=2, log_every=1)
+                finally:
+                    profiling.disable()
+                    profiling.reset()
+                    if not was:
+                        telemetry.disable()
+                assert torch.equal(state.params["lm_head.kernel"],
+                                   plain.params["lm_head.kernel"])
+                if flag == "AUTODIST_HEALTH":
+                    assert runner.health and runner.last_health is not None
+                if flag == "AUTODIST_PROFILE":
+                    assert os.listdir(tmp_path / flag)
+                if flag == "AUTODIST_METRICS_PORT":
+                    url = "http://127.0.0.1:%d/metrics" % exporter.address[1]
+                    with urllib.request.urlopen(url, timeout=10) as r:
+                        assert b"train_steps_per_s" in r.read()
+    finally:
+        openmetrics.set_exporter(None)
+    assert train(_runner(), params, _batch, steps=2, unroll=2).step == 2
+    with prefetch.prefetch_to_device([_batch(0), _batch(1)], _runner(), unroll=2) as feed:
         block = next(feed)
     assert isinstance(block, BatchBlock) and len(block) == 2
-    assert train(runner, params, _batch, steps=2, unroll=2).step == 2
 
 
 # ------------------------------------------------------------- the feed core
