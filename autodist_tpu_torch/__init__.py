@@ -32,7 +32,10 @@ rest of the benchmark suite (``examples.benchmark``: ``bert``, ``ncf``,
 ``disk_input``, ``raw_torch_baseline``, ``run_all``); and expert and
 pipeline parallelism: ``ExpertParallel`` with the MoE LM (``models.moe``)
 and ``Pipeline`` with the pipeline LM (``models.pipeline_lm``) over the
-GPipe, 1F1B and interleaved-1F1B schedules (:mod:`autodist_tpu_torch.parallel.pipeline`).
+GPipe, 1F1B and interleaved-1F1B schedules (:mod:`autodist_tpu_torch.parallel.pipeline`);
+and serving (:mod:`autodist_tpu_torch.serving`): the KV-cache decode path and
+``generate``, the continuous batcher, the dense and paged engines, the
+inference server, the fleet router and the ``torch.export`` serving artifact.
 ``ROADMAP.md`` lists what is next.
 """
 

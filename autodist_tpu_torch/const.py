@@ -149,6 +149,21 @@ _ENV_DEFAULTS = {
     "AUTODIST_REQTRACE_RING": 4096,
     "AUTODIST_MEM_BUDGET": 0,
     "AUTODIST_MEM_PRESSURE": 0.92,
+    # The serving plane (autodist_tpu/const.py:296-309): the transport
+    # address clients and servers default to, the decode-slot capacity, the
+    # batching discipline, the admission-queue bound, the server-side
+    # completion wait; the router's replica count, the paged KV cache's page
+    # length (0: the dense per-slot slab) and shared-prefix cache, and the
+    # router's own address. ServeConfig.from_env() and Router read them.
+    "AUTODIST_SERVE_ADDR": "",
+    "AUTODIST_SERVE_MAX_BATCH": 8,
+    "AUTODIST_SERVE_MODE": "continuous",
+    "AUTODIST_SERVE_QUEUE": 256,
+    "AUTODIST_SERVE_TIMEOUT_S": 120.0,
+    "AUTODIST_SERVE_REPLICAS": 2,
+    "AUTODIST_KV_PAGE_LEN": 0,
+    "AUTODIST_PREFIX_CACHE": True,
+    "AUTODIST_ROUTER_ADDR": "",
 }
 
 

@@ -138,9 +138,32 @@ class BoundedQueue:
                     wait = min(wait, remaining)
                 self._cond.wait(wait)
 
+    def pop_nowait(self):
+        """The next item or :data:`EMPTY`, without waiting (a closed queue
+        too: the drain path)."""
+        with self._cond:
+            if not self._items:
+                return EMPTY
+            item = self._items.popleft()
+            self._cond.notify_all()
+            return item
+
+    def wait_nonempty(self, timeout_s: float) -> bool:
+        """Wait (bounded) until an item is there or the queue closes; True
+        when an item is waiting."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        with self._cond:
+            while not self._items and not self._closed:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(min(self.POLL_S, remaining))
+            return bool(self._items)
+
     def close(self) -> List[Any]:
         """Close and drain: wakes every blocked putter and getter and
-        returns the undelivered items. Idempotent."""
+        returns the undelivered items (the serving batcher fails them back
+        to their clients). Idempotent."""
         with self._cond:
             self._closed = True
             drained = list(self._items)

@@ -62,6 +62,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def model_config(args: argparse.Namespace) -> transformer_lm.TransformerLMConfig:
+    """The flagship's model config for ``args`` (bf16 on a card, f32 on the
+    host)."""
+    return transformer_lm.TransformerLMConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=8, n_layers=args.n_layers,
+        d_ff=4 * args.d_model, max_len=512,
+        dtype=torch.bfloat16 if resolve_device(args.device).type == "cuda" else torch.float32,
+        tied_output=False, fused_head=True)
+
+
 def build(args: argparse.Namespace, builder=None, resource_info: Optional[dict] = None,
           **session) -> Tuple[transformer_lm.TransformerLMConfig, Callable, object]:
     """``(config, step, batch)``: the ``AutoDist.function`` step with fresh
@@ -72,11 +82,7 @@ def build(args: argparse.Namespace, builder=None, resource_info: Optional[dict] 
     goes to ``AutoDist.function`` (``num_workers=``, ``zero=``); the
     ``AutoDist`` is ``step.autodist``."""
     device = resolve_device(args.device)
-    cfg = transformer_lm.TransformerLMConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_heads=8, n_layers=args.n_layers,
-        d_ff=4 * args.d_model, max_len=512,
-        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
-        tied_output=False, fused_head=True)
+    cfg = model_config(args)
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
     if builder is None:
         builder = getattr(strategies, args.strategy)()

@@ -80,6 +80,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def model_config(args: argparse.Namespace) -> transformer_lm.TransformerLMConfig:
+    """The model config for ``args``: ring attention under a seq axis, else
+    ``--attention`` ("auto" is flash); bf16 on a card, f32 on the host."""
+    if args.seq_axis > 1:
+        attention = "ring"
+    else:
+        attention = "flash" if args.attention == "auto" else args.attention
+    return transformer_lm.TransformerLMConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=8,
+        n_layers=args.n_layers, d_ff=4 * args.d_model, max_len=args.seq_len,
+        dtype=torch.bfloat16 if resolve_device(args.device).type == "cuda" else torch.float32,
+        tied_output=False, remat=not args.no_remat, attention_impl=attention,
+        fused_head=True)
+
+
 def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig, Callable,
                                              Dict[str, np.ndarray]]:
     """``(config, step, batch)``: the model config, the ``AutoDist.function``
@@ -87,17 +102,8 @@ def build(args: argparse.Namespace) -> Tuple[transformer_lm.TransformerLMConfig,
     and the synthetic batch the example trains on."""
     device = resolve_device(args.device)
     sequence_parallel = args.seq_axis > 1
-    if sequence_parallel:
-        attention = "ring"
-    else:
-        attention = "flash" if args.attention == "auto" else args.attention
     batch_size = args.batch_size or max(1, 393_216 // args.seq_len)
-    cfg = transformer_lm.TransformerLMConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_heads=8,
-        n_layers=args.n_layers, d_ff=4 * args.d_model, max_len=args.seq_len,
-        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
-        tied_output=False, remat=not args.no_remat, attention_impl=attention,
-        fused_head=True)
+    cfg = model_config(args)
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
     batch = transformer_lm.synthetic_batch(cfg, batch_size=batch_size,
                                            seq_len=args.seq_len)

@@ -31,8 +31,18 @@ each changes the numbers:
 - The embedding rows are gathered in f32 and cast to the compute dtype
   (flax casts the table and gathers: the same values).
 
-Decode (the carry cache) and ``generate`` raise: serving is ROADMAP.md,
-Queue 1 item 6.
+Decode (``autodist_tpu/models/lstm_lm.py:53-78``): flax's ``cache``
+collection is explicit state, :func:`init_cache`'s dict of each layer's
+carry ``lm.carry_{i}`` = ``(c, h)``, ``[B, H]`` each, which ``apply(...,
+decode=True, cache=cache)`` updates in place. flax creates that carry in the
+compute dtype, not f32 as the training path's, so at bf16 its decode
+rounds ``c`` and ``h`` to bf16 every step; the port runs the recurrence one
+step at a time from the carry and rounds both to the compute dtype between
+steps (at f32 it runs all steps in one call: no rounding to do). Within a
+step the kernel keeps ``f * c_prev + i * g`` and ``o * tanh(c)`` in f32
+where flax rounds each product to bf16 first: the bf16 gap is a last-bit
+one, held by the tests. :func:`generate` is the prefill-then-step loop with
+the full-softmax head.
 """
 
 import dataclasses
@@ -46,12 +56,12 @@ from torch import nn
 from torch.func import functional_call
 
 from autodist_tpu_torch.models import layers
+from autodist_tpu_torch.models.common import make_keys, row_seeds, sample_logits
 from autodist_tpu_torch.ops.fused_xent import fused_softmax_xent
 from autodist_tpu_torch.ops.lstm_cell import lstm_recurrence
 from autodist_tpu_torch.utils.device import resolve_device
 
 GATES = "ifgo"
-SERVING_ROADMAP = "ROADMAP.md, Queue 1 item 6: serving"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +106,27 @@ class OptimizedLSTMCell(nn.Module):
         return torch.cat([getattr(getattr(self, f"{side}{gate}"), leaf) for gate in GATES],
                          dim=-1).to(self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, carry=None) -> torch.Tensor:
+        """With ``carry`` (the decode cache's ``(c, h)`` in the compute
+        dtype) the recurrence starts from it, rounds it to the compute dtype
+        after every step as flax's decode carry is, writes the final one back
+        in place and returns ``h`` in the compute dtype."""
         x_gates = x.to(self.dtype) @ self._cat("i", "kernel")          # [B, T, 4H]
-        return lstm_recurrence(x_gates, self._cat("h", "kernel"), self._cat("h", "bias"))
+        wh, bh = self._cat("h", "kernel"), self._cat("h", "bias")
+        if carry is None:
+            return lstm_recurrence(x_gates, wh, bh)
+        c, h = carry
+        steps = x_gates.shape[1]
+        chunk = steps if self.dtype == torch.float32 else 1
+        outs = []
+        for t in range(0, steps, chunk):
+            (c_t, _), hs = lstm_recurrence(x_gates[:, t:t + chunk].contiguous(), wh, bh,
+                                           initial_carry=(c, h), return_carry=True)
+            c, h = c_t.to(self.dtype), hs[:, -1].to(self.dtype)
+            outs.append(hs.to(self.dtype))
+        carry[0].copy_(c)
+        carry[1].copy_(h)
+        return torch.cat(outs, dim=1)
 
 
 class LSTMLM(nn.Module):
@@ -113,14 +141,16 @@ class LSTMLM(nn.Module):
             self.add_module(f"OptimizedLSTMCell_{i}", OptimizedLSTMCell(
                 cfg.emb_dim if i == 0 else cfg.hidden_dim, cfg.hidden_dim, cfg.dtype))
 
-    def forward(self, tokens: torch.Tensor, decode: bool = False) -> torch.Tensor:
-        if decode:
-            raise NotImplementedError(f"decode (the carry cache) is not ported yet "
-                                      f"({SERVING_ROADMAP})")
+    def forward(self, tokens: torch.Tensor, decode: bool = False, cache=None) -> torch.Tensor:
+        """``decode``: run from and update the carries of ``cache`` (its
+        ``carry_{i}`` entries, see :func:`init_cache`)."""
         cfg = self.config
+        if decode and cache is None:
+            raise ValueError("decode=True needs cache=init_cache(config, batch)")
         x = F.embedding(tokens, self.embed.embedding).to(cfg.dtype)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"OptimizedLSTMCell_{i}")(x)
+            cell = getattr(self, f"OptimizedLSTMCell_{i}")
+            x = cell(x, cache[f"carry_{i}"]) if decode else cell(x)
         return x
 
 
@@ -135,8 +165,12 @@ class LSTMLMWithHead(nn.Module):
         self.softmax_w = _param(config.vocab_size, config.hidden_dim)
         self.softmax_b = _param(config.vocab_size)
 
-    def forward(self, tokens: torch.Tensor, decode: bool = False) -> torch.Tensor:
-        return self.lm(tokens, decode=decode)
+    def forward(self, tokens: torch.Tensor, decode: bool = False, cache=None) -> torch.Tensor:
+        if decode and cache is None:
+            raise ValueError("decode=True needs cache=init_cache(config, batch)")
+        lm_cache = ({k[len("lm."):]: v for k, v in cache.items() if k.startswith("lm.")}
+                    if decode else None)
+        return self.lm(tokens, decode=decode, cache=lm_cache)
 
 
 def apply(model: LSTMLMWithHead, params: Dict[str, torch.Tensor], tokens,
@@ -212,9 +246,63 @@ def make_fused_full_softmax_loss_fn(model: LSTMLMWithHead) -> Callable:
     return loss_fn
 
 
-def generate(*args, **kwargs):
-    """Autoregressive generation: not ported (serving)."""
-    raise NotImplementedError(f"lstm_lm.generate is not ported yet ({SERVING_ROADMAP})")
+def init_cache(config: LSTMLMConfig, batch: int,
+               device: Optional[Union[str, torch.device]] = None):
+    """Zero decode carries for ``batch`` rows, keyed as flax's ``cache``
+    collection of :class:`LSTMLMWithHead`: ``lm.carry_{i}`` = ``(c, h)``,
+    ``[batch, H]`` each in the compute dtype, on ``device`` (the card unless
+    the CPU is asked for)."""
+    device = resolve_device(device)
+    return {f"lm.carry_{i}": tuple(torch.zeros((batch, config.hidden_dim), dtype=config.dtype,
+                                               device=device) for _ in range(2))
+            for i in range(config.n_layers)}
+
+
+def head_logits(h: torch.Tensor, params) -> torch.Tensor:
+    """The full-softmax head on ``[B, H]`` hidden states: f32 ``[B, V]``
+    logits, the table cast to h's dtype and the products accumulated in f32
+    (the JAX head's ``preferred_element_type``), plus the bias."""
+    w = params["softmax_w"].to(h.dtype)
+    return h.float() @ w.float().T + params["softmax_b"]
+
+
+def generate(model: LSTMLMWithHead, params, prompt, max_new_tokens: int,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             rng: Optional[int] = None) -> torch.Tensor:
+    """Autoregressive generation (``autodist_tpu/models/lstm_lm.py:185-240``):
+    int ``[B, P]`` prompt -> int32 ``[B, max_new_tokens]``, the full-softmax
+    head, on the params' device. One prefill apply threads the prompt
+    through the carries, then one decode apply a token; sampling keys as
+    :func:`~autodist_tpu_torch.models.transformer_lm.generate`'s."""
+    device = params["softmax_w"].device
+    prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.long)
+    if prompt.shape[1] < 1:
+        raise ValueError("prompt must have at least one token")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    batch = prompt.shape[0]
+    keys = make_keys(0 if rng is None else rng, max_new_tokens)
+    with torch.no_grad():
+        cache = init_cache(model.config, batch, device)
+        h = apply(model, params, prompt, decode=True, cache=cache)
+        tok = sample_logits(head_logits(h[:, -1], params), row_seeds(keys[0], batch, device),
+                            temperature, top_k, top_p)
+        out = [tok]
+        for i in range(1, max_new_tokens):
+            h = apply(model, params, tok[:, None].long(), decode=True, cache=cache)
+            tok = sample_logits(head_logits(h[:, 0], params), row_seeds(keys[i], batch, device),
+                                temperature, top_k, top_p)
+            out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def make_generate_fn(model: LSTMLMWithHead, max_new_tokens: int, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 0.0) -> Callable:
+    """``f(params, prompt, rng=None)`` closing over the statics."""
+    def f(params, prompt, rng=None):
+        return generate(model, params, prompt, max_new_tokens, temperature=temperature,
+                        top_k=top_k, top_p=top_p, rng=rng)
+    return f
 
 
 def init_params(config: LSTMLMConfig, seed: int = 0,

@@ -28,7 +28,27 @@ Ported: the training (non-decode) path with ``attention_impl`` "dot",
 (:mod:`autodist_tpu_torch.parallel.ulysses`), the last two over the
 ``seq_group`` that ``forward`` is given (the sequence-parallel loss of
 :mod:`autodist_tpu_torch.parallel.sequence` passes its group; None is a
-group of one), and ``remat``. Decode raises ``NotImplementedError``.
+group of one), and ``remat``.
+
+Decode (``autodist_tpu/models/transformer_lm.py:78-143,198-244``): flax's
+``cache`` collection is explicit state here, :func:`init_cache`'s dict keyed
+as the collection (``block_{i}.attn.cached_key`` and ``cached_value``, ``[B,
+max_len, H, hd]`` in the compute dtype, and ``cache_index``), and
+``apply(..., decode=True, cache=cache)`` writes it in place, the
+counterpart of the JAX package's donation. ``cache_index`` is a host
+scalar (a CPU int32 tensor): the write frontier is read without a device
+sync. With a scalar ``pos_offset`` a chunk is written at ``cache_index``
+and attends to keys ``[0, cache_index + i]``; with a ``[B]`` vector each
+row writes and attends at its own position (the continuous batcher's
+slots) and ``cache_index`` is left alone. Both writes reproduce
+``dynamic_update_slice``'s clamp of the start into ``[0, width - chunk]``
+(as the position-embedding slice does), so no call writes or reads past
+the cache. Decode attention is dot attention over the whole cache whatever
+``attention_impl`` says, as in the JAX package, and remat is off; its
+reductions are summed in an order that does not depend on the cache's
+width (:func:`cache_attention`), which the paged engine's identity with the
+dense one rests on.
+:func:`generate` is the prefill-then-step loop.
 """
 
 import dataclasses
@@ -44,15 +64,18 @@ from torch.func import functional_call
 
 from autodist_tpu_torch.models import layers
 from autodist_tpu_torch.models.common import (EMBEDDING, HEAD_KERNEL,
-                                              fused_lm_head_nll, lm_head_logits)
+                                              fused_lm_head_nll, lm_head_logits,
+                                              make_keys, row_seeds, sample_logits)
 from autodist_tpu_torch.ops.blockwise_attention import blockwise_attention
 from autodist_tpu_torch.ops.flash_attention import flash_attention
 from autodist_tpu_torch.parallel.ring_attention import ring_attention
 from autodist_tpu_torch.parallel.synchronization import global_mean
 from autodist_tpu_torch.parallel.ulysses import ulysses_attention
+from autodist_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6
 _ATTENTION_IMPLS = ("dot", "flash", "blockwise", "ring", "ulysses")
+CACHE_LEAVES = ("cached_key", "cached_value", "cache_index")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,10 +181,12 @@ class MultiHeadAttention(nn.Module):
             self.add_module(name, Dense((cfg.d_model,), (cfg.n_heads, hd), cfg.dtype))
         self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype)
 
-    def forward(self, x, mask, seq_group=None):
+    def forward(self, x, mask, seq_group=None, cache=None, decode_pos=None):
         cfg = self.cfg
         q, k, v = self.query(x), self.key(x), self.value(x)
-        if cfg.attention_impl == "ring":
+        if cache is not None:
+            ctx = _decode_attention(q, k, v, cache, decode_pos, cfg.dtype)
+        elif cfg.attention_impl == "ring":
             # x is this rank's shard of the sequence: the ring masks by
             # global position, so no local mask is read.
             ctx = ring_attention(q, k, v, causal=True, group=seq_group)
@@ -188,10 +213,82 @@ class Block(nn.Module):
         self.mlp_in = Dense((cfg.d_model,), (cfg.d_ff,), cfg.dtype)
         self.mlp_out = Dense((cfg.d_ff,), (cfg.d_model,), cfg.dtype)
 
-    def forward(self, x, mask, seq_group=None):
-        x = x + self.attn(self.ln_attn(x), mask, seq_group)
+    def forward(self, x, mask, seq_group=None, cache=None, decode_pos=None):
+        x = x + self.attn(self.ln_attn(x), mask, seq_group, cache, decode_pos)
         h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_out(h)
+
+
+def _decode_attention(q, k, v, cache, decode_pos, dtype):
+    """One decode call's attention over the KV cache ``cache`` (one block's
+    ``cached_key``, ``cached_value`` and ``cache_index``), written in place
+    (see the module docstring)."""
+    ck, cv, ci = (cache[name] for name in CACHE_LEAVES)
+    batch, chunk = q.shape[0], q.shape[1]
+    width = ck.shape[1]
+    keys = torch.arange(width, device=q.device)
+    steps = torch.arange(chunk, device=q.device)
+    if decode_pos is not None:
+        pos = decode_pos.to(device=q.device, dtype=torch.int64)
+        rows = torch.arange(batch, device=q.device)[:, None]
+        cols = pos.clamp(0, width - chunk)[:, None] + steps[None, :]
+        ck[rows, cols] = k.to(dtype)
+        cv[rows, cols] = v.to(dtype)
+        q_pos = pos[:, None] + steps[None, :]                            # [B, chunk]
+        mask = torch.where(keys[None, None, :] <= q_pos[:, :, None],
+                           torch.zeros((), dtype=dtype, device=q.device),
+                           torch.full((), -1e9, dtype=dtype, device=q.device))[:, None]
+    else:
+        idx = int(ci)
+        start = min(max(idx, 0), width - chunk)
+        ck[:, start:start + chunk] = k.to(dtype)
+        cv[:, start:start + chunk] = v.to(dtype)
+        ci.fill_(idx + chunk)
+        q_pos = idx + steps
+        mask = torch.where(keys[None, :] <= q_pos[:, None],
+                           torch.zeros((), dtype=dtype, device=q.device),
+                           torch.full((), -1e9, dtype=dtype, device=q.device))[None, None]
+    return cache_attention(q, ck, cv, mask, dtype)
+
+
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by halving: the dim padded to a power of two with
+    zeros, then its halves added until one entry is left. The pairing of the
+    first m entries is the same for every power-of-two length >= m, so a
+    zero tail of any length leaves the sum as it was, bit for bit, on any
+    device (a library reduction may pick its order by the length)."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        pad = list(x.shape)
+        pad[dim] = width - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while x.shape[dim] > 1:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
+def cache_attention(q, k, v, mask, dtype):
+    """:func:`dot_product_attention`'s arithmetic over a KV cache ``k``/``v``
+    ``[B, W, H, hd]``, with every reduction a :func:`tree_sum` of exact f32
+    products: the scores (rounded to the compute dtype, scaled, masked),
+    the f32 softmax's denominator and ``P.V``. A key the mask hides adds an
+    exact zero, so the result does not depend on the cache's width W: the
+    paged engine's ``K * page_len``-wide context gives the dense engine's
+    bits (where a library product may change its summation order with the
+    width, as the CPU's batched product does below 400 multiply-adds)."""
+    scale = float(torch.tensor(math.sqrt(q.shape[-1])).to(dtype))
+    qh = q.permute(0, 2, 1, 3).float()[:, :, :, None, :]             # [B, H, Q, 1, hd]
+    kh = k.permute(0, 2, 1, 3).float()[:, :, None]                   # [B, H, 1, W, hd]
+    scores = tree_sum(qh * kh, -1).to(dtype) / scale + mask          # [B, H, Q, W]
+    scores = scores.float()
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / tree_sum(e, -1)[..., None]).to(dtype)
+    vh = v.permute(0, 2, 1, 3).float()[:, :, None]                   # [B, H, 1, W, hd]
+    ctx = tree_sum(probs.float()[..., None] * vh, -2)                # [B, H, Q, hd]
+    return ctx.to(dtype).permute(0, 2, 1, 3)
 
 
 class TransformerLM(nn.Module):
@@ -209,26 +306,46 @@ class TransformerLM(nn.Module):
         if not cfg.tied_output:
             self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg.dtype)
 
-    def forward(self, tokens, pos_offset: int = 0, return_hidden: bool = False,
-                decode: bool = False, seq_group=None):
+    def forward(self, tokens, pos_offset=0, return_hidden: bool = False,
+                decode: bool = False, seq_group=None, cache=None):
         """``tokens`` int ``[B, L]`` -> logits ``[B, L, V]`` in the compute
         dtype, or the final hidden states ``[B, L, D]`` with
         ``return_hidden`` (the fused-head loss owns the projection).
         ``pos_offset`` is the global position of the first token and
-        ``seq_group`` the seq group of ``attention_impl`` "ring" or "ulysses"."""
-        if decode:
-            raise NotImplementedError("decode (KV-cache) mode is not ported yet")
+        ``seq_group`` the seq group of ``attention_impl`` "ring" or "ulysses".
+        ``decode``: the KV-cache path over ``cache`` (:func:`init_cache`),
+        written in place; there ``pos_offset`` may be a ``[B]`` vector, each
+        row's own position."""
         cfg = self.config
         length = tokens.shape[1]
-        pos = self.pos_embed[pos_offset:pos_offset + length]
-        x = self.embed(tokens) + pos[None].to(cfg.dtype)
+        per_row = torch.is_tensor(pos_offset) and pos_offset.dim() == 1
+        if per_row and not decode:
+            raise ValueError("per-row pos_offset requires decode=True "
+                             "(the KV-cache path owns per-row positions)")
+        if decode and cache is None:
+            raise ValueError("decode=True needs cache=init_cache(config, batch)")
+        if per_row:
+            idx = pos_offset.to(device=tokens.device, dtype=torch.int64)[:, None] \
+                + torch.arange(length, device=tokens.device)[None, :]
+            pos = self.pos_embed[idx.clamp(0, cfg.max_len - 1)]          # [B, L, D]
+        else:
+            start = int(pos_offset)
+            if decode:   # dynamic_slice's clamp, as the JAX decode path slices
+                start = min(max(start, 0), cfg.max_len - length)
+            pos = self.pos_embed[start:start + length][None]
+        x = self.embed(tokens) + pos.to(cfg.dtype)
         # Only dot attention reads the [L, L] mask; the others mask by position.
         mask = (causal_mask(length, cfg.dtype, device=x.device)
-                if cfg.attention_impl == "dot" else None)
+                if cfg.attention_impl == "dot" and not decode else None)
         for i in range(cfg.n_layers):
             block = getattr(self, f"block_{i}")
-            x = (_checkpointed(block, x, mask, seq_group) if cfg.remat
-                 else block(x, mask, seq_group))
+            if decode:
+                leaves = {name: cache[f"block_{i}.attn.{name}"] for name in CACHE_LEAVES}
+                x = block(x, None, None, leaves, pos_offset if per_row else None)
+            elif cfg.remat:
+                x = _checkpointed(block, x, mask, seq_group)
+            else:
+                x = block(x, mask, seq_group)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -254,6 +371,72 @@ def _checkpointed(block: Block, x, mask, seq_group=None):
 def apply(model: TransformerLM, params: Dict[str, torch.Tensor], tokens, **kwargs):
     """``model(tokens, **kwargs)`` with ``params`` as its parameters."""
     return functional_call(model, params, (tokens,), kwargs)
+
+
+def init_cache(config: TransformerLMConfig, batch: int,
+               device: Optional[Union[str, torch.device]] = None) -> Dict[str, torch.Tensor]:
+    """A zeroed KV cache for ``batch`` rows, keyed as flax's ``cache``
+    collection: per block ``cached_key`` and ``cached_value`` ``[batch,
+    max_len, H, hd]`` in the compute dtype on ``device`` (the card unless the
+    CPU is asked for), and ``cache_index``, a CPU int32 scalar."""
+    device = resolve_device(device)
+    hd = config.d_model // config.n_heads
+    cache = {}
+    for i in range(config.n_layers):
+        for name in CACHE_LEAVES[:2]:
+            cache[f"block_{i}.attn.{name}"] = torch.zeros(
+                (batch, config.max_len, config.n_heads, hd), dtype=config.dtype, device=device)
+        cache[f"block_{i}.attn.cache_index"] = torch.zeros((), dtype=torch.int32)
+    return cache
+
+
+def generate(model: TransformerLM, params, prompt, max_new_tokens: int,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             rng: Optional[int] = None) -> torch.Tensor:
+    """Autoregressive generation with a KV cache: int ``[B, P]`` prompt ->
+    int32 ``[B, max_new_tokens]`` continuation, on the params' device.
+
+    One prefill apply of the whole prompt writes the cache, and only the
+    last position is projected to logits; then one decode apply a token.
+    Step i samples row b with seed ``make_keys(rng, n)[i] + b * stride``
+    (:func:`~autodist_tpu_torch.models.common.row_seeds`); ``rng`` is an int
+    seed (None: 0)."""
+    cfg = model.config
+    device = next(iter(params.values())).device
+    prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.long)
+    batch, prompt_len = prompt.shape
+    if prompt_len < 1:
+        raise ValueError("prompt must have at least one token")
+    if prompt_len + max_new_tokens > cfg.max_len:
+        raise ValueError(f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+                         f"exceeds max_len ({cfg.max_len})")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    keys = make_keys(0 if rng is None else rng, max_new_tokens)
+    with torch.no_grad():
+        cache = init_cache(cfg, batch, device)
+        hidden = apply(model, params, prompt, pos_offset=0, decode=True, return_hidden=True,
+                       cache=cache)
+        last = lm_head_logits(hidden[:, -1], params, tied=cfg.tied_output)
+        tok = sample_logits(last, row_seeds(keys[0], batch, device), temperature, top_k, top_p)
+        out = [tok]
+        for i in range(1, max_new_tokens):
+            logits = apply(model, params, tok[:, None].long(), pos_offset=prompt_len + i - 1,
+                           decode=True, cache=cache)
+            tok = sample_logits(logits[:, 0], row_seeds(keys[i], batch, device), temperature,
+                                top_k, top_p)
+            out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def make_generate_fn(model: TransformerLM, max_new_tokens: int, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 0.0) -> Callable:
+    """``f(params, prompt, rng=None) -> [B, max_new_tokens]`` closing over the
+    statics (the JAX package's ``jit``-compiled form; eager here)."""
+    def f(params, prompt, rng=None):
+        return generate(model, params, prompt, max_new_tokens, temperature=temperature,
+                        top_k=top_k, top_p=top_p, rng=rng)
+    return f
 
 
 def init_params(config: TransformerLMConfig, seed: int = 0,

@@ -210,9 +210,12 @@ def _check_recurrence(x_gates, wh, bh) -> None:
                              "dtype, on one device")
 
 
-def _forward_cuda(x_gates, wh, bh, hs, cs, acts) -> None:
+def _forward_cuda(x_gates, wh, bh, hs, cs, acts, h_init=None) -> None:
     """The forward steps on the card: a product and a kernel launch each,
-    the operands' addresses computed, not sliced."""
+    the operands' addresses computed, not sliced. ``cs`` may be a view whose
+    rows are longer than ``steps`` carries; with ``h_init`` (an initial
+    carry's h in the compute dtype) the first step takes its product and the
+    carry ``c`` in the slot before ``cs[:, 0]``."""
     batch, steps, g4 = x_gates.shape
     hidden = g4 // 4
     dtype = x_gates.dtype
@@ -221,12 +224,15 @@ def _forward_cuda(x_gates, wh, bh, hs, cs, acts) -> None:
     h_t = torch.empty((batch, hidden), dtype=dtype, device=x_gates.device)
     bf16 = int(dtype == torch.bfloat16)
     xg0, c0, h0, a0 = x_gates.data_ptr(), cs.data_ptr(), hs.data_ptr(), acts.data_ptr()
+    ld_c = cs.stride(0)
+    carried = h_init is not None
     stream = torch.cuda.current_stream().cuda_stream
     for t in range(steps):
-        if t:
-            torch.mm(h_t, wh, out=yh)
-        _launch_fwd(yh.data_ptr() if t else None, bh.data_ptr(), xg0 + t * g4 * size,
-                    steps * g4, c0 + (t - 1) * hidden * 4 if t else None, steps * hidden,
+        if t or carried:
+            torch.mm(h_t if t else h_init, wh, out=yh)
+        _launch_fwd(yh.data_ptr() if t or carried else None, bh.data_ptr(),
+                    xg0 + t * g4 * size, steps * g4,
+                    c0 + (t - 1) * hidden * 4 if t or carried else None, ld_c,
                     c0 + t * hidden * 4, h0 + t * hidden * 4, steps * hidden, h_t.data_ptr(),
                     a0 + t * g4 * size, steps * g4, batch, hidden, bf16, stream)
 
@@ -327,9 +333,51 @@ def _recurrence_flops(x_shape, wh_shape, bh_shape, *args, out_shape=None, **kwar
     return 2 * batch * max(steps - 1, 0) * (g4 // 4) * g4
 
 
-def lstm_recurrence(x_gates: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
-    """flax's ``OptimizedLSTMCell`` over time from a zero carry: the input
-    side ``x_gates [B, T, 4H]`` (its product already taken), the hidden-side
-    kernel ``wh [H, 4H]`` and bias ``bh [4H]``, all in the compute dtype ->
-    ``h`` for every step, f32 ``[B, T, H]``."""
-    return _recurrence(x_gates, wh, bh)[0]
+def _carried(x_gates, wh, bh, c0, h0):
+    """The forward steps from the carry ``(c0, h0)`` (no autograd): ``(hs,
+    cs)``, f32 ``[B, T, H]`` each. Its own op is not needed: decode runs it
+    without gradients."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_gates, wh, bh, c0, h0)):
+        raise RuntimeError("lstm_recurrence from an initial carry has no backward; "
+                           "call it under torch.no_grad()")
+    batch, steps, g4 = x_gates.shape
+    hidden = g4 // 4
+    dtype = x_gates.dtype
+    hs = torch.empty((batch, steps, hidden), dtype=torch.float32, device=x_gates.device)
+    # One slot before the steps holds c0, so every step's c_prev shares the
+    # row stride of its c (what the kernel takes).
+    cs_full = torch.empty((batch, steps + 1, hidden), dtype=torch.float32,
+                          device=x_gates.device)
+    cs_full[:, 0] = c0
+    cs = cs_full[:, 1:]
+    acts = torch.empty_like(x_gates)
+    h_t = h0.to(dtype)
+    if x_gates.device.type != "cpu":
+        _check_recurrence(x_gates, wh, bh)
+        with torch.cuda.device(x_gates.device):
+            _forward_cuda(x_gates, wh, bh, hs, cs, acts, h_init=h_t.contiguous())
+        return hs, cs
+    for t in range(steps):
+        h_t = lstm_cell_fwd(h_t @ wh, bh, x_gates[:, t], cs_full[:, t], cs[:, t], hs[:, t],
+                            acts[:, t])
+    return hs, cs
+
+
+def lstm_recurrence(x_gates: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
+                    initial_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    return_carry: bool = False):
+    """flax's ``OptimizedLSTMCell`` over time: the input side ``x_gates [B,
+    T, 4H]`` (its product already taken), the hidden-side kernel ``wh [H,
+    4H]`` and bias ``bh [4H]``, all in the compute dtype -> ``h`` for every
+    step, f32 ``[B, T, H]``. From a zero carry unless ``initial_carry``
+    ``(c, h)`` is given (``[B, H]`` each; c is read in f32, h in the compute
+    dtype; no backward then); ``return_carry`` also returns the final carry
+    ``(c, h)`` in f32, as ``((c, h), hs)`` (flax ``nn.RNN``'s order)."""
+    if initial_carry is None:
+        hs, cs, _ = _recurrence(x_gates, wh, bh)
+    else:
+        c0, h0 = initial_carry
+        hs, cs = _carried(x_gates, wh, bh, c0.float(), h0)
+    if return_carry:
+        return (cs[:, -1], hs[:, -1]), hs
+    return hs

@@ -693,16 +693,21 @@ class _PSClient:
     # after its runner's init).
     CONNECT_TIMEOUT_S = 60.0
 
-    def __init__(self, address):
+    def __init__(self, address, connect_timeout: Optional[float] = None):
+        """``connect_timeout`` bounds the whole retry-until-up loop (default
+        :attr:`CONNECT_TIMEOUT_S`); the serving router passes a short one, a
+        replica that refuses connections being the failure it routes around."""
         if isinstance(address, str):
             host, _, port = address.rpartition(":")
             address = (host, int(port))
         self._address = address
+        self._connect_timeout = (self.CONNECT_TIMEOUT_S if connect_timeout is None
+                                 else float(connect_timeout))
         self._retries = max(0, const.env_int(const.AUTODIST_WIRE_RETRIES, 2))
         self._backoff_s = max(0.0, const.env_float(const.AUTODIST_WIRE_BACKOFF_S, 0.2))
         _native_transport()
         self._closed = False
-        self._sock = self._connect(self.CONNECT_TIMEOUT_S)
+        self._sock = self._connect(self._connect_timeout)
         self._lock = threading.Lock()
         self._pool = _RecvBuffer()
         self.wire = WireCounters()
@@ -769,7 +774,7 @@ class _PSClient:
                     except OSError:
                         pass
                     time.sleep(delay)
-                    self._sock = self._connect(self.CONNECT_TIMEOUT_S)
+                    self._sock = self._connect(self._connect_timeout)
                     self._pool = _RecvBuffer()
 
     def call(self, *msg):

@@ -8,8 +8,10 @@ synchronous strategy; then the data plane, the image-classification
 family (the CNN zoo at full width through the ImageNet benchmark entry
 point), the text family with the rest of the benchmark suite (BERT, NCF,
 disk input, the raw baseline and the sweep), ``run_many``'s CUDA graphs
-with the strategy search, and the MoE LM with expert parallelism and the
-pipeline schedules.
+with the strategy search, the MoE LM with expert parallelism and the
+pipeline schedules, the async PS plane, the LM family, the telemetry planes,
+and the serving plane (decode, the engines, the server, the router and the
+export).
 
     python3 chip_smoke.py
 
@@ -347,13 +349,43 @@ exits non-zero without them, or when any phase fails. Phases:
    ``AUTODIST_TRACE_PULL=1``: the merged cluster trace has two lanes, and
    the worker's step splits by its ``ps.*`` spans, its parameter copies
    timed apart.
-21. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll``, ``moe``, ``async_ps``, ``lm_family`` and
-   ``telemetry``; the fused head's also at D = 1,024), then the result line.
+21. Serving (``--only serving`` alone), at the flagship's full width (d512 x 6,
+   8 heads, d_ff 2048, vocab 32,000, max_len 512, untied head, bf16
+   activations, f32 params, seed 0): (a) decode (a 48-token prefill, then 16
+   single-token steps) against the full forward's logits (within
+   SERVE_LOGIT_RTOL of the largest logit), and lm1b's LSTM at its defaults:
+   the recurrence from a non-zero carry and the bf16 decode path against
+   their plain versions on the host, every tile within TILE_RTOL, the cell
+   kernel launched once a layer a token; (b) the dense engine (8 slots):
+   bench.py's mix (24 prompts of 4-48 tokens, 8 or 48 new) and 4 prompts of
+   256-448 tokens (32 new), greedy, served alone and all together equal to
+   ``generate``, token for token; sampled (0.8, top-k 40) alone equal to
+   ``generate`` with the same seed; (c) the paged engine (page_len 16, the
+   dense engine's KV bytes and a scratch page) equal to the dense one,
+   greedy (with prompts sharing a 4-page prefix: the prefix cache must hit)
+   and sampled, and again after every free page is poisoned with 53.0; the
+   peak concurrency of short requests against the dense slots; (d) not
+   judged: the decode step's ms at B = 1, 8 and 32, its kernels, busy ms and
+   idle share in a profiler window, the prefill's ms a bucket, KV bytes and
+   peak memory, and an ``InferenceServer`` under 8 client threads,
+   continuous against static: requests/s and p50/p99 of queue, prefill,
+   decode and total; (e) a ``RouterServer`` over two replicas on the card,
+   one killed with requests in flight: every request completes with the
+   ``generate`` tokens, no client sees a failure, ``recover.*`` books a
+   respawn; (f) the ``torch.export`` artifact of the full forward, loaded on
+   the card, against the eager apply (within SERVE_LOGIT_RTOL), a load for
+   the CPU refused, the artifact's bytes; (g) ``python -m
+   autodist_tpu_torch.examples.serve_lm --d_model 512 --n_layers 6 --vocab
+   32000 --max_len 512`` in its own process: every request served.
+22. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   phase with ``unroll``, ``moe``, ``async_ps``, ``lm_family``,
+   ``telemetry`` and ``serving``; the fused head's also at D = 1,024), then
+   the result line.
 
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
-async_ps``, ``--only lm_family``, ``--only telemetry``) builds the kernels
-and runs phase 16 (or 17, 18, 19, 20) alone, without the kernel line. A
+async_ps``, ``--only lm_family``, ``--only telemetry``, ``--only serving``)
+builds the kernels and runs phase 16 (or 17, 18, 19, 20, 21) alone, without
+the kernel line. A
 process the Coordinator launched (``AUTODIST_WORKER`` set) runs only phase
 18 (e)'s worker half, or phase 20 (g)'s with ``CHIP_SMOKE_WORKER=telemetry``,
 and prints no result line.
@@ -432,8 +464,8 @@ NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel")
 # Phase 12: the Ulysses replay's shards (4 seq ranks: 2 of the 8 heads each).
 ULYSSES_SHARDS = 4
 # Phase 14: ResNet-50 benchmark runs (strategy, images a card, timed steps).
-IMAGE_RUNS = (("PSLoadBalancing", 32, 30), ("AllReduce", 32, 30),
-              ("PSLoadBalancing", 128, 20), ("AllReduce", 128, 20))
+IMAGE_RUNS = (("PSLoadBalancing", 32, 15), ("AllReduce", 32, 15),
+              ("PSLoadBalancing", 128, 10), ("AllReduce", 128, 10))
 # The record-pool run: (strategy, images a card, timed steps), over record
 # shards of IMAGE_RECORDS records of IMAGE_RECORD_SIZE px, half of them pooled.
 IMAGE_CACHE_RUN = ("PSLoadBalancing", 128, 20)
@@ -896,11 +928,14 @@ def busy_us(kernels) -> float:
 def profile_steps(step, batches, label="profile"):
     """A torch.profiler window over steady steps of a main path: device busy
     time per step (the union of kernel intervals), the device's idle share
-    of the wall time, the port's kernels and the kernels that take the most."""
+    of the wall time, the port's kernels and the kernels that take the most.
+    The window records the card's activity only: nothing here reads a host
+    event, and recording every ATen call as one slowed the steps and took
+    seconds to process (a DenseNet-121 window 8.4 s against 2.9)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
             float(step(batch))
@@ -2204,10 +2239,11 @@ def unroll_rate(runner, state, block, steps: int, kernels):
 
 def idle_share(fn, calls: int, steps_per_call: int, label: str):
     """A profiler window over ``calls`` calls of ``fn`` (each ``steps_per_call``
-    steps): the device's busy ms a step and its idle share of the wall time."""
+    steps): the device's busy ms a step and its idle share of the wall time
+    (the card's activity only, as in :func:`profile_steps`)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             out = fn()
@@ -2240,10 +2276,10 @@ def unroll_path(kernels, dev):
     UNROLL_LAUNCHES.clear()
     failures = []
 
+    t_part = time.perf_counter()
     # The flagship at its real shape, accumulation off (bench.py's sweep).
     args = flagship_lm.parse_args(["--device", str(dev), "--accum", "1"])
-    cfg = flagship_lm.build(args)[0]
-    free_card()
+    cfg = flagship_lm.model_config(args)
     tokens = args.micro_batch * args.seq_len
     batches = [tlm.synthetic_batch(cfg, args.micro_batch, args.seq_len, seed=3000 + i)
                for i in range(6)]
@@ -2281,12 +2317,13 @@ def unroll_path(kernels, dev):
         failures.append(f"flagship: fused-head launches per step at K=4 "
                         f"{rates['K=4'][1]} are not K=1's {rates['K=1'][1]}")
 
+    log(f"unroll: the flagship in {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
     # Long context (phase 6's model, flash, every block rematerialized).
     free_card()
     lc_args = lc.parse_args(["--seq_len", str(LC_SEQ), "--batch_size", str(LC_BATCH),
                              "--device", str(dev)])
-    lc_cfg = lc.build(lc_args)[0]
-    free_card()
+    lc_cfg = lc.model_config(lc_args)
     lc_batches = [tlm.synthetic_batch(lc_cfg, LC_BATCH, LC_SEQ, seed=4000 + i)
                   for i in range(4)]
     same, per_step, per_replay, _ = fused_against_steps(
@@ -2296,6 +2333,8 @@ def unroll_path(kernels, dev):
         failures.append("long context: run_many(2) is not two run() steps, or the flash "
                         "launches per replay are not twice a step's")
 
+    log(f"unroll: long context in {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
     # Phase 11's lowerings at phase 4's size: each captured or refused.
     one_card = {"nodes": [{"address": "localhost", "gpus": [0]}]}
     model_cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6,
@@ -2316,6 +2355,7 @@ def unroll_path(kernels, dev):
 
     captured, uncompressed = {}, None
     for label, builder, options, session, codec in STRATEGY_LOWERINGS:
+        t0 = time.perf_counter()
         try:
             # On one card every uncompressed lowering is AllReduce()'s step
             # bit for bit (phase 11): its run() reference serves them all.
@@ -2331,10 +2371,13 @@ def unroll_path(kernels, dev):
             captured[label] = f"raises: {e}"
             log(f"unroll: lowering {label}: run_many raises: {e}")
             free_card()
+        log(f"unroll: lowering {label} in {time.perf_counter() - t0:.1f} s")
     log(f"unroll: lowerings under run_many: {captured}")
     del model, params
     free_card()
 
+    log(f"unroll: the lowerings in {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
     # NCF at 65,536: the steps/s curve and the idle share at K = 1 and 8.
     strategy = "Parallax"
     for attempt in ("Parallax", "AllReduce"):
@@ -2375,7 +2418,10 @@ def unroll_path(kernels, dev):
         del b, runner, state, batch, block
         free_card()
         break
+    log(f"unroll: NCF in {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
     failures += search_path(dev)
+    log(f"unroll: the search in {time.perf_counter() - t_part:.1f} s")
     bank(kernels)
     launches = {k.__name__: UNROLL_LAUNCHES[k.__name__] for k in kernels}
     if failures:
@@ -3465,6 +3511,463 @@ def telemetry_path(kernels, dev):
     return launches
 
 
+
+# Phase 21: serving at the flagship's full width (bench.py:2503-2506 on the
+# card: d512 x 6, 8 heads, d_ff 2048, vocab 32,000, max_len 512, untied head,
+# bf16 activations, f32 params).
+SERVE_MODEL = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
+                   max_len=512, tied_output=False)
+SERVE_SLOTS = 8                 # the dense engine's decode slots
+SERVE_MIX = 24                  # bench.py:1290-1296's mix: prompts 4-48 tokens, 8 or 48 new
+SERVE_LONG = (4, 256, 449, 32)  # the long-prompt leg: 4 prompts of 256-448 tokens, 32 new
+SERVE_PREFIX = (4, 64)          # requests sharing a 64-token (4-page) prefix
+SERVE_SHORT = 64                # short requests (12 + 12 tokens) for the concurrency ratio
+SERVE_PAGE = 16
+SERVE_CLIENTS = 8
+SERVE_DECODE_BATCHES = (1, 8, 32)
+SERVE_TIMED_STEPS = 20
+SERVE_FLEET_REQUESTS = 16
+SERVE_LOGIT_RTOL = 2e-2         # bf16 logits, decode against the full forward, of max |logit|
+SERVE_LSTM = dict(batch=4, prompt=16, steps=8)
+SERVE_EXAMPLE_ARGS = ["--d_model", "512", "--n_layers", "6", "--vocab", "32000",
+                      "--max_len", "512"]
+
+
+def serve_requests(vocab, seed=0):
+    """bench.py's mix (prompts of 4-48 tokens, 8 or 48 new, alternating),
+    the long-prompt leg, and prompts sharing a page-aligned prefix, as
+    ``(prompt, max_new, seed)``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    mix = [(rng.randint(1, vocab, size=int(rng.randint(4, 48))).astype(np.int32),
+            8 if i % 2 == 0 else 48, i) for i in range(SERVE_MIX)]
+    n, lo, hi, new = SERVE_LONG
+    long = [(rng.randint(1, vocab, size=int(rng.randint(lo, hi))).astype(np.int32), new,
+             100 + i) for i in range(n)]
+    n, plen = SERVE_PREFIX
+    shared = rng.randint(1, vocab, size=plen).astype(np.int32)
+    prefix = [(np.concatenate([shared, rng.randint(1, vocab, size=5 + 7 * i).astype(np.int32)]),
+               12, 200 + i) for i in range(n)]
+    return mix, long, prefix
+
+
+def serve_drive(engine, config, requests):
+    """``requests`` through a Batcher driven round by round: their token
+    tuples and the most requests the engine held at once."""
+    from autodist_tpu_torch.serving import Batcher
+    b = Batcher(engine, config, start=False)
+    reqs = [b.submit(p, n, seed=s) for p, n, s in requests]
+    peak = 0
+    for _ in range(100_000):
+        if all(r.done.is_set() for r in reqs):
+            break
+        b.run_once()
+        peak = max(peak, engine.num_active)
+    bad = [r.error for r in reqs if r.error or not r.done.is_set()]
+    if bad:
+        raise AssertionError(f"serving: requests failed: {bad[:3]}")
+    return [tuple(r.tokens) for r in reqs], peak
+
+
+def first_difference(got, want):
+    """``(request, token index)`` of the first token two runs disagree on."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i, next(j for j in range(min(len(a), len(b)) + 1)
+                           if j == min(len(a), len(b)) or a[j] != b[j])
+    return None
+
+
+def check_tokens(label, got, want):
+    diff = first_difference(got, want)
+    log(f"{label}: {len(got)} requests, {sum(map(len, got))} tokens, "
+        + ("all equal" if diff is None else f"first difference at request {diff[0]}, "
+                                               f"token {diff[1]}"))
+    if diff is not None:
+        raise AssertionError(f"{label}: tokens differ (request {diff[0]}, token {diff[1]})")
+
+
+def serve_load(engine_config, model, params, requests, clients=SERVE_CLIENTS):
+    """An InferenceServer over a started Batcher, ``clients`` client threads
+    sending ``requests``: (requests/s, {phase: (p50 ms, p99 ms)}, errors)."""
+    import numpy as np
+
+    from autodist_tpu_torch import serving
+    engine = serving.LMEngine(model, params, engine_config)
+    server = serving.InferenceServer(serving.Batcher(engine, engine_config))
+    timings, errors, lock = [], [], threading.Lock()
+    try:
+        warm = serving.ServeClient(server.address)
+        for b in sorted({serving.bucket_for(len(p), engine.buckets) for p, _, _ in requests}):
+            warm.generate(np.arange(1, 1 + min(b, engine.max_len - 2), dtype=np.int32), 2)
+        warm.close()
+
+        def client(w):
+            c = serving.ServeClient(server.address)
+            try:
+                for p, n, s in requests[w::clients]:
+                    try:
+                        _, timing = c.generate(p, n, seed=s)
+                        with lock:
+                            timings.append(timing)
+                    except serving.ServeError as e:
+                        with lock:
+                            errors.append(str(e))
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        server.close()
+    phases = {ph: (float(np.percentile([t[f"{ph}_s"] * 1e3 for t in timings], 50)),
+                   float(np.percentile([t[f"{ph}_s"] * 1e3 for t in timings], 99)))
+              for ph in ("queue", "prefill", "decode", "total")} if timings else {}
+    return len(timings) / wall, phases, errors
+
+
+def serving_lstm(dev):
+    """(a)'s LSTM half: lm1b's LSTM at its defaults (embedding 512, hidden
+    1,024, 6 layers, vocab 32,000, bf16): the recurrence from a non-zero
+    carry on the card against its plain version on the host, and the decode
+    path (prefill, then single-token steps, the carry rounded to bf16 between
+    steps) against the same run on the host. Every tile within TILE_RTOL."""
+    from autodist_tpu_torch.examples.lm1b import lm1b_train
+    from autodist_tpu_torch.models import lstm_lm
+    from autodist_tpu_torch.ops import lstm_cell
+
+    args = lm1b_train.parse_args(["--model", "lstm"] + LM_FAMILY_ARGS)
+    hidden = 2 * args.d_model
+    gen = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    x = (torch.randn(SERVE_LSTM["batch"] * 32, 12, 4 * hidden, generator=gen) * 0.5).to(bf)
+    wh = (torch.randn(hidden, 4 * hidden, generator=gen) / hidden ** 0.5).to(bf)
+    bh = (torch.randn(4 * hidden, generator=gen) * 0.1).to(bf)
+    c0 = torch.randn(x.shape[0], hidden, generator=gen)
+    h0 = torch.randn(x.shape[0], hidden, generator=gen).to(bf)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        with torch.no_grad():
+            (c_t, h_t), hs = lstm_cell.lstm_recurrence(
+                x.to(where), wh.to(where), bh.to(where),
+                initial_carry=(c0.to(where), h0.to(where)), return_carry=True)
+        runs.append([t.cpu() for t in (hs, c_t, h_t)])
+    rec = [compare(a, b, 0) for a, b in zip(*runs)]
+    cfg = lstm_lm.LSTMLMConfig(vocab_size=args.vocab, emb_dim=args.d_model, hidden_dim=hidden,
+                               n_layers=args.n_layers, dtype=bf)
+    model, params = lstm_lm.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(1, args.vocab, (SERVE_LSTM["batch"], SERVE_LSTM["prompt"]),
+                           generator=gen)
+    step_tokens = torch.randint(1, args.vocab, (SERVE_LSTM["batch"], SERVE_LSTM["steps"]),
+                                generator=gen)
+    fwd0 = lstm_cell.lstm_cell_fwd.launches
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        p = {k: v.to(where) for k, v in params.items()}
+        cache = lstm_lm.init_cache(cfg, SERVE_LSTM["batch"], where)
+        with torch.no_grad():
+            hs = [lstm_lm.apply(model, p, prompt.to(where), decode=True, cache=cache)]
+            for t in range(SERVE_LSTM["steps"]):
+                hs.append(lstm_lm.apply(model, p, step_tokens[:, t:t + 1].to(where),
+                                        decode=True, cache=cache))
+        outs.append([torch.cat(hs, 1).cpu()] + [c.cpu() for pair in cache.values() for c in pair])
+        if where == dev:
+            launches = lstm_cell.lstm_cell_fwd.launches - fwd0
+    dec = [compare(a, b, 0) for a, b in zip(*outs)]
+    want = args.n_layers * (SERVE_LSTM["prompt"] + SERVE_LSTM["steps"])
+    log(f"serving (a) lstm: the recurrence from a carry, B={x.shape[0]} T=12 H={hidden} bf16, "
+        f"card against host (h, c, h): " + "; ".join(describe(c) for c in rec)
+        + f"; decode at lm1b's defaults ({args.n_layers} x {hidden}, vocab {args.vocab}), "
+        f"prompt {SERVE_LSTM['prompt']} then {SERVE_LSTM['steps']} steps, card against host "
+        f"(h, then every carry): worst tile {max(c[2] for c in dec):.3g}, max abs "
+        f"{max(c[0] for c in dec):.3g}; cell forward launches {launches} (want {want})")
+    if not all(c[2] <= TILE_RTOL for c in rec + dec):
+        raise AssertionError("serving: the lstm recurrence from a carry disagrees with the host's")
+    if dev.type == "cuda" and launches != want:   # the host runs the plain version
+        raise AssertionError(f"serving: lstm decode launched the cell kernel {launches} times, "
+                             f"want {want}")
+
+
+def serving_path(kernels, dev):
+    """Phase 21: the serving plane at the flagship's full width. Returns the
+    port kernels' launches in it (the serving path reaches no TPU-kernel
+    counterpart: decode attention and the head are plain products, as in
+    the JAX package)."""
+    import numpy as np
+
+    from autodist_tpu_torch import serving
+    from autodist_tpu_torch.checkpoint.saved_model_builder import SavedModelBuilder
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.parallel import recovery
+    from autodist_tpu_torch.serving.router import Router, RouterServer
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    for k in kernels:
+        k.launches = 0
+    cfg = tlm.TransformerLMConfig(**SERVE_MODEL, dtype=torch.bfloat16)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    V = cfg.vocab_size
+
+    # (a) decode against the full forward; the LSTM's carry.
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(1, V, (2, 64), generator=gen).to(dev)
+    with torch.no_grad():
+        full = tlm.apply(model, params, toks).float()
+        cache = tlm.init_cache(cfg, 2, dev)
+        parts = [tlm.apply(model, params, toks[:, :48], decode=True, cache=cache)]
+        parts += [tlm.apply(model, params, toks[:, i:i + 1], pos_offset=i, decode=True,
+                            cache=cache) for i in range(48, 64)]
+    dec = torch.cat(parts, 1).float()
+    rel = float((dec - full).abs().max() / full.abs().max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"serving (a): d512 x 6 bf16, decode (prefill 48, then 16 steps) against the full "
+        f"forward: max |diff| {rel:.3g} of max |logit| (tolerance {SERVE_LOGIT_RTOL}), "
+        f"argmax agreement {agree:.4f}; card {card}")
+    if not rel <= SERVE_LOGIT_RTOL:
+        raise AssertionError(f"serving: decode logits differ from the full forward by {rel}")
+    serving_lstm(dev)
+    free_card()
+
+    # (b) the dense engine: greedy served equals generate, alone and in company.
+    mix, long, prefix = serve_requests(V)
+    t0 = time.perf_counter()
+    refs = {s: tuple(tlm.generate(model, params, torch.tensor(p[None]), n).cpu().numpy()[0])
+            for p, n, s in mix + long + prefix}
+    gen_s = time.perf_counter() - t0
+    dense_cfg = serving.ServeConfig(max_batch=SERVE_SLOTS)
+    dense = serving.LMEngine(model, params, dense_cfg)
+    alone = [serve_drive(dense, dense_cfg, [r])[0][0] for r in mix[:4] + long[:2]]
+    check_tokens("serving (b) batch-1 served against generate",
+                 alone, [refs[s] for _, _, s in mix[:4] + long[:2]])
+    t0 = time.perf_counter()
+    together, dense_peak = serve_drive(dense, dense_cfg, mix + long)
+    run_s = time.perf_counter() - t0
+    check_tokens(f"serving (b) the mix and the long prompts together in {SERVE_SLOTS} slots "
+                 f"({run_s:.1f} s; generate alone {gen_s:.1f} s for all)",
+                 together, [refs[s] for _, _, s in mix + long])
+    sampled_cfg = serving.ServeConfig(max_batch=SERVE_SLOTS, temperature=0.8, top_k=40)
+    sampled = serving.LMEngine(model, params, sampled_cfg)
+    picks = mix[:3] + long[:1]
+    got = [serve_drive(sampled, sampled_cfg, [r])[0][0] for r in picks]
+    want = [tuple(tlm.generate(model, params, torch.tensor(p[None]), n, temperature=0.8,
+                               top_k=40, rng=s).cpu().numpy()[0]) for p, n, s in picks]
+    check_tokens("serving (b) sampled (0.8, top-k 40) batch-1 served against generate",
+                 got, want)
+    del sampled
+
+    # (c) the paged engine at the dense engine's KV bytes.
+    paged_cfg = serving.ServeConfig(max_batch=SERVE_SLOTS, page_len=SERVE_PAGE)
+    paged = serving.PagedLMEngine(model, params, paged_cfg)
+    hits0 = serving_counter("serve.kv.prefix_hits")
+    dense_prefix, _ = serve_drive(dense, dense_cfg, prefix)
+    t0 = time.perf_counter()
+    paged_tokens, paged_peak = serve_drive(paged, paged_cfg, mix + long + prefix)
+    paged_s = time.perf_counter() - t0
+    check_tokens("serving (c) paged against dense, greedy", paged_tokens,
+                 together + dense_prefix)
+    hits = serving_counter("serve.kv.prefix_hits") - hits0
+    sampled_dense = serving.LMEngine(model, params, sampled_cfg)
+    sampled_paged = serving.PagedLMEngine(
+        model, params, dataclasses.replace(sampled_cfg, page_len=SERVE_PAGE))
+    picks = mix[:8] + prefix
+    check_tokens("serving (c) paged against dense, sampled",
+                 serve_drive(sampled_paged, sampled_paged.config, picks)[0],
+                 serve_drive(sampled_dense, sampled_cfg, picks)[0])
+    del sampled_dense, sampled_paged
+    free_pages = torch.tensor(paged._alloc._free, dtype=torch.long, device=dev)
+    for leaf in paged._pool.values():
+        leaf[free_pages] = 53.0
+    check_tokens("serving (c) paged after every free page was poisoned with 53.0",
+                 serve_drive(paged, paged_cfg, mix[:4] + prefix[:2])[0],
+                 [refs[s] for _, _, s in mix[:4] + prefix[:2]])
+    # Short requests: pages admit more of them at once than the dense slots do.
+    shorts = [(np.resize(mix[i % len(mix)][0], 12), 12, 300 + i) for i in range(SERVE_SHORT)]
+    _, dense_short_peak = serve_drive(dense, dense_cfg, shorts)
+    _, paged_short_peak = serve_drive(paged, paged_cfg, shorts)
+    log(f"serving (c): page_len {SERVE_PAGE}, {paged.capacity} usable pages; KV bytes dense "
+        f"{dense.kv_bytes()}, paged {paged.kv_bytes()} (the scratch page more); prefix hits "
+        f"{hits}; the mix's peak concurrency dense {dense_peak}, paged {paged_peak}; short "
+        f"requests (12 + 12 tokens) dense {dense_short_peak}, paged {paged_short_peak}: "
+        f"concurrency ratio {paged_short_peak / max(1, dense_short_peak):.3f} at equal KV "
+        f"bytes; paged run {paged_s:.1f} s; step shapes run {paged.compiled_programs()} "
+        f"(prefill, all)")
+    if hits < 1:
+        raise AssertionError("serving: the prefix cache was never hit")
+
+    # (d) speed, not judged.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in SERVE_DECODE_BATCHES:
+        eng_cfg = serving.ServeConfig(max_batch=batch)
+        eng = serving.LMEngine(model, params, eng_cfg)
+        for slot in range(batch):
+            eng.admit(slot, mix[slot % len(mix)][0], None)
+        eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TIMED_STEPS):
+            eng.step()
+        step_ms = 1e3 * (time.perf_counter() - t0) / SERVE_TIMED_STEPS
+        line = (f"serving (d): decode step at B={batch}: {step_ms:.3f} ms "
+                f"({batch / step_ms * 1e3:.1f} tokens/s), KV bytes {eng.kv_bytes()}")
+        if batch == SERVE_SLOTS:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    eng.step()
+                wall = time.perf_counter() - t0
+            kern = device_kernels(prof)
+            if kern:
+                line += (f"; profiler window of 5 steps: {len(kern) // 5} kernels a step, "
+                         f"device busy {busy_us(kern) / 5 / 1e3:.3f} ms a step, idle share "
+                         f"{1 - busy_us(kern) / 1e6 / wall:.3f}")
+            else:
+                line += "; the profiler recorded no device time: busy and idle not measured"
+            prefill = {}
+            for b in eng.buckets:
+                p = np.resize(long[0][0], b)
+                eng.free(0)
+                eng.admit(0, p[:b], None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    eng.free(0)
+                    eng.admit(0, p[:b], None)
+                prefill[b] = round(1e3 * (time.perf_counter() - t0) / 3, 3)
+            line += f"; prefill ms a bucket {prefill}"
+        log(line)
+        del eng
+    log(f"serving (d): max_memory_allocated {torch.cuda.max_memory_allocated()} bytes over the "
+        f"decode timings; card {card}")
+    for mode in ("continuous", "static"):
+        rps, phases, errors = serve_load(
+            dataclasses.replace(dense_cfg, mode=mode), model, params, mix)
+        log(f"serving (d): InferenceServer, {mode}, {SERVE_CLIENTS} clients, {len(mix)} "
+            f"requests: {rps:.2f} requests/s; p50/p99 ms "
+            + ", ".join(f"{ph} {a:.2f}/{b:.2f}" for ph, (a, b) in phases.items())
+            + f"; errors {errors[:2]}")
+        if errors:
+            raise AssertionError(f"serving: {mode} server rejected requests: {errors[:3]}")
+
+    # (e) the fleet: two replicas on the one card, one killed mid-flight.
+    recovery.reset()
+    Router.RESPAWN_BACKOFF_S = 0.05
+
+    def replica():
+        rcfg = serving.ServeConfig(max_batch=4)
+        return serving.InferenceServer(
+            serving.Batcher(serving.LMEngine(model, params, rcfg), rcfg))
+
+    router = Router(replica, n_replicas=2, start=False)
+    front = RouterServer(router)
+    fleet = mix[:SERVE_FLEET_REQUESTS]
+    results, errors, lock = {}, [], threading.Lock()
+    try:
+        victim = router.replicas()[0]
+
+        def killer():
+            deadline = time.monotonic() + 120.0
+            while victim.load() == 0 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            victim.server.kill()
+
+        def client(w):
+            c = serving.ServeClient(front.address)
+            try:
+                for p, n, s in fleet[w::SERVE_CLIENTS]:
+                    try:
+                        toks_, _ = c.generate(p, n, seed=s)
+                        with lock:
+                            results[s] = tuple(toks_)
+                    except Exception as e:   # noqa: BLE001 - counted as a client failure
+                        with lock:
+                            errors.append(repr(e))
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=killer)] + [
+            threading.Thread(target=client, args=(w,)) for w in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        fleet_s = time.perf_counter() - t0
+        counts = recovery.recovery_snapshot()["counts"]
+        replayed = serving_counter("serve.router.replayed")
+    finally:
+        front.close()
+    log(f"serving (e): RouterServer over 2 replicas, replica 0 killed in flight: "
+        f"{len(results)}/{len(fleet)} completed in {fleet_s:.1f} s, client failures "
+        f"{len(errors)}, replayed {replayed}, recovery {counts}")
+    if errors or len(results) != len(fleet) or counts.get("respawns", 0) < 1:
+        raise AssertionError(f"serving: the fleet lost requests or did not respawn: "
+                             f"{errors[:3]}, {counts}")
+    check_tokens("serving (e) the fleet's tokens against generate",
+                 [results[s] for _, _, s in fleet], [refs[s] for _, _, s in fleet])
+
+    # (f) the export.
+    export_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "serving_export")
+    xt = torch.randint(1, V, (2, 64), generator=gen).to(dev)
+
+    def apply_fn(p, tokens):
+        return tlm.apply(model, p, tokens)
+
+    t0 = time.perf_counter()
+    SavedModelBuilder(export_dir).save(params, {"family": "transformer_lm", **SERVE_MODEL},
+                                       apply_fn=apply_fn, example_args=(xt,))
+    export_s = time.perf_counter() - t0
+    serve_fn = SavedModelBuilder.load_serving_fn(export_dir, device=dev)
+    with torch.no_grad():
+        want = apply_fn(params, xt).float()
+    got = serve_fn(SavedModelBuilder.load_params(export_dir, device=dev), xt).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    nbytes = {f: os.path.getsize(os.path.join(export_dir, f)) for f in sorted(os.listdir(export_dir))}
+    other = "cpu" if dev.type == "cuda" else "cuda"
+    try:
+        SavedModelBuilder.load_serving_fn(export_dir, device=other)
+        refused = False
+    except ValueError as e:
+        refused = repr(dev.type) in str(e)
+    log(f"serving (f): export in {export_s:.1f} s; the loaded graph against the eager apply: "
+        f"max |diff| {rel:.3g} of max |logit| (tolerance {SERVE_LOGIT_RTOL}); a load for "
+        f"{other} refused, naming {dev.type}: {refused}; artifact bytes {nbytes}")
+    if not rel <= SERVE_LOGIT_RTOL or not refused:
+        raise AssertionError(f"serving: the export differs ({rel}) or served another device")
+
+    # (g) the example in its own process.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "autodist_tpu_torch.examples.serve_lm"]
+                          + SERVE_EXAMPLE_ARGS, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    summary = [l for l in proc.stdout.splitlines()
+               if "requests ok" in l or l.strip().startswith(("queue", "prefill", "decode",
+                                                              "total", "server:"))]
+    log(f"serving (g): serve_lm {' '.join(SERVE_EXAMPLE_ARGS)} in {time.perf_counter() - t0:.1f}"
+        f" s, exit {proc.returncode}: " + " | ".join(l.strip() for l in summary))
+    ok = re.search(r"(\d+)/(\d+) requests ok", proc.stdout)
+    if proc.returncode != 0 or not ok or ok.group(1) != ok.group(2):
+        raise AssertionError(f"serving: serve_lm failed: {proc.stderr[-2000:]}")
+    launches = {k.__name__: k.launches for k in kernels}
+    log(f"serving: phase 21 in {time.perf_counter() - t_phase:.1f} s; port kernel launches "
+        f"{launches}")
+    return launches
+
+
+def serving_counter(name) -> int:
+    from autodist_tpu_torch import telemetry
+    v = telemetry.snapshot().get(name)
+    return int(v) if isinstance(v, (int, float)) else 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
@@ -3513,12 +4016,12 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
-    if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry"):
-        # Phase 16, 17, 18, 19 or 20 alone (a shorter call while it is worked on); no kernel
-        # line.
+    if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry", "serving"):
+        # Phase 16, 17, 18, 19, 20 or 21 alone (a shorter call while it is worked on); no
+        # kernel line.
         path = {"unroll": unroll_path, "moe_pipe": moe_pipe_path,
                 "async_ps": async_ps_path, "lm_family": lm_family_path,
-                "telemetry": telemetry_path}[only]
+                "telemetry": telemetry_path, "serving": serving_path}[only]
         log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3566,6 +4069,7 @@ def main(argv=None) -> int:
     by_phase["async_ps"] = timed("18 async ps", async_ps_path, every, dev)
     by_phase["lm_family"] = timed("19 lm family", lm_family_path, every, dev)
     by_phase["telemetry"] = timed("20 telemetry", telemetry_path, every, dev)
+    by_phase["serving"] = timed("21 serving", serving_path, every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

@@ -208,10 +208,27 @@ def test_recurrence_backward_matches_autograd(dtype, rtol):
 
 
 def test_decode_and_generate_raise_naming_serving():
-    model = _torch_model()
-    _, jparams = _jax_model()
-    tokens = torch.zeros((1, 2), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tlstm.apply(model, from_jax_params(jparams), tokens, decode=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tlstm.generate(model, {}, tokens, 4)
+    """Decode and generate are ported (serving): the carry cache's prefill
+    and steps give flax's decode hidden states and carries at f32, and
+    greedy generate its tokens."""
+    jmodel, jparams = _jax_model()
+    model, tparams = _torch_model(), from_jax_params(jparams)
+    tokens = _batch(False)["tokens"][:, :6]
+    want, var = jmodel.apply({"params": jparams}, jnp.asarray(tokens[:, :4]), decode=True,
+                             mutable=["cache"])
+    cache = tlstm.init_cache(model.config, BATCH, "cpu")
+    got = tlstm.apply(model, tparams, torch.tensor(tokens[:, :4]).long(), decode=True,
+                      cache=cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **VAL)
+    want, var = jmodel.apply({"params": jparams, "cache": var["cache"]},
+                             jnp.asarray(tokens[:, 4:5]), decode=True, mutable=["cache"])
+    got = tlstm.apply(model, tparams, torch.tensor(tokens[:, 4:5]).long(), decode=True,
+                      cache=cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **VAL)
+    jcache = var["cache"]["lm"]
+    for i in range(SMALL["n_layers"]):
+        for part, jpart in zip(cache[f"lm.carry_{i}"], jcache[f"carry_{i}"]):
+            np.testing.assert_allclose(part.numpy(), np.asarray(jpart), **VAL)
+    want = np.asarray(jlstm.make_generate_fn(jmodel, 3)(jparams, jnp.asarray(tokens[:2, :4])))
+    got = tlstm.generate(model, tparams, torch.tensor(tokens[:2, :4]), 3)
+    np.testing.assert_array_equal(got.numpy(), want)

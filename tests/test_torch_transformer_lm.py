@@ -198,8 +198,10 @@ def test_init_params_matches_flax_shapes_and_scales():
 
 
 def test_unported_paths_raise():
-    """Decode raises; ring and Ulysses are ported, and without a group each
-    is a group of one rank: the flash model's logits."""
+    """Decode is ported: a KV-cache prefill gives the full forward's logits
+    (its parity with flax's decode is tests/test_torch_generate.py's). Ring
+    and Ulysses are ported, and without a group each is a group of one rank:
+    the flash model's logits."""
     _, _, ring, tparams = _pair(False, fused_head=False, attention_impl="ring")
     _, _, ulysses, _ = _pair(False, fused_head=False, attention_impl="ulysses")
     _, _, flash, _ = _pair(False, fused_head=False, attention_impl="flash")
@@ -210,6 +212,8 @@ def test_unported_paths_raise():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="attention_impl"):
         tlm.TransformerLMConfig(**SMALL, attention_impl="nope")
-    model = tlm.TransformerLM(tlm.TransformerLMConfig(**SMALL))
-    with pytest.raises(NotImplementedError, match="decode"):
-        model(torch.zeros((1, 4), dtype=torch.long), decode=True)
+    _, _, dot, _ = _pair(False, fused_head=False)
+    cache = tlm.init_cache(dot.config, tokens.shape[0], "cpu")
+    torch.testing.assert_close(tlm.apply(dot, tparams, tokens, decode=True, cache=cache),
+                               tlm.apply(dot, tparams, tokens), **ACT)
+    assert int(cache["block_0.attn.cache_index"]) == tokens.shape[1]
