@@ -164,6 +164,16 @@ _ENV_DEFAULTS = {
     "AUTODIST_KV_PAGE_LEN": 0,
     "AUTODIST_PREFIX_CACHE": True,
     "AUTODIST_ROUTER_ADDR": "",
+    "AUTODIST_FAULTS": "",
+    "AUTODIST_BENCHMARK_LOG_DIR": "",
+    # torchrun's launch environment, which the port reads where the JAX
+    # package joins its group through ``jax.distributed``: the world size
+    # (0 = unset), this process's rank and local rank, and the rendezvous.
+    "WORLD_SIZE": 0,
+    "RANK": 0,
+    "LOCAL_RANK": 0,
+    "MASTER_ADDR": "",
+    "MASTER_PORT": "",
 }
 
 

@@ -46,6 +46,7 @@ def _source_path() -> str:
 def _build_native() -> Optional[ctypes.CDLL]:
     """Compile and load the native loader once; None when unavailable."""
     global _LIB, _LIB_FAILED
+    # graftlint: disable=GL001(this lock EXISTS to serialize the one-time native compile — concurrent cc1 invocations over the same .so path corrupt the artifact; no device program or socket runs under it)
     with _BUILD_LOCK:
         if _LIB is not None or _LIB_FAILED:
             return _LIB

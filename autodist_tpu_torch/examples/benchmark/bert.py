@@ -32,14 +32,13 @@ the count is the whole step's work once); on the host it is not measured.
 
 import argparse
 import dataclasses
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import AutoDist
+from autodist_tpu_torch import AutoDist, const
 from autodist_tpu_torch.data import mlm, text_corpus
 from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
 from autodist_tpu_torch.models import bert
@@ -130,7 +129,7 @@ def build(args) -> Bench:
     """The training (or, with ``--eval``, the evaluation) step and its batch
     source, as ``main`` runs them."""
     device = resolve_device(args.device)
-    n_dev = int(os.environ.get("WORLD_SIZE", "1"))
+    n_dev = const.ENV.WORLD_SIZE.val or 1
     batch_size = args.batch_size or 8 * n_dev
     size_kw = dict(SIZES[args.size])
     loader = batcher = example = None

@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from autodist_tpu_torch import AutoDist
+from autodist_tpu_torch import AutoDist, const
 from autodist_tpu_torch.data import DataLoader, device_prefetch, save_shards
 from autodist_tpu_torch.models import transformer_lm
 from autodist_tpu_torch.strategy import AllReduce
@@ -65,7 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         dtype=torch.bfloat16 if on_card else torch.float32, tied_output=False,
         fused_head=True)
     seq_len = 256 if on_card else 32
-    n_dev = int(os.environ.get("WORLD_SIZE", "1"))
+    n_dev = const.ENV.WORLD_SIZE.val or 1
     batch_size = args.batch_size or (384 if on_card else 8) * n_dev
 
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)

@@ -31,14 +31,13 @@ and the examples/s metrics go through
 
 import argparse
 import dataclasses
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import AutoDist
+from autodist_tpu_torch import AutoDist, const
 from autodist_tpu_torch import strategy as strategies
 from autodist_tpu_torch.data import imagenet as imagenet_data
 from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
@@ -192,7 +191,7 @@ def build(args) -> Bench:
     """The training step (``AutoDist.function``, SGD 0.01 with momentum
     0.9) and its batch source, as ``main`` runs them."""
     device = resolve_device(args.device)
-    n_dev = int(os.environ.get("WORLD_SIZE", "1"))
+    n_dev = const.ENV.WORLD_SIZE.val or 1
     batch_size = args.batch_size or 32 * n_dev
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     num_classes, loader, cache, batcher, meta = 1000, None, None, None, None

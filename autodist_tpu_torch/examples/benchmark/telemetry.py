@@ -91,7 +91,8 @@ class Planes:
         self.env = env or {}
 
     def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in self.env}
+        before = dict(os.environ)
+        self.saved = {k: before.get(k) for k in self.env}
         os.environ.update(self.env)
         history.set_history(None)
         if self.env.get("AUTODIST_TELEMETRY"):

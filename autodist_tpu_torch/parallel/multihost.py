@@ -53,7 +53,7 @@ def maybe_initialize_multihost(device: torch.device, cluster=None,
     environments are both set, when torchrun's is incomplete, or when it
     names a group that disagrees with one already joined."""
     coordinated = _coordinator_env(cluster)
-    torchrun = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    torchrun = const.ENV.WORLD_SIZE.val > 1
     if coordinated is not None and torchrun:
         raise RuntimeError("both torchrun's environment (WORLD_SIZE) and the coordinator's "
                            "(AUTODIST_COORDINATOR_ADDR, AUTODIST_NUM_PROCESSES) name a process "
@@ -62,7 +62,7 @@ def maybe_initialize_multihost(device: torch.device, cluster=None,
         address, world, rank = coordinated
         init = f"tcp://{address}"
     else:
-        world = int(os.environ.get("WORLD_SIZE", "1"))
+        world = const.ENV.WORLD_SIZE.val or 1
     if dist.is_initialized():
         if dist.get_world_size() != world:
             raise RuntimeError(f"the process group has {dist.get_world_size()} ranks, "
@@ -75,8 +75,8 @@ def maybe_initialize_multihost(device: torch.device, cluster=None,
         if missing:
             raise RuntimeError(f"WORLD_SIZE={world} but {missing} are not set: launch with "
                                f"torchrun, or set RANK, MASTER_ADDR and MASTER_PORT")
-        init = f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
-        rank = int(os.environ["RANK"])
+        init = f"tcp://{const.ENV.MASTER_ADDR.val}:{const.ENV.MASTER_PORT.val}"
+        rank = const.ENV.RANK.val
     backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)

@@ -35,6 +35,10 @@ Python path (``sendmsg``/``recv_into``); with it on, a native build that
 fails raises. Sockets with a timeout always take the Python path.
 """
 
+# The client's per-connection exchange lock nests the fault-injection
+# registry's module lock (testing/faults.py `_LOCK`, taken inside
+# `_faults.armed()`/`should_fire()`), never the reverse:
+# graftlint: lock-order=_lock->_LOCK
 import ctypes
 import logging
 import math
@@ -83,6 +87,7 @@ def _native_transport():
     global _TR_LIB, _TR_OFF
     if _TR_LIB is not None or _TR_OFF:
         return _TR_LIB
+    # graftlint: disable=GL001(this lock EXISTS to serialize the one-time native compile — concurrent cc1 invocations over the same .so path corrupt the artifact; no device program or socket runs under it)
     with _TR_LOCK:
         if _TR_LIB is not None or _TR_OFF:
             return _TR_LIB
@@ -130,8 +135,11 @@ def _native_error(lib, what: str) -> ConnectionError:
 
 def _lib_for(sock: socket.socket):
     """The native library for a plain blocking socket, else None (a timeout
-    keeps Python's timeout semantics, which raw-fd syscalls would bypass)."""
-    return _native_transport() if sock.gettimeout() is None else None
+    keeps Python's timeout semantics, which raw-fd syscalls would bypass).
+    Never builds: a client or server builds the library when it is made
+    (:func:`_native_transport`), so no exchange, which runs under its
+    connection's lock, ever waits for a compile."""
+    return _TR_LIB if sock.gettimeout() is None else None
 
 
 def _address(buf) -> Tuple[int, np.ndarray]:
@@ -693,16 +701,21 @@ class _PSClient:
     # after its runner's init).
     CONNECT_TIMEOUT_S = 60.0
 
-    def __init__(self, address, connect_timeout: Optional[float] = None):
+    def __init__(self, address, connect_timeout: Optional[float] = None,
+                 read_timeout: Optional[float] = None):
         """``connect_timeout`` bounds the whole retry-until-up loop (default
         :attr:`CONNECT_TIMEOUT_S`); the serving router passes a short one, a
-        replica that refuses connections being the failure it routes around."""
+        replica that refuses connections being the failure it routes around.
+        ``read_timeout`` optionally bounds each reply wait (default None:
+        workers park on the gate for as long as the protocol says; the
+        consoles pass one, so a hung server reads as down)."""
         if isinstance(address, str):
             host, _, port = address.rpartition(":")
             address = (host, int(port))
         self._address = address
         self._connect_timeout = (self.CONNECT_TIMEOUT_S if connect_timeout is None
                                  else float(connect_timeout))
+        self._read_timeout = read_timeout
         self._retries = max(0, const.env_int(const.AUTODIST_WIRE_RETRIES, 2))
         self._backoff_s = max(0.0, const.env_float(const.AUTODIST_WIRE_BACKOFF_S, 0.2))
         _native_transport()
@@ -723,7 +736,7 @@ class _PSClient:
                     raise ConnectionRefusedError("injected wire_refuse fault point")
                 per_try = min(10.0, max(0.1, deadline - time.monotonic()))
                 sock = socket.create_connection(self._address, timeout=per_try)
-                sock.settimeout(None)   # replies wait as long as the gate says
+                sock.settimeout(self._read_timeout)   # None: as long as the gate says
                 return sock
             except OSError:
                 if time.monotonic() >= deadline:
@@ -746,6 +759,7 @@ class _PSClient:
         reply-wait timeout never retries (the reply may still come)."""
         op = msg[0] if isinstance(msg, tuple) and msg else None
         attempt = 0
+        # graftlint: disable=GL001(the lock IS the request/reply pairing — one in-flight exchange per connection; the server replies promptly per-op and close/shutdown unblocks a parked recv; the retry's bounded backoff sleeps under it so a concurrent caller cannot interleave on a half-reconnected socket)
         with self._lock:
             while True:
                 try:

@@ -295,7 +295,11 @@ class ParameterService:
         self._params = _publish(state.params)
         # Readers wait on it (read_min); every state change notifies.
         self._lock = threading.Condition()
-        # Serializes writers (apply/reset/adopt); order _write_mutex -> _lock.
+        # Serializes writers (apply/reset/adopt), so readers block for the
+        # brief state swap, not for a whole apply. Order: _write_mutex ->
+        # _lock, never the reverse — declared so an inverted path fails lint
+        # (GL002) instead of deadlocking a chief under load.
+        # graftlint: lock-order=_write_mutex->_lock
         self._write_mutex = threading.Lock()
         # Bumps on every state change and is never reused: version equality
         # implies identity (read_if_newer's "not modified").
@@ -615,6 +619,7 @@ class AsyncWorker:
             sharded = r.shard_batch(batch)
             r._maybe_dump_async_graphs(params, sharded, ef_state)
             # Gradient programs run one at a time, complete before the apply.
+            # graftlint: disable=GL001(this lock EXISTS to serialize execution — holding it across the gradient program and its sync is the point, so two workers' steps never interleave their collectives)
             with r._collective_lock:
                 grads, loss, aux = r.grad_fn(params, sharded, ef_state)
                 _sync(r.device)
@@ -739,6 +744,7 @@ class AsyncPSRunner(DistributedRunner):
     def _locked_exec(self, fn: Callable):
         """``fn()`` under this runner's card and execution lock, its device
         work complete on return."""
+        # graftlint: disable=GL001(execution-serialization lock by design — the PS apply, whole or per apply shard, must not interleave its collectives with a worker grad program)
         with _device_scope(self.device), self._collective_lock:
             out = fn()
             _sync(self.device)

@@ -13,6 +13,8 @@ import enum
 import os
 from typing import Dict, List, Optional
 
+from autodist_tpu_torch import const
+
 DEFAULT_NETWORK_BANDWIDTH_GBPS = 1
 
 
@@ -126,7 +128,7 @@ class ResourceSpec:
         if dist.is_initialized():
             n = dist.get_world_size()
         else:
-            n = int(os.environ.get("WORLD_SIZE", "0")) or torch.cuda.device_count()
+            n = const.ENV.WORLD_SIZE.val or torch.cuda.device_count()
         node = {"address": "localhost", "chief": True}
         if n:
             node["gpus"] = list(range(n))

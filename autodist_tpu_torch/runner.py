@@ -686,6 +686,7 @@ class DistributedRunner:
                     group = mesh.group(tuple(mesh.shape))
                 except ValueError:   # a replayed (in-process) mesh has no group
                     group = None
+            # graftlint: disable=GL004(a memo of host facts of the plan: built once, at capture as in an eager run, and no replay needs it again)
             self._health_weights = ({k: world / n for k, n in update.items()},
                                     {k: world / n for k, n in storage.items()}, group)
         return self._health_weights
@@ -708,6 +709,7 @@ class DistributedRunner:
                 by_axes.setdefault(pl.update_axes, []).append(key)
         for keys in by_axes.values():
             self.layout.gather_updates(keys, state.opt_params, state.params)
+        # graftlint: disable=GL004(the host step counter: _capture restores it after the capture, and _CapturedBlock.replay advances it by the block's length on every replay)
         state.step += 1
 
     # ------------------------------------------------------------ fused steps

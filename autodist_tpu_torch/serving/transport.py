@@ -41,6 +41,7 @@ from autodist_tpu_torch import telemetry
 from autodist_tpu_torch.telemetry import reqtrace as _reqtrace
 from autodist_tpu_torch.parallel import wire
 from autodist_tpu_torch.parallel.ps_transport import (_PSClient, _RecvBuffer,
+                                                      _native_transport,
                                                       _recv_msg, _send_payload,
                                                       PSClientError)
 from autodist_tpu_torch.serving.batcher import ServeBusy, ServeError
@@ -170,6 +171,7 @@ class InferenceServer:
         self._dedup: "OrderedDict[str, tuple]" = OrderedDict()
         self._dedup_lock = san_lock()
         self._conns: set = set()
+        _native_transport()   # build (or refuse) before the first connection
         self._server = _wire_server(host, port, self)
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         args=(SHUTDOWN_POLL_S,), daemon=True)

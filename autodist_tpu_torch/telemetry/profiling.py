@@ -347,13 +347,20 @@ class _DeviceWindow:
     def __exit__(self, *exc):
         end = torch.cuda.Event(enable_timing=True)
         end.record()
+        oldest = None
         with _STATE.lock:
             windows = _STATE.device_windows
             windows.append((self._start, end))
             if len(windows) > _MAX_DEVICE_WINDOWS:
-                start, stop = windows.pop(0)
-                stop.synchronize()
-                _STATE.device_s += start.elapsed_time(stop) / 1e3
+                oldest = windows.pop(0)
+        if oldest is not None:
+            # Waited for outside the lock: no other thread's booking stalls
+            # behind the card.
+            start, stop = oldest
+            stop.synchronize()
+            seconds = start.elapsed_time(stop) / 1e3
+            with _STATE.lock:
+                _STATE.device_s += seconds
         return self._inner.__exit__(*exc)
 
 

@@ -57,7 +57,7 @@ def build_manifest(reason: str, seq: Optional[int] = None) -> Dict[str, Any]:
     (:func:`autodist_tpu_torch.telemetry.profiling.write_profile`) — so adprof can
     say whether two profiles even came from comparable runs."""
     import numpy as np
-    flags = {k: os.environ[k] for k in sorted(os.environ)
+    flags = {k: os.environ[k] for k in sorted(os.environ)  # graftlint: disable=GL007(the manifest dumps the RAW env value of every SET AUTODIST_* flag — a whole-registry diagnostic snapshot, not a typed single-flag read)
              if k.startswith("AUTODIST_")}
     manifest: Dict[str, Any] = {
         "reason": reason,

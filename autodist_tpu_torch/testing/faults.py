@@ -53,7 +53,6 @@ every other call on it.
 
 import dataclasses
 import logging
-import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Union
@@ -181,7 +180,7 @@ def armed() -> bool:
         with _LOCK:
             if not _ENV_CHECKED:
                 _ENV_CHECKED = True
-                spec = os.environ.get(const.AUTODIST_FAULTS, "").strip()
+                spec = const.ENV.AUTODIST_FAULTS.val
                 if spec:
                     _PLAN = parse(spec)
                     _log.warning("faults: armed from AUTODIST_FAULTS "

@@ -42,9 +42,10 @@ time and exactly zero per acquire/release. Product modules therefore adopt
 the factories unconditionally.
 
 Export: the observed edge set lands in
-``.graftlint_cache/observed_locks.jsonl`` (one JSON object per edge, plus a
+``.graftlint_cache/torch/observed_locks.jsonl`` (one JSON object per edge, plus a
 ``meta`` header line) at process exit when ``locks`` is armed, or on demand
-via :func:`dump_observed`. ``tools/graftlint.py --crosscheck`` merges these
+via :func:`dump_observed`. ``python -m autodist_tpu_torch.tools.graftlint
+--crosscheck`` merges these
 edges into GL002's static graph: cycles the static analysis could not reach
 become findings, and static edges never observed are reported as
 unexercised (coverage for the lock model itself).
@@ -567,10 +568,12 @@ def observed_edges():
 def dump_observed(path=None):
     """Append the observed edge set (plus a ``meta`` header line, so the
     artifact is non-empty even for an edge-free run) to
-    ``<cwd>/.graftlint_cache/observed_locks.jsonl`` or ``path``. Registered
+    ``<cwd>/.graftlint_cache/torch/observed_locks.jsonl`` (the port's
+    graftlint's ``--observed`` default, apart from the JAX package's) or
+    ``path``. Registered
     atexit when ``locks`` is armed; idempotent and safe to call directly."""
     if path is None:
-        path = os.path.join(os.getcwd(), ".graftlint_cache", OBSERVED_BASENAME)
+        path = os.path.join(os.getcwd(), ".graftlint_cache", "torch", OBSERVED_BASENAME)
     edges = observed_edges()
     with _STATE_LOCK:
         meta = {"meta": {"modes": sorted(_MODES), "locks_tracked": len(_KEYS),

@@ -92,7 +92,7 @@ class BenchmarkFileLogger(BaseBenchmarkLogger):
 def get_benchmark_logger() -> BaseBenchmarkLogger:
     """The file logger when ``AUTODIST_BENCHMARK_LOG_DIR`` is set, else the
     base logger."""
-    log_dir = os.environ.get(const.AUTODIST_BENCHMARK_LOG_DIR, "").strip()
+    log_dir = const.ENV.AUTODIST_BENCHMARK_LOG_DIR.val
     if log_dir:
         return BenchmarkFileLogger(log_dir)
     return BaseBenchmarkLogger()

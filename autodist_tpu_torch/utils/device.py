@@ -1,9 +1,10 @@
 """Where the port runs: on the card unless the caller asks for the CPU."""
 
-import os
 from typing import Optional, Union
 
 import torch
+
+from autodist_tpu_torch import const
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -12,7 +13,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     ``RuntimeError`` when a CUDA device is asked for and there is none. Pass
     ``"cpu"`` to run on the host."""
     if device is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        device = torch.device("cuda", const.ENV.LOCAL_RANK.val)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} was asked for (the default) but CUDA "

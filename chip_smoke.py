@@ -10,8 +10,9 @@ point), the text family with the rest of the benchmark suite (BERT, NCF,
 disk input, the raw baseline and the sweep), ``run_many``'s CUDA graphs
 with the strategy search, the MoE LM with expert parallelism and the
 pipeline schedules, the async PS plane, the LM family, the telemetry planes,
-and the serving plane (decode, the engines, the server, the router and the
-export).
+the serving plane (decode, the engines, the server, the router and the
+export), and the operator tools and the static analyzer on what those
+phases left running or wrote.
 
     python3 chip_smoke.py
 
@@ -95,8 +96,10 @@ exits non-zero without them, or when any phase fails. Phases:
    against the dot model's with the same weights (rtol 1e-2: bf16). Then 3
    counted steps (launch counts set to 0 just before, read just after; all
    six kernels must have launched, all losses finite), the entry point's
-   own ``main`` for tokens/s and MFU over 4 steady steps with peak memory,
-   and a profiler window over 2 steps.
+   timed loop (one warm-up step, then 4 steady ones) on the same session
+   for tokens/s and MFU with peak memory, and a profiler window over 2
+   steps. Phase 16 reuses this session's runner and first weights (one
+   build, its sparse walk and init, for both phases).
 7. The flash carry kernel (ring attention's local step) against its plain
    version: ragged L = 1,000 with no carry in, a past shard with a carry in
    (q_offset 1,024, k_offset 0), a diagonal step with a carry in, steps
@@ -348,7 +351,9 @@ exits non-zero without them, or when any phase fails. Phases:
    (``CHIP_SMOKE_WORKER=telemetry``) with spans on and
    ``AUTODIST_TRACE_PULL=1``: the merged cluster trace has two lanes, and
    the worker's step splits by its ``ps.*`` spans, its parameter copies
-   timed apart.
+   timed apart; while the server is up, ``adtop --once --raw`` reads it,
+   and the chief and the worker dump their span rings as JSONL for phase
+   22. (d)'s profile is kept for phase 22 too.
 21. Serving (``--only serving`` alone), at the flagship's full width (d512 x 6,
    8 heads, d_ff 2048, vocab 32,000, max_len 512, untied head, bf16
    activations, f32 params, seed 0): (a) decode (a 48-token prefill, then 16
@@ -372,12 +377,26 @@ exits non-zero without them, or when any phase fails. Phases:
    decode and total; (e) a ``RouterServer`` over two replicas on the card,
    one killed with requests in flight: every request completes with the
    ``generate`` tokens, no client sees a failure, ``recover.*`` books a
-   respawn; (f) the ``torch.export`` artifact of the full forward, loaded on
+   respawn; with the request-trace plane armed, and while the fleet is up,
+   ``adfleet --once --raw`` over the router and its replicas and
+   ``adtrace`` through the router read it for phase 22; (f) the ``torch.export`` artifact of the full forward, loaded on
    the card, against the eager apply (within SERVE_LOGIT_RTOL), a load for
    the CPU refused, the artifact's bytes; (g) ``python -m
    autodist_tpu_torch.examples.serve_lm --d_model 512 --n_layers 6 --vocab
-   32000 --max_len 512`` in its own process: every request served.
-22. One JSON line of per-kernel numbers (all seven kernels, their launches by
+   32000 --max_len 512`` in its own process: every request served; (h) one
+   short leg with the lock sanitizer armed (``locks``): 8 requests through
+   an ``InferenceServer`` on the dense engine, its observed lock-order
+   edges exported for phase 22.
+22. The operator tools (``autodist_tpu_torch.tools``), each a ``python -m``
+   process that must exit 0, on what phases 20 and 21 left: ``adprof``
+   summarizes (d)'s profile and diffs it against itself (no regression);
+   ``tracedump`` merges (g)'s two span dumps into a Chrome trace of two
+   lanes; ``graftlint --crosscheck`` on (h)'s export reports no dynamic
+   finding and prints the observed and unexercised edges; and the results
+   of ``adtop`` (a "ps" status), ``adfleet`` (the router's routed count) and
+   ``adtrace`` (as many completed requests as the fleet served), run while
+   their servers were up. It starts no model.
+23. One JSON line of per-kernel numbers (all seven kernels, their launches by
    phase with ``unroll``, ``moe``, ``async_ps``, ``lm_family``,
    ``telemetry`` and ``serving``; the fused head's also at D = 1,024), then
    the result line.
@@ -385,7 +404,7 @@ exits non-zero without them, or when any phase fails. Phases:
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
 async_ps``, ``--only lm_family``, ``--only telemetry``, ``--only serving``)
 builds the kernels and runs phase 16 (or 17, 18, 19, 20, 21) alone, without
-the kernel line. A
+the kernel line; ``--only tools`` runs phases 20, 21 and 22. A
 process the Coordinator launched (``AUTODIST_WORKER`` set) runs only phase
 18 (e)'s worker half, or phase 20 (g)'s with ``CHIP_SMOKE_WORKER=telemetry``,
 and prints no result line.
@@ -397,6 +416,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -545,6 +565,16 @@ os.environ.setdefault("AUTODIST_WORKING_DIR", os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "build", "autodist_wd"))
 
 
+# Phase 22's inputs, written by phases 20 and 21 (under the git-ignored
+# build/), and the results of the tools phases 20 and 21 ran.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TOOLS_DIR = os.path.join(ROOT, "build", "chip_tools")
+TOOLS = {}
+SAN_REQUESTS = 8
+# Phase 6's long-context runner and first weights, which phase 16 reuses.
+LC_SESSION = {}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -599,6 +629,37 @@ def time_ms(fn, reps: int) -> float:
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def tool_proc(name: str, *args: str) -> subprocess.Popen:
+    """``python -m autodist_tpu_torch.tools.<name> args`` from the
+    checkout's root, its output captured."""
+    return subprocess.Popen([sys.executable, "-m", f"autodist_tpu_torch.tools.{name}",
+                             *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def tool_result(name: str, proc: subprocess.Popen, timeout: float = 120.0) -> str:
+    """The tool's standard output; raises unless it exited 0 in time (and
+    then leaves no process behind)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: {name} exited {proc.returncode}: stderr "
+                             f"{err[-2000:]!r} stdout {out[-2000:]!r}")
+    return out
+
+
+def stop(procs) -> None:
+    """Kill whatever of ``procs`` still runs (a phase that failed early)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def rate(r) -> str:
@@ -1130,6 +1191,8 @@ def long_context_path(kernels, dev):
     argv = ["--seq_len", str(LC_SEQ), "--batch_size", str(LC_BATCH), "--device", str(dev)]
     cfg, step, batch = lc.build(lc.parse_args(argv))
     log(f"long context: {cfg}")
+    LC_SESSION.update(runner=step.runner, params={k: v.detach().cpu().clone()
+                                                  for k, v in step.get_state().params.items()})
 
     # Reference on a small input: flash (kernels) vs dot attention, same weights.
     params = step.get_state().params
@@ -1155,9 +1218,15 @@ def long_context_path(kernels, dev):
     if missing:
         raise AssertionError(f"long-context path never launched {missing}")
 
-    # The entry point's own run: one warm-up step, then LC_STEADY timed ones.
+    # The entry point's timed loop (lc.main's) on this session: one warm-up
+    # step, then LC_STEADY timed ones.
     torch.cuda.reset_peak_memory_stats()
-    rate = lc.main(argv + ["--steps", str(LC_STEADY)])
+    float(step(batch))
+    t0 = time.perf_counter()
+    for _ in range(LC_STEADY):
+        loss = step(batch)
+    float(loss)
+    rate = tokens * LC_STEADY / (time.perf_counter() - t0)
     flops = transformer_flops_per_token(D, 6, 2048, V, LC_SEQ) * tokens
     log(f"long context: {rate:.1f} tokens/s over {LC_STEADY} steady steps "
         f"({tokens} tokens/step, {1e3 * tokens / rate:.3f} ms/step), MFU "
@@ -1165,6 +1234,18 @@ def long_context_path(kernels, dev):
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profile_steps(step, [batch] * LC_PROFILE, label="long-context profile")
     return launches
+
+
+def lc_session(dev):
+    """Phase 6's long-context runner and first weights (built here when
+    phase 6 did not run)."""
+    if not LC_SESSION:
+        from autodist_tpu_torch.examples import long_context_lm as lc
+        _, step, _ = lc.build(lc.parse_args(["--seq_len", str(LC_SEQ), "--batch_size",
+                                             str(LC_BATCH), "--device", str(dev)]))
+        LC_SESSION.update(runner=step.runner, params={
+            k: v.detach().cpu().clone() for k, v in step.get_state().params.items()})
+    return LC_SESSION["runner"], LC_SESSION["params"]
 
 
 def carry_case(fa, q, k, v, carry, qo, ko, causal=True):
@@ -2270,6 +2351,7 @@ def unroll_path(kernels, dev):
     from autodist_tpu_torch.examples import long_context_lm as lc
     from autodist_tpu_torch.examples.benchmark import ncf as ncf_bench
     from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.runner import step_function
 
     for k in kernels:
         k.launches = 0
@@ -2319,15 +2401,20 @@ def unroll_path(kernels, dev):
 
     log(f"unroll: the flagship in {time.perf_counter() - t_part:.1f} s")
     t_part = time.perf_counter()
-    # Long context (phase 6's model, flash, every block rematerialized).
+    # Long context (phase 6's model, flash, every block rematerialized): each
+    # session a fresh state from phase 6's first weights on phase 6's runner.
     free_card()
     lc_args = lc.parse_args(["--seq_len", str(LC_SEQ), "--batch_size", str(LC_BATCH),
                              "--device", str(dev)])
     lc_cfg = lc.model_config(lc_args)
     lc_batches = [tlm.synthetic_batch(lc_cfg, LC_BATCH, LC_SEQ, seed=4000 + i)
                   for i in range(4)]
+    lc_runner, lc_params = lc_session(dev)
     same, per_step, per_replay, _ = fused_against_steps(
-        lambda: lc.build(lc_args)[1], lc_batches, kernels, "long context 8 x 8,192")
+        lambda: step_function(lc_runner, lc_params), lc_batches, kernels,
+        "long context 8 x 8,192")
+    del lc_runner
+    LC_SESSION.clear()
     flash = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
     if not same or any(per_step[n] <= 0 or per_replay[n] != 2 * per_step[n] for n in flash):
         failures.append("long context: run_many(2) is not two run() steps, or the flash "
@@ -3226,6 +3313,9 @@ def telemetry_worker():
     {k: v.to(dev) for k, v in host.items()}
     torch.cuda.synchronize()
     h2d = time.perf_counter() - t0
+    # The ring as JSONL too, on the chief's clock, for phase 22's tracedump.
+    telemetry.dump_spans_jsonl(os.path.join(TOOLS_DIR, "spans_worker.jsonl"), worker_id=1,
+                               clock_offset_ns=remote.clock_offset_ns or 0)
     step.runner.close()      # under AUTODIST_TRACE_PULL: pushes this ring to the chief
     report = {"step_ms": rows, "spans_ms": {k: v for k, v in sorted(spans.items())},
               "copy_ms": {"device_to_host": 1e3 * d2h, "host_to_device": 1e3 * h2d},
@@ -3250,14 +3340,21 @@ def tel_remote(dev, tmp):
            "CHIP_SMOKE_WORKER": "telemetry"}
     os.environ.update(env)
     telemetry.enable()
+    adtop = []
     try:
         _, step = async_session(dev, PS(sync=False), resource_info=ASYNC_TWO_NODES)
         ad, runner = step.autodist, step.runner
+        # Phase 22's console reading: the live server, while the worker trains.
+        adtop.append(tool_proc("adtop", "%s:%d" % tuple(runner._ps_server.address), "--once",
+                               "--raw"))
+        TOOLS["adtop"] = json.loads(tool_result("adtop", adtop[0]))
         if not ad._coordinator.join(timeout=600.0):
             raise AssertionError("telemetry (g): the worker process did not finish in 600 s")
         path = runner.collect_cluster_trace(os.path.join(tmp, "cluster.json"))
+        telemetry.dump_spans_jsonl(os.path.join(TOOLS_DIR, "spans_chief.jsonl"), worker_id=0)
         ad._teardown()
     finally:
+        stop(adtop)
         for k in env:
             os.environ.pop(k, None)
         telemetry.disable()
@@ -3419,6 +3516,10 @@ def telemetry_path(kernels, dev):
                     raise AssertionError(f"telemetry (d): train.mfu {mfu_gauge} vs {own_mfu}")
                 if not source.startswith("profile:"):
                     raise AssertionError(f"telemetry (d): calibration source {source}")
+                prof_dir = armed["AUTODIST_PROFILE_DIR"]
+                newest = max((os.path.join(prof_dir, f) for f in os.listdir(prof_dir)
+                              if f.endswith(".json")), key=os.path.getmtime)
+                shutil.copy(newest, os.path.join(TOOLS_DIR, "profile.json"))
 
                 # (e) Memory.
                 memplane.tag("params", on_state.params)
@@ -3598,9 +3699,11 @@ def serve_load(engine_config, model, params, requests, clients=SERVE_CLIENTS):
     timings, errors, lock = [], [], threading.Lock()
     try:
         warm = serving.ServeClient(server.address)
-        for b in sorted({serving.bucket_for(len(p), engine.buckets) for p, _, _ in requests}):
-            warm.generate(np.arange(1, 1 + min(b, engine.max_len - 2), dtype=np.int32), 2)
-        warm.close()
+        try:
+            for b in sorted({serving.bucket_for(len(p), engine.buckets) for p, _, _ in requests}):
+                warm.generate(np.arange(1, 1 + min(b, engine.max_len - 2), dtype=np.int32), 2)
+        finally:
+            warm.close()
 
         def client(w):
             c = serving.ServeClient(server.address)
@@ -3705,6 +3808,8 @@ def serving_path(kernels, dev):
     from autodist_tpu_torch.models import transformer_lm as tlm
     from autodist_tpu_torch.parallel import recovery
     from autodist_tpu_torch.serving.router import Router, RouterServer
+    from autodist_tpu_torch.telemetry import reqtrace
+    from autodist_tpu_torch.testing import sanitizer
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
@@ -3865,10 +3970,13 @@ def serving_path(kernels, dev):
         return serving.InferenceServer(
             serving.Batcher(serving.LMEngine(model, params, rcfg), rcfg))
 
+    reqtrace.clear()
+    reqtrace.enable()        # for phase 22's adtrace
     router = Router(replica, n_replicas=2, start=False)
     front = RouterServer(router)
     fleet = mix[:SERVE_FLEET_REQUESTS]
     results, errors, lock = {}, [], threading.Lock()
+    fleet_tools = {}
     try:
         victim = router.replicas()[0]
 
@@ -3902,7 +4010,24 @@ def serving_path(kernels, dev):
         fleet_s = time.perf_counter() - t0
         counts = recovery.recovery_snapshot()["counts"]
         replayed = serving_counter("serve.router.replayed")
+        # Phase 22's fleet readings, while the fleet is up: the consoles
+        # over the router and its live replicas, the traces through the router.
+        t0 = time.perf_counter()
+        front_addr = "%s:%d" % tuple(front.address)
+        live = [r["replica"] for r in front.status_snapshot()["replicas"] if not r.get("down")]
+        # A short deadline: the router's table still lists the killed replica.
+        fleet_tools = {"adfleet": tool_proc("adfleet", front_addr, *live, "--once", "--raw",
+                                            "--timeout", "1"),
+                       "adtrace": tool_proc("adtrace", front_addr, "--top", "3",
+                                            "--timeout", "1")}
+        TOOLS["adfleet"] = json.loads(tool_result("adfleet", fleet_tools["adfleet"]))
+        TOOLS["adtrace"] = tool_result("adtrace", fleet_tools["adtrace"])
+        TOOLS["fleet"] = {"router": front_addr, "replicas": live, "served": len(results)}
+        log(f"serving (e): adfleet and adtrace read the fleet in "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
+        stop(fleet_tools.values())
+        reqtrace.disable()
         front.close()
     log(f"serving (e): RouterServer over 2 replicas, replica 0 killed in flight: "
         f"{len(results)}/{len(fleet)} completed in {fleet_s:.1f} s, client failures "
@@ -3957,9 +4082,91 @@ def serving_path(kernels, dev):
     if proc.returncode != 0 or not ok or ok.group(1) != ok.group(2):
         raise AssertionError(f"serving: serve_lm failed: {proc.stderr[-2000:]}")
     launches = {k.__name__: k.launches for k in kernels}
+
+    # (h) the lock sanitizer armed for a short leg: its export is phase 22's
+    # crosscheck input.
+    t0 = time.perf_counter()
+    with sanitizer.armed("locks"):
+        scfg = serving.ServeConfig(max_batch=4)
+        server = serving.InferenceServer(
+            serving.Batcher(serving.LMEngine(model, params, scfg), scfg))
+        try:
+            client = serving.ServeClient(server.address)
+            try:
+                for p, n, s in mix[:SAN_REQUESTS]:
+                    client.generate(p, n, seed=s)
+            finally:
+                client.close()
+        finally:
+            server.close()
+        sanitizer.dump_observed(os.path.join(TOOLS_DIR, "observed_locks.jsonl"))
+        edges = sanitizer.observed_edges()
+    log(f"serving (h): {SAN_REQUESTS} requests through an InferenceServer with the lock "
+        f"sanitizer armed in {time.perf_counter() - t0:.1f} s: {len(edges)} lock-order "
+        f"edges observed, no violation")
     log(f"serving: phase 21 in {time.perf_counter() - t_phase:.1f} s; port kernel launches "
         f"{launches}")
     return launches
+
+
+def tools_path():
+    """Phase 22: the operator tools on what phases 20 and 21 wrote and read.
+    Starts no model; every tool is a ``python -m`` process that must exit 0."""
+    t0 = time.perf_counter()
+    profile = os.path.join(TOOLS_DIR, "profile.json")
+    trace = os.path.join(TOOLS_DIR, "tracedump.json")
+    observed = os.path.join(TOOLS_DIR, "observed_locks.jsonl")
+    spans = [os.path.join(TOOLS_DIR, f) for f in ("spans_chief.jsonl", "spans_worker.jsonl")]
+    procs = {"adprof": tool_proc("adprof", profile),
+             "adprof self-diff": tool_proc("adprof", profile, profile),
+             "tracedump": tool_proc("tracedump", trace, *spans),
+             "graftlint --crosscheck": tool_proc("graftlint", "--crosscheck", "--observed",
+                                                 observed)}
+    try:
+        out = {name: tool_result(name, proc) for name, proc in procs.items()}
+    finally:
+        stop(procs.values())
+    for line in out["adprof"].splitlines():
+        log(f"tools: adprof: {line}")
+    for line in out["adprof self-diff"].splitlines():
+        log(f"tools: adprof self-diff: {line}")
+    with open(trace) as f:
+        lanes = {e["pid"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+    log(f"tools: tracedump: {out['tracedump'].strip()}; span lanes {sorted(lanes)}")
+    with open(observed) as f:
+        edges = [json.loads(line) for line in f if '"outer"' in line]
+    for e in edges:
+        log(f"tools: observed edge {e['outer']['path']}:{e['outer']['name']} -> "
+            f"{e['inner']['path']}:{e['inner']['name']} x{e['count']}")
+    for line in out["graftlint --crosscheck"].splitlines():
+        log(f"tools: graftlint: {line}")
+    status = TOOLS["adtop"]
+    log(f"tools: adtop read phase 20 (g)'s PS server: kind {status.get('kind')}, staleness "
+        f"bound {status.get('staleness_bound')}, workers {sorted(status.get('per_worker') or {})}")
+    fleet, polled = TOOLS["fleet"], TOOLS["adfleet"]
+    routed = (polled.get(fleet["router"], {}).get("registry") or {}).get("serve.router.routed")
+    log(f"tools: adfleet read phase 21 (e)'s router and replicas {fleet['replicas']}: kinds "
+        f"{ {a: s.get('kind') for a, s in polled.items()} }, routed {routed}")
+    head = TOOLS["adtrace"].splitlines()
+    for line in head[:12]:
+        log(f"tools: adtrace: {line}")
+    completed = re.search(r"(\d+) completed request", head[0] if head else "")
+    log(f"tools: phase 22 in {time.perf_counter() - t0:.1f} s; card {card_line()}")
+    if not out["adprof"].startswith("profile") \
+            or "no regression beyond" not in out["adprof self-diff"]:
+        raise AssertionError("tools: adprof did not summarize or did not self-diff clean")
+    if len(lanes) != 2:
+        raise AssertionError(f"tools: tracedump's trace has span lanes {lanes}, want 2")
+    if " 0 dynamic finding(s)" not in out["graftlint --crosscheck"]:
+        raise AssertionError("tools: the crosscheck found a dynamic lock-order finding")
+    if status.get("kind") != "ps":
+        raise AssertionError(f"tools: adtop read a {status.get('kind')!r} status")
+    if any(polled.get(a, {}).get("kind") is None for a in [fleet["router"], *fleet["replicas"]]) \
+            or not isinstance(routed, (int, float)) or routed < fleet["served"]:
+        raise AssertionError(f"tools: adfleet's fleet {polled}")
+    if not completed or int(completed.group(1)) != fleet["served"]:
+        raise AssertionError(f"tools: adtrace counted {head[:1]}, the router served "
+                             f"{fleet['served']}")
 
 
 def serving_counter(name) -> int:
@@ -3980,6 +4187,8 @@ def main(argv=None) -> int:
         if os.environ.get("CHIP_SMOKE_WORKER") == "telemetry":
             return telemetry_worker()
         return async_ps_worker()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
     from autodist_tpu_torch.ops import _build
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_xent as fx
@@ -4016,6 +4225,20 @@ def main(argv=None) -> int:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
     every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
+    if only == "tools":
+        # Phases 20, 21 and 22 (the tools phase reads what the first two
+        # left); no kernel line.
+        for label, path in (("20 telemetry", telemetry_path), ("21 serving", serving_path)):
+            t0 = time.perf_counter()
+            log(f"{label}: launches {path(every, dev)}")
+            log(f"phase time: {label} {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tools_path()
+        log(f"phase time: 22 tools {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry", "serving"):
         # Phase 16, 17, 18, 19, 20 or 21 alone (a shorter call while it is worked on); no
         # kernel line.
@@ -4070,6 +4293,7 @@ def main(argv=None) -> int:
     by_phase["lm_family"] = timed("19 lm family", lm_family_path, every, dev)
     by_phase["telemetry"] = timed("20 telemetry", telemetry_path, every, dev)
     by_phase["serving"] = timed("21 serving", serving_path, every, dev)
+    timed("22 tools", tools_path)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel

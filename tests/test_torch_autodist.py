@@ -226,6 +226,10 @@ def _imports(tree):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted(_PORT.rglob("*.py"))
     assert len(files) > 15
+    # The operator tools and the analyzer are the port's too; so is the
+    # card's smoke script.
+    assert {"analysis", "tools"} <= {p.relative_to(_PORT).parts[0] for p in files}
+    files.append(_PORT.parent / "chip_smoke.py")
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         top_level = {id(n) for n in tree.body}

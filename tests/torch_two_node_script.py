@@ -32,9 +32,12 @@ def main():
     ad = AutoDist(resource_info=SPEC, strategy_builder=AllReduce(), device="cpu")
     step = ad.function(loss_fn, {"w": torch.zeros(4, 1)}, lambda p: torch.optim.SGD(p, lr=0.1))
     losses = [float(step(batch())) for _ in range(3)]
-    print(json.dumps({"rank": dist.get_rank(), "world": dist.get_world_size(),
-                      "losses": losses, "w": step.get_state().params["w"].flatten().tolist()}),
-          flush=True)
+    # One write of the whole line: both ranks share the pipe, and print()'s
+    # separate write of the newline lets the other rank's line land between.
+    sys.stdout.write(json.dumps({"rank": dist.get_rank(), "world": dist.get_world_size(),
+                                 "losses": losses,
+                                 "w": step.get_state().params["w"].flatten().tolist()}) + "\n")
+    sys.stdout.flush()
     if not const.is_worker() and not ad._coordinator.join(timeout=60.0):
         sys.exit("the worker process did not finish")
 
