@@ -4,16 +4,26 @@ by either package restores in the other.
 
 - Names. Parameters are the JAX tree's ``/``-joined paths
   (``block_0/attn/query/kernel``, the state dict's ``block_0.attn.query.kernel``);
-  Adam's state is ``__opt__/0/count``, ``__opt__/0/mu/<name>`` and
-  ``__opt__/0/nu/<name>``, the names ``optax.adam`` and ``optax.adamw`` give
-  it (torch's ``step``, ``exp_avg`` and ``exp_avg_sq``); the step is
-  ``__step__``.
+  the optimizer's state takes the names the JAX ``Saver`` gives its optax
+  counterpart's (its state flattened, ``autodist_tpu/checkpoint/saver.py:250``):
+  Adam and AdamW (no amsgrad) are ``optax.adam``/``optax.adamw``,
+  ``__opt__/0/count``, ``__opt__/0/mu/<name>`` and ``__opt__/0/nu/<name>``
+  (torch's ``step``, ``exp_avg`` and ``exp_avg_sq``); the port's
+  :class:`~autodist_tpu_torch.optimizers.Adafactor` is ``optax.adafactor``,
+  ``__opt__/0/count``, ``__opt__/0/v_row/<name>``, ``__opt__/0/v_col/<name>``
+  and ``__opt__/0/v/<name>`` in optax's shapes (placeholders ``(1,)``);
+  ``torch.optim.SGD`` with momentum (no Nesterov, no dampening, no weight
+  decay) is ``optax.sgd(lr, momentum)``, ``__opt__/0/trace/<name>`` (torch's
+  ``momentum_buffer``), and without momentum ``optax.sgd(lr)``, which has
+  no state leaf. The step is ``__step__``.
 - Write: the single-file v1 format, ``<prefix>-<step>.npz`` with its
   ``.json`` manifest, and the sharded v2 format, each rank's
   ``<prefix>-<step>.shardNNNNN-of-NNNNN.npz`` of the chunks it owns (the
   lowest rank holding a chunk writes it) and rank 0's manifest of index
   ranges over the logical shapes, published after every rank's file landed
-  (two barriers: no rank returns before the manifest exists). Tensors are
+  (two barriers: no rank returns before the manifest exists). bfloat16 is
+  stored as the JAX package stores it: a 2-byte void (``V2``) array in v1,
+  with ``"bfloat16"`` in the manifest, and uint16 in v2. Tensors are
   written at their logical shapes (padded storage is cut back), so either
   package restores either format onto any layout. The directory's
   ``checkpoint`` state file (``{"latest", "all"}``, merged per name);
@@ -24,7 +34,8 @@ by either package restores in the other.
   ``sharded=False`` gathers every shard and rank 0 writes v1 at the full
   logical shapes (the JAX package's gather-on-save).
 - Read: either format, assembled into whole tensors and placed as the
-  reading runner's layout says.
+  reading runner's layout says; a v1 ``V2`` array reads back as bfloat16
+  with the same bits.
 - Codec state: PowerSGD's Q is saved as ``__ef__/<name>/q`` and restored
   when the shapes match; error-feedback residuals are per-rank transients
   and are not saved, as in the JAX package.
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch import optimizers
 from autodist_tpu_torch.model_spec import _path_name
 from autodist_tpu_torch.parallel.layout import StateLayout, spec_owner, spec_ranges
 from autodist_tpu_torch.runner import TrainState
@@ -53,9 +65,16 @@ _EF_PREFIX = "__ef__/"
 _STEP_KEY = "__step__"
 _STATE_FILE = "checkpoint"  # the directory's latest-pointer, like TF's
 _COUNT = "0/count"
-_MOMENTS = {"exp_avg": "0/mu/", "exp_avg_sq": "0/nu/"}
-# torch optimizers whose state maps onto an optax one's names.
-MAPPED_OPTIMIZERS = (torch.optim.Adam, torch.optim.AdamW)
+# Per optimizer kind: {torch state field: optax leaf prefix}, and whether
+# the state has optax's count.
+_FIELDS = {"adam": ({"exp_avg": "0/mu/", "exp_avg_sq": "0/nu/"}, True),
+           "adafactor": ({f: f"0/{f}/" for f in optimizers.STATE_FIELDS}, True),
+           "sgd_momentum": ({"momentum_buffer": "0/trace/"}, False),
+           "sgd": ({}, False)}
+MAPPED = ("torch.optim.Adam and torch.optim.AdamW with amsgrad=False (optax.adam, "
+          "optax.adamw), autodist_tpu_torch.optimizers.Adafactor (optax.adafactor), "
+          "torch.optim.SGD with dampening=0, nesterov=False, weight_decay=0 and "
+          "maximize=False (optax.sgd, with or without momentum)")
 
 def _is_sharded_manifest(path: str) -> bool:
     try:
@@ -108,10 +127,25 @@ def _decode(data: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as the v1 file holds it: a bfloat16 tensor as a 2-byte void
+    array, what numpy writes for the JAX package's bfloat16 leaves."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        raise NotImplementedError("bfloat16 tensors have no numpy dtype to write in v1")
+        return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2")).copy()
     return t.numpy().copy()
+
+
+def _v1_dtype(data: np.ndarray) -> str:
+    """The manifest's dtype of a v1 array: "bfloat16" for a 2-byte void one."""
+    return "bfloat16" if data.dtype == np.dtype("V2") else str(data.dtype)
+
+
+def _from_v1(data: np.ndarray) -> torch.Tensor:
+    """A v1 array as a tensor: a 2-byte void array (the JAX package's and
+    this package's bfloat16) as bfloat16, bit for bit."""
+    if data.dtype == np.dtype("V2"):
+        return _decode(data.view(np.uint16), "bfloat16")
+    return torch.from_numpy(data)
 
 
 def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -124,20 +158,64 @@ def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return data, str(data.dtype)
 
 
-def _require_mapped(optimizer: torch.optim.Optimizer):
-    if not isinstance(optimizer, MAPPED_OPTIMIZERS) or any(
-            g.get("amsgrad") for g in optimizer.param_groups):
-        raise NotImplementedError(
-            f"the state of {type(optimizer).__name__} has no mapping onto the JAX "
-            f"package's checkpoint names; mapped: torch.optim.Adam and "
-            f"torch.optim.AdamW with amsgrad=False (optax.adam, optax.adamw)")
+def _kind(optimizer: torch.optim.Optimizer) -> str:
+    """Which optax optimizer's names ``optimizer``'s state maps onto (a key
+    of ``_FIELDS``); any other optimizer raises."""
+    groups = optimizer.param_groups
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)) and not any(
+            g.get("amsgrad") for g in groups):
+        return "adam"
+    if isinstance(optimizer, optimizers.Adafactor):
+        return "adafactor"
+    if type(optimizer) is torch.optim.SGD and all(
+            g["dampening"] == 0 and not g["nesterov"] and g["weight_decay"] == 0
+            and not g.get("maximize") for g in groups):
+        momentum = {g["momentum"] != 0 for g in groups}
+        if len(momentum) == 1:
+            return "sgd_momentum" if momentum.pop() else "sgd"
+    raise NotImplementedError(
+        f"the state of {type(optimizer).__name__} (with these settings) has no mapping onto "
+        f"the JAX package's checkpoint names; mapped: {MAPPED}")
+
+
+def _zero_pad(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` zero-padded at the end of each dim to ``shape``."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, d) for d in t.shape)] = t
+    return out
+
+
+def _factored_entry(state: TrainState, key: str, field: str, param: torch.Tensor):
+    """``(drop, pspec, global shape, logical shape)`` of Adafactor's
+    ``field`` for parameter ``key``: ``drop`` the parameter's dim it lacks
+    (None: the parameter's own shape; "placeholder": optax's ``(1,)``), and
+    its layout the parameter's optimizer layout without that dim."""
+    logical = tuple(state.layout.by_key[key].plan.shape) if state.layout is not None \
+        else tuple(param.shape)
+    drop = optimizers.removed_dim(field, logical)
+    if drop == "placeholder":
+        return drop, (), (1,), (1,)
+    if state.layout is None:
+        shape = optimizers.drop_dim(tuple(param.shape), drop)
+        return drop, (), shape, shape
+    p = state.layout.by_key[key].plan
+    pspec = tuple(p.opt_pspec) + (None,) * (len(p.storage_shape) - len(p.opt_pspec))
+    pspec, glob, logi = (optimizers.drop_dim(x, drop)
+                         for x in (pspec, tuple(p.storage_shape), tuple(p.shape)))
+    if not any(e is not None for e in pspec):
+        pspec = ()
+    return drop, pspec, glob, logi
 
 
 def _state_tensors(state: TrainState):
     """``[(name, local tensor, pspec, global shape, logical shape)]`` of a
     TrainState under the JAX names, each as this rank holds it: the
-    parameters, Adam's moments and count, and PowerSGD's Q."""
-    _require_mapped(state.optimizer)
+    parameters, the optimizer's state (its mapping's fields and count), and
+    PowerSGD's Q."""
+    kind = _kind(state.optimizer)
+    fields, has_count = _FIELDS[kind]
 
     def entry(name, key, t, opt=False):
         if state.layout is None:
@@ -153,17 +231,28 @@ def _state_tensors(state: TrainState):
         for param in group["params"]:
             key = key_of[id(param)]
             st = state.optimizer.state.get(param, {})
-            counts.add(int(st["step"]) if "step" in st else 0)
-            for field, prefix in _MOMENTS.items():
+            step = st.get("count", st.get("step"))
+            counts.add(int(step) if step is not None else 0)
+            for field, prefix in fields.items():
+                name = _OPT_PREFIX + prefix + _path_name(key)
                 value = st.get(field)
-                if value is None:
-                    value = torch.zeros_like(param, dtype=torch.float32)
-                out.append(entry(_OPT_PREFIX + prefix + _path_name(key), key, value, opt=True))
+                if kind != "adafactor":
+                    if value is None:
+                        value = torch.zeros_like(param, dtype=torch.float32)
+                    out.append(entry(name, key, value, opt=True))
+                    continue
+                _, pspec, glob, logi = _factored_entry(state, key, field, param)
+                if value is None:   # not stepped yet: optax's zeros, in this rank's shape
+                    shape = optimizers.state_shapes(
+                        param.shape, state.optimizer.logical_shape(param))[field]
+                    value = torch.zeros(shape, dtype=param.dtype, device=param.device)
+                out.append((name, value, pspec, glob, logi))
     if len(counts) > 1:
         raise ValueError(f"the optimizer's parameters have stepped {sorted(counts)} times; "
                          f"optax keeps one count")
-    count = torch.tensor(counts.pop() if counts else 0, dtype=torch.int32)
-    out.append((_OPT_PREFIX + _COUNT, count, (), (), ()))
+    if has_count:
+        count = torch.tensor(counts.pop() if counts else 0, dtype=torch.int32)
+        out.append((_OPT_PREFIX + _COUNT, count, (), (), ()))
     out += [(f"{_EF_PREFIX}{_path_name(key)}/q", e["q"], (), tuple(e["q"].shape),
              tuple(e["q"].shape)) for key, e in state.ef_state.items() if "q" in e]
     return out
@@ -183,13 +272,32 @@ def _gathered(layout: Optional[StateLayout], tensors, keep: bool) -> Dict[str, n
     return host
 
 
+def _factored_chunk(state: TrainState, key: str, field: str, param: torch.Tensor,
+                    value: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk of Adafactor's logical-shape ``field`` of ``key``:
+    zero-padded to the padded parameter's shape without the dim the field
+    lacks, then cut to the optimizer tensor's ranges there."""
+    drop, _, glob, _ = _factored_entry(state, key, field, param)
+    if drop == "placeholder" or state.layout is None:
+        return value
+    ranges = optimizers.drop_dim(state.layout.update_chunk(key)[0], drop)
+    value = _zero_pad(value, glob)
+    return value[tuple(slice(a, b) for a, b in ranges)]
+
+
 def _load_optimizer(state: TrainState, opt_flat: Mapping[str, torch.Tensor]):
-    """The checkpoint's Adam state into ``state.optimizer`` through
-    ``load_state_dict`` (which casts the moments to each parameter's dtype
-    and device), each moment cut to this rank's share of it."""
+    """The checkpoint's optimizer state into ``state.optimizer`` through
+    ``load_state_dict`` (which casts each field to its parameter's dtype and
+    device), each field cut to this rank's share of it."""
     optimizer = state.optimizer
-    _require_mapped(optimizer)
-    count = float(opt_flat[_COUNT])
+    kind = _kind(optimizer)
+    fields, has_count = _FIELDS[kind]
+    if not fields:
+        return
+    count = None
+    if has_count:
+        count = torch.tensor(int(opt_flat[_COUNT]), dtype=torch.int32) if kind == "adafactor" \
+            else torch.tensor(float(opt_flat[_COUNT]))
     layout = state.layout
     opt_params = state.opt_params or state.params
     key_of = {id(t): k for k, t in opt_params.items()}
@@ -198,15 +306,19 @@ def _load_optimizer(state: TrainState, opt_flat: Mapping[str, torch.Tensor]):
         for p in group["params"]:
             key = key_of[id(p)]
             name = _path_name(key)
-            entry = {"step": torch.tensor(count)}
-            for field, prefix in _MOMENTS.items():
+            # torch's Adam steps each parameter's own counter in place;
+            # Adafactor's one count is shared (load_state_dict shares it again).
+            entry = {} if count is None else \
+                {"count": count} if kind == "adafactor" else {"step": count.clone()}
+            for field, prefix in fields.items():
                 if prefix + name not in opt_flat:
                     raise KeyError(f"Checkpoint missing optimizer state {_OPT_PREFIX}{prefix}{name}")
                 value = opt_flat[prefix + name]
-                if layout is not None:
-                    value = layout.to_update(key, layout.to_storage(key, value)).clone(
-                        memory_format=torch.contiguous_format)
-                entry[field] = value
+                if kind == "adafactor":
+                    value = _factored_chunk(state, key, field, p, value)
+                elif layout is not None:
+                    value = layout.to_update(key, layout.to_storage(key, value))
+                entry[field] = value.clone(memory_format=torch.contiguous_format)
             entries[index] = entry
             index += 1
     optimizer.load_state_dict({"state": entries,
@@ -385,7 +497,7 @@ class Saver:
             np.savez(f, **host)
         os.replace(tmp, prefix + ".npz")  # atomic publish
         manifest = {"step": step,
-                    "params": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                    "params": {k: {"shape": list(v.shape), "dtype": _v1_dtype(v)}
                                for k, v in host.items() if not k.startswith("__")}}
         tmp = prefix + ".json.tmp"
         with open(tmp, "w") as f:
@@ -456,7 +568,7 @@ class Saver:
         """``({name: tensor}, step)`` from either format."""
         if os.path.exists(prefix + ".npz"):
             with np.load(prefix + ".npz") as z:
-                flat = {k: torch.from_numpy(z[k]) for k in z.files}
+                flat = {k: _from_v1(z[k]) for k in z.files}
             step = int(flat.pop(_STEP_KEY, torch.tensor(0)))
             return flat, step
         try:

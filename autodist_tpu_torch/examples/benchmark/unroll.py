@@ -15,11 +15,17 @@ above 1 against that many ``run()`` steps from the same weights:
 ``unroll_curve`` row of a JSON file of H100 rows (``{"unroll_curve":
 {"platform": "gpu", "speedup_vs_unroll1": x, "threshold_pct": 5}}``);
 ``PERF_BASELINE.json`` holds TPU and CPU rows and is not read.
+``--optimizer adafactor`` trains under the port's ``Adafactor`` (what
+``choose_optimizer`` hands out when Adam's moments do not fit) and
+``--zero 1`` cuts every update over the data ranks (``zero=``), where
+Adafactor all-reduces its whole-tensor statistics inside the captured step.
 
     python -m autodist_tpu_torch.examples.benchmark.unroll               # the card
     python -m torch.distributed.run --standalone --nproc_per_node 4 \
         -m autodist_tpu_torch.examples.benchmark.unroll                   # 4 cards
     python -m autodist_tpu_torch.examples.benchmark.unroll --device cpu --factors 1,4
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m autodist_tpu_torch.examples.benchmark.unroll --optimizer adafactor --zero 1
 """
 
 import argparse
@@ -31,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import AllReduce, AutoDist
+from autodist_tpu_torch import AllReduce, AutoDist, optimizers
 from autodist_tpu_torch.models import transformer_lm
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -45,6 +51,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "host, as bench.py)")
     parser.add_argument("--baseline", type=str, default="",
                         help="a JSON file of H100 rows with an unroll_curve row")
+    parser.add_argument("--optimizer", choices=("adam", "adafactor"), default="adam",
+                        help="Adam 1e-3, or the port's Adafactor 1e-3 (optax.adafactor)")
+    parser.add_argument("--zero", type=int, default=0,
+                        help="the session's zero= (1: each update cut over the data ranks)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda:$LOCAL_RANK or cuda:0; "
                              "'cpu' for the host)")
@@ -70,11 +80,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     model, params = transformer_lm.init_params(cfg, seed=0, device=device)
     loss_fn = transformer_lm.make_loss_fn(model)
 
+    def optimizer(p):
+        if args.optimizer == "adafactor":
+            return optimizers.Adafactor(p, lr=1e-3)
+        return torch.optim.Adam(p, lr=1e-3, eps=1e-8)
+
     def session():
         ad = AutoDist(strategy_builder=AllReduce(), device=device)
         runner = ad.create_distributed_session(
-            loss_fn, params, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8),
-            example_batch=transformer_lm.synthetic_batch(cfg, batch_size, seq_len))
+            loss_fn, params, optimizer,
+            example_batch=transformer_lm.synthetic_batch(cfg, batch_size, seq_len),
+            zero=args.zero)
         return runner, runner.init(params)
 
     runner, state = session()
@@ -112,7 +128,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     platform = "gpu" if on_card else "cpu"
     result = {
         "metric": f"unroll_sweep ({platform} x{n_dev}, d{cfg.d_model}x{cfg.n_layers}, "
-                  f"seq{seq_len}, bs{batch_size * n_dev})",
+                  f"seq{seq_len}, bs{batch_size * n_dev}"
+                  + (f", {args.optimizer}" if args.optimizer != "adam" else "")
+                  + (f", zero={args.zero}" if args.zero else "") + ")",
         "unit": "steps/s",
         "rows": rows,
         "tokens_per_step": batch_size * n_dev * seq_len,

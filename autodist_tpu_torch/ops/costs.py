@@ -35,9 +35,11 @@ _NO_LAUNCH = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_st
 
 def counted_wrappers():
     """The wrappers that count their launches: the fused head's three
-    kernels, its table pack, and the four flash kernels."""
+    kernels, its table pack, and the four flash kernels (with their hd-128
+    instantiations' counts)."""
     from autodist_tpu_torch.ops import flash_attention, fused_xent
-    return fused_xent.KERNELS + (fused_xent.xent_pack_w,) + flash_attention.KERNELS
+    return fused_xent.KERNELS + (fused_xent.xent_pack_w,) + flash_attention.KERNELS \
+        + flash_attention.KERNELS_HD128
 
 
 def launch_counts() -> Dict[str, int]:

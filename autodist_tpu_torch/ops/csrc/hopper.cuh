@@ -335,6 +335,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&o)[8][4], const unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+// o[64 x 128] += A[64 x 16] . B[16 x 128], A as bf16 register fragments, B
+// in shared memory MN-major: two 64-wide MN atoms, LBO apart (the
+// descriptor's second form), as the flash kernels store a 128-wide head.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&o)[16][4], const unsigned (&a)[4],
+                                                    uint64_t db, int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC4(o, 0), ACC4(o, 1), ACC4(o, 2), ACC4(o, 3), ACC4(o, 4), ACC4(o, 5), ACC4(o, 6),
+        ACC4(o, 7), ACC4(o, 8), ACC4(o, 9), ACC4(o, 10), ACC4(o, 11), ACC4(o, 12),
+        ACC4(o, 13), ACC4(o, 14), ACC4(o, 15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef ACC4
 
 __device__ __forceinline__ float ex2(float x) {

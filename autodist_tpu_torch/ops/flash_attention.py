@@ -15,6 +15,11 @@ JAX package, each behind a wrapper that counts its launches:
   with p and ds recomputed per block from the saved lse;
 - :func:`flash_bwd_dq` (replaces ``_flash_bwd_dq_kernel``): dQ.
 
+Each kernel is instantiated at head widths 64 and 128
+(:data:`KERNEL_HEAD_DIMS`); the two instantiations count their launches
+apart: a wrapper's ``launches`` counts its hd-64 kernel, and its
+``hd128.launches`` (:data:`KERNELS_HD128`) the hd-128 one.
+
 The row term ``D_i = rowsum(dO * O)`` is plain torch
 (:func:`prepare_backward_q_side`), as it is XLA in the JAX package.
 
@@ -22,10 +27,10 @@ A wrapper given CPU tensors computes the kernels' plain versions
 (:func:`flash_forward_plain`, :func:`flash_forward_carry_plain`,
 :func:`flash_backward_plain`); given CUDA
 tensors it launches the kernel or raises, with no fallback. The kernels take
-bf16 q/k/v read in place as ``[B, L, H, 64]``; lse and D are plain f32
+bf16 q/k/v read in place as ``[B, L, H, D]``, D 64 or 128; lse and D are plain f32
 ``[B * H, Lq]`` (the TPU's ``[bh, n_q, bq]`` planes and 128-lane scratch are
 VMEM layout machinery and have no counterpart here). The carry keeps the JAX
-layout: acc f32 ``[B, H, Lq, 64]``, m and l f32 ``[B, H, Lq]``, the layout of
+layout: acc f32 ``[B, H, Lq, D]``, m and l f32 ``[B, H, Lq]``, the layout of
 :func:`autodist_tpu_torch.ops.blockwise_attention.blockwise_attention_with_carry`,
 so ``finalize`` takes either.
 
@@ -46,9 +51,19 @@ from autodist_tpu_torch.ops.blockwise_attention import NEG_INF
 # Keys per step of the plain versions: bounds their [B, H, Lq, block] f32
 # score buffer.
 PLAIN_K_BLOCK = 256
-# The only head width the kernels are instantiated for (csrc/flash_attention.cu):
-# the flagship's d_model 512 over 8 heads.
-KERNEL_HEAD_DIM = 64
+# The head widths the kernels are instantiated for (csrc/flash_attention.cu):
+# the flagship's d_model 512 over 8 heads, and d_model 1,024 over 8 (the
+# width of most public LMs). Other widths are ROADMAP Queue 2 item 2.
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+class LaunchCount:
+    """The launch count of one kernel instantiation, read and set to 0 as
+    a wrapper's own ``launches`` is (``__name__`` names it)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def _dims(q, k, v) -> Tuple[int, int, int, int, int]:
@@ -176,7 +191,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_carry.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-    lib.flash_fwd_smem_bytes.argtypes = []
+    lib.flash_fwd_smem_bytes.argtypes = [i]
     for fn in (lib.flash_fwd, lib.flash_fwd_carry, lib.flash_bwd_dkdv, lib.flash_bwd_dq,
                lib.flash_fwd_smem_bytes):
         fn.restype = ctypes.c_int
@@ -184,7 +199,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_kernel_args(q, k, v, do=None, lse=None, dd=None):
-    """What the kernels take: bf16 q/k/v (and dO like q) with head width 64,
+    """What the kernels take: bf16 q/k/v (and dO like q) with head width 64
+    or 128,
     contiguous and 16-byte aligned (every kernel reads q/k/v, and the
     backward dO, through TMA tensor maps, which need it); f32
     ``[B * H, Lq]`` lse and dd; all on q's card."""
@@ -196,9 +212,10 @@ def _check_kernel_args(q, k, v, do=None, lse=None, dd=None):
     if any(t.dtype != torch.bfloat16 for t in bf16):
         raise TypeError("the flash kernels take bf16 q, k, v and dO, got "
                         f"{[t.dtype for t in bf16]}")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the flash kernels are built for head width "
-                         f"{KERNEL_HEAD_DIM}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash kernels are built for head widths "
+                         f"{KERNEL_HEAD_DIMS}, got {d} (other widths: ROADMAP Queue 2 "
+                         f"item 2)")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     for t in (lse, dd):
@@ -212,6 +229,11 @@ def _check_kernel_args(q, k, v, do=None, lse=None, dd=None):
         raise ValueError("the flash kernels copy rows in 16-byte chunks: q, k, v "
                          "and dO must be 16-byte aligned")
     return b, lq, lk, h, d
+
+
+def _count(wrapper, d: int) -> None:
+    """One launch of ``wrapper``'s kernel at head width ``d``."""
+    (wrapper if d == 64 else wrapper.hd128).launches += 1
 
 
 def _launch(fn, *args):
@@ -233,7 +255,7 @@ def _out_f32(out_dtype: Optional[torch.dtype]) -> int:
 def _probe_cost(name: str, q, k, causal: bool, out_bytes: int = 2):
     """:func:`costs.kernel` for one launch of ``name`` on these operands:
     each input read once and each output written once (bf16 q, k, v and dO
-    ``[B, L, H, 64]``, f32 lse and D ``[B*H, Lq]``, outputs of
+    ``[B, L, H, D]``, f32 lse and D ``[B*H, Lq]``, outputs of
     ``out_bytes`` an element, the carry's f32 acc in and out), and the
     tensor-core products over the scores attended (the causal half, or all
     of them): 2 in the forward and the carry, 4 in dK/dV, 3 in dQ."""
@@ -264,12 +286,12 @@ def flash_fwd(q, k, v, causal: bool = True, q_offset: int = 0, k_offset: int = 0
     with torch.cuda.device(q.device):
         _launch(_lib().flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), b, h, lq, lk, d, int(causal), q_offset, k_offset, _stream())
-    flash_fwd.launches += 1
+    _count(flash_fwd, d)
     return out, lse
 
 
 def _check_carry(carry, b, h, lq, d, device):
-    """What the carry kernel takes: f32 acc ``[B, H, Lq, 64]`` and m, l
+    """What the carry kernel takes: f32 acc ``[B, H, Lq, D]`` and m, l
     ``[B, H, Lq]``, contiguous and 16-byte aligned, on q's card."""
     shapes = ((b, h, lq, d), (b, h, lq), (b, h, lq))
     for name, t, shape in zip(("acc", "m", "l"), carry, shapes):
@@ -301,7 +323,7 @@ def flash_fwd_carry(q, k, v, carry=None, causal: bool = True, q_offset: int = 0,
         _launch(_lib().flash_fwd_carry, q.data_ptr(), k.data_ptr(), v.data_ptr(), *carry_in,
                 acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, lq, lk, d, int(causal),
                 q_offset, k_offset, _stream())
-    flash_fwd_carry.launches += 1
+    _count(flash_fwd_carry, d)
     return acc, m, l
 
 
@@ -322,7 +344,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
                 do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), b, h, lq, lk, d, int(causal), q_offset, k_offset, f32,
                 _stream())
-    flash_bwd_dkdv.launches += 1
+    _count(flash_bwd_dkdv, d)
     return dk, dv
 
 
@@ -341,7 +363,7 @@ def flash_bwd_dq(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
         _launch(_lib().flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b, h, lq,
                 lk, d, int(causal), q_offset, k_offset, f32, _stream())
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, d)
     return dq
 
 
@@ -350,6 +372,10 @@ flash_fwd_carry.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
 KERNELS = (flash_fwd, flash_fwd_carry, flash_bwd_dkdv, flash_bwd_dq)
+for _k in KERNELS:
+    _k.hd128 = LaunchCount(f"{_k.__name__}_hd128")
+# The hd-128 instantiations' counts (the wrappers' own count the hd-64 ones).
+KERNELS_HD128 = tuple(k.hd128 for k in KERNELS)
 
 
 class _FlashAttention(torch.autograd.Function):

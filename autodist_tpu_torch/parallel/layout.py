@@ -180,6 +180,30 @@ class StateLayout:
         return grad if self.by_key[key].compute_local else self.to_storage(key, grad)
 
     # ------------------------------------------------------------- updates
+    def update_chunk(self, key: str):
+        """Where the optimizer's tensor of ``key`` lies in the padded
+        parameter: ``(ranges, cut)`` with ``ranges`` its ``(start, stop)``
+        per tensor axis, and ``cut`` None when it is the whole parameter,
+        else ``(dim, mesh axes)`` of the one axis it is cut along (its
+        update shard's, or its storage shard's). A tensor cut along two
+        axes raises: nothing the port runs lays one out so."""
+        pl = self.by_key[key]
+        shape = pl.plan.storage_shape
+        storage = spec_ranges(pl.plan.pspec, shape, self.mesh)
+        update = spec_ranges(pl.plan.opt_pspec, shape, self.mesh) if pl.sharded_update \
+            else storage
+        ranges, cuts = [], []
+        for dim, size in enumerate(shape):
+            r = update[dim] if dim == pl.update_dim else storage[dim]
+            ranges.append(r)
+            if r != (0, size):
+                spec = pl.plan.opt_pspec if dim == pl.update_dim else pl.plan.pspec
+                cuts.append((dim, entry_axes(spec[dim])))
+        if len(cuts) > 1:
+            raise NotImplementedError(f"{key}: the optimizer's tensor is cut along dims "
+                                      f"{[d for d, _ in cuts]}; one cut axis is supported")
+        return tuple(ranges), (cuts[0] if cuts else None)
+
     def to_update(self, key: str, storage: torch.Tensor) -> torch.Tensor:
         """The update shard of a storage-shaped tensor (a view)."""
         pl = self.by_key[key]

@@ -90,7 +90,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const, telemetry
+from autodist_tpu_torch import const, optimizers, telemetry
 from autodist_tpu_torch.model_spec import ModelSpec
 from autodist_tpu_torch.ops import costs
 from autodist_tpu_torch.parallel import synchronization
@@ -397,6 +397,17 @@ class DistributedRunner:
                 opt_params[key] = self.layout.to_update(key, placed[key]).detach().clone(
                     memory_format=torch.contiguous_format).requires_grad_()
         optimizer = self._optimizer(list(opt_params.values()))
+        if getattr(optimizer, "shard", None) is not None:
+            # An optimizer with whole-tensor statistics (the port's
+            # Adafactor): each cut tensor reduces them over the ranks
+            # holding the other chunks.
+            for key, t in opt_params.items():
+                ranges, cut = self.layout.update_chunk(key)
+                if cut is not None:
+                    dim, axes = cut
+                    optimizer.shard(t, optimizers.Shard(
+                        tuple(self.layout.by_key[key].plan.shape), dim, ranges[dim][0],
+                        self.layout.mesh.group(axes)))
         if self.device.type == "cuda":
             # Step counters on the card, in run() and in run_many's graphs
             # alike, so the two make the same optimizer calls.
@@ -999,7 +1010,7 @@ class DistributedRunner:
             optimizer.step()
             with cost:
                 optimizer.step()
-        except Exception as e:  # noqa: BLE001 — host reads (Adafactor's) do not run on meta
+        except Exception as e:  # noqa: BLE001 — an optimizer with host reads does not run on meta
             _log.info("plan_costs: %s does not step on meta tensors (%s); its update is "
                       "not counted", type(optimizer).__name__, e)
             return costs.StepCost()

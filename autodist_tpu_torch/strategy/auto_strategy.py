@@ -35,6 +35,7 @@ import torch
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.model_spec import ModelSpec, ParamSpec
+from autodist_tpu_torch.optimizers import Adafactor
 from autodist_tpu_torch.proto.strategy import (AllReduceSynchronizer, NodeConfig,
                                                PartitionConfig, PSSynchronizer)
 from autodist_tpu_torch.resource_spec import ResourceSpec
@@ -85,7 +86,8 @@ def _state_bytes(optimizer: Callable, shapes: Dict[str, tuple]) -> Optional[Dict
     built over meta tensors of ``shapes`` (``{name: (shape, dtype)}``) and
     stepped once on meta gradients, which creates its state (an optimizer
     whose update reads values back to the host fails after that, which is
-    enough). Step counters are not counted. None when the factory does not
+    enough). Step counters (torch's ``step``, Adafactor's ``count``) are not
+    counted. None when the factory does not
     build there or leaves a parameter without state."""
     metas = {n: torch.empty(shape, dtype=dtype, device="meta", requires_grad=True)
              for n, (shape, dtype) in shapes.items()}
@@ -110,7 +112,7 @@ def _state_bytes(optimizer: Callable, shapes: Dict[str, tuple]) -> Optional[Dict
                          type(opt).__name__, name)
             return None
         out[name] = sum(v.numel() * v.element_size() for k, v in state.items()
-                        if isinstance(v, torch.Tensor) and k != "step")
+                        if isinstance(v, torch.Tensor) and k not in ("step", "count"))
     return out
 
 
@@ -141,8 +143,9 @@ class OptimizerChoice:
 def choose_optimizer(params: Dict[str, torch.Tensor], learning_rate: float = 1e-3,
                      memory_budget_bytes: Optional[int] = None) -> OptimizerChoice:
     """``torch.optim.Adam`` when its moments fit the per-device budget next to
-    the params and gradients; ``torch.optim.Adafactor`` (a factored second
-    moment) when they do not (``auto_strategy.py:139-173``). Residency:
+    the params and gradients; the port's :class:`~autodist_tpu_torch.
+    optimizers.Adafactor` (``optax.adafactor``'s factored second moment) when
+    they do not (``auto_strategy.py:139-173``). Residency:
     params + gradients (about the params' bytes) + Adam's state, with
     Adam's state bytes from meta tensors; activations are left to the
     budget's 20% headroom."""
@@ -160,7 +163,7 @@ def choose_optimizer(params: Dict[str, torch.Tensor], learning_rate: float = 1e-
         return OptimizerChoice(adam, False, (
             f"adam: params+grads+moments {_fmt_bytes(resident)} "
             f"<= budget {_fmt_bytes(budget)}"))
-    return OptimizerChoice(lambda p: torch.optim.Adafactor(p, lr=learning_rate), True, (
+    return OptimizerChoice(lambda p: Adafactor(p, lr=learning_rate), True, (
         f"adafactor: adam residency {_fmt_bytes(resident)} exceeds budget "
         f"{_fmt_bytes(budget)}; factored second moment fits"))
 
@@ -244,7 +247,7 @@ class AutoStrategy(StrategyBuilder):
                 "<recommend>",
                 f"optimizer state {_fmt_bytes(opt_bytes)} dominates the memory pressure "
                 f"(params only {_fmt_bytes(dense_bytes)}): a factored-moment optimizer "
-                f"(torch.optim.Adafactor / strategy.choose_optimizer) would fit the "
+                f"(optimizers.Adafactor / strategy.choose_optimizer) would fit the "
                 f"{_fmt_bytes(budget)} budget without the PS/ZeRO regime"))
 
         # A `model` axis for physical tensor sharding: large enough that the

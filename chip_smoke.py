@@ -11,8 +11,9 @@ disk input, the raw baseline and the sweep), ``run_many``'s CUDA graphs
 with the strategy search, the MoE LM with expert parallelism and the
 pipeline schedules, the async PS plane, the LM family, the telemetry planes,
 the serving plane (decode, the engines, the server, the router and the
-export), and the operator tools and the static analyzer on what those
-phases left running or wrote.
+export), the operator tools and the static analyzer on what those
+phases left running or wrote, the long-context entry point at head width
+128, and the port's optimizers (Adafactor, SGD) with their checkpoints.
 
     python3 chip_smoke.py
 
@@ -86,7 +87,15 @@ exits non-zero without them, or when any phase fails. Phases:
    (``F.scaled_dot_product_attention(is_causal=True)``, and that call's
    backward for dK/dV and dQ together, which computes its own D: it is
    set beside the pair, and beside ``prepare_backward_q_side`` and the
-   pair).
+   pair). The same at head width 128 (the four kernels' hd-128
+   instantiations; phase 7's carry checks with them): [8, 8,192, 8, 128]
+   causal, ragged L = 1,000 causal and not, offsets (1,024, 0) and (0, 300)
+   (f32 outputs, blind rows and unseen keys exactly 0), L = 65, 127 and
+   129 causal and not (one off the hd-128 tiling's 64-row tiles and
+   128-row blocks), the carry at the path shape, ragged, with a carry in
+   and with rows 0-99 carried through bit for bit; then the four timed at
+   [8, 8,192, 8, 128] beside their plain versions, bounds and
+   ``F.scaled_dot_product_attention``.
 6. The long-context entry point (``autodist_tpu_torch.examples.long_context_lm``)
    at full width: d512 x 6 layers, 8 heads, d_ff 2048, vocab 32,000, seq =
    max_len = 8,192, flash attention, every block rematerialized, untied
@@ -396,15 +405,39 @@ exits non-zero without them, or when any phase fails. Phases:
    of ``adtop`` (a "ps" status), ``adfleet`` (the router's routed count) and
    ``adtrace`` (as many completed requests as the fleet served), run while
    their servers were up. It starts no model.
-23. One JSON line of per-kernel numbers (all seven kernels, their launches by
-   phase with ``unroll``, ``moe``, ``async_ps``, ``lm_family``,
-   ``telemetry`` and ``serving``; the fused head's also at D = 1,024), then
-   the result line.
+23. The long-context entry point at head width 128 (``--only
+   long_context_128`` runs it with the hd-128 checks and times of phases 5
+   and 7): ``long_context_lm --d_model 1024`` (8 heads of 128, d_ff 4,096,
+   vocab 32,000, seq 8,192, 6 layers, flash, every block rematerialized,
+   the fused head at D = 1,024, bf16, Adam 1e-3) at 8 sequences: 3 counted
+   steps (the hd-128 forward, dK/dV and dQ must launch and no hd-64 flash
+   kernel; losses finite), tokens/s and MFU over 4 steady steps with peak
+   memory, a profiler window over 2; then phase 8's ring of one card at
+   the same width, 3 counted steps (the hd-128 carry and backward pair at
+   f32 parts must launch and no other flash kernel); then phase 7b's
+   one-card ring replay at hd 128, a check only.
+24. The port's optimizers (``--only optimizers``): (a) the flagship at
+   phase 4's shape (32 x 256, no accumulation) under ``choose_optimizer``'s
+   factored choice, forced by a 1 MiB budget (the port's Adafactor,
+   ``optax.adafactor``): ``run_many(2)`` equals ``run()`` bit for bit, one
+   replay counting twice a step's launches; (b) NCF at 65,536 one step
+   under Adafactor against the plain float64 update of optax's first step
+   on the same gradients (within 1e-5 of the update's largest magnitude,
+   beyond half an f32 ulp of each stored parameter); (c) save and restore
+   into the same runner, v1 and v2, bit for bit: (b)'s Adafactor state,
+   NCF under SGD with momentum 0.9, and bf16 tables in v1.
+25. One JSON line of per-kernel numbers (the seven kernels and the four
+   hd-128 instantiations, their launches by phase with ``unroll``, ``moe``,
+   ``async_ps``, ``lm_family``, ``telemetry``, ``serving``,
+   ``long_context_128``, ``sequence_parallel_128`` and ``optimizers``; the
+   fused head's also at D =
+   1,024), then the result line.
 
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
-async_ps``, ``--only lm_family``, ``--only telemetry``, ``--only serving``)
-builds the kernels and runs phase 16 (or 17, 18, 19, 20, 21) alone, without
-the kernel line; ``--only tools`` runs phases 20, 21 and 22. A
+async_ps``, ``--only lm_family``, ``--only telemetry``, ``--only serving``,
+``--only long_context_128``, ``--only optimizers``) builds the kernels and
+runs phase 16 (or 17, 18, 19, 20, 21, 23, 24) alone, without the kernel
+line; ``--only tools`` runs phases 20, 21 and 22. A
 process the Coordinator launched (``AUTODIST_WORKER`` set) runs only phase
 18 (e)'s worker half, or phase 20 (g)'s with ``CHIP_SMOKE_WORKER=telemetry``,
 and prints no result line.
@@ -449,6 +482,8 @@ PROFILE_STEPS = 3                 # steps traced after those
 LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
 FLASH_LSE_ATOL = 1e-3
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
+# Phase 23: the long-context entry point at d_model 1,024 (head width 128).
+LC128_D, LC128_COUNTED = 1024, 3
 FLAGSHIP_STEPS, FLAGSHIP_ACCUM = 10, 8      # timed steps of phase 9, its micro-batches a step
 RING_SHARDS = 4                   # shards of the ring replay on one card
 # The forward kernels' blocks hold 192 query rows, 64 per consumer
@@ -606,6 +641,11 @@ def ptxas_summary(build_log: str):
             args = re.search(r"_wide_kernelILb([01])ELi(\d+)E", mangled)
             if args:
                 kernel += f"<{'vd' if args.group(1) == '1' else 'dv'}, {args.group(2)}>"
+            # A flash kernel's: the head width, and a backward kernel's output type.
+            args = re.search(r"flash_\w+?_kernelILi(\d+)E(f|13__nv_bfloat16)?E", mangled)
+            if args:
+                out = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(args.group(2), "")
+                kernel += f"<hd {args.group(1)}{out}>"
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             used = lines[i + 2].split("Used", 1)[-1].strip() if i + 2 < len(lines) else ""
             yield f"{kernel}: {used}; {frame}"
@@ -1056,12 +1096,18 @@ def profile_pool(b, label, steps=POOL_PROFILE_STEPS):
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spans.items())))
 
 
-def flash_inputs(b, lq, lk, gen, dev):
-    """bf16 q [b, lq, 8, 64], k/v [b, lk, 8, 64] and dO like q."""
+def flash_inputs(b, lq, lk, gen, dev, hd=HEAD_DIM):
+    """bf16 q [b, lq, 8, hd], k/v [b, lk, 8, hd] and dO like q."""
     def draw(length, std=1.0):
-        return (torch.randn(b, length, LC_HEADS, HEAD_DIM, generator=gen) * std).to(
+        return (torch.randn(b, length, LC_HEADS, hd, generator=gen) * std).to(
             dev, torch.bfloat16)
     return draw(lq), draw(lk), draw(lk), draw(lq, 0.1)
+
+
+def width(name: str, hd: int) -> str:
+    """A kernel's name in the JSON line and the counts: the hd-128
+    instantiation's carries ``_hd128``."""
+    return name if hd == HEAD_DIM else f"{name}_hd{hd}"
 
 
 def check_flash(fa, dev):
@@ -1122,22 +1168,23 @@ def check_flash(fa, dev):
     return errs
 
 
-def time_flash(fa, dev):
+def time_flash(fa, dev, hd=HEAD_DIM):
     """Phase 5b: each flash kernel at the long-context shape, causal, as the
     main path calls it, beside its plain version, its bound and the library
-    call computing the same function."""
+    call computing the same function; at head width ``hd`` (the rows keyed
+    by :func:`width`)."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(3)
     b, length = LC_BATCH, LC_SEQ
-    q, k, v, do = flash_inputs(b, length, length, gen, dev)
+    q, k, v, do = flash_inputs(b, length, length, gen, dev, hd)
     out, lse = fa.flash_fwd(q, k, v)
     dd = fa.prepare_backward_q_side(out, do)
     # Tensor-core FLOPs over the causal half of the scores: 2 products in the
     # forward (S, PV), 4 in dK/dV (S, dP, dV, dK), 3 in dQ (S, dP, dQ).
     pairs = length * (length + 1) / 2
-    per_product = 2.0 * b * LC_HEADS * pairs * HEAD_DIM
-    act = b * length * LC_HEADS * HEAD_DIM * 2          # one bf16 [B, L, H, 64]
+    per_product = 2.0 * b * LC_HEADS * pairs * hd
+    act = b * length * LC_HEADS * hd * 2                # one bf16 [B, L, H, hd]
     row = b * LC_HEADS * length * 4                     # one f32 [B*H, L]
     rows = {
         "flash_fwd": dict(flops=2 * per_product, ms=time_ms(lambda: fa.flash_fwd(q, k, v), 10),
@@ -1162,7 +1209,7 @@ def time_flash(fa, dev):
     for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
         rows[name].update(plain_ms=plain_bwd, library_ms=lib_bwd)
     for name, r in rows.items():
-        log(f"time {name} B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}: kernel "
+        log(f"time {name} B={b} L={length} H={LC_HEADS} hd={hd}: kernel "
             f"{r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
     # The library's backward computes its own D: set it beside the pair
@@ -1176,10 +1223,10 @@ def time_flash(fa, dev):
         fa.flash_bwd_dkdv(q, k, v, do, lse, d)
         fa.flash_bwd_dq(q, k, v, do, lse, d)
     pair_bound = rows["flash_bwd_dkdv"]["bound"][0] + rows["flash_bwd_dq"]["bound"][0]
-    log(f"time flash backward pair B={b} L={length}: {time_ms(pair, 5):.3f} ms (bound "
-        f"{pair_bound:.3f} ms), with prepare_backward_q_side {time_ms(with_d, 5):.3f} ms; "
-        f"library backward (its own D included) {lib_bwd:.3f} ms")
-    return rows
+    log(f"time flash backward pair B={b} L={length} hd={hd}: {time_ms(pair, 5):.3f} ms "
+        f"(bound {pair_bound:.3f} ms), with prepare_backward_q_side {time_ms(with_d, 5):.3f} "
+        f"ms; library backward (its own D included) {lib_bwd:.3f} ms")
+    return {width(name, hd): r for name, r in rows.items()}
 
 
 def long_context_path(kernels, dev):
@@ -1214,7 +1261,7 @@ def long_context_path(kernels, dev):
     log(f"long context: kernel launches {launches}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
     missing = [name for name, count in launches.items()
-               if count == 0 and name != "flash_fwd_carry"]
+               if count == 0 and name != "flash_fwd_carry" and not name.endswith("_hd128")]
     if missing:
         raise AssertionError(f"long-context path never launched {missing}")
 
@@ -1310,15 +1357,16 @@ def check_carry(fa, dev):
     return {"flash_fwd_carry": err}
 
 
-def check_ring_replay(fa, dev):
+def check_ring_replay(fa, dev, hd=HEAD_DIM):
     """Phase 7b: the ring's arithmetic on one card. B = 8, L = 8,192 in 4
     shards: the forward ring schedule chains the carry kernel, the backward
     schedule sums the f32 dK/dV and dQ kernels' parts as the ring does;
-    out, lse, dq, dk and dv against the plain versions on the whole sequence."""
+    out, lse, dq, dk and dv against the plain versions on the whole
+    sequence; at head width ``hd``."""
     gen = torch.Generator().manual_seed(5)
     n, length = RING_SHARDS, LC_SEQ
     ll = length // n
-    q, k, v, do = flash_inputs(LC_BATCH, length, length, gen, dev)
+    q, k, v, do = flash_inputs(LC_BATCH, length, length, gen, dev, hd)
     shard = [slice(r * ll, (r + 1) * ll) for r in range(n)]
     qs, ks, vs, dos = ([x[:, s].contiguous() for s in shard] for x in (q, k, v, do))
     outs, lses = [], []
@@ -1354,7 +1402,7 @@ def check_ring_replay(fa, dev):
     e = {name: compare(torch.cat(got, dim=1), want, 1)
          for name, got, want in (("out", outs, ref_out), ("dq", dq, ref[0]),
                                  ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
-    log(f"check ring replay B={LC_BATCH} L={length} in {n} shards: lse {e_lse:.3g}; "
+    log(f"check ring replay B={LC_BATCH} L={length} hd={hd} in {n} shards: lse {e_lse:.3g}; "
         + "; ".join(f"{name} {describe(c)}" for name, c in e.items()))
     if not (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
             and all(c[2] <= TILE_RTOL for c in e.values())):
@@ -1362,18 +1410,19 @@ def check_ring_replay(fa, dev):
     return max(e_lse, e["out"][0])
 
 
-def time_carry(fa, dev):
+def time_carry(fa, dev, hd=HEAD_DIM):
     """Phase 7c: the carry kernel at B = 8, L = 8,192 as the one-card ring
-    calls it (no carry in), beside its plain version, its bound and SDPA."""
+    calls it (no carry in), beside its plain version, its bound and SDPA;
+    at head width ``hd``."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(6)
     b, length = LC_BATCH, LC_SEQ
-    q, k, v, _ = flash_inputs(b, length, length, gen, dev)
+    q, k, v, _ = flash_inputs(b, length, length, gen, dev, hd)
     pairs = length * (length + 1) / 2
-    per_product = 2.0 * b * LC_HEADS * pairs * HEAD_DIM
-    act = b * length * LC_HEADS * HEAD_DIM * 2
-    acc = b * LC_HEADS * length * HEAD_DIM * 4          # f32 [B, H, L, 64]
+    per_product = 2.0 * b * LC_HEADS * pairs * hd
+    act = b * length * LC_HEADS * hd * 2
+    acc = b * LC_HEADS * length * hd * 4                # f32 [B, H, L, hd]
     row = b * LC_HEADS * length * 4
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     r = dict(flops=2 * per_product, ms=time_ms(lambda: fa.flash_fwd_carry(q, k, v), 10),
@@ -1383,27 +1432,29 @@ def time_carry(fa, dev):
              bound=bound(3 * act + acc + 2 * row, 2 * per_product))
     carry = fa.flash_fwd_carry(q, k, v)
     with_carry = time_ms(lambda: fa.flash_fwd_carry(q, k, v, carry), 10)
-    log(f"time flash_fwd_carry B={b} L={length} H={LC_HEADS} hd={HEAD_DIM}, no carry in: "
+    log(f"time flash_fwd_carry B={b} L={length} H={LC_HEADS} hd={hd}, no carry in: "
         f"kernel {r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library (SDPA, "
         f"no carry merge) {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
         f"({r['bound'][1]}); "
         f"with a carry in {with_carry:.3f} ms; the forward kernel "
         f"{time_ms(lambda: fa.flash_fwd(q, k, v), 10):.3f} ms in the same run")
-    return {"flash_fwd_carry": r}
+    return {width("flash_fwd_carry", hd): r}
 
 
-def sequence_parallel_path(kernels, dev):
-    """Phase 8: sequence-parallel training through the port's session, a
-    ring of one card."""
+def ring_session(dev, d_model=D, d_ff=2048):
+    """Phase 8's session (phase 23's at d_model 1,024): the long-context
+    model with ring attention, 8 heads, 6 layers, remat, the fused head,
+    under ``SequenceParallel`` on one card (a ring of one) and Adam 1e-3;
+    its loss first held against the flash model's on a small input with
+    the same weights. Returns ``(cfg, step, batch)``."""
     from autodist_tpu_torch import AutoDist, SequenceParallel
     from autodist_tpu_torch.models import transformer_lm as tlm
     from autodist_tpu_torch.parallel.sequence import (create_sequence_parallel_session,
                                                       make_sequence_parallel_loss_fn)
     from autodist_tpu_torch.runner import step_function
-    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
 
-    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=LC_HEADS, n_layers=6,
-                                  d_ff=2048, max_len=LC_SEQ, dtype=torch.bfloat16,
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=d_model, n_heads=LC_HEADS, n_layers=6,
+                                  d_ff=d_ff, max_len=LC_SEQ, dtype=torch.bfloat16,
                                   remat=True, attention_impl="ring", fused_head=True,
                                   tied_output=False)
     model, params = tlm.init_params(cfg, seed=0, device=dev)
@@ -1416,7 +1467,8 @@ def sequence_parallel_path(kernels, dev):
     with torch.no_grad():
         ring = float(make_sequence_parallel_loss_fn(model)(params, small))
         flash = float(tlm.make_loss_fn(flash_model)(params, small))
-    log(f"sequence-parallel reference: ring loss {ring:.6f} vs flash loss {flash:.6f}")
+    log(f"sequence-parallel reference (d_model {d_model}): ring loss {ring:.6f} vs flash "
+        f"loss {flash:.6f}")
     if not (math.isfinite(ring) and abs(ring - flash) <= 1e-2 * abs(flash)):
         raise AssertionError("ring-attention loss disagrees with flash attention")
 
@@ -1424,16 +1476,24 @@ def sequence_parallel_path(kernels, dev):
                   strategy_builder=SequenceParallel(seq_axis_size=1), device=dev)
     runner = create_sequence_parallel_session(
         ad, model, params, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
-    step = step_function(runner, params)
-    batch = tlm.synthetic_batch(cfg, LC_BATCH, LC_SEQ)
     log(f"sequence parallel: mesh {dict(runner.plan.mesh_axes)}")
+    return cfg, step_function(runner, params), tlm.synthetic_batch(cfg, LC_BATCH, LC_SEQ)
+
+
+def sequence_parallel_path(kernels, dev):
+    """Phase 8: sequence-parallel training through the port's session, a
+    ring of one card."""
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    _, step, batch = ring_session(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, launches = counted_steps(step, [batch] * LC_COUNTED, kernels)
     log(f"sequence parallel: losses {losses}; step seconds {times}")
     log(f"sequence parallel: kernel launches {launches}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    missing = [name for name, count in launches.items() if count == 0 and name != "flash_fwd"]
+    missing = [name for name, count in launches.items()
+               if count == 0 and name != "flash_fwd" and not name.endswith("_hd128")]
     if missing or launches["flash_fwd"]:
         raise AssertionError(f"sequence-parallel path: never launched {missing}; "
                              f"flash_fwd launched {launches['flash_fwd']} times")
@@ -4109,6 +4169,298 @@ def serving_path(kernels, dev):
     return launches
 
 
+# ------------------------------------------------------ head width 128 (phase 23)
+
+def check_flash_hd128(fa, dev):
+    """Phases 5a and 7a at head width 128: the four flash kernels' hd-128
+    instantiations against their plain versions on the same inputs, tile by
+    tile: the long-context shape [8, 8,192, 8, 128] causal, a ragged L =
+    1,000 causal and not, ring offsets ((1,024, 0); (0, 300) whose blind dq
+    rows and unseen dk/dv keys must be exactly 0, with f32 outputs), the
+    hd-128 tiling's edges (L = 65, 127, 129: one off a 64-row tile and a
+    128-row block or key tile), and the carry: no carry in at the path shape
+    and ragged, a carry in (q_offset 2,048 at L = 2,048), and rows 0-99 that
+    see no key carried through bit for bit. Returns max abs errors by the
+    hd-128 names."""
+    hd = 128
+    gen = torch.Generator().manual_seed(12)
+    errs = {width(n, hd): 0.0 for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                                        "flash_fwd_carry")}
+    cases = [(LC_BATCH, LC_SEQ, LC_SEQ, True, 0, 0, None),
+             (2, 1000, 1000, True, 0, 0, None),
+             (2, 1000, 1000, False, 0, 0, None),
+             (2, 1000, 1000, True, 1024, 0, None),
+             (2, 1000, 1000, True, 0, 300, torch.float32)]
+    cases += [(2, n, n, causal, 0, 0, None) for n in (65, 127, 129) for causal in (True, False)]
+    for b, lq, lk, causal, qo, ko, out_dtype in cases:
+        q, k, v, do = flash_inputs(b, lq, lk, gen, dev, hd)
+        out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
+        dd = fa.prepare_backward_q_side(out, do)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
+        ref = fa.flash_backward_plain(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        e_lse = (lse - ref_lse).abs().max().item()
+        e = {name: compare(got, want, 1)
+             for name, got, want in (("out", out, ref_out), ("dq", dq, ref[0]),
+                                     ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+        log(f"check flash hd=128 b={b} lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko}) "
+            f"out_dtype={out_dtype}: lse {e_lse:.3g}; "
+            + "; ".join(f"{n} {describe(c)}" for n, c in e.items()))
+        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
+              and all(c[2] <= TILE_RTOL for c in e.values()))
+        blind = min(lq, max(0, ko - qo)) if causal else 0
+        unseen = min(lk, max(0, qo - ko + lq)) if causal else lk
+        if blind or unseen < lk:
+            ok = ok and not (dq[:, :blind].any() or dk[:, unseen:].any() or dv[:, unseen:].any())
+        if not ok:
+            raise AssertionError(f"flash hd-128 kernel disagrees with its plain version at "
+                                 f"b={b} lq={lq} causal={causal} offsets=({qo}, {ko})")
+        errs["flash_fwd_hd128"] = max(errs["flash_fwd_hd128"], e["out"][0], e_lse)
+        errs["flash_bwd_dkdv_hd128"] = max(errs["flash_bwd_dkdv_hd128"], e["dk"][0], e["dv"][0])
+        errs["flash_bwd_dq_hd128"] = max(errs["flash_bwd_dq_hd128"], e["dq"][0])
+        del q, k, v, do, out, lse, dd, dk, dv, dq, ref_out, ref_lse, ref
+    q, k, v, _ = flash_inputs(2, 1000, 1000, gen, dev, hd)
+    diag = fa.flash_forward_carry_plain(q, k, v, None, True, 1024, 1024)
+    qs, ks, vs, _ = flash_inputs(LC_BATCH, LC_SEQ // RING_SHARDS, LC_SEQ // RING_SHARDS, gen,
+                                 dev, hd)
+    cin = fa.flash_forward_carry_plain(qs, ks, vs, None, True, LC_SEQ // RING_SHARDS,
+                                       LC_SEQ // RING_SHARDS)
+    qp, kp, vp, _ = flash_inputs(LC_BATCH, LC_SEQ, LC_SEQ, gen, dev, hd)
+    carry_cases = [("path shape, no carry", qp, kp, vp, None, 0, 0),
+                   ("ragged, no carry", q, k, v, None, 0, 0),
+                   ("carry in", qs, ks, vs, cin, LC_SEQ // RING_SHARDS, 0),
+                   ("rows 0-99 see no key, carry in", q, k, v, diag, 0, 100)]
+    for label, q_, k_, v_, c_in, qo, ko in carry_cases:
+        e_acc, e_l, e_m, got = carry_case(fa, q_, k_, v_, c_in, qo, ko)
+        log(f"check flash carry hd=128 {label} b={q_.shape[0]} L={q_.shape[1]} offsets=({qo}, "
+            f"{ko}): acc {describe(e_acc)}; l {describe(e_l)}; m {e_m:.3g}")
+        ok = (e_acc[2] <= TILE_RTOL and e_l[2] <= TILE_RTOL and math.isfinite(e_m)
+              and e_m <= FLASH_LSE_ATOL)
+        blind = ko - qo if c_in is not None else 0
+        if blind > 0:
+            ok = ok and all(torch.equal(g[:, :, :blind], c[:, :, :blind])
+                            for g, c in zip(got, c_in))
+        if not ok:
+            raise AssertionError(f"carry hd-128 kernel disagrees with its plain version: {label}")
+        errs["flash_fwd_carry_hd128"] = max(errs["flash_fwd_carry_hd128"], e_acc[0], e_l[0], e_m)
+    return errs
+
+
+def long_context_128_path(kernels, dev):
+    """Phase 23: the long-context entry point at ``--d_model 1024`` (8 heads
+    of 128, d_ff 4,096, vocab 32,000, seq 8,192, 6 layers, flash, every block
+    rematerialized, the fused head at D = 1,024, bf16 activations, f32
+    params, Adam 1e-3), 8 sequences a step: LC128_COUNTED counted steps
+    (each hd-128 flash kernel but the carry must launch, no hd-64 one), its
+    tokens/s and MFU over LC_STEADY steady steps with peak memory, and a
+    profiler window over LC_PROFILE steps. Then phase 8's ring of one card
+    at the same width: LC128_COUNTED counted steps, which must launch the
+    hd-128 carry and backward pair (f32 parts) and no other flash kernel.
+    Then phase 7b's 4-shard ring replay at hd 128, a check only. Returns
+    ``(flash launches, ring launches, the replay's worst error)``."""
+    from autodist_tpu_torch.examples import long_context_lm as lc
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.utils.flops import mfu, transformer_flops_per_token
+
+    t0 = time.perf_counter()
+    argv = ["--d_model", str(LC128_D), "--seq_len", str(LC_SEQ), "--batch_size",
+            str(LC_BATCH), "--device", str(dev)]
+    cfg, step, batch = lc.build(lc.parse_args(argv))
+    log(f"long context hd 128: {cfg}; built in {time.perf_counter() - t0:.1f} s")
+    if cfg.d_model // cfg.n_heads != 128:
+        raise AssertionError(f"long context hd 128: head width {cfg.d_model // cfg.n_heads}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = counted_steps(step, [batch] * LC128_COUNTED, kernels)
+    log(f"long context hd 128: losses {losses}; step seconds {times}; kernel launches "
+        f"{launches}")
+    want = ("flash_fwd_hd128", "flash_bwd_dkdv_hd128", "flash_bwd_dq_hd128")
+    wrong = [n for n in want if launches[n] == 0] + [
+        n for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_carry")
+        if launches[n]]
+    if wrong:
+        raise AssertionError(f"long context hd 128: launches wrong for {wrong}: {launches}")
+    tokens = LC_BATCH * LC_SEQ
+    float(step(batch))
+    t1 = time.perf_counter()
+    for _ in range(LC_STEADY):
+        loss = step(batch)
+    float(loss)
+    rate = tokens * LC_STEADY / (time.perf_counter() - t1)
+    flops = transformer_flops_per_token(cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.vocab_size,
+                                        LC_SEQ) * tokens
+    log(f"long context hd 128: {rate:.1f} tokens/s over {LC_STEADY} steady steps ({tokens} "
+        f"tokens/step, {1e3 * tokens / rate:.3f} ms/step), MFU "
+        f"{mfu(flops * rate / tokens):.4f} of 989 TFLOP/s (full score matrix counted); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; card {card_line()}")
+    profile_steps(step, [batch] * LC_PROFILE, label="long-context hd 128 profile")
+    del step, batch
+    free_card()
+
+    _, step, batch = ring_session(dev, cfg.d_model, cfg.d_ff)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, ring = counted_steps(step, [batch] * LC128_COUNTED, kernels)
+    log(f"ring of one card at hd 128: losses {losses}; step seconds {times} ({tokens} "
+        f"tokens/step); kernel launches {ring}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    want = ("flash_fwd_carry_hd128", "flash_bwd_dkdv_hd128", "flash_bwd_dq_hd128")
+    wrong = [n for n in want if ring[n] == 0] + [
+        n for n in ("flash_fwd_hd128", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                    "flash_fwd_carry") if ring[n]]
+    if wrong:
+        raise AssertionError(f"ring of one card at hd 128: launches wrong for {wrong}: {ring}")
+    del step, batch
+    free_card()
+    return launches, ring, check_ring_replay(fa, dev, hd=128)
+
+
+# ---------------------------------------------- the port's optimizers (phase 24)
+
+def plain_adafactor_update(p, g, lr):
+    """The first update of ``optax.adafactor(lr)`` (its count 0: decay 0,
+    so the second moment is the squared gradient plus 1e-30), written out
+    from optax's definitions in float64, independent of the port's module:
+    factored over the two largest dims when the smaller is at least 128,
+    clipped to block RMS 1, scaled by lr and the parameter's RMS (at least
+    1e-3). Returns what optax subtracts from ``p``."""
+    p, g = p.double(), g.double()
+    gs = g * g + 1e-30
+    shape = tuple(p.shape)
+    order = sorted(range(len(shape)), key=lambda i: (shape[i], i))
+    if len(shape) >= 2 and shape[order[-2]] >= 128:
+        d1, d0 = order[-2], order[-1]
+        vr, vc = gs.mean(d0), gs.mean(d1)
+        rcm = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+        u = g * (vr / rcm).rsqrt().unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
+    else:
+        u = g * gs.rsqrt()
+    u = u / torch.clamp_min(u.square().mean().sqrt(), 1.0)
+    return u * lr * torch.clamp_min(p.square().mean().sqrt(), 1e-3)
+
+
+def same_state(a, b) -> bool:
+    """Params and every optimizer state tensor of two TrainStates, bit for bit."""
+    if not same_params(a.params, b.params):
+        return False
+    for key, p in a.opt_params.items():
+        sa, sb = a.optimizer.state[p], b.optimizer.state[b.opt_params[key]]
+        if sa.keys() != sb.keys() or not all(
+                torch.equal(v, sb[f]) for f, v in sa.items() if isinstance(v, torch.Tensor)):
+            return False
+    return True
+
+
+def optimizers_path(kernels, dev):
+    """Phase 24: the port's optimizers on the card. (a) The flagship at full
+    width (phase 4's shape, 32 x 256, no accumulation) under
+    ``choose_optimizer``'s factored choice, forced by a 1 MiB budget (the
+    port's Adafactor, optax.adafactor): ``run_many(2)`` against ``run()``
+    bit for bit (phase 16's comparison). (b) NCF at 65,536 (its tables
+    [138,000, 64] unfactored, [138,000, 128] factored) one step under the
+    port's Adafactor against the plain float64 update of the same gradients
+    (within 1e-5 of the update's largest magnitude, beyond half an f32 ulp
+    of each stored parameter). (c) Save and restore on the card, v1 and v2,
+    into the same runner, bit for bit: (b)'s Adafactor state, NCF one step
+    under SGD with momentum 0.9 (optax.sgd's trace), and bf16 tensors in v1
+    (the NCF tables cast)."""
+    from autodist_tpu_torch import AllReduce, AutoDist
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.models import ncf
+    from autodist_tpu_torch.models import transformer_lm as tlm
+    from autodist_tpu_torch.optimizers import Adafactor
+    from autodist_tpu_torch.strategy import choose_optimizer
+
+    for k in kernels:
+        k.launches = 0
+    UNROLL_LAUNCHES.clear()
+    one_card = {"nodes": [{"address": "localhost", "gpus": [0]}]}
+    t0 = time.perf_counter()
+    cfg = tlm.TransformerLMConfig(vocab_size=V, d_model=D, n_heads=8, n_layers=6, d_ff=2048,
+                                  max_len=512, fused_head=True, tied_output=False,
+                                  dtype=torch.bfloat16)
+    model, params = tlm.init_params(cfg, seed=0, device=dev)
+    choice = choose_optimizer(params, learning_rate=1e-3, memory_budget_bytes=1 << 20)
+    if not (choice.factored and isinstance(choice.optimizer([torch.zeros(1, device=dev,
+                                                                        requires_grad=True)]),
+                                           Adafactor)):
+        raise AssertionError(f"choose_optimizer's factored choice is not the port's Adafactor: "
+                             f"{choice}")
+    batches = [tlm.synthetic_batch(cfg, 32, 256, seed=7000 + i) for i in range(6)]
+
+    def build():
+        ad = AutoDist(resource_info=one_card, strategy_builder=AllReduce(), device=dev)
+        return ad.function(tlm.make_loss_fn(model), params, choice.optimizer,
+                           example_batch=batches[0])
+
+    same, per_step, per_replay, _ = fused_against_steps(build, batches, kernels,
+                                                        "flagship 32 x 256 under Adafactor")
+    if not same or any(per_replay[n] != 2 * per_step[n] for n in per_step):
+        raise AssertionError("optimizers: run_many(2) under Adafactor is not two run() steps")
+    del model, params
+    free_card()
+    log(f"optimizers (a) in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ncfg = ncf.NeuMFConfig()
+    model, params = ncf.init_params(ncfg, seed=0, device=dev)
+    host = ncf.synthetic_batch(ncfg, 65536, seed=8)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    loss_fn = ncf.make_loss_fn(model)
+
+    def session(optimizer):
+        ad = AutoDist(resource_info=one_card, strategy_builder=AllReduce(), device=dev)
+        runner = ad.create_distributed_session(loss_fn, params, optimizer, example_batch=host)
+        return runner, runner.init(params)
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    grads = dict(zip(leaves, torch.autograd.grad(loss_fn(leaves, batch), list(leaves.values()))))
+    runner, state = session(lambda p: Adafactor(p, lr=1e-3))
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    runner.run(state, host)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for key, p0 in before.items():
+        want = plain_adafactor_update(p0, grads[key], 1e-3)
+        got = p0.double() - state.params[key].detach().double()
+        slack = p0.abs().double() * 2.0 ** -24
+        err = ((got - want).abs() - slack).clamp_min(0).max().item() / want.abs().max().item()
+        worst = max(worst, err)
+        log(f"optimizers (b): ncf {key} {tuple(p0.shape)}: update within {err:.3g} of the plain "
+            f"float64 update's largest magnitude {want.abs().max().item():.4g}")
+    if not worst <= 1e-5:
+        raise AssertionError(f"optimizers: NCF's Adafactor step is {worst:.3g} off the plain update")
+    log(f"optimizers (b) in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "chip_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    results = {}
+    sgd_runner, sgd_state = session(lambda p: torch.optim.SGD(p, lr=0.01, momentum=0.9))
+    sgd_runner.run(sgd_state, host)
+    for label, r, st in (("adafactor", runner, state), ("sgd momentum", sgd_runner, sgd_state)):
+        for sharded in (False, True):
+            prefix = Saver().save(st, os.path.join(ckpt, label.replace(" ", "_")),
+                                  sharded=sharded)
+            results[f"{label} {'v2' if sharded else 'v1'}"] = same_state(
+                Saver().restore(prefix, runner=r), st)
+    tables = {k: v.detach().to(torch.bfloat16) for k, v in params.items() if "embed" in k}
+    back = Saver().restore_params(Saver().save(tables, os.path.join(ckpt, "bf16"),
+                                               sharded=False))
+    results["bf16 v1"] = all(back[k].dtype == torch.bfloat16 and torch.equal(back[k].to(dev), t)
+                             for k, t in tables.items())
+    log(f"optimizers (c): save and restore on the card, bit for bit: {results} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not all(results.values()):
+        raise AssertionError(f"optimizers: a checkpoint round trip differs: {results}")
+    del runner, state, sgd_runner, sgd_state, model, params, leaves, grads
+    free_card()
+    bank(kernels)
+    return {k.__name__: UNROLL_LAUNCHES[k.__name__] for k in kernels}
+
+
 def tools_path():
     """Phase 22: the operator tools on what phases 20 and 21 wrote and read.
     Starts no model; every tool is a ``python -m`` process that must exit 0."""
@@ -4217,14 +4569,15 @@ def main(argv=None) -> int:
         raise AssertionError(f"ptxas serialized the wgmma of a kernel: {serialized}")
     if spilled:
         raise AssertionError(f"ptxas spilled in a kernel that must not: {spilled}")
-    log(f"flash forward kernels: {fa._lib().flash_fwd_smem_bytes()} bytes of dynamic shared "
-        "memory a block")
+    log("flash forward kernels: dynamic shared memory a block "
+        + ", ".join(f"{fa._lib().flash_fwd_smem_bytes(hd)} bytes at hd {hd}"
+                    for hd in fa.KERNEL_HEAD_DIMS))
     from autodist_tpu_torch.data import loader as data_loader
     t0 = time.perf_counter()
     if data_loader._build_native() is None:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
-    every = fx.KERNELS + fa.KERNELS + (fx.xent_pack_w,)
+    every = fx.KERNELS + fa.KERNELS + fa.KERNELS_HD128 + (fx.xent_pack_w,)
     if only == "tools":
         # Phases 20, 21 and 22 (the tools phase reads what the first two
         # left); no kernel line.
@@ -4239,12 +4592,25 @@ def main(argv=None) -> int:
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
-    if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry", "serving"):
+    if only == "long_context_128":
+        # Phase 23 with the hd-128 kernel checks and times of phases 5 and 7;
+        # no kernel line.
+        check_flash_hd128(fa, dev)
+        time_flash(fa, dev, 128)
+        time_carry(fa, dev, 128)
+        log(f"long_context_128: launches {long_context_128_path(every, dev)[:2]}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if only in ("unroll", "moe_pipe", "async_ps", "lm_family", "telemetry", "serving",
+                "optimizers"):
         # Phase 16, 17, 18, 19, 20 or 21 alone (a shorter call while it is worked on); no
         # kernel line.
         path = {"unroll": unroll_path, "moe_pipe": moe_pipe_path,
                 "async_ps": async_ps_path, "lm_family": lm_family_path,
-                "telemetry": telemetry_path, "serving": serving_path}[only]
+                "telemetry": telemetry_path, "serving": serving_path,
+                "optimizers": optimizers_path}[only]
         log(f"{only}: launches {path(every, dev)}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4269,6 +4635,9 @@ def main(argv=None) -> int:
     ring_err = timed("7 ring replay", check_ring_replay, fa, dev)
     errs["flash_fwd_carry"] = max(errs["flash_fwd_carry"], ring_err)
     timing.update(timed("7 carry times", time_carry, fa, dev))
+    errs.update(timed("5 and 7 flash checks at hd 128", check_flash_hd128, fa, dev))
+    timing.update(timed("5 flash times at hd 128", time_flash, fa, dev, 128))
+    timing.update(timed("7 carry times at hd 128", time_carry, fa, dev, 128))
     # The pack is counted with them (it runs in the forward's and dh's
     # wrappers), but it replaces no TPU kernel and has no row in the JSON line.
     by_phase = {"flagship": timed("4 flagship", main_path, every, dev),
@@ -4294,6 +4663,10 @@ def main(argv=None) -> int:
     by_phase["telemetry"] = timed("20 telemetry", telemetry_path, every, dev)
     by_phase["serving"] = timed("21 serving", serving_path, every, dev)
     timed("22 tools", tools_path)
+    by_phase["long_context_128"], by_phase["sequence_parallel_128"], ring128_err = timed(
+        "23 long context at hd 128", long_context_128_path, every, dev)
+    errs["flash_fwd_carry_hd128"] = max(errs["flash_fwd_carry_hd128"], ring128_err)
+    by_phase["optimizers"] = timed("24 optimizers", optimizers_path, every, dev)
 
     # Each kernel's main path: the flagship at its real shape for the fused
     # head, the long-context run for flash attention, the sequence-parallel
@@ -4313,6 +4686,17 @@ def main(argv=None) -> int:
                          "autodist_tpu/ops/flash_attention.py:355", "long_context"),
         "flash_carry": ("flash_fwd_carry", "flash_attention",
                         "autodist_tpu/ops/flash_attention.py:480", "sequence_parallel"),
+        # The hd-128 instantiations: the long-context entry point at d_model
+        # 1,024, the carry in the ring of one card at that width.
+        "flash_fwd_hd128": ("flash_fwd_hd128", "flash_attention",
+                            "autodist_tpu/ops/flash_attention.py:144", "long_context_128"),
+        "flash_bwd_dkdv_hd128": ("flash_bwd_dkdv_hd128", "flash_attention",
+                                 "autodist_tpu/ops/flash_attention.py:332", "long_context_128"),
+        "flash_bwd_dq_hd128": ("flash_bwd_dq_hd128", "flash_attention",
+                               "autodist_tpu/ops/flash_attention.py:355", "long_context_128"),
+        "flash_carry_hd128": ("flash_fwd_carry_hd128", "flash_attention",
+                              "autodist_tpu/ops/flash_attention.py:480",
+                              "sequence_parallel_128"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"autodist_tpu_torch/ops/csrc/{src}.cu",

@@ -56,12 +56,11 @@ def _jax_step():
                        _jax_params(), optax.adam(1e-3))
 
 
-def _torch_runner():
+def _torch_runner(optimizer=lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8)):
     ad = AutoDist(resource_info=ONE_GPU, strategy_builder=AllReduce(), device="cpu")
     model = tlm.TransformerLM(_config(tlm, torch.float32))
     return ad.create_distributed_session(tlm.make_loss_fn(model),
-                                         from_jax_params(_jax_params()),
-                                         lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
+                                         from_jax_params(_jax_params()), optimizer)
 
 
 def _jax_flat(step):
@@ -201,7 +200,8 @@ def test_rotation_and_state_file_merged_per_name(tmp_path):
 def test_async_write_then_wait_and_unported_parts(tmp_path):
     """An async save is on disk once ``wait()`` returns; a sharded write on
     one rank is the v2 format (one shard file and the manifest) and restores
-    bit for bit; an optimizer without a mapping raises."""
+    bit for bit; SGD with momentum (optax.sgd's trace) round-trips in v1 and
+    v2; an optimizer without a mapping (Adam with amsgrad) raises."""
     runner = _torch_runner()
     state = runner.init(from_jax_params(_jax_params()))
     runner.run(state, _batch(1))
@@ -215,6 +215,16 @@ def test_async_write_then_wait_and_unported_parts(tmp_path):
     assert os.path.exists(v2 + ".shard00000-of-00001.npz") and not os.path.exists(v2 + ".npz")
     assert checkpoint_exists(v2)
     _assert_bit_equal(_torch_flat(Saver().restore(v2, runner=runner)), _torch_flat(state))
-    state.optimizer = torch.optim.SGD(list(state.params.values()), lr=0.1)
+    sgd_runner = _torch_runner(lambda p: torch.optim.SGD(p, lr=0.1, momentum=0.9))
+    sgd = sgd_runner.init(from_jax_params(_jax_params()))
+    sgd_runner.run(sgd, _batch(1))
+    for sharded in (False, True):
+        back = Saver().restore(saver.save(sgd, str(tmp_path / f"sgd{int(sharded)}"),
+                                          sharded=sharded), runner=sgd_runner)
+        for key, p in sgd.params.items():
+            assert torch.equal(back.params[key], p), key
+            assert torch.equal(back.optimizer.state[back.params[key]]["momentum_buffer"],
+                               sgd.optimizer.state[p]["momentum_buffer"]), key
+    state.optimizer = torch.optim.Adam(list(state.params.values()), lr=0.1, amsgrad=True)
     with pytest.raises(NotImplementedError, match="Adam"):
         saver.save(state, str(tmp_path / "model"))

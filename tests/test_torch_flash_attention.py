@@ -250,8 +250,9 @@ def test_kernel_argument_checks():
     q = bf(1, 8, 2, 64)
     with pytest.raises(TypeError, match="bf16"):
         tfa._check_kernel_args(q.float(), q, q)
-    with pytest.raises(ValueError, match="head width 64"):
+    with pytest.raises(ValueError, match=r"head widths \(64, 128\), got 32"):
         tfa._check_kernel_args(*(bf(1, 8, 2, 32),) * 3)
+    assert tfa._check_kernel_args(*(bf(1, 8, 2, 128),) * 3) == (1, 8, 8, 2, 128)
     with pytest.raises(ValueError, match="disagree"):
         tfa._check_kernel_args(q, bf(1, 8, 4, 64), bf(1, 8, 4, 64))
     with pytest.raises(ValueError, match="f32"):
