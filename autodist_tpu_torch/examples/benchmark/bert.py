@@ -36,12 +36,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist, const
 from autodist_tpu_torch.data import mlm, text_corpus
 from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
 from autodist_tpu_torch.models import bert
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.strategy import AllReduce
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
@@ -253,5 +253,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

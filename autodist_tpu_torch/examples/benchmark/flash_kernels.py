@@ -1,17 +1,23 @@
-"""The four flash kernels' times on one card, for whichever
+"""The flash kernels' times on one card, for whichever
 ``autodist_tpu_torch`` is importable: run it as a file with ``PYTHONPATH``
 naming a checkout, so one call can hold two versions of the kernels against
-each other, in turns (as ``step_kernels.py`` does for a step). It uses only
-the wrappers every version since the flash kernels' port has (``flash_fwd``,
+each other, in turns (as ``step_kernels.py`` does for a step). It uses the
+wrappers every version since the flash kernels' port has (``flash_fwd``,
 ``flash_fwd_carry``, ``flash_bwd_dkdv``, ``flash_bwd_dq`` and
 ``prepare_backward_q_side``), each as the long-context step calls it: B = 8,
-L = 8,192, 8 heads, causal, bf16, no carry in, bf16 gradients. One JSON
-line: each kernel's CUDA-event ms (the median of ``--rounds`` rounds of
-``--reps`` launches), the launches its wrapper counted, and the card's name
-and power limit.
+L = 8,192, 8 heads, causal, bf16, no carry in, bf16 gradients. The
+``backward`` row is the whole backward as ``_FlashAttention.backward`` runs
+it: ``flash_bwd`` where the checkout has it, else the dK/dV and dQ pair;
+``backward_with_d`` adds D's pass (``prepare_backward_q_side``), as the
+library's backward computes its own. At ``--hd 128`` the pair's own rows
+are left out where its wrappers have no hd-128 kernel. One JSON line: each
+row's CUDA-event ms (the median of ``--rounds`` rounds of ``--reps``
+calls), the launches each wrapper counted, and the card's name and power
+limit.
 
-    PYTHONPATH=. python3 autodist_tpu_torch/examples/benchmark/flash_kernels.py this
-    PYTHONPATH=build/parent python3 autodist_tpu_torch/examples/benchmark/flash_kernels.py parent
+    PYTHONPATH=. python3 autodist_tpu_torch/examples/benchmark/flash_kernels.py this --hd 128
+    PYTHONPATH=build/parent python3 autodist_tpu_torch/examples/benchmark/flash_kernels.py \
+        parent --hd 128
 """
 
 import argparse
@@ -57,24 +63,35 @@ def main(argv=None) -> dict:
     q, k, v, do = draw(), draw(), draw(), draw(0.1)
     out, lse = fa.flash_fwd(q, k, v)
     dd = fa.prepare_backward_q_side(out, do)
+    one_pass = getattr(fa, "flash_bwd", None)
+    pair = args.hd == 64 or hasattr(fa.flash_bwd_dkdv, "hd128")
+
+    def backward(d):
+        if one_pass is not None:
+            return one_pass(q, k, v, do, lse, d)
+        return fa.flash_bwd_dkdv(q, k, v, do, lse, d), fa.flash_bwd_dq(q, k, v, do, lse, d)
+
     calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v),
-             "flash_fwd_carry": lambda: fa.flash_fwd_carry(q, k, v),
-             "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd),
-             "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd)}
+             "flash_fwd_carry": lambda: fa.flash_fwd_carry(q, k, v)}
+    if pair:
+        calls.update(flash_bwd_dkdv=lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd),
+                     flash_bwd_dq=lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd))
+    calls.update(backward=lambda: backward(dd),
+                 backward_with_d=lambda: backward(fa.prepare_backward_q_side(out, do)))
     rounds = {name: [] for name in calls}
     for _ in range(args.rounds):               # kernels in turns within the run too
         for name, fn in calls.items():
             rounds[name].append(time_ms(fn, args.reps))
-    wrappers = {w.__name__: w for w in fa.KERNELS}
+    counts = fa.KERNELS + getattr(fa, "KERNELS_HD128", ()) + tuple(
+        w for w in (fa.prepare_backward_q_side,) if hasattr(w, "launches"))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     result = {"label": args.label, "package": autodist_tpu_torch.__file__, "hd": args.hd,
               "shape": [b, length, heads, args.hd], "card": card,
               "ms": {name: statistics.median(r) for name, r in rounds.items()},
-              "rounds": rounds,
-              "launches": {name: (wrappers[name].hd128 if args.hd == 128
-                                  else wrappers[name]).launches for name in calls}}
+              "rounds": rounds, "backward": "flash_bwd" if one_pass else "pair",
+              "launches": {c.__name__: c.launches for c in counts if c.launches}}
     print(json.dumps(result))
     return result
 

@@ -35,7 +35,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist, const
 from autodist_tpu_torch import strategy as strategies
@@ -43,6 +42,7 @@ from autodist_tpu_torch.data import imagenet as imagenet_data
 from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
 from autodist_tpu_torch.models import densenet, inception, layers, resnet, vgg
 from autodist_tpu_torch.models.common import make_classification_loss_fn
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.benchmark_logger import gather_run_info, get_benchmark_logger
 from autodist_tpu_torch.utils.device import resolve_device
@@ -360,5 +360,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

@@ -28,13 +28,13 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch import strategy as strategies
 from autodist_tpu_torch.data import movielens
 from autodist_tpu_torch.examples.benchmark.common import card_mfu, is_rank0, timed_steps
 from autodist_tpu_torch.models import ncf
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -182,5 +182,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

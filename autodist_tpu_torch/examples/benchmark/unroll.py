@@ -19,6 +19,10 @@ above 1 against that many ``run()`` steps from the same weights:
 ``choose_optimizer`` hands out when Adam's moments do not fit) and
 ``--zero 1`` cuts every update over the data ranks (``zero=``), where
 Adafactor all-reduces its whole-tensor statistics inside the captured step.
+The sweep ends in ``runner.shutdown`` (the graphs released, then the group
+destroyed; it prints the seconds that took to stderr). ``SIGUSR1`` prints
+every thread's Python stack to stderr, so a rank that hangs can be read:
+``pkill -USR1 -f benchmark.unroll``.
 
     python -m autodist_tpu_torch.examples.benchmark.unroll               # the card
     python -m torch.distributed.run --standalone --nproc_per_node 4 \
@@ -29,7 +33,9 @@ Adafactor all-reduces its whole-tensor statistics inside the captured step.
 """
 
 import argparse
+import faulthandler
 import json
+import signal
 import sys
 import time
 from typing import Optional, Sequence
@@ -39,6 +45,7 @@ import torch.distributed as dist
 
 from autodist_tpu_torch import AllReduce, AutoDist, optimizers
 from autodist_tpu_torch.models import transformer_lm
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -154,9 +161,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if not dist.is_initialized() or dist.get_rank() == 0:
         print(json.dumps(result))
     if dist.is_initialized():
-        dist.destroy_process_group()
+        t0 = time.perf_counter()
+        shutdown()
+        print(f"unroll: graphs released and process group destroyed in "
+              f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
     return result
 
 
 if __name__ == "__main__":
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     main()

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch import strategy as strategies
 from autodist_tpu_torch.models import transformer_lm
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -144,5 +145,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

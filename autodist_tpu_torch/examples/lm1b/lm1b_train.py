@@ -46,12 +46,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch.data import save_shards, text_corpus
 from autodist_tpu_torch.examples.benchmark.common import card_mfu
 from autodist_tpu_torch.models import lstm_lm, transformer_lm
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.strategy import Parallax
 from autodist_tpu_torch.strategy.auto_strategy import choose_optimizer
 from autodist_tpu_torch.utils import flops as flops_util
@@ -253,5 +253,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

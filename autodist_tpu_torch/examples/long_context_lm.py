@@ -48,6 +48,7 @@ from autodist_tpu_torch import AllReduce, AutoDist, SequenceParallel
 from autodist_tpu_torch.models import transformer_lm
 from autodist_tpu_torch.parallel.sequence import create_sequence_parallel_session
 from autodist_tpu_torch.runner import step_function
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -160,5 +161,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

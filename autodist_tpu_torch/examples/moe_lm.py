@@ -29,11 +29,11 @@ import argparse
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch.examples.benchmark.common import is_rank0, peak_bytes_by_rank
 from autodist_tpu_torch.models import moe
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.strategy import ExpertParallel
 from autodist_tpu_torch.utils import flops as flops_util
 from autodist_tpu_torch.utils.device import resolve_device
@@ -124,5 +124,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

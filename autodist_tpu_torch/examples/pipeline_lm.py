@@ -27,11 +27,11 @@ import argparse
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch import AutoDist
 from autodist_tpu_torch.examples.benchmark.common import is_rank0, peak_bytes_by_rank
 from autodist_tpu_torch.models import pipeline_lm
+from autodist_tpu_torch.runner import shutdown
 from autodist_tpu_torch.strategy import Pipeline
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.metrics import ThroughputMeter
@@ -102,5 +102,4 @@ if __name__ == "__main__":
     try:
         main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()

@@ -1,13 +1,18 @@
 // Flash attention kernels for Hopper (sm_90a): the causal forward, its
-// carry form (ring attention's local step) and the two backward kernels,
-// over q/k/v read in place as [B, L, H, hd] bf16, hd 64 or 128 (each
-// kernel a template on the head width, both widths instantiated).
+// carry form (ring attention's local step) and the backward, over q/k/v
+// read in place as [B, L, H, hd] bf16, hd 64 or 128 (the forward kernels
+// templates on the head width, both widths instantiated; the backward a
+// pair at 64 and one kernel at 128).
 //
 // Replaces the Pallas TPU kernels of autodist_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel       <- _flash_kernel           (flash_attention.py:77, pallas_call :144)
 //   flash_bwd_dkdv_kernel  <- _flash_bwd_dkdv_kernel  (flash_attention.py:199, pallas_call :332)
 //   flash_bwd_dq_kernel    <- _flash_bwd_dq_kernel    (flash_attention.py:241, pallas_call :355)
+//   flash_bwd_kernel       <- both backward kernels at head width 128
 //   flash_fwd_carry_kernel <- _flash_carry_kernel     (flash_attention.py:387, pallas_call :480)
+// and, beside them, flash_bwd_dd_kernel (the backward's row term D, XLA in
+// the JAX package) and flash_bwd_dq_convert_kernel (flash_bwd_kernel's dQ
+// sums to dq).
 //
 // What bounds the forward (and the carry kernel, which runs the same walk):
 // two units, about equally. At B = 8, H = 8, L = 8,192, hd = 64, causal, it
@@ -114,8 +119,9 @@
 //
 // Head width 128 (d_model 1,024 over 8 heads, the width of most public
 // LMs). The products double in depth (S, dP) or in width (P V, dS K, dV,
-// dK) and every head-wide accumulator doubles in registers, so the tiling
-// is re-derived per width (FwdCfg, BwdCfg) and the walks stay the same:
+// dK) and every head-wide accumulator doubles in registers, so the
+// forward's tiling is re-derived per width (FwdCfg) and its walk stays the
+// same; the backward is one kernel of its own (flash_bwd_kernel, below):
 // - A 256-byte row is two 128-byte swizzle atoms: a tile is stored as two
 //   [rows][64] column blocks, each one TMA box of the same tensor map (64
 //   columns wide, loaded at column 0 and 64). A K-major operand steps into
@@ -126,12 +132,10 @@
 //   (32), and three consumers' Q (48 KB) beside a 3-stage ring of 32 KB K
 //   and V tiles is over the 227 KB a block may take: two consumers (128
 //   query rows a block) at 232 registers over a 2-stage ring (160 KB).
-// - dQ: two consumers (128 query rows) at 232 registers; Q and dO of both
-//   and the 4-stage K/V ring are 192 KB.
-// - dK/dV: dK and dV are 128 f32 registers a thread together, so K and V
-//   stay in shared memory (S^T and dP^T read both operands there) and a
-//   consumer finishes each tile (scores, p and ds, dV and dK) before the
-//   next one's scores; the other consumer's products overlap it.
+// - The backward: a pair at this width (dK/dV with K and V in shared
+//   memory, each consumer finishing its tile before its next scores; dQ at
+//   two consumers) ran 7 products where one walk runs 5, and lost to the
+//   library's backward; flash_bwd_kernel replaced it.
 // - 1/sqrt(128) is not a power of two: the scale still folds into the one
 //   FFMA before ex2, and the running max takes a fully masked tile row as
 //   NEG_INF itself.
@@ -638,25 +642,23 @@ constexpr int BWD_STAGES = 4;  // ring depth of the streamed tiles
 
 template <int HD>
 struct BwdCfg {
-  static_assert(kWidth<HD>, "head width 64 or 128");
+  // The pair is built at head width 64; at 128 one kernel, flash_bwd_kernel,
+  // computes dq, dk and dv.
+  static_assert(HD == 64, "the backward pair's head width is 64");
   static constexpr unsigned TILE_BYTES = BT * HD * 2;
   static constexpr float SCALE = kScale<HD>;
-  // dQ: at HD = 64 three consumers (as the forward) of 64 query rows; S, dP
-  // and dQ are 32 f32 registers a thread each, beside dS of the last tile,
-  // in 160. At 128 dQ doubles and two Q/dO pairs beside the K/V ring fill
-  // shared memory: two consumers at 232.
-  static constexpr int DQ_NC = HD == 64 ? 3 : 2;
+  // dQ: three consumers (as the forward) of 64 query rows; S, dP and dQ are
+  // 32 f32 registers a thread each, beside dS of the last tile, in 160.
+  static constexpr int DQ_NC = 3;
   static constexpr int DQ_BM = BT * DQ_NC;
   static constexpr int DQ_THREADS = 128 * (1 + DQ_NC);
-  static constexpr int DQ_PRODUCER_REGS = HD == 64 ? 32 : 40;
-  static constexpr int DQ_CONSUMER_REGS = HD == 64 ? 160 : 232;
+  static constexpr int DQ_PRODUCER_REGS = 32;
+  static constexpr int DQ_CONSUMER_REGS = 160;
   static_assert(128 * DQ_PRODUCER_REGS + 128 * DQ_NC * DQ_CONSUMER_REGS <= 65536,
                 "register file");
-  // dK/dV: two consumers of 64 keys. At HD = 64 S^T, dP^T, dK and dV are 32
-  // f32 registers a thread each, beside P^T and dS^T of the last tile and
-  // the consumer's K and V rows as A fragments, in 232. At 128 dK and dV
-  // take 128 registers: K and V stay in shared memory and a round finishes
-  // its tile before the next one's scores (dkdv_consume_serial).
+  // dK/dV: two consumers of 64 keys. S^T, dP^T, dK and dV are 32 f32
+  // registers a thread each, beside P^T and dS^T of the last tile and the
+  // consumer's K and V rows as A fragments, in 232.
   static constexpr int DKDV_NC = 2;
   static constexpr int DKDV_BK = BT * DKDV_NC;
   static constexpr int DKDV_THREADS = 128 * (1 + DKDV_NC);
@@ -694,8 +696,6 @@ struct DkdvSmem {
 };
 template <int HD>
 constexpr size_t kDkdvSmem = sizeof(DkdvSmem<HD>) + 1024;
-static_assert(kDqSmem<128> <= 232448 && kDkdvSmem<128> <= 232448,
-              "backward shared memory at HD = 128");
 // A dK/dV stage fills when the TMA thread's expect_tx and the 32 lanes'
 // cp.async arrivals (lse and D) are all in.
 constexpr unsigned DKDV_FULL_ARRIVALS = 1 + 32;
@@ -1112,76 +1112,6 @@ __device__ __forceinline__ void dkdv_consume(DkdvSmem<64>& sm, int c, int kc, in
   if (lane == 0) mbar_arrive(&sm.empty[stage]);
 }
 
-// One dK/dV consumer at head width 128. dK and dV are 64 f32 registers a
-// thread each, so the consumer's K and V rows stay in shared memory (both
-// score products read two descriptors) and a round finishes its own tile:
-// in its turn it issues the tile's S^T and dP^T, then p and ds, then dV +=
-// P^T dO and dK += dS^T Q before the next tile's scores. P^T and dS^T are
-// never held beside the next scores (the hd-64 pipelining would need about
-// 240 registers for its arrays alone); the other consumer's products fill
-// the tensor cores meanwhile. Each consumer takes its turn once a round and
-// releases the next consumer's, so consumer 0 takes one more turn at the
-// end than it has rounds, the one the last consumer's first release (before
-// any round) left it.
-__device__ __forceinline__ void dkdv_consume_serial(DkdvSmem<128>& sm, int c, int kc, int t0,
-                                                    int n_tiles, const BwdParams& p,
-                                                    float (&dk)[16][4], float (&dv)[16][4]) {
-  constexpr int NC = BwdCfg<128>::DKDV_NC;
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int key0 = kc + warp * 16 + lane / 4;
-  const int col = (lane % 4) * 2;
-  const int my_turn = 1 + c, their_turn = 1 + (c + 1) % NC;
-  float s[8][4], dp[8][4];
-  unsigned pa[BT / 16][4], dsa[BT / 16][4];  // P^T and dS^T, bf16 A fragments
-  const uint64_t d_k = sw128_desc(sm.k[c]), d_v = sw128_desc(sm.v[c]);
-  mbar_wait(&sm.kv_full, 0);
-  if (c == NC - 1) named_arrive(1);  // consumer 0 goes first
-
-  int stage = 0, parity = 0;
-  for (int i = 0; i < n_tiles; ++i) {
-    const int qt0 = (t0 + i) * BT;
-    const bool need_mask = qt0 + BT > p.lq || (p.causal && p.k_off + kc + BT - 1 > p.q_off + qt0);
-    mbar_wait(&sm.full[stage], parity);
-    named_sync(my_turn);
-    fence_regs(dk);
-    fence_regs(dv);
-    wgmma_fence();
-    issue_score<128>(s, d_k, sm.q[stage]);
-    wgmma_commit();
-    issue_score<128>(dp, d_v, sm.dout[stage]);
-    wgmma_commit();
-    named_arrive(their_turn);
-    wgmma_wait<1>();  // S^T
-    fence_regs(s);
-    dkdv_p<128>(s, sm.lse[stage], need_mask, key0, qt0, col, p);
-    wgmma_wait<0>();  // dP^T
-    fence_regs(dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {  // dp = ds^T = p^T (dP^T - D)
-      const float2 d = *reinterpret_cast<const float2*>(sm.dd[stage] + nt * 8 + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? d.y : d.x));
-    }
-    to_a(pa, s);
-    to_a(dsa, dp);
-    wgmma_fence();
-    issue_acc<128>(dv, pa, sm.dout[stage]);
-    issue_acc<128>(dk, dsa, sm.q[stage]);
-    wgmma_commit();
-    wgmma_wait<0>();  // dV and dK
-    fence_regs(dk);
-    fence_regs(dv);
-    fence_regs(pa);
-    fence_regs(dsa);
-    if (lane == 0) mbar_arrive(&sm.empty[stage]);
-    if (++stage == BWD_STAGES) {
-      stage = 0;
-      parity ^= 1;
-    }
-  }
-  if (c == 0) named_sync(my_turn);
-}
-
 // One block per DKDV_BK keys of one (batch, head), the query tiles that see
 // them walked from the diagonal to the end; in causal attention the first
 // keys see the most queries, so each head's longest walks start first.
@@ -1259,16 +1189,410 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qm,
     float dk[HD / 8][4], dv[HD / 8][4];
     zero(dk);
     zero(dv);
-    if (n_tiles > 0) {
-      if constexpr (HD == 64)
-        dkdv_consume(sm, c, kc, t0, n_tiles, p, dk, dv);
-      else
-        dkdv_consume_serial(sm, c, kc, t0, n_tiles, p, dk, dv);
-    }
+    if (n_tiles > 0) dkdv_consume(sm, c, kc, t0, n_tiles, p, dk, dv);
     const size_t head = (size_t(b) * p.lk * p.h + h) * HD;
     store_rows(static_cast<OutT*>(p.out0) + head, dk, kc + warp * 16, p.lk, p.h * HD, C::SCALE,
                lane);
     store_rows(static_cast<OutT*>(p.out1) + head, dv, kc + warp * 16, p.lk, p.h * HD, 1.f, lane);
+  }
+}
+
+// ------------------------------------------------------ one-pass backward
+
+// flash_bwd_kernel: dQ, dK and dV at head width 128 in one walk, five
+// products a (key block, query tile) pair where the pair runs seven (S and
+// dP twice) and one exp a score where it runs two. What bounds it: the
+// tensor cores (2.75e12 FLOPs at B = 8, L = 8,192, H = 8, causal: 2.78 ms
+// at 989 TFLOP/s) and, beside them, shared memory: S^T and dP^T (both
+// operands there) and dQ's dS K read 4 KB an m64n64k16, the SM's 128 bytes
+// a clock at the tensor rate, and the dS^T exchange and the dQ staging add
+// 80 KB a pair; what the design does about it is overlap.
+// - A block owns 128 keys of one (batch, head): two consumer warpgroups of
+//   64 keys at 240 registers (dK and dV, 128 f32 registers a thread, stay
+//   in registers for the walk) and a producer warpgroup at 24. K and V are
+//   loaded once; Q, dO, lse and D stream through a 2-stage ring.
+// - Per 64-row query tile each consumer runs S^T = K Q^T and dP^T = V dO^T
+//   (both operands in shared memory), p^T and ds^T in registers, and writes its dS^T rows (bf16, 128-byte swizzled)
+//   to shared memory. Once the other consumer's rows are in (a named
+//   barrier) it issues its half of the tile's dQ partial (64 rows x its 64
+//   columns) as dS K, A the dS^T buffer read MN-major, B its columns of K;
+//   then dV += P^T dO and dK += dS^T Q (P^T, dS^T as register A fragments),
+//   and stages the dQ half while those two run. dS^T has two buffers: a
+//   buffer is written again two tiles later, after both consumers passed
+//   the next tile's barrier and so finished their dQ of this one.
+// - dQ sums over key blocks in global memory: f32 [B*H, query tiles, 64 x
+//   128], each tile's partial in the consumers' fragment order (a float4 a
+//   thread and n-tile, so the staging stores are conflict-free);
+//   flash_bwd_dq_convert_kernel then scales it and writes dq in [B, L, H,
+//   128]. The producer's second warp takes each staged partial (two staging
+//   buffers) and writes it with one bulk copy (the tile's first) or adds it
+//   with one bulk reduce (cp.reduce.async.bulk .add.f32, 32 KB), then hands
+//   the buffer back.
+// - Fixed order: each (batch, head, query tile) has an int32 turn in a
+//   zeroed buffer. The key blocks that see a tile add in descending order:
+//   block j adds when the turn reads (the last block that sees the tile) -
+//   j (ld.acquire), waits for its bulk operation to complete, and bumps it
+//   (release). Every key block below the last one that sees a tile sees it
+//   too (a query that sees a key sees every key before it), so the count
+//   is exact. The sum's order is fixed, and dQ's bits are the same from run
+//   to run.
+// - Each block walks its query tiles from its diagonal up, and a head's key
+//   blocks start in linear order from the last: block j + 1 reaches each
+//   tile two tiles of walk before block j (its diagonal is two tiles
+//   further on), so it has added by the time j comes, and j waits only on
+//   blocks of a lower linear index, which started before it.
+// - Keys past lk and queries past lq arrive zero-filled and are masked to p
+//   = 0, so they add nothing to dQ; a row that no key sees gets a dQ of
+//   exactly 0 (a tile that no block sees is never written, and the dQ pass
+//   writes its zeros), and a block whose keys no query sees walks no tile
+//   and writes zeros.
+namespace b1 {
+constexpr int NC = 2;                  // consumer warpgroups, 64 keys each
+constexpr int BK = BT * NC;            // keys a block
+constexpr int HD = 128;
+constexpr int THREADS = 128 * (1 + NC);
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 128 * NC * CONSUMER_REGS <= 65536, "register file");
+constexpr int STAGES = 2;              // ring depth of the Q, dO, lse, D tiles
+constexpr int DQ_BUFS = 2;             // staging buffers of the dQ partials
+constexpr unsigned TILE_BYTES = BT * HD * 2;
+constexpr int DQ_TILE = BT * HD;       // f32 values of one query tile's dQ partial
+constexpr float SCALE = kScale<128>;
+}  // namespace b1
+
+struct Bwd1Smem {
+  alignas(1024) bf16 k[b1::NC][BT * b1::HD];
+  alignas(1024) bf16 v[b1::NC][BT * b1::HD];
+  alignas(1024) bf16 q[b1::STAGES][BT * b1::HD];
+  alignas(1024) bf16 dout[b1::STAGES][BT * b1::HD];
+  alignas(1024) bf16 ds[2][b1::BK * BT];  // dS^T [128 keys][64 queries], two buffers
+  alignas(1024) float4 dq[b1::DQ_BUFS][b1::DQ_TILE / 4];  // dQ partials, fragment order
+  float lse[b1::STAGES][BT];
+  float dd[b1::STAGES][BT];
+  uint64_t kv_full;
+  uint64_t full[b1::STAGES], empty[b1::STAGES];
+  uint64_t dq_full[b1::DQ_BUFS], dq_empty[b1::DQ_BUFS];
+};
+constexpr size_t kBwd1Smem = sizeof(Bwd1Smem) + 1024;
+static_assert(kBwd1Smem <= 232448, "one-pass backward shared memory");
+
+struct Bwd1Params {
+  int h, lq, lk, causal, q_off, k_off;
+  const float* lse;
+  const float* dd;
+  void* dk;
+  void* dv;
+  float* dq_acc;  // f32 [B*H, query tiles, DQ_TILE], zeroed
+  int* dq_turn;   // int32 [B*H, query tiles], zeroed
+};
+
+// p^T on one query tile, as dkdv_p, with the keys past lk masked too (their
+// scores would reach dQ).
+__device__ __forceinline__ void bwd1_p(float (&s)[8][4], const float* lse, bool need_mask,
+                                       int key0, int qt0, int col, const Bwd1Params& p) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + nt * 8 + col);
+    const float l2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = ex2(fmaf(s[nt][e], b1::SCALE * LOG2E, -l2[e & 1]));
+  }
+  if (need_mask) {
+    // Query column c of the tile is visible to a key iff lo <= c < hi.
+    const int hi = p.lq - qt0 - col;
+    int lo[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lo[i] = p.causal ? p.k_off - p.q_off + key0 + 8 * i - qt0 - col : -BT;
+      if (key0 + 8 * i >= p.lk) lo[i] = BT;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + (e & 1);
+        if (c < lo[e >> 1] || c >= hi) s[nt][e] = 0.f;
+      }
+  }
+}
+
+// A consumer's dS^T fragments (its 64 keys x the tile's 64 queries, the
+// register A layout) into rows 64 c .. 64 c + 63 of a [128][64] dS^T
+// buffer, 128-byte swizzled (the 16-byte chunk k of row r at k ^ (r % 8)):
+// the MN-major A operand of dS K.
+__device__ __forceinline__ void store_ds(bf16* buf, int c, const unsigned (&dsa)[BT / 16][4]) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  unsigned char* base = reinterpret_cast<unsigned char*>(buf);
+#pragma unroll
+  for (int kc = 0; kc < BT / 16; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = BT * c + warp * 16 + lane / 4 + 8 * (j & 1);
+      const int col = kc * 16 + (lane % 4) * 2 + 8 * (j >> 1);
+      *reinterpret_cast<unsigned*>(base + row * 128 +
+                                   ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2))) =
+          dsa[kc][j];
+    }
+}
+
+// dQ[64 queries x columns 64 c .. 64 c + 63] = dS . K over the block's 128
+// keys (8 k steps of 16): A the dS^T buffer (MN-major, 2048 bytes a step),
+// B column block c of each 64-key part of K (MN-major).
+__device__ __forceinline__ void issue_dq(float (&dq)[8][4], const bf16* ds, const Bwd1Smem& sm,
+                                         int c) {
+  const uint64_t da = sw128_desc(ds);
+#pragma unroll
+  for (int kc = 0; kc < b1::BK / 16; ++kc)
+    wgmma_m64n64k16_ss<1, 1>(dq, da + 128 * kc,
+                             sw128_desc(sm.k[kc / 4] + c * BT * 64) + 128 * (kc % 4), kc);
+}
+
+// Named barrier 1 + 2 c + buf says consumer c's dS^T rows of the tile are
+// in buffer buf (c arrives, the other consumer syncs before its dQ). The
+// buffer's parity in the id keeps a consumer from arriving twice before the
+// other's sync: it arrives again on one id only two tiles later, after the
+// sync of the tile between, which the other makes after its own.
+__device__ __forceinline__ int ds_ready(int c, int buf) { return 1 + 2 * c + buf; }
+
+// One consumer (keys kc .. kc + 63) over the block's n_tiles query tiles,
+// from tile t0 (the diagonal) up. Each round issues the tile's S^T and
+// dP^T; computes p, ds and the dS^T rows; once the other consumer's rows
+// are in, issues its half of the tile's dQ, then dV and dK, and stages the
+// dQ half for the writer while those two run. (Turns between the two
+// consumers for their score products, as the forward takes them, measured
+// no faster here: the dS^T barrier already staggers them.)
+__device__ __forceinline__ void bwd1_consume(Bwd1Smem& sm, int c, int kc, int t0, int n_tiles,
+                                             const Bwd1Params& p, float (&dk)[16][4],
+                                             float (&dv)[16][4]) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int key0 = kc + warp * 16 + lane / 4;
+  const int col = (lane % 4) * 2;
+  float s[8][4], dp[8][4], dq[8][4];
+  unsigned pa[BT / 16][4], dsa[BT / 16][4];  // P^T and dS^T, bf16 A fragments
+  const uint64_t d_k = sw128_desc(sm.k[c]), d_v = sw128_desc(sm.v[c]);
+  mbar_wait(&sm.kv_full, 0);
+
+  int stage = 0, parity = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int qt0 = (t0 + i) * BT;
+    const int buf = i & 1;
+    const bool need_mask = qt0 + BT > p.lq || kc + BT > p.lk ||
+                           (p.causal && p.k_off + kc + BT - 1 > p.q_off + qt0);
+    mbar_wait(&sm.full[stage], parity);
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    issue_score<128>(s, d_k, sm.q[stage]);
+    wgmma_commit();
+    issue_score<128>(dp, d_v, sm.dout[stage]);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T
+    fence_regs(s);
+    bwd1_p(s, sm.lse[stage], need_mask, key0, qt0, col, p);
+    wgmma_wait<0>();  // dP^T
+    fence_regs(dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {  // dp = ds^T = p^T (dP^T - D)
+      const float2 d = *reinterpret_cast<const float2*>(sm.dd[stage] + nt * 8 + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? d.y : d.x));
+    }
+    to_a(pa, s);
+    to_a(dsa, dp);
+    store_ds(sm.ds[buf], c, dsa);
+    fence_proxy_async();
+    named_arrive(ds_ready(c, buf));
+    named_sync(ds_ready(1 - c, buf));
+    wgmma_fence();
+    issue_dq(dq, sm.ds[buf], sm, c);
+    wgmma_commit();
+    issue_acc<128>(dv, pa, sm.dout[stage]);
+    issue_acc<128>(dk, dsa, sm.q[stage]);
+    wgmma_commit();
+    wgmma_wait<1>();  // dQ, staged while dV and dK run
+    fence_regs(dq);
+    // The writer has taken the partial staged DQ_BUFS tiles ago.
+    const int sb = i % b1::DQ_BUFS;
+    mbar_wait(&sm.dq_empty[sb], ((i / b1::DQ_BUFS) & 1) ^ 1);
+    float4* staged = sm.dq[sb] + c * 8 * 128 + tid;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      staged[nt * 128] = make_float4(dq[nt][0], dq[nt][1], dq[nt][2], dq[nt][3]);
+    fence_proxy_async();
+    mbar_arrive(&sm.dq_full[sb]);
+    wgmma_wait<0>();  // dV and dK: the stage is read
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == b1::STAGES) {
+      stage = 0;
+      parity ^= 1;
+    }
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(b1::THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                 const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap dom,
+                 const Bwd1Params p) {
+  extern __shared__ unsigned char bwd1_smem[];
+  Bwd1Smem& sm = align1024<Bwd1Smem>(bwd1_smem);
+  // A head's key blocks are consecutive in linear order, the last first.
+  const int kb = gridDim.x - 1 - blockIdx.x;
+  const int k0 = kb * b1::BK;
+  const int bh = blockIdx.y, b = bh / p.h, h = bh % p.h;
+  const int n_qt = (p.lq + BT - 1) / BT;
+  // The first query tile that sees key k0; the tiles before it see none of
+  // this block's keys.
+  const int t0 = p.causal ? min(n_qt, max(0, p.k_off - p.q_off + k0) / BT) : 0;
+  const int n_tiles = n_qt - t0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < b1::STAGES; ++s) {
+      mbar_init(&sm.full[s], DKDV_FULL_ARRIVALS);
+      mbar_init(&sm.empty[s], 4 * b1::NC);
+    }
+    for (int s = 0; s < b1::DQ_BUFS; ++s) {
+      mbar_init(&sm.dq_full[s], 128 * b1::NC);
+      mbar_init(&sm.dq_empty[s], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<b1::PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32 && n_tiles > 0) {
+      // Warp 0: its lane 0 issues the TMA copies (K and V of both consumers,
+      // whole boxes past lk zero-filled as well, since dS K reads all 128
+      // keys); all 32 lanes copy each tile's lse and D (rows past lq read 0).
+      if (lane == 0) {
+        mbar_expect_tx(&sm.kv_full, 2 * b1::NC * b1::TILE_BYTES);
+        for (int c = 0; c < b1::NC; ++c) {
+          tma_load_tile<128>(sm.k[c], &km, &sm.kv_full, h, k0 + BT * c, b, BT);
+          tma_load_tile<128>(sm.v[c], &vm, &sm.kv_full, h, k0 + BT * c, b, BT);
+        }
+      }
+      const float* lrow = p.lse + size_t(bh) * p.lq;
+      const float* drow = p.dd + size_t(bh) * p.lq;
+      int stage = 0, parity = 0;
+#pragma unroll 1
+      for (int i = 0; i < n_tiles; ++i) {
+        const int qt0 = (t0 + i) * BT;
+        mbar_wait(&sm.empty[stage], parity ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&sm.full[stage], 2 * b1::TILE_BYTES);
+          tma_load_tile<128>(sm.q[stage], &qm, &sm.full[stage], h, qt0, b, BT);
+          tma_load_tile<128>(sm.dout[stage], &dom, &sm.full[stage], h, qt0, b, BT);
+        }
+#pragma unroll
+        for (int j = 0; j < BT / 32; ++j) {
+          const int r = qt0 + lane + 32 * j;
+          const bool ok = r < p.lq;
+          cp_async4(&sm.lse[stage][lane + 32 * j], ok ? lrow + r : lrow, ok ? 4 : 0);
+          cp_async4(&sm.dd[stage][lane + 32 * j], ok ? drow + r : drow, ok ? 4 : 0);
+        }
+        cp_async_arrive(&sm.full[stage]);
+        if (++stage == b1::STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else if (threadIdx.x == 32 && n_tiles > 0) {
+      // The dQ writer: each staged partial added in the key blocks' order,
+      // the last block that sees the tile first.
+      float* acc = p.dq_acc + size_t(bh) * n_qt * b1::DQ_TILE;
+      int* turn = p.dq_turn + size_t(bh) * n_qt;
+#pragma unroll 1
+      for (int i = 0; i < n_tiles; ++i) {
+        const int t = t0 + i;
+        const int last = p.causal ? min(int(gridDim.x) - 1,
+                                        (p.q_off - p.k_off + t * BT + BT - 1) / b1::BK)
+                                  : int(gridDim.x) - 1;
+        const int sb = i % b1::DQ_BUFS;
+        mbar_wait(&sm.dq_full[sb], (i / b1::DQ_BUFS) & 1);
+        while (ld_acquire_gpu(turn + t) != last - kb) {
+        }
+        fence_proxy_async_global();
+        // The first block in the order writes the tile, the others add to it.
+        const float* part = reinterpret_cast<const float*>(sm.dq[sb]);
+        if (kb == last)
+          bulk_copy_s2g(acc + size_t(t) * b1::DQ_TILE, part, b1::DQ_TILE * 4);
+        else
+          bulk_reduce_add_f32(acc + size_t(t) * b1::DQ_TILE, part, b1::DQ_TILE * 4);
+        bulk_commit();
+        bulk_wait_all();
+        fence_proxy_async_global();
+        red_add_release_gpu(turn + t, 1);
+        mbar_arrive(&sm.dq_empty[sb]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<b1::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int kc = k0 + BT * c;
+    float dk[16][4], dv[16][4];
+    zero(dk);
+    zero(dv);
+    if (n_tiles > 0) bwd1_consume(sm, c, kc, t0, n_tiles, p, dk, dv);
+    const size_t head = (size_t(b) * p.lk * p.h + h) * 128;
+    store_rows(static_cast<OutT*>(p.dk) + head, dk, kc + warp * 16, p.lk, p.h * 128, b1::SCALE,
+               lane);
+    store_rows(static_cast<OutT*>(p.dv) + head, dv, kc + warp * 16, p.lk, p.h * 128, 1.f, lane);
+  }
+}
+
+// dq [B, L, H, 128] = scale * the summed partials of flash_bwd_kernel (one
+// block a query tile of one head): the tile's fragment order undone through
+// shared memory, then each row written in 16-byte pieces.
+__device__ __forceinline__ void store8(bf16* dst, const float* x, float mul) {
+  uint4 v;
+  unsigned* w = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = pack_bf16(x[2 * j] * mul, x[2 * j + 1] * mul);
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+__device__ __forceinline__ void store8(float* dst, const float* x, float mul) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(x[4] * mul, x[5] * mul, x[6] * mul, x[7] * mul);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_convert_kernel(const float* acc, OutT* dq, int h, int lq, int causal, int q_off,
+                            int k_off) {
+  constexpr int PITCH = b1::HD + 4;
+  __shared__ __align__(16) float tile[BT * PITCH];
+  const int t = blockIdx.x, n_qt = gridDim.x, bh = blockIdx.y;
+  const int b = bh / h, hh = bh % h;
+  const float4* src = reinterpret_cast<const float4*>(acc + (size_t(bh) * n_qt + t) * b1::DQ_TILE);
+  // A tile that no key block sees (its rows see no key) was never written.
+  const bool seen = !causal || k_off <= q_off + t * BT + BT - 1;
+  for (int f = threadIdx.x; f < b1::DQ_TILE / 4; f += 256) {
+    const float4 x = seen ? src[f] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int c = f >> 10, nt = (f >> 7) & 7, tid = f & 127;
+    const int row = (tid >> 5) * 16 + (tid & 31) / 4, col = BT * c + nt * 8 + (tid & 3) * 2;
+    tile[row * PITCH + col] = x.x;
+    tile[row * PITCH + col + 1] = x.y;
+    tile[(row + 8) * PITCH + col] = x.z;
+    tile[(row + 8) * PITCH + col + 1] = x.w;
+  }
+  __syncthreads();
+  for (int seg = threadIdx.x; seg < BT * b1::HD / 8; seg += 256) {
+    const int row = seg / 16, col = (seg % 16) * 8;
+    const int q = t * BT + row;
+    if (q < lq)
+      store8(dq + ((size_t(b) * lq + q) * h + hh) * b1::HD + col, tile + row * PITCH + col,
+             b1::SCALE);
   }
 }
 
@@ -1357,11 +1681,64 @@ int launch_bwd_width(int d, const void* q, const void* k, const void* v, const v
                      const float* lse, const float* dd, void* dk, void* dv, void* dq, int b,
                      int h, int lq, int lk, int causal, int q_off, int k_off,
                      cudaStream_t stream) {
-  if (d == 64)
-    return launch_bwd<64, OutT>(q, k, v, dout, lse, dd, dk, dv, dq, b, h, lq, lk, causal, q_off,
-                                k_off, stream);
-  return launch_bwd<128, OutT>(q, k, v, dout, lse, dd, dk, dv, dq, b, h, lq, lk, causal, q_off,
-                               k_off, stream);
+  if (d != 64) return int(cudaErrorInvalidValue);  // 128: flash_bwd
+  return launch_bwd<64, OutT>(q, k, v, dout, lse, dd, dk, dv, dq, b, h, lq, lk, causal, q_off,
+                              k_off, stream);
+}
+
+// D = rowsum(dO * O) in f32 [B*H, L] from bf16 [B, L, H, d] (the
+// backward's row term, XLA in the JAX package): d / 8 lanes a (batch, row,
+// head), one 16-byte load of each a lane, so a warp takes 256 / d rows;
+// bound by its reads of O and dO.
+__global__ void __launch_bounds__(256)
+flash_bwd_dd_kernel(const bf16* o, const bf16* dout, float* dd, int l, int h, int d, int rows) {
+  const int lanes = d / 8, per_warp = 32 / lanes;
+  const int lane = threadIdx.x % 32;
+  const int row = (blockIdx.x * 8 + threadIdx.x / 32) * per_warp + lane / lanes;
+  float sum = 0.f;
+  if (row < rows) {
+    const size_t at = size_t(row) * d + (lane % lanes) * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + at);
+    const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fx = __bfloat1622float2(xs[e]), fy = __bfloat1622float2(ys[e]);
+      sum = fmaf(fx.x, fy.x, sum);
+      sum = fmaf(fx.y, fy.y, sum);
+    }
+  }
+  // The row's lanes are neighbours: sum within groups of `lanes`.
+  for (int m = lanes / 2; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (row < rows && lane % lanes == 0) {
+    const int hh = row % h, bl = row / h;
+    dd[(size_t(bl / l) * h + hh) * l + bl % l] = sum;
+  }
+}
+
+// The one-pass backward at head width 128 and its dQ pass: tensor maps of
+// q, k, v and dO (BT-row boxes), one block per 128 keys, then one per query
+// tile.
+template <typename OutT>
+int launch_bwd1(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* dd, void* dq, void* dk, void* dv, float* dq_acc, int* dq_turn, int b,
+                int h, int lq, int lk, int causal, int q_off, int k_off, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  if (!head_map(&qm, q, b, lq, h, 128, BT) || !head_map(&km, k, b, lk, h, 128, BT) ||
+      !head_map(&vm, v, b, lk, h, 128, BT) || !head_map(&dom, dout, b, lq, h, 128, BT))
+    return int(cudaErrorInvalidValue);
+  const Bwd1Params p{h, lq, lk, causal, q_off, k_off, lse, dd, dk, dv, dq_acc, dq_turn};
+  auto kernel = flash_bwd_kernel<OutT>;
+  const cudaError_t err = set_smem(kernel, kBwd1Smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3((lk + b1::BK - 1) / b1::BK, b * h), b1::THREADS, kBwd1Smem, stream>>>(qm, km, vm,
+                                                                                       dom, p);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return int(launched);
+  flash_bwd_dq_convert_kernel<OutT><<<dim3((lq + BT - 1) / BT, b * h), 256, 0, stream>>>(
+      dq_acc, static_cast<OutT*>(dq), h, lq, causal, q_off, k_off);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -1441,4 +1818,31 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                                            lq, lk, causal, q_off, k_off, s)
                  : launch_bwd_width<bf16>(d, q, k, v, dout, lse, dd, nullptr, nullptr, dq, b, h,
                                           lq, lk, causal, q_off, k_off, s);
+}
+
+// The one-pass backward (head width 128 only): dq, dk and dv, bf16 or f32
+// with out_f32; dq_acc f32 [b*h, ceil(lq/64), 64*128] (scratch) and dq_turn
+// int32 [b*h, ceil(lq/64)], zeroed (the call consumes both).
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* dd, void* dq, void* dk, void* dv,
+                         float* dq_acc, int* dq_turn, int b, int h, int lq, int lk, int d,
+                         int causal, int q_off, int k_off, int out_f32, void* stream) {
+  if (!args_ok(b, h, lq, lk, d) || d != 128) return int(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch_bwd1<float>(q, k, v, dout, lse, dd, dq, dk, dv, dq_acc, dq_turn, b, h,
+                                      lq, lk, causal, q_off, k_off, s)
+                 : launch_bwd1<bf16>(q, k, v, dout, lse, dd, dq, dk, dv, dq_acc, dq_turn, b, h,
+                                     lq, lk, causal, q_off, k_off, s);
+}
+
+// D = rowsum(dO * O): o and dout bf16 [b, l, h, d] (d 64 or 128), dd f32
+// [b*h, l].
+extern "C" int flash_bwd_dd(const void* o, const void* dout, float* dd, int b, int l, int h,
+                            int d, void* stream) {
+  if (!args_ok(b, h, l, l, d)) return int(cudaErrorInvalidValue);
+  const int rows = b * l * h, per_block = 8 * 256 / d;  // 8 warps of 256 / d rows
+  flash_bwd_dd_kernel<<<(rows + per_block - 1) / per_block, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), dd, l, h, d, rows);
+  return int(cudaGetLastError());
 }

@@ -144,6 +144,49 @@ __device__ __forceinline__ void named_arrive(int id) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+// ------------------------------------------------ bulk copies, global flags
+
+// dst[0 .. bytes) += src[0 .. bytes) in f32, from shared to global memory,
+// as one bulk operation of the async proxy (bytes a multiple of 16, both
+// addresses 16-byte aligned); each element takes one add.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src,
+                                                    unsigned bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
+                   "l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+// dst[0 .. bytes) = src[0 .. bytes), shared to global, the same way.
+__device__ __forceinline__ void bulk_copy_s2g(float* dst, const float* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Every committed bulk operation complete: its reads done, its writes made.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Order this thread's global accesses of the async proxy (bulk copies)
+// against its generic ones (flags), both ways.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// A flag in global memory that blocks of one grid read and bump in turn.
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_add_release_gpu(int* p, int v) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+      "r"(v)
+      : "memory");
+}
 // Hand registers back (producer) or take them (consumers): warp-specialised
 // blocks of one producer warpgroup and a few consumers.
 template <int N>
@@ -227,9 +270,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&s)[16][4], uint64_t 
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// s[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major and B K-major
-// (TRANS_B 0) or MN-major (TRANS_B 1), both in shared memory.
-template <int TRANS_B>
+// s[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major (TRANS_A 0) or
+// MN-major (TRANS_A 1: a row of 64 m values per k) and B K-major (TRANS_B
+// 0) or MN-major (TRANS_B 1), both in shared memory.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&s)[8][4], uint64_t da, uint64_t db,
                                                    int accumulate) {
   asm volatile(
@@ -239,11 +283,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&s)[8][4], uint64_t da
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : ACC4(s, 0), ACC4(s, 1), ACC4(s, 2), ACC4(s, 3), ACC4(s, 4), ACC4(s, 5), ACC4(s, 6),
         ACC4(s, 7)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // s[64 x 256] (+)= A[64 x 16] . B[16 x 256], A K-major (TRANS_A 0) or

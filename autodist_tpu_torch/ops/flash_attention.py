@@ -13,15 +13,23 @@ JAX package, each behind a wrapper that counts its launches:
   (:func:`flash_attention_with_carry`);
 - :func:`flash_bwd_dkdv` (replaces ``_flash_bwd_dkdv_kernel``): dK and dV,
   with p and ds recomputed per block from the saved lse;
-- :func:`flash_bwd_dq` (replaces ``_flash_bwd_dq_kernel``): dQ.
+- :func:`flash_bwd_dq` (replaces ``_flash_bwd_dq_kernel``): dQ;
+- :func:`flash_bwd`: dq, dk and dv, what the two backward kernels compute.
+  At head width 64 it runs the pair; at 128 one kernel (replacing both
+  Pallas kernels there) walks each key block's query tiles once, five
+  products where the pair runs seven, and sums dQ across key blocks in a
+  fixed order, so its bits are the same from run to run.
 
-Each kernel is instantiated at head widths 64 and 128
-(:data:`KERNEL_HEAD_DIMS`); the two instantiations count their launches
-apart: a wrapper's ``launches`` counts its hd-64 kernel, and its
-``hd128.launches`` (:data:`KERNELS_HD128`) the hd-128 one.
+The forward kernels are instantiated at head widths 64 and 128
+(:data:`KERNEL_HEAD_DIMS`), and count their launches apart: a wrapper's
+``launches`` counts its hd-64 kernel, and its ``hd128.launches``
+(:data:`KERNELS_HD128`) the hd-128 one. The backward pair exists at 64: at
+128 its wrappers raise on the card, naming :func:`flash_bwd`, whose
+``hd128`` counts the one-pass kernel.
 
-The row term ``D_i = rowsum(dO * O)`` is plain torch
-(:func:`prepare_backward_q_side`), as it is XLA in the JAX package.
+The row term ``D_i = rowsum(dO * O)`` (:func:`prepare_backward_q_side`), XLA
+in the JAX package, is one more kernel on the card (it replaces no Pallas
+kernel; its wrapper counts its launches too).
 
 A wrapper given CPU tensors computes the kernels' plain versions
 (:func:`flash_forward_plain`, :func:`flash_forward_carry_plain`,
@@ -35,8 +43,8 @@ layout: acc f32 ``[B, H, Lq, D]``, m and l f32 ``[B, H, Lq]``, the layout of
 so ``finalize`` takes either.
 
 The global offsets ``q_offset``/``k_offset`` and the backward's ``out_dtype``
-override serve ring attention, whose backward reuses the two backward kernels
-with f32 outputs.
+override serve ring attention, whose backward reuses :func:`flash_bwd` with
+f32 outputs.
 """
 
 import ctypes
@@ -171,11 +179,9 @@ def flash_backward_plain(q, k, v, do, lse, dd, causal: bool = True,
     return back(dq, q), back(dk, k), back(dv, v)
 
 
-def prepare_backward_q_side(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """The row term ``D_i = rowsum(dO * O)`` in f32 ``[B * H, Lq]``. It depends
-    only on the query side, so ring attention computes it once for every
-    ring step. (The JAX function also transposes and pads q and dO into its
-    kernels' block layout; the kernels here read them in place.)"""
+def backward_q_side_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the row-term kernel: ``D_i = rowsum(dO * O)`` in f32
+    ``[B * H, Lq]``."""
     b, lq, h, _ = o.shape
     dd = (do.float() * o.float()).sum(dim=-1)            # [B, Lq, H]
     return dd.transpose(1, 2).reshape(b * h, lq).contiguous()
@@ -191,9 +197,11 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_carry.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.flash_bwd.argtypes = [p] * 11 + [i] * 9 + [p]
+    lib.flash_bwd_dd.argtypes = [p, p, p, i, i, i, i, p]
     lib.flash_fwd_smem_bytes.argtypes = [i]
     for fn in (lib.flash_fwd, lib.flash_fwd_carry, lib.flash_bwd_dkdv, lib.flash_bwd_dq,
-               lib.flash_fwd_smem_bytes):
+               lib.flash_bwd, lib.flash_bwd_dd, lib.flash_fwd_smem_bytes):
         fn.restype = ctypes.c_int
     return lib
 
@@ -236,6 +244,13 @@ def _count(wrapper, d: int) -> None:
     (wrapper if d == 64 else wrapper.hd128).launches += 1
 
 
+def _pair_width(d: int) -> None:
+    """The backward pair's kernels exist at head width 64 only."""
+    if d != 64:
+        raise ValueError(f"the flash backward pair is built for head width 64, got {d}: at "
+                         f"128 flash_bwd computes dq, dk and dv in one kernel")
+
+
 def _launch(fn, *args):
     rc = fn(*args)
     if rc != 0:
@@ -258,7 +273,8 @@ def _probe_cost(name: str, q, k, causal: bool, out_bytes: int = 2):
     ``[B, L, H, D]``, f32 lse and D ``[B*H, Lq]``, outputs of
     ``out_bytes`` an element, the carry's f32 acc in and out), and the
     tensor-core products over the scores attended (the causal half, or all
-    of them): 2 in the forward and the carry, 4 in dK/dV, 3 in dQ."""
+    of them): 2 in the forward and the carry, 4 in dK/dV, 3 in dQ, 5 in the
+    one-pass backward, whose f32 dQ sums are written and read back once."""
     b, lq, h, d = (int(x) for x in q.shape)
     lk = int(k.shape[1])
     pairs = lq * (lq + 1) / 2 if causal and lq == lk else lq * lk
@@ -270,8 +286,35 @@ def _probe_cost(name: str, q, k, causal: bool, out_bytes: int = 2):
         "flash_fwd_carry": (q_act + 2 * k_act + 2 * acc + 4 * row, 2),
         "flash_bwd_dkdv": (2 * q_act + 2 * k_act + 2 * row + k_act * out_bytes, 4),
         "flash_bwd_dq": (2 * q_act + 2 * k_act + 2 * row + q_act * out_bytes // 2, 3),
+        "flash_bwd": (2 * q_act + 2 * k_act + 2 * row
+                      + (q_act + 2 * k_act) * out_bytes // 2 + 2 * acc, 5),
     }[name]
     return costs.kernel(nbytes, products * product)
+
+
+def prepare_backward_q_side(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The row term ``D_i = rowsum(dO * O)`` in f32 ``[B * H, Lq]``. It depends
+    only on the query side, so ring attention computes it once for every
+    ring step. (The JAX function also transposes and pads q and dO into its
+    kernels' block layout; the kernels here read them in place.) CUDA: one
+    kernel over bf16 O and dO; CPU: :func:`backward_q_side_plain`."""
+    if o.device.type == "cpu":
+        return backward_q_side_plain(o, do)
+    if o.dim() != 4 or do.shape != o.shape:
+        raise ValueError(f"O {tuple(o.shape)} and dO {tuple(do.shape)} must be one [B, L, H, D]")
+    b, lq, h, d = o.shape
+    if o.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the row-term kernel takes bf16 O and dO of head width "
+                         f"{KERNEL_HEAD_DIMS}, got {o.dtype}, {do.dtype} at {d}")
+    if do.device != o.device:
+        raise ValueError("O and dO must be on one device")
+    o, do = o.contiguous(), do.contiguous()
+    dd = torch.empty((b * h, lq), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        _launch(_lib().flash_bwd_dd, o.data_ptr(), do.data_ptr(), dd.data_ptr(), b, lq, h, d,
+                _stream())
+    prepare_backward_q_side.launches += 1
+    return dd
 
 
 def flash_fwd(q, k, v, causal: bool = True, q_offset: int = 0, k_offset: int = 0):
@@ -330,12 +373,14 @@ def flash_fwd_carry(q, k, v, carry=None, causal: bool = True, q_offset: int = 0,
 def flash_bwd_dkdv(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
                    k_offset: int = 0, out_dtype: Optional[torch.dtype] = None):
     """``(dk, dv)``. CUDA: the dK/dV kernel (replaces
-    ``_flash_bwd_dkdv_kernel``); CPU: :func:`flash_backward_plain`."""
+    ``_flash_bwd_dkdv_kernel``) at head width 64; CPU:
+    :func:`flash_backward_plain`."""
     if q.device.type == "cpu":
         with _probe_cost("flash_bwd_dkdv", q, k, causal, 4 if out_dtype == torch.float32 else 2):
             return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
                                         out_dtype)[1:]
     b, lq, lk, h, d = _check_kernel_args(q, k, v, do, lse, dd)
+    _pair_width(d)
     f32 = _out_f32(out_dtype)
     dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
@@ -344,43 +389,87 @@ def flash_bwd_dkdv(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
                 do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), b, h, lq, lk, d, int(causal), q_offset, k_offset, f32,
                 _stream())
-    _count(flash_bwd_dkdv, d)
+    flash_bwd_dkdv.launches += 1
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
                  k_offset: int = 0, out_dtype: Optional[torch.dtype] = None):
-    """``dq``. CUDA: the dQ kernel (replaces ``_flash_bwd_dq_kernel``); CPU:
-    :func:`flash_backward_plain`."""
+    """``dq``. CUDA: the dQ kernel (replaces ``_flash_bwd_dq_kernel``) at
+    head width 64; CPU: :func:`flash_backward_plain`."""
     if q.device.type == "cpu":
         with _probe_cost("flash_bwd_dq", q, k, causal, 4 if out_dtype == torch.float32 else 2):
             return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
                                         out_dtype)[0]
     b, lq, lk, h, d = _check_kernel_args(q, k, v, do, lse, dd)
+    _pair_width(d)
     f32 = _out_f32(out_dtype)
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _launch(_lib().flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b, h, lq,
                 lk, d, int(causal), q_offset, k_offset, f32, _stream())
-    _count(flash_bwd_dq, d)
+    flash_bwd_dq.launches += 1
     return dq
 
 
+# Query rows of one tile of the one-pass backward's f32 dQ sums.
+BWD_TILE_ROWS = 64
+
+
+def flash_bwd(q, k, v, do, lse, dd, causal: bool = True, q_offset: int = 0,
+              k_offset: int = 0, out_dtype: Optional[torch.dtype] = None):
+    """``(dq, dk, dv)``, what :func:`flash_backward_plain` computes. CUDA at
+    head width 64: :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq`; at 128
+    the one-pass kernel (replaces ``_flash_bwd_dkdv_kernel`` and
+    ``_flash_bwd_dq_kernel`` there), counted by ``flash_bwd.hd128``, with
+    its dQ tiles' turns zeroed before it and its f32 dQ sums converted to
+    ``out_dtype`` after.
+    CPU: the plain version, through the pair's wrappers at other widths."""
+    d = q.shape[-1] if q.dim() == 4 else None
+    if d != 128:
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, dd, causal, q_offset, k_offset, out_dtype)
+        return flash_bwd_dq(q, k, v, do, lse, dd, causal, q_offset, k_offset, out_dtype), dk, dv
+    if q.device.type == "cpu":
+        with _probe_cost("flash_bwd", q, k, causal, 4 if out_dtype == torch.float32 else 2):
+            return flash_backward_plain(q, k, v, do, lse, dd, causal, q_offset, k_offset,
+                                        out_dtype)
+    b, lq, lk, h, d = _check_kernel_args(q, k, v, do, lse, dd)
+    f32 = _out_f32(out_dtype)
+    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
+    # The dQ sums (a [64, 128] f32 tile a query tile of each head: the first
+    # key block to reach a tile writes it) and the tiles' turns.
+    tiles = b * h * -(-lq // BWD_TILE_ROWS)
+    acc = torch.empty(tiles * BWD_TILE_ROWS * d, dtype=torch.float32, device=q.device)
+    turns = torch.zeros(tiles, dtype=torch.int32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch(_lib().flash_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                acc.data_ptr(), turns.data_ptr(), b, h, lq, lk, d, int(causal), q_offset,
+                k_offset, f32, _stream())
+    flash_bwd.hd128.launches += 1
+    return dq, dk, dv
+
+
+prepare_backward_q_side.launches = 0
 flash_fwd.launches = 0
 flash_fwd_carry.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
 KERNELS = (flash_fwd, flash_fwd_carry, flash_bwd_dkdv, flash_bwd_dq)
-for _k in KERNELS:
+# The hd-128 kernels' counts (the wrappers' own count the hd-64 ones): the
+# forward's and the carry's second instantiations, and the one-pass
+# backward, which exists at head width 128 only.
+for _k in (flash_fwd, flash_fwd_carry, flash_bwd):
     _k.hd128 = LaunchCount(f"{_k.__name__}_hd128")
-# The hd-128 instantiations' counts (the wrappers' own count the hd-64 ones).
-KERNELS_HD128 = tuple(k.hd128 for k in KERNELS)
+KERNELS_HD128 = (flash_fwd.hd128, flash_fwd_carry.hd128, flash_bwd.hd128)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The custom VJP of ``_flash``: the forward saves (q, k, v, out, lse);
-    the backward runs the dK/dV and dQ kernels from them."""
+    the backward runs :func:`flash_bwd` from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -394,8 +483,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = g.contiguous()
         dd = prepare_backward_q_side(out, do)
-        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, dd, ctx.causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, dd, ctx.causal)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, dd, ctx.causal)
         return dq, dk, dv, None
 
 

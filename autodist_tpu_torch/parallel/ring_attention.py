@@ -37,8 +37,8 @@ import torch.distributed as dist
 
 from autodist_tpu_torch.ops.blockwise_attention import (NEG_INF, blockwise_attention_with_carry,
                                                         finalize)
-from autodist_tpu_torch.ops.flash_attention import (flash_bwd_dkdv, flash_bwd_dq,
-                                                    flash_fwd_carry, prepare_backward_q_side)
+from autodist_tpu_torch.ops.flash_attention import (flash_bwd, flash_fwd_carry,
+                                                    prepare_backward_q_side)
 
 _IMPLS = ("auto", "flash", "blockwise")
 
@@ -200,10 +200,8 @@ class _RingFlash(torch.autograd.Function):
             k_cur, v_cur, dk_acc, dv_acc = rotating
             # f32 outputs: the per-step parts add up without a bf16 rounding each.
             k_offset = src * l_local
-            dk, dv = flash_bwd_dkdv(q, k_cur, v_cur, do, lse, dd, causal, q_offset,
-                                    k_offset, out_dtype=f32)
-            dq_part = flash_bwd_dq(q, k_cur, v_cur, do, lse, dd, causal, q_offset,
-                                   k_offset, out_dtype=f32)
+            dq_part, dk, dv = flash_bwd(q, k_cur, v_cur, do, lse, dd, causal, q_offset,
+                                        k_offset, out_dtype=f32)
             if dq is None:      # step 0, which always runs, starts the sums
                 return (k_cur, v_cur, dk, dv), dq_part
             return (k_cur, v_cur, dk_acc.add_(dk), dv_acc.add_(dv)), dq.add_(dq_part)

@@ -83,6 +83,7 @@ import dataclasses
 import logging
 import time
 import types
+import weakref
 import zlib
 from typing import Any, Callable, Dict, Mapping, Optional
 
@@ -101,6 +102,10 @@ from autodist_tpu_torch.telemetry import health as _health
 from autodist_tpu_torch.telemetry import profiling as _profiling
 
 _log = logging.getLogger("autodist_tpu_torch")
+
+# Runners that have captured a run_many graph in this process: shutdown()
+# releases their graphs before it destroys the process group.
+_GRAPHED: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class MicroBatched:
@@ -911,7 +916,30 @@ class DistributedRunner:
                 f"run_many: the step replaced state tensors {rebound[:4]} instead of "
                 f"updating them in place, so a captured graph cannot replay it; run it "
                 f"per step: run(), or train(..., unroll=1)")
+        _GRAPHED.add(self)
         return _CapturedBlock(graph, static_tree, outputs, dict(launches), hyper)
+
+    def release_graphs(self) -> None:
+        """Drop ``run_many``'s captured graphs and their memory pool, once
+        the card has finished every replay; the next block captures anew. A
+        graph captured with NCCL collectives inside (the gradient all-reduce,
+        Adafactor's statistics) holds their communicator, and NCCL's destroy
+        waits until every such graph is freed: :func:`shutdown` calls this on
+        every runner before it destroys the process group."""
+        if not self._graphs and self._graph_pool is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for block in self._graphs.values():
+            block.graph.reset()
+        self._graphs.clear()
+        self._graph_state = None
+        self._graph_pool = None
+        if self.device.type == "cuda":
+            # Freed graphs release their hold on the communicators once the
+            # card is done with them.
+            torch.cuda.synchronize(self.device)
+        _GRAPHED.discard(self)
 
     # --------------------------------------------------------------- cost probe
     def plan_costs(self, params, example_batch, unroll: int = 1) -> Optional[dict]:
@@ -1142,6 +1170,18 @@ class DistributedRunner:
                 out = out / dist.get_world_size(group)
             return out
         return self._global(out, self._rows(batch))
+
+
+def shutdown() -> None:
+    """The end of a distributed entry point: every runner's captured graphs
+    released (:meth:`DistributedRunner.release_graphs`), then the default
+    process group destroyed. Destroying it first hangs on the cards: NCCL
+    waits for the graphs that hold its communicators, which the process
+    would free only after the destroy returns."""
+    for runner in list(_GRAPHED):
+        runner.release_graphs()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def step_function(runner: DistributedRunner, params: Dict[str, torch.Tensor]) -> Callable:

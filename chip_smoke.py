@@ -481,6 +481,9 @@ PROFILE_STEPS = 3                 # steps traced after those
 # Long-context slice: flash attention at the example's sequence length.
 LC_SEQ, LC_BATCH, LC_HEADS, HEAD_DIM = 8192, 8, 8, 64
 FLASH_LSE_ATOL = 1e-3
+# The flash backward's row term D (f32 sums of 64 or 128 products) against
+# its plain version: another f32 summation order only.
+DD_RTOL = 1e-5
 LC_COUNTED, LC_STEADY, LC_PROFILE = 3, 4, 2
 # Phase 23: the long-context entry point at d_model 1,024 (head width 128).
 LC128_D, LC128_COUNTED = 1024, 3
@@ -515,7 +518,7 @@ XENT_WIDE = (768, 1024)
 LM1B_VOCAB = 793471
 LM1B_CHECK_ROWS = 2048
 # A spill in these kernels fails phase 2.
-NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel")
+NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel", "flash_bwd_kernel")
 # Phase 12: the Ulysses replay's shards (4 seq ranks: 2 of the 8 heads each).
 ULYSSES_SHARDS = 4
 # Phase 14: ResNet-50 benchmark runs (strategy, images a card, timed steps).
@@ -631,6 +634,8 @@ def ptxas_summary(build_log: str):
             mangled = line.split("for ", 1)[1].strip()
             kernel = next((k for k in ("flash_fwd_carry_kernel", "flash_fwd_kernel",
                                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                                       "flash_bwd_kernel", "flash_bwd_dq_convert_kernel",
+                                       "flash_bwd_dd_kernel",
                                        "xent_fwd_wide_kernel", "xent_dh_wide_kernel",
                                        "xent_dwdb_wide_kernel", "xent_fwd_kernel",
                                        "xent_dh_kernel", "xent_dwdb_kernel",
@@ -646,6 +651,10 @@ def ptxas_summary(build_log: str):
             if args:
                 out = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(args.group(2), "")
                 kernel += f"<hd {args.group(1)}{out}>"
+            # The one-pass backward's and its dQ pass's: the output type (hd 128).
+            args = re.search(r"flash_bwd(?:_dq_convert)?_kernelI(f|13__nv_bfloat16)E", mangled)
+            if args:
+                kernel += f"<hd 128, {'f32' if args.group(1) == 'f' else 'bf16'}>"
             frame = lines[i + 1].strip() if i + 1 < len(lines) else ""
             used = lines[i + 2].split("Used", 1)[-1].strip() if i + 2 < len(lines) else ""
             yield f"{kernel}: {used}; {frame}"
@@ -1139,6 +1148,7 @@ def check_flash(fa, dev):
         ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
         ref = fa.flash_backward_plain(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
         e_lse = (lse - ref_lse).abs().max().item()
+        e_dd = compare(dd, fa.backward_q_side_plain(out, do), 1)
         # Forward and dQ blocks own query rows, dK/dV blocks keys: dim 1 of
         # [B, L, H, 64] either way.
         e = {name: compare(got, want, 1)
@@ -1147,9 +1157,9 @@ def check_flash(fa, dev):
         if out_dtype is not None and any(t.dtype != out_dtype for t in (dq, dk, dv)):
             raise AssertionError("flash backward ignored out_dtype")
         log(f"check flash b={b} lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko}) "
-            f"out_dtype={out_dtype}: lse {e_lse:.3g}; "
+            f"out_dtype={out_dtype}: lse {e_lse:.3g}; row term {describe(e_dd)}; "
             + "; ".join(f"{n} {describe(c)}" for n, c in e.items()))
-        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
+        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL and e_dd[2] <= DD_RTOL
               and all(c[2] <= TILE_RTOL for c in e.values()))
         # Query rows that see no key, and keys that no query sees: exactly 0.
         blind = min(lq, max(0, ko - qo)) if causal else 0
@@ -1172,7 +1182,9 @@ def time_flash(fa, dev, hd=HEAD_DIM):
     """Phase 5b: each flash kernel at the long-context shape, causal, as the
     main path calls it, beside its plain version, its bound and the library
     call computing the same function; at head width ``hd`` (the rows keyed
-    by :func:`width`)."""
+    by :func:`width`): the forward, and the backward pair at 64, the
+    one-pass backward at 128; then the whole backward with its row term
+    beside the library's, which computes its own."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(3)
@@ -1181,7 +1193,8 @@ def time_flash(fa, dev, hd=HEAD_DIM):
     out, lse = fa.flash_fwd(q, k, v)
     dd = fa.prepare_backward_q_side(out, do)
     # Tensor-core FLOPs over the causal half of the scores: 2 products in the
-    # forward (S, PV), 4 in dK/dV (S, dP, dV, dK), 3 in dQ (S, dP, dQ).
+    # forward (S, PV), 4 in dK/dV (S, dP, dV, dK), 3 in dQ (S, dP, dQ), 5 in
+    # the one-pass backward (S, dP, dV, dK, dQ).
     pairs = length * (length + 1) / 2
     per_product = 2.0 * b * LC_HEADS * pairs * hd
     act = b * length * LC_HEADS * hd * 2                # one bf16 [B, L, H, hd]
@@ -1190,14 +1203,25 @@ def time_flash(fa, dev, hd=HEAD_DIM):
         "flash_fwd": dict(flops=2 * per_product, ms=time_ms(lambda: fa.flash_fwd(q, k, v), 10),
                           plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v), 1),
                           bound=bound(4 * act + row, 2 * per_product)),
-        "flash_bwd_dkdv": dict(
-            flops=4 * per_product, ms=time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd), 5),
-            bound=bound(4 * act + 2 * row + 2 * act, 4 * per_product)),
-        "flash_bwd_dq": dict(
-            flops=3 * per_product, ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 5),
-            bound=bound(4 * act + 2 * row + act, 3 * per_product)),
     }
-    # One plain call computes dq, dk and dv together: its time stands for both.
+    if hd == HEAD_DIM:
+        rows["flash_bwd_dkdv"] = dict(
+            flops=4 * per_product, ms=time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, dd), 5),
+            bound=bound(4 * act + 2 * row + 2 * act, 4 * per_product))
+        rows["flash_bwd_dq"] = dict(
+            flops=3 * per_product, ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 5),
+            bound=bound(4 * act + 2 * row + act, 3 * per_product))
+        backward = ("flash_bwd_dkdv", "flash_bwd_dq")
+    else:
+        # Its f32 dQ sums (a [64, hd] tile a query tile of each head) leave
+        # the card's cache at least once and are read once by the dQ pass:
+        # twice their bytes beside the inputs and outputs.
+        acc = b * LC_HEADS * -(-length // 64) * 64 * hd * 4
+        rows["flash_bwd"] = dict(
+            flops=5 * per_product, ms=time_ms(lambda: fa.flash_bwd(q, k, v, do, lse, dd), 5),
+            bound=bound(4 * act + 2 * row + 3 * act + 2 * acc, 5 * per_product))
+        backward = ("flash_bwd",)
+    # One plain call computes dq, dk and dv together: its time stands for each.
     plain_bwd = time_ms(lambda: fa.flash_backward_plain(q, k, v, do, lse, dd), 1)
     # The yardstick: PyTorch's fused attention on the same tensors ([B, H, L, D] views).
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -1206,26 +1230,31 @@ def time_flash(fa, dev, hd=HEAD_DIM):
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
                                                   retain_graph=True), 5)
-    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+    for name in backward:
         rows[name].update(plain_ms=plain_bwd, library_ms=lib_bwd)
     for name, r in rows.items():
         log(f"time {name} B={b} L={length} H={LC_HEADS} hd={hd}: kernel "
             f"{r['ms']:.3f} ms ({rate(r)}), plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
-    # The library's backward computes its own D: set it beside the pair
-    # alone and beside D's pass and the pair, as _FlashAttention.backward runs them.
-    def pair():
-        fa.flash_bwd_dkdv(q, k, v, do, lse, dd)
-        fa.flash_bwd_dq(q, k, v, do, lse, dd)
+    # The row term: a kernel that reads O and dO once.
+    dd_ms = time_ms(lambda: fa.prepare_backward_q_side(out, do), 20)
+    log(f"time prepare_backward_q_side B={b} L={length} hd={hd}: kernel {dd_ms:.4f} ms, "
+        f"plain {time_ms(lambda: fa.backward_q_side_plain(out, do), 5):.4f} ms, bound "
+        f"{bound(2 * act + row, 0)[0]:.4f} ms (bytes)")
+
+    # The library's backward computes its own D: set it beside the backward
+    # alone and beside D's pass and the backward, as _FlashAttention.backward
+    # runs them.
+    def alone():
+        fa.flash_bwd(q, k, v, do, lse, dd)
 
     def with_d():
-        d = fa.prepare_backward_q_side(out, do)
-        fa.flash_bwd_dkdv(q, k, v, do, lse, d)
-        fa.flash_bwd_dq(q, k, v, do, lse, d)
-    pair_bound = rows["flash_bwd_dkdv"]["bound"][0] + rows["flash_bwd_dq"]["bound"][0]
-    log(f"time flash backward pair B={b} L={length} hd={hd}: {time_ms(pair, 5):.3f} ms "
-        f"(bound {pair_bound:.3f} ms), with prepare_backward_q_side {time_ms(with_d, 5):.3f} "
-        f"ms; library backward (its own D included) {lib_bwd:.3f} ms")
+        fa.flash_bwd(q, k, v, do, lse, fa.prepare_backward_q_side(out, do))
+    whole_bound = sum(rows[name]["bound"][0] for name in backward)
+    log(f"time flash backward B={b} L={length} hd={hd} ({' and '.join(backward)}): "
+        f"{time_ms(alone, 5):.3f} ms (bound {whole_bound:.3f} ms), with "
+        f"prepare_backward_q_side {time_ms(with_d, 5):.3f} ms; library backward (its own D "
+        f"included) {lib_bwd:.3f} ms; card {card_line()}")
     return {width(name, hd): r for name, r in rows.items()}
 
 
@@ -1360,7 +1389,8 @@ def check_carry(fa, dev):
 def check_ring_replay(fa, dev, hd=HEAD_DIM):
     """Phase 7b: the ring's arithmetic on one card. B = 8, L = 8,192 in 4
     shards: the forward ring schedule chains the carry kernel, the backward
-    schedule sums the f32 dK/dV and dQ kernels' parts as the ring does;
+    schedule sums the f32 parts of ``flash_bwd`` (the dK/dV and dQ kernels
+    at head width 64, the one-pass kernel at 128) as the ring does;
     out, lse, dq, dk and dv against the plain versions on the whole
     sequence; at head width ``hd``."""
     gen = torch.Generator().manual_seed(5)
@@ -1387,12 +1417,11 @@ def check_ring_replay(fa, dev, hd=HEAD_DIM):
     for src in range(n):                             # K/V shard src travels r = src .. n-1
         for r in range(src, n):
             dd = fa.prepare_backward_q_side(outs[r], dos[r])
-            a, b = fa.flash_bwd_dkdv(qs[r], ks[src], vs[src], dos[r], lses[r], dd, True,
-                                     r * ll, src * ll, f32)
-            dk[src] += a
-            dv[src] += b
-            dq[r] += fa.flash_bwd_dq(qs[r], ks[src], vs[src], dos[r], lses[r], dd, True,
-                                     r * ll, src * ll, f32)
+            a, b, c = fa.flash_bwd(qs[r], ks[src], vs[src], dos[r], lses[r], dd, True,
+                                   r * ll, src * ll, f32)
+            dq[r] += a
+            dk[src] += b
+            dv[src] += c
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_forward_plain(q, k, v)
     ref_dd = fa.prepare_backward_q_side(ref_out, do)
@@ -4172,55 +4201,62 @@ def serving_path(kernels, dev):
 # ------------------------------------------------------ head width 128 (phase 23)
 
 def check_flash_hd128(fa, dev):
-    """Phases 5a and 7a at head width 128: the four flash kernels' hd-128
-    instantiations against their plain versions on the same inputs, tile by
-    tile: the long-context shape [8, 8,192, 8, 128] causal, a ragged L =
-    1,000 causal and not, ring offsets ((1,024, 0); (0, 300) whose blind dq
-    rows and unseen dk/dv keys must be exactly 0, with f32 outputs), the
-    hd-128 tiling's edges (L = 65, 127, 129: one off a 64-row tile and a
-    128-row block or key tile), and the carry: no carry in at the path shape
-    and ragged, a carry in (q_offset 2,048 at L = 2,048), and rows 0-99 that
-    see no key carried through bit for bit. Returns max abs errors by the
-    hd-128 names."""
+    """Phases 5a and 7a at head width 128: the forward, the one-pass
+    backward (``flash_bwd``), the row term and the carry against their plain
+    versions on the same inputs, tile by tile: the long-context shape [8,
+    8,192, 8, 128] causal, a ragged L = 1,000 causal and not, ring offsets
+    ((1,024, 0); (0, 300) whose blind dq rows and unseen dk/dv keys must be
+    exactly 0, with f32 outputs), the hd-128 tiling's edges (L = 50, 65, 127,
+    129: one off a 64-row tile and a 128-key block, and a block whose second
+    consumer holds no key), every backward twice, bit for bit (its dQ sums
+    over key blocks in a fixed order); and the carry: no carry in at the
+    path shape and ragged, a carry in (q_offset 2,048 at L = 2,048), and rows
+    0-99 that see no key carried through bit for bit. Returns max abs errors
+    by the hd-128 names."""
     hd = 128
     gen = torch.Generator().manual_seed(12)
-    errs = {width(n, hd): 0.0 for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                                        "flash_fwd_carry")}
+    errs = {width(n, hd): 0.0 for n in ("flash_fwd", "flash_bwd", "flash_fwd_carry")}
     cases = [(LC_BATCH, LC_SEQ, LC_SEQ, True, 0, 0, None),
              (2, 1000, 1000, True, 0, 0, None),
              (2, 1000, 1000, False, 0, 0, None),
              (2, 1000, 1000, True, 1024, 0, None),
              (2, 1000, 1000, True, 0, 300, torch.float32)]
-    cases += [(2, n, n, causal, 0, 0, None) for n in (65, 127, 129) for causal in (True, False)]
+    cases += [(2, n, n, causal, 0, 0, None) for n in (50, 65, 127, 129)
+              for causal in (True, False)]
     for b, lq, lk, causal, qo, ko, out_dtype in cases:
         q, k, v, do = flash_inputs(b, lq, lk, gen, dev, hd)
         out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
         dd = fa.prepare_backward_q_side(out, do)
-        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        grads = fa.flash_bwd(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
+        again = fa.flash_bwd(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
         torch.cuda.synchronize()
+        same = all(torch.equal(g, a) for g, a in zip(grads, again))
         ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
         ref = fa.flash_backward_plain(q, k, v, do, lse, dd, causal, qo, ko, out_dtype)
         e_lse = (lse - ref_lse).abs().max().item()
+        e_dd = compare(dd, fa.backward_q_side_plain(out, do), 1)
         e = {name: compare(got, want, 1)
-             for name, got, want in (("out", out, ref_out), ("dq", dq, ref[0]),
-                                     ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+             for name, got, want in (("out", out, ref_out), ("dq", grads[0], ref[0]),
+                                     ("dk", grads[1], ref[1]), ("dv", grads[2], ref[2]))}
         log(f"check flash hd=128 b={b} lq={lq} lk={lk} causal={causal} offsets=({qo}, {ko}) "
-            f"out_dtype={out_dtype}: lse {e_lse:.3g}; "
-            + "; ".join(f"{n} {describe(c)}" for n, c in e.items()))
-        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL
-              and all(c[2] <= TILE_RTOL for c in e.values()))
+            f"out_dtype={out_dtype}: lse {e_lse:.3g}; row term {describe(e_dd)}; "
+            + "; ".join(f"{n} {describe(c)}" for n, c in e.items())
+            + f"; two backward calls bit-equal: {same}")
+        ok = (math.isfinite(e_lse) and e_lse <= FLASH_LSE_ATOL and e_dd[2] <= DD_RTOL
+              and all(c[2] <= TILE_RTOL for c in e.values()) and same
+              and (out_dtype is None or all(g.dtype == out_dtype for g in grads)))
         blind = min(lq, max(0, ko - qo)) if causal else 0
         unseen = min(lk, max(0, qo - ko + lq)) if causal else lk
         if blind or unseen < lk:
-            ok = ok and not (dq[:, :blind].any() or dk[:, unseen:].any() or dv[:, unseen:].any())
+            ok = ok and not (grads[0][:, :blind].any() or grads[1][:, unseen:].any()
+                             or grads[2][:, unseen:].any())
         if not ok:
             raise AssertionError(f"flash hd-128 kernel disagrees with its plain version at "
                                  f"b={b} lq={lq} causal={causal} offsets=({qo}, {ko})")
         errs["flash_fwd_hd128"] = max(errs["flash_fwd_hd128"], e["out"][0], e_lse)
-        errs["flash_bwd_dkdv_hd128"] = max(errs["flash_bwd_dkdv_hd128"], e["dk"][0], e["dv"][0])
-        errs["flash_bwd_dq_hd128"] = max(errs["flash_bwd_dq_hd128"], e["dq"][0])
-        del q, k, v, do, out, lse, dd, dk, dv, dq, ref_out, ref_lse, ref
+        errs["flash_bwd_hd128"] = max(errs["flash_bwd_hd128"], e["dq"][0], e["dk"][0],
+                                      e["dv"][0])
+        del q, k, v, do, out, lse, dd, grads, again, ref_out, ref_lse, ref
     q, k, v, _ = flash_inputs(2, 1000, 1000, gen, dev, hd)
     diag = fa.flash_forward_carry_plain(q, k, v, None, True, 1024, 1024)
     qs, ks, vs, _ = flash_inputs(LC_BATCH, LC_SEQ // RING_SHARDS, LC_SEQ // RING_SHARDS, gen,
@@ -4253,11 +4289,13 @@ def long_context_128_path(kernels, dev):
     of 128, d_ff 4,096, vocab 32,000, seq 8,192, 6 layers, flash, every block
     rematerialized, the fused head at D = 1,024, bf16 activations, f32
     params, Adam 1e-3), 8 sequences a step: LC128_COUNTED counted steps
-    (each hd-128 flash kernel but the carry must launch, no hd-64 one), its
-    tokens/s and MFU over LC_STEADY steady steps with peak memory, and a
-    profiler window over LC_PROFILE steps. Then phase 8's ring of one card
-    at the same width: LC128_COUNTED counted steps, which must launch the
-    hd-128 carry and backward pair (f32 parts) and no other flash kernel.
+    (the hd-128 forward and the one-pass backward must launch, the backward
+    6 times a step, one a layer, and no other flash kernel), its tokens/s
+    and MFU over LC_STEADY steady steps with peak memory, and a profiler
+    window over LC_PROFILE steps. Then phase 8's ring of one card at the same
+    width: LC128_COUNTED counted steps, which must launch the hd-128 carry
+    and the one-pass backward (f32 parts, 6 a step) and no other flash
+    kernel.
     Then phase 7b's 4-shard ring replay at hd 128, a check only. Returns
     ``(flash launches, ring launches, the replay's worst error)``."""
     from autodist_tpu_torch.examples import long_context_lm as lc
@@ -4276,10 +4314,10 @@ def long_context_128_path(kernels, dev):
     losses, times, launches = counted_steps(step, [batch] * LC128_COUNTED, kernels)
     log(f"long context hd 128: losses {losses}; step seconds {times}; kernel launches "
         f"{launches}")
-    want = ("flash_fwd_hd128", "flash_bwd_dkdv_hd128", "flash_bwd_dq_hd128")
-    wrong = [n for n in want if launches[n] == 0] + [
-        n for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_carry")
-        if launches[n]]
+    wrong = [n for n in ("flash_fwd_hd128", "prepare_backward_q_side") if launches[n] == 0]
+    wrong += [n for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_carry",
+                          "flash_fwd_carry_hd128") if launches[n]]
+    wrong += [] if launches["flash_bwd_hd128"] == 6 * LC128_COUNTED else ["flash_bwd_hd128"]
     if wrong:
         raise AssertionError(f"long context hd 128: launches wrong for {wrong}: {launches}")
     tokens = LC_BATCH * LC_SEQ
@@ -4305,10 +4343,10 @@ def long_context_128_path(kernels, dev):
     log(f"ring of one card at hd 128: losses {losses}; step seconds {times} ({tokens} "
         f"tokens/step); kernel launches {ring}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    want = ("flash_fwd_carry_hd128", "flash_bwd_dkdv_hd128", "flash_bwd_dq_hd128")
-    wrong = [n for n in want if ring[n] == 0] + [
-        n for n in ("flash_fwd_hd128", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                    "flash_fwd_carry") if ring[n]]
+    wrong = [n for n in ("flash_fwd_carry_hd128", "prepare_backward_q_side") if ring[n] == 0]
+    wrong += [n for n in ("flash_fwd_hd128", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                          "flash_fwd_carry") if ring[n]]
+    wrong += [] if ring["flash_bwd_hd128"] == 6 * LC128_COUNTED else ["flash_bwd_hd128"]
     if wrong:
         raise AssertionError(f"ring of one card at hd 128: launches wrong for {wrong}: {ring}")
     del step, batch
@@ -4577,7 +4615,8 @@ def main(argv=None) -> int:
     if data_loader._build_native() is None:
         raise AssertionError("the native data loader (data/native/loader.cc) did not build")
     log(f"build: native data loader (g++) in {time.perf_counter() - t0:.1f} s")
-    every = fx.KERNELS + fa.KERNELS + fa.KERNELS_HD128 + (fx.xent_pack_w,)
+    every = fx.KERNELS + fa.KERNELS + fa.KERNELS_HD128 + (fx.xent_pack_w,
+                                                          fa.prepare_backward_q_side)
     if only == "tools":
         # Phases 20, 21 and 22 (the tools phase reads what the first two
         # left); no kernel line.
@@ -4638,8 +4677,9 @@ def main(argv=None) -> int:
     errs.update(timed("5 and 7 flash checks at hd 128", check_flash_hd128, fa, dev))
     timing.update(timed("5 flash times at hd 128", time_flash, fa, dev, 128))
     timing.update(timed("7 carry times at hd 128", time_carry, fa, dev, 128))
-    # The pack is counted with them (it runs in the forward's and dh's
-    # wrappers), but it replaces no TPU kernel and has no row in the JSON line.
+    # The pack (it runs in the forward's and dh's wrappers) and the flash
+    # backward's row term are counted with them, but they replace no TPU
+    # kernel and have no row in the JSON line.
     by_phase = {"flagship": timed("4 flagship", main_path, every, dev),
                 "long_context": timed("6 long context", long_context_path, every, dev),
                 "sequence_parallel": timed("8 sequence parallel", sequence_parallel_path,
@@ -4690,10 +4730,10 @@ def main(argv=None) -> int:
         # 1,024, the carry in the ring of one card at that width.
         "flash_fwd_hd128": ("flash_fwd_hd128", "flash_attention",
                             "autodist_tpu/ops/flash_attention.py:144", "long_context_128"),
-        "flash_bwd_dkdv_hd128": ("flash_bwd_dkdv_hd128", "flash_attention",
-                                 "autodist_tpu/ops/flash_attention.py:332", "long_context_128"),
-        "flash_bwd_dq_hd128": ("flash_bwd_dq_hd128", "flash_attention",
-                               "autodist_tpu/ops/flash_attention.py:355", "long_context_128"),
+        # At head width 128 one kernel replaces both backward Pallas kernels.
+        "flash_bwd_hd128": ("flash_bwd_hd128", "flash_attention",
+                            "autodist_tpu/ops/flash_attention.py:332 and :355",
+                            "long_context_128"),
         "flash_carry_hd128": ("flash_fwd_carry_hd128", "flash_attention",
                               "autodist_tpu/ops/flash_attention.py:480",
                               "sequence_parallel_128"),

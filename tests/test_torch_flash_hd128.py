@@ -122,8 +122,7 @@ def test_gradients_through_the_function_match_jax_at_hd128():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), err_msg=f"d{name}", **GRAD)
     assert [c.launches for c in tfa.KERNELS + tfa.KERNELS_HD128] == before
     assert [c.__name__ for c in tfa.KERNELS_HD128] == [
-        "flash_fwd_hd128", "flash_fwd_carry_hd128", "flash_bwd_dkdv_hd128",
-        "flash_bwd_dq_hd128"]
+        "flash_fwd_hd128", "flash_fwd_carry_hd128", "flash_bwd_hd128"]
 
 
 def test_long_context_model_at_d1024_matches_jax():

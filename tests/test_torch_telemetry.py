@@ -55,16 +55,27 @@ def _tool(name):
     return mod
 
 
-@pytest.fixture(autouse=True)
-def _planes_off():
-    """Leave the port's process-wide planes as found: off and empty."""
-    yield
+def _reset_planes():
     telemetry.disable()
     telemetry.clear()
+    # The registry's event ring is separate from the spans: a port test run
+    # earlier in the same process (health, the recorder, recovery) leaves
+    # its health.anomaly events there.
+    telemetry.registry().clear_events()
     profiling.disable()
     profiling.reset()
     memplane.reset()
     reqtrace.disable()
+    reqtrace.clear()
+
+
+@pytest.fixture(autouse=True)
+def _planes_off():
+    """Start each test with the port's process-wide planes off and empty,
+    and leave them so."""
+    _reset_planes()
+    yield
+    _reset_planes()
 
 
 # ------------------------------------------------------------ the registry

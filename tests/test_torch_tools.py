@@ -185,8 +185,11 @@ def test_adtop_render_equals_jax(which):
 @pytest.fixture
 def fleet():
     """A RouterServer over two replicas, 6 requests served with the request
-    trace plane armed; yields (router address, requests served)."""
+    trace plane armed; yields (router address, requests served). The
+    process-wide registry starts empty: another test's router or replicas
+    in this process leave their counts and events there."""
     _recovery.reset()
+    telemetry.registry().clear()
     telemetry.enable()
     reqtrace.enable()
     router = Router(_replica, n_replicas=2, start=False)
