@@ -12,13 +12,16 @@ only the API every version since the flagship's port has (``AutoDist``,
 The flagship d512 x 6, vocab 32,000, at micro 64 x seq 256 x accum 2 (128
 rows a step, no mask), two warm-up steps, then a ``torch.profiler`` window
 over four after one more in its warm-up (kernels a step, the profiler's own
-annotations left out).
+annotations left out). ``--windows K`` opens K such windows one after
+another and counts those whose kernels by name differ from the first's;
+``--margin_ms`` sets the idle time left at each end of a window (see
+:func:`kernels_a_step`; 0 opens the window right before the first step).
 """
 
+import argparse
 import collections
 import json
 import os
-import sys
 import time
 
 import torch
@@ -28,12 +31,22 @@ from autodist_tpu_torch import AllReduce, AutoDist
 from autodist_tpu_torch.models import transformer_lm as tlm
 
 
-def kernels_a_step(runner, state, batches):
+# Idle seconds at each end of the window. The profiler keeps a device
+# activity only where its timestamp, taken on the device's clock and
+# converted to the host's, lies inside the window, and a step's first
+# copies start microseconds after the window opens: with no margin, one of
+# fourteen windows that phase 20 of ``chip_smoke.py`` compared counted two
+# host-to-device copies fewer or more than its twin.
+WINDOW_MARGIN_S = 0.05
+
+
+def kernels_a_step(runner, state, batches, margin_s: float = WINDOW_MARGIN_S):
     """A ``torch.profiler`` window over one ``run()`` a batch of
     ``batches[1:]``, after one on ``batches[0]`` in its warm-up (the
-    profiler's first launches can go unrecorded while it starts): ``(device
-    kernels a step, busy ms a step (the union of their intervals), the
-    window's kernels by name, its wall ms a step)``."""
+    profiler's first launches can go unrecorded while it starts), with
+    ``margin_s`` of idle time between the window's ends and the steps:
+    ``(device kernels a step, busy ms a step (the union of their intervals),
+    the window's kernels by name, its wall ms a step)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     n = len(batches) - 1
@@ -42,13 +55,15 @@ def kernels_a_step(runner, state, batches):
                  schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
         for i, b in enumerate(batches):
             runner.run(state, b)
-            if i == 0:
+            if i in (0, n):
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            elif i == n:
-                torch.cuda.synchronize()
+            if i == n:
                 wall = time.perf_counter() - t0
+                time.sleep(margin_s)
             prof.step()
+            if i == 0:
+                time.sleep(margin_s)
+                t0 = time.perf_counter()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     busy, end = 0.0, float("-inf")
@@ -60,7 +75,12 @@ def kernels_a_step(runner, state, batches):
             1e3 * wall / n)
 
 
-def main(label: str) -> dict:
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("label", nargs="?", default="this")
+    ap.add_argument("--windows", type=int, default=1)
+    ap.add_argument("--margin_ms", type=float, default=1e3 * WINDOW_MARGIN_S)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_kernels: the card's kernels need a CUDA device")
     dev = torch.device("cuda:0")
@@ -77,14 +97,20 @@ def main(label: str) -> dict:
     batches = [tlm.synthetic_batch(cfg, 128, 256, seed=i) for i in range(7)]
     for b in batches[:2]:
         runner.run(state, b)
-    per_step, busy_ms, names, wall_ms = kernels_a_step(runner, state, batches[2:])
-    result = {"label": label, "package": os.path.dirname(autodist_tpu_torch.__file__),
+    windows = [kernels_a_step(runner, state, batches[2:], args.margin_ms / 1e3)
+               for _ in range(args.windows)]
+    per_step, busy_ms, names, wall_ms = windows[0]
+    differing = [dict((w[2] - names) + (names - w[2])) for w in windows[1:] if w[2] != names]
+    result = {"label": args.label, "package": os.path.dirname(autodist_tpu_torch.__file__),
               "device": torch.cuda.get_device_name(dev),
               "kernels_per_step": per_step, "busy_ms_per_step": busy_ms,
-              "distinct_kernels": len(names), "wall_ms_per_step_profiled": wall_ms}
+              "distinct_kernels": len(names), "wall_ms_per_step_profiled": wall_ms,
+              "windows": args.windows, "margin_ms": args.margin_ms,
+              "windows_differing_from_the_first": len(differing),
+              "differences": differing[:8]}
     print(json.dumps(result), flush=True)
     return result
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "this")
+    main()

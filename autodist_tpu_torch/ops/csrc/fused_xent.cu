@@ -765,7 +765,7 @@ xent_dwdb_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__
 // D = 768 and 1,024. The D = 512 designs do not grow: at D = 1,024 the
 // forward's resident h (128 rows) is 256 KB, and dh's and dw/db's
 // accumulators ([64, D] f32) are 512 registers a thread for two consumers.
-// So each wide kernel runs as a cluster of two blocks:
+// So the wide kernels run as clusters of two blocks:
 // - Forward (xent_fwd_wide_kernel): a block holds 64 rows (h resident,
 //   KC x 8 KB) and both consumers compute all 64 of them, consumer c over
 //   columns [128c, 128c + 128) of each 256-column vocab tile. The two
@@ -773,19 +773,49 @@ xent_dwdb_kernel(const __grid_constant__ CUtensorMap hm, const __grid_constant__
 //   stage (32 KB): each producer loads half of it and multicasts, as dw/db
 //   does with h at D = 512, so L2 -> SM traffic of w stays that of 128-row
 //   blocks. The consumers' (max, sum) pairs of a row merge at the end.
-// - dh and dw/db (xent_dh_wide_kernel, xent_dwdb_wide_kernel): the two
-//   blocks of a cluster own the two halves of d, each with the D = 512
-//   kernel's per-block budgets (h or w resident for its half; its own
-//   half's chunks streamed). Consumer c of block r owns d quarter 2r + c
-//   (HC = D / 256 chunks of 64): its partial scores over that quarter,
-//   then the sum of the four: within the block through x (one way at a
-//   time: 8 KB), then across the pair with st.async into the partner's
-//   recv (one 8 KB tile a consumer, completing on its rfull barrier; it
-//   hands the buffer back through rempty once read). Both blocks then hold
-//   the same full scores, bit for bit (one addition, commutative), compute
-//   the same P and each accumulates its own half of dh or dw; db is written
-//   by rank 0. The ring holds a consumer's HC chunks as one group, two
-//   tiles of groups: 224 KB of shared memory at D = 1,024.
+// - dh and dw/db (xent_dh_wide_kernel <- _dh_kernel, fused_xent.py:215,
+//   pallas_call :287; xent_dwdb_wide_kernel <- _dwdb_kernel, :237, :305):
+//   the two blocks of a cluster own the two halves of d, each with the D =
+//   512 kernel's per-block budgets (h or w resident for its half; its own
+//   half's chunks streamed through a ring, a group of HC = D / 256 chunks
+//   of 64 a consumer and tile, each consumer's groups loaded by a producer
+//   thread of its own). Consumer c of the block with half r owns d quarter
+//   2r + c: its partial scores over that quarter, then the sum of the four:
+//   within the block through x (one way at a time: 8 KB), then across the
+//   pair with st.async into the partner's recv (one 8 KB tile a consumer,
+//   completing on its rfull barrier; it hands the buffer back through
+//   rempty once read). Both blocks then hold the same full scores, bit for
+//   bit (one addition, commutative), compute the same P and each
+//   accumulates its own half of dh or dw; the half-0 block writes db.
+// - What bounds them: operations, 4 N D V (4.29 TFLOP, 4.343 ms, at
+//   scale_lm's d1024 head: N = 32,768, V = 32,000). A block-tile does 128
+//   FLOP a streamed byte, so the streamed operand's L2 -> SM reads (33.5 GB
+//   at that shape) must come at 7.7 TB/s to keep pace. A cluster of four
+//   that shared them (the two blocks of a half of d on neighbouring stripes
+//   or tiles, each producer loading every other chunk and multicasting it
+//   to both) halved those reads but ran slower, with and without the walk
+//   below: the card holds 30 such clusters (120 SMs) against 66 pairs, and
+//   the reads were not what held the kernels (PERF.md).
+// - What holds them is the walk: per tile, the partial scores, the
+//   exchange and exponentials (about half a tile's time, by a clock64
+//   trace) and the second product (P . w^T for dh, P^T h for dw). The
+//   walk puts a product under the exchange: tile t's exchange runs while
+//   the last tile's second product is in flight, and where the ring holds
+//   a third tile (D = 768: 48 KB resident, 144 KB of ring) tile t + 1's
+//   partial scores too (in a second score fragment, sn). The last tile's
+//   group is released once its second product has landed, which a consumer
+//   waits for after sending its sum to the partner; the P tile is
+//   overwritten once both consumers' have (named barrier 4). At D = 1,024
+//   the resident half (64 KB) and two tiles of ring (128 KB) leave no room
+//   for a third, so tile t + 1's scores are issued after the exchange, and
+//   its group's load (released by the last tile's product) is what a tile
+//   waits for: the product under the exchange buys back about what that
+//   wait costs, and at scale_lm's dh head less: with the "dv" table dh runs
+//   the D = 512 order (xent_dh_wide_plain_kernel), which measured faster. The
+//   producers load one tile past the last, so that every issue is
+//   unconditional (a wgmma under a branch serializes).
+// - Sums in a fixed order and no atomics: dh, dw and db are the same bits
+//   from call to call, and the same as the D = 512 order computes.
 
 constexpr int WIDE_BM = 64;            // forward: rows a block
 constexpr int WIDE_TN = 256;           // forward: vocab columns a tile, 128 a consumer
@@ -954,20 +984,66 @@ xent_fwd_wide_kernel(const __grid_constant__ CUtensorMap hm,
   cluster_sync();
 }
 
-// Shared memory of the wide dh (RESIDENT = h) and dw/db (RESIDENT = w)
-// kernels: the resident operand's half of d, the ring of the streamed one
-// (four groups: [2 (t & 1) + consumer][chunk]), the P tile and the
-// exchange buffers.
+// Shared memory of the wide dh (resident h) and dw/db (resident w) kernels:
+// the resident operand's half of d, the ring of the streamed one (TILES
+// tiles of two groups: [2 (tile % TILES) + consumer][chunk]; three where
+// they fit), the P tile and the exchange buffers.
 template <int HC>
 struct PairSmem {
+  static constexpr int TILES = HC == 3 ? 3 : 2;
+  static constexpr unsigned GROUP_BYTES = HC * 64 * 64 * 2;
   alignas(1024) bf16 resident[2 * HC][64 * 64];  // [d chunk][64 rows or vocab][64 d]
-  alignas(1024) bf16 ring[4][HC][64 * 64];
+  alignas(1024) bf16 ring[2 * TILES][HC][64 * 64];
   alignas(1024) bf16 p[64 * 64];                 // g * softmax, [row][64 vocab], swizzled
   float x[16][128];                              // within the block, one way at a time; then db
   float4 recv[2][4][128];                        // the partner's partial: [consumer][q][thread]
-  uint64_t res_full, full[4], empty[4], rfull[2], rempty[2];
+  uint64_t res_full, full[2 * TILES], empty[2 * TILES], rfull[2], rempty[2];
 };
 static_assert(sizeof(PairSmem<4>) + 1024 <= 232448, "over the 227 KB a block may use");
+static_assert(sizeof(PairSmem<3>) + 1024 <= 232448, "over the 227 KB a block may use");
+
+// Every barrier of a wide dh or dw/db block, by thread 0.
+template <int HC>
+__device__ __forceinline__ void pair_init(PairSmem<HC>& sm) {
+  mbar_init(&sm.res_full, 1);
+  for (int i = 0; i < 2 * PairSmem<HC>::TILES; ++i) {
+    mbar_init(&sm.full[i], 1);
+    mbar_init(&sm.empty[i], 4);  // lane 0 of each warp of the group's consumer
+  }
+  for (int c = 0; c < 2; ++c) {
+    mbar_init(&sm.rfull[c], 1);
+    mbar_init(&sm.rempty[c], 1);
+  }
+  mbar_init_fence();
+}
+
+// A producer thread's walk of the ring for consumer c: `loads` tiles (or
+// stripes), group (t, c) holding the HC chunks of c's quarter (d chunks d0
+// + c HC + q), refilled once the consumer has released it. Each consumer's
+// groups have a thread of their own (lane 0 of producer warp c), so neither
+// waits for the other's release. at(t, dc, c0, c1): the box coordinates of
+// tile t's d chunk dc.
+template <int HC, typename At>
+__device__ __forceinline__ void pair_produce(PairSmem<HC>& sm, const CUtensorMap* map,
+                                             int loads, int c, int d0, At at) {
+  int slot = 0, phase = 0;
+#pragma unroll 1
+  for (int t = 0; t < loads; ++t) {
+    const int grp = 2 * slot + c;
+    mbar_wait(&sm.empty[grp], phase ^ 1);
+    mbar_expect_tx(&sm.full[grp], PairSmem<HC>::GROUP_BYTES);
+#pragma unroll 1
+    for (int q = 0; q < HC; ++q) {
+      int c0, c1;
+      at(t, d0 + c * HC + q, c0, c1);
+      tma_load(sm.ring[grp][q], map, &sm.full[grp], c0, c1);
+    }
+    if (++slot == PairSmem<HC>::TILES) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+}
 
 // Consumer c's full scores z of columns [32c, 32c + 32) of the tile (this
 // thread's rows r and r + 8, columns 32c + 8q + col (+1)) from its partial
@@ -975,10 +1051,12 @@ static_assert(sizeof(PairSmem<4>) + 1024 <= 232448, "over the 227 KB a block may
 // columns through x (consumer 0 writes first; consumer 1 reads its slots,
 // then writes its own into them), then the partner block's sum through
 // recv. t is the tile (or stripe) index, which sets the barriers' phases.
-template <int HC>
+// sent() runs once this consumer's sum is on its way to the partner, while
+// the partner's is awaited.
+template <int HC, typename Sent>
 __device__ __forceinline__ void pair_scores(PairSmem<HC>& sm, const float (&s)[8][4], int c,
                                             int tid, int t, unsigned partner,
-                                            float (&z)[4][4]) {
+                                            float (&z)[4][4], Sent sent) {
 #pragma unroll
   for (int k = 0; k < 16; ++k) z[k / 4][k % 4] = c ? s[4 + k / 4][k % 4] : s[k / 4][k % 4];
   if (c == 0)
@@ -1002,6 +1080,7 @@ __device__ __forceinline__ void pair_scores(PairSmem<HC>& sm, const float (&s)[8
   for (int q = 0; q < 4; ++q)
     st_async_cluster(&sm.recv[c][q][tid], &sm.rfull[c], partner, z[q][0], z[q][1], z[q][2],
                      z[q][3]);
+  sent();
   mbar_wait(&sm.rfull[c], t & 1);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -1020,6 +1099,132 @@ __device__ __forceinline__ void store_p(bf16* p, int rr, int kcol, float p0, flo
       __floats2bfloat162_rn(p0, p1);
 }
 
+// g * softmax from a full score z, its column's bias (-inf past v: p = 0),
+// its row's lse times log2 e and its row's g.
+__device__ __forceinline__ float pair_p(float z, float bias, float lse2, float g) {
+  const float y = ex2(fmaf(z + bias, LOG2E, -lse2));
+  return bias != -INFINITY ? g * y : 0.f;
+}
+
+// Once consumer c has stored its P columns: the P tile made visible to
+// wgmma and to the other consumer, then recv[c] handed back to the partner.
+template <int HC>
+__device__ __forceinline__ void pair_publish_p(PairSmem<HC>& sm, int c, int tid,
+                                               unsigned partner) {
+  fence_proxy_async();  // the P stores, visible to wgmma
+  named_sync(2);
+  if (tid == 0) mbar_arrive_cluster(&sm.rempty[c], partner);  // recv[c] read
+}
+
+// The wide walks' steps are stamped where a timing build defines
+// XENT_WALK_STAMP(kernel, k) (examples/benchmark/xent_kernels.py --trace;
+// kernel 0 is dh, 1 dw/db; stamp k + 1 ends step k). Here they are nothing.
+#ifndef XENT_WALK_STAMP
+#define XENT_WALK_STAMP(kernel, k)
+#endif
+
+// The wide dh kernels' producer warpgroup: thread 0 loads the block's half
+// of the stripe's h (resident), lane 0 of warps 0 and 1 walk the ring of w
+// for consumers 0 and 1, `loads` tiles.
+template <bool VD, int HC>
+__device__ __forceinline__ void dh_wide_produce(PairSmem<HC>& sm, const CUtensorMap* hm,
+                                                const CUtensorMap* wm, int n0, int d0,
+                                                int loads) {
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&sm.res_full, 2 * PairSmem<HC>::GROUP_BYTES);
+#pragma unroll 1
+    for (int j = 0; j < 2 * HC; ++j) tma_load(sm.resident[j], hm, &sm.res_full, 64 * (d0 + j), n0);
+  }
+  if (threadIdx.x % 32 == 0 && threadIdx.x < 64)
+    pair_produce(sm, wm, loads, threadIdx.x / 32, d0, [](int t, int dc, int& c0, int& c1) {
+      c0 = VD ? 64 * dc : t * DH_TN;
+      c1 = VD ? t * DH_TN : 64 * dc;
+    });
+}
+
+// Rows r and r + 8 of the stripe from n0: lse times log2 e, and g (0 past
+// n: p = 0 there).
+__device__ __forceinline__ void dh_wide_rows(const float* lse, const float* g, int n0, int r,
+                                             int n, float (&lse2)[2], float (&gr)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = n0 + r + 8 * i < n;
+    lse2[i] = ok ? lse[n0 + r + 8 * i] * LOG2E : 0.f;
+    gr[i] = ok ? g[n0 + r + 8 * i] : 0.f;
+  }
+}
+
+// Tile t's partial scores over consumer c's quarter of d, into out: one
+// commit group, issued once the tile's group has landed.
+template <bool VD, int HC>
+__device__ __forceinline__ void dh_wide_scores(PairSmem<HC>& sm, int t, int c,
+                                               float (&out)[8][4]) {
+  constexpr int T = PairSmem<HC>::TILES;
+  const int grp = 2 * (t % T) + c;
+  mbar_wait(&sm.full[grp], (t / T) & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < HC; ++q) {
+    const uint64_t da = sw128_desc(sm.resident[c * HC + q]);
+    const uint64_t dbw = sw128_desc(sm.ring[grp][q]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (VD)
+        wgmma_m64n64k16_ss<0>(out, da + 2 * kk, dbw + 2 * kk, q | kk);
+      else
+        wgmma_m64n64k16_ss<1>(out, da + 2 * kk, dbw + 128 * kk, q | kk);
+    }
+  }
+  wgmma_commit();
+}
+
+// This thread's P columns' bias for tile t, or -inf past v (p = 0): loaded
+// outside any wgmma stage, their latency under the exchange.
+__device__ __forceinline__ void dh_wide_bias(const float* b, int t, int c, int col, int v,
+                                             float (&bias)[4][2]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int vv = t * DH_TN + 32 * c + 8 * q + col + e;
+      bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
+    }
+}
+
+// dh[:, this quarter] += P . w^T of tile t (dp: the P tile), as the D = 512
+// kernel: one commit group.
+template <bool VD, int HC>
+__device__ __forceinline__ void dh_wide_product(PairSmem<HC>& sm, int t, int c, uint64_t dp,
+                                                float (&acc)[8 * HC][4]) {
+  const int grp = 2 * (t % PairSmem<HC>::TILES) + c;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (VD)
+      wgmma_wide_ss<1>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0], 8192) + 128 * kk, 1);
+    else
+      wgmma_wide_ss<0>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0]) + 2 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// dh rows r and r + 8 of the stripe from n0, columns [64 dc0, 64 (dc0 +
+// HC)) (this consumer's quarter), in bf16.
+template <int HC>
+__device__ __forceinline__ void dh_wide_store(bf16* dh, const float (&acc)[8 * HC][4], int n0,
+                                              int r, int n, int dc0, int col) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = n0 + r + 8 * i;
+    if (row >= n) continue;
+    bf16* out = dh + size_t(row) * (256 * HC) + 64 * dc0 + col;
+#pragma unroll
+    for (int nt = 0; nt < 8 * HC; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
+          __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
+  }
+}
+
 // dh at D = 256 HC: the cluster's two blocks share a 64-row stripe, block
 // r computing dh[:, r D / 2 : (r + 1) D / 2].
 template <bool VD, int HC>
@@ -1028,50 +1233,128 @@ xent_dh_wide_kernel(const __grid_constant__ CUtensorMap hm,
                     const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
                     const float* __restrict__ lse, const float* __restrict__ g,
                     bf16* __restrict__ dh, int n, int v) {
-  constexpr int DW = 256 * HC;  // the model width
-  constexpr unsigned GROUP_BYTES = HC * 64 * 64 * 2;
+  using Smem = PairSmem<HC>;
+  constexpr int T = Smem::TILES;
   extern __shared__ unsigned char dh_wide_raw[];
-  PairSmem<HC>& sm = align1024<PairSmem<HC>>(dh_wide_raw);
+  Smem& sm = align1024<Smem>(dh_wide_raw);
   const int n0 = (blockIdx.x >> 1) * DH_BM;
   const int n_tiles = (v + DH_TN - 1) / DH_TN;
   const unsigned rank = cluster_ctarank(), partner = rank ^ 1u;
   const int d0 = int(rank) * 2 * HC;  // this block's first d chunk
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.res_full, 1);
-    for (int i = 0; i < 4; ++i) {
-      mbar_init(&sm.full[i], 1);
-      mbar_init(&sm.empty[i], 4);  // lane 0 of each warp of the group's consumer
-    }
-    for (int c = 0; c < 2; ++c) {
-      mbar_init(&sm.rfull[c], 1);
-      mbar_init(&sm.rempty[c], 1);
-    }
-    mbar_init_fence();
-  }
+  if (threadIdx.x == 0) pair_init(sm);
   cluster_sync();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.res_full, 2 * GROUP_BYTES);
-      for (int j = 0; j < 2 * HC; ++j) tma_load(sm.resident[j], &hm, &sm.res_full, 64 * (d0 + j), n0);
-#pragma unroll 1
-      for (int t = 0; t < n_tiles; ++t)
-#pragma unroll 1
-        for (int c = 0; c < 2; ++c) {
-          const int grp = 2 * (t & 1) + c;
-          mbar_wait(&sm.empty[grp], ((t >> 1) & 1) ^ 1);
-          mbar_expect_tx(&sm.full[grp], GROUP_BYTES);
-          for (int q = 0; q < HC; ++q) {
-            const int dc = 64 * (d0 + c * HC + q);
-            if (VD)
-              tma_load(sm.ring[grp][q], &wm, &sm.full[grp], dc, t * DH_TN);
-            else
-              tma_load(sm.ring[grp][q], &wm, &sm.full[grp], t * DH_TN, dc);
-          }
-        }
+    dh_wide_produce<VD, HC>(sm, &hm, &wm, n0, d0, n_tiles + 1);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col = (lane % 4) * 2;
+    const int r = warp * 16 + lane / 4;  // this thread's rows of the stripe: r, r + 8
+    float row_lse2[2], row_g[2];
+    dh_wide_rows(lse, g, n0, r, n, row_lse2, row_g);
+    float acc[8 * HC][4];  // dh columns D / 2 half + 64 HC c + 8 nt + col (+1)
+#pragma unroll
+    for (int nt = 0; nt < 8 * HC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    float s[8][4], z[4][4];
+    mbar_wait(&sm.res_full, 0);
+    const uint64_t dp = sw128_desc(sm.p);
+    // The walk. Tile t's exchange and exponentials run while the last
+    // tile's P . w^T and, with a third tile in the ring, tile t + 1's
+    // partial scores (sn) are in flight; with two, tile t + 1's scores are
+    // issued after them, before tile t's P . w^T. The producer loads one
+    // tile past the last, so that every issue is unconditional.
+    float sn[T == 3 ? 8 : 1][4];
+    dh_wide_scores<VD, HC>(sm, 0, c, s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    for (int t = 0; t < n_tiles; ++t) {
+      XENT_WALK_STAMP(0, 0);
+      if constexpr (T == 3) dh_wide_scores<VD, HC>(sm, t + 1, c, sn);
+      XENT_WALK_STAMP(0, 1);
+      float bias[4][2];
+      dh_wide_bias(b, t, c, col, v, bias);
+      pair_scores(sm, s, c, tid, t, partner, z, [&] {
+        // The last tile's P . w^T has landed: its group is free.
+        XENT_WALK_STAMP(0, 2);
+        wgmma_wait<T == 3 ? 1 : 0>();
+        fence_regs(acc);
+        XENT_WALK_STAMP(0, 3);
+        if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) % T) + c]);
+      });
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          z[q][e] = pair_p(z[q][e], bias[q][e & 1], row_lse2[e >> 1], row_g[e >> 1]);
+      XENT_WALK_STAMP(0, 4);
+      named_sync(4);  // both consumers' last P . w^T has landed: the P tile is free
+      XENT_WALK_STAMP(0, 5);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          store_p(sm.p, r + 8 * i, 32 * c + 8 * q + col, z[q][2 * i], z[q][2 * i + 1]);
+      pair_publish_p(sm, c, tid, partner);
+      XENT_WALK_STAMP(0, 6);
+      if constexpr (T == 2) dh_wide_scores<VD, HC>(sm, t + 1, c, s);
+      XENT_WALK_STAMP(0, 7);
+      dh_wide_product<VD, HC>(sm, t, c, dp, acc);
+      XENT_WALK_STAMP(0, 8);
+      wgmma_wait<1>();  // tile t + 1's scores
+      if constexpr (T == 3) {
+        fence_regs(sn);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = sn[nt][e];
+      } else {
+        fence_regs(s);
+      }
+      XENT_WALK_STAMP(0, 9);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    dh_wide_store<HC>(dh, acc, n0, r, n, d0 + c * HC, col);
+  }
+  cluster_sync();
+}
+
+// dh at D = 1,024 for the "dv" table: xent_dh_wide_kernel's pieces in the
+// D = 512 order a tile, on a ring of two: the partial scores (queued behind
+// the last tile's P . w^T), their exchange and the exponentials with
+// nothing in flight, then P . w^T; a tile's group is released once the next
+// tile's scores have landed. At scale_lm's head (V = 32,000, no bias) it
+// measured faster than the overlapped walk; at lm1b's (V = 793,471, a bias)
+// level with the "dv" table and slower with "vd" (PERF.md). As a second
+// branch of that kernel ptxas serialized it (C7515), and so it does with
+// the P stores written as the walk's (pair_p into z): they stay as here.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(DH_THREADS, 1)
+xent_dh_wide_plain_kernel(const __grid_constant__ CUtensorMap hm,
+                          const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
+                          const float* __restrict__ lse, const float* __restrict__ g,
+                          bf16* __restrict__ dh, int n, int v) {
+  constexpr int HC = 4;
+  using Smem = PairSmem<HC>;
+  static_assert(Smem::TILES == 2, "the D = 512 order walks a ring of two tiles");
+  extern __shared__ unsigned char dh_plain_raw[];
+  Smem& sm = align1024<Smem>(dh_plain_raw);
+  const int n0 = (blockIdx.x >> 1) * DH_BM;
+  const int n_tiles = (v + DH_TN - 1) / DH_TN;
+  const unsigned rank = cluster_ctarank(), partner = rank ^ 1u;
+  const int d0 = int(rank) * 2 * HC;  // this block's first d chunk
+  if (threadIdx.x == 0) pair_init(sm);
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    dh_wide_produce<false, HC>(sm, &hm, &wm, n0, d0, n_tiles);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
@@ -1085,7 +1368,7 @@ xent_dh_wide_kernel(const __grid_constant__ CUtensorMap hm,
       row_lse[i] = ok ? lse[n0 + r + 8 * i] : 0.f;
       row_g[i] = ok ? g[n0 + r + 8 * i] : 0.f;  // g = 0: rows past n give p = 0
     }
-    float acc[8 * HC][4];  // dh columns D / 2 rank + 64 HC c + 8 nt + col (+1)
+    float acc[8 * HC][4];
 #pragma unroll
     for (int nt = 0; nt < 8 * HC; ++nt)
 #pragma unroll
@@ -1094,39 +1377,16 @@ xent_dh_wide_kernel(const __grid_constant__ CUtensorMap hm,
     mbar_wait(&sm.res_full, 0);
     const uint64_t dp = sw128_desc(sm.p);
     for (int t = 0; t < n_tiles; ++t) {
-      const int grp = 2 * (t & 1) + c;
-      mbar_wait(&sm.full[grp], (t >> 1) & 1);
-      // Partial scores over this consumer's quarter of d, queued behind the
-      // last tile's P . w^T.
-      wgmma_fence();
-#pragma unroll
-      for (int q = 0; q < HC; ++q) {
-        const uint64_t da = sw128_desc(sm.resident[c * HC + q]);
-        const uint64_t dbw = sw128_desc(sm.ring[grp][q]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (VD)
-            wgmma_m64n64k16_ss<0>(s, da + 2 * kk, dbw + 2 * kk, q | kk);
-          else
-            wgmma_m64n64k16_ss<1>(s, da + 2 * kk, dbw + 128 * kk, q | kk);
-        }
-      }
-      wgmma_commit();
+      dh_wide_scores<false, HC>(sm, t, c, s);  // queued behind the last tile's P . w^T
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(acc);
       if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) & 1) + c]);
-      // This thread's P columns' bias, or -inf past v (p = 0): loaded
-      // outside any wgmma stage, their latency under the exchange.
       float bias[4][2];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int vv = t * DH_TN + 32 * c + 8 * q + col + e;
-          bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
-        }
-      pair_scores(sm, s, c, tid, t, partner, z);
+      dh_wide_bias(b, t, c, col, v, bias);
+      pair_scores(sm, s, c, tid, t, partner, z, [] {});
+      // The P tile is free: both consumers' last P . w^T landed before the
+      // exchange's named barriers.
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int kcol = 32 * c + 8 * q + col;
@@ -1141,32 +1401,12 @@ xent_dh_wide_kernel(const __grid_constant__ CUtensorMap hm,
           store_p(sm.p, r + 8 * i, kcol, pv[0], pv[1]);
         }
       }
-      fence_proxy_async();  // the P stores, visible to wgmma
-      named_sync(2);
-      if (tid == 0) mbar_arrive_cluster(&sm.rempty[c], partner);  // recv[c] read
-      // dh[:, this quarter] += P . w^T, as the D = 512 kernel.
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (VD)
-          wgmma_wide_ss<1>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0], 8192) + 128 * kk, 1);
-        else
-          wgmma_wide_ss<0>(acc, dp + 2 * kk, sw128_desc(sm.ring[grp][0]) + 2 * kk, 1);
-      }
-      wgmma_commit();
+      pair_publish_p(sm, c, tid, partner);
+      dh_wide_product<false, HC>(sm, t, c, dp, acc);
     }
     wgmma_wait<0>();
     fence_regs(acc);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = n0 + r + 8 * i;
-      if (row >= n) continue;
-      bf16* out = dh + size_t(row) * DW + 64 * (d0 + c * HC) + col;
-#pragma unroll
-      for (int nt = 0; nt < 8 * HC; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
-            __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
-    }
+    dh_wide_store<HC>(dh, acc, n0, r, n, d0 + c * HC, col);
   }
   cluster_sync();
 }
@@ -1179,56 +1419,41 @@ xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
                       const __grid_constant__ CUtensorMap wm, const float* __restrict__ b,
                       const float* __restrict__ lse, const float* __restrict__ g,
                       float* __restrict__ dw, float* __restrict__ db, int n, int v) {
+  using Smem = PairSmem<HC>;
+  constexpr int T = Smem::TILES;
   constexpr int DW = 256 * HC;
-  constexpr unsigned GROUP_BYTES = HC * 64 * 64 * 2;
   extern __shared__ unsigned char dw_wide_raw[];
-  PairSmem<HC>& sm = align1024<PairSmem<HC>>(dw_wide_raw);
+  Smem& sm = align1024<Smem>(dw_wide_raw);
   const int v0 = (blockIdx.x >> 1) * DW_TN;
   const int n_stripes = (n + DW_BM - 1) / DW_BM;
   const unsigned rank = cluster_ctarank(), partner = rank ^ 1u;
   const int d0 = int(rank) * 2 * HC;
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.res_full, 1);
-    for (int i = 0; i < 4; ++i) {
-      mbar_init(&sm.full[i], 1);
-      mbar_init(&sm.empty[i], 4);
-    }
-    for (int c = 0; c < 2; ++c) {
-      mbar_init(&sm.rfull[c], 1);
-      mbar_init(&sm.rempty[c], 1);
-    }
-    mbar_init_fence();
-  }
+  if (threadIdx.x == 0) pair_init(sm);
   cluster_sync();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.res_full, 2 * GROUP_BYTES);
-      for (int j = 0; j < 2 * HC; ++j) {
-        if (VD)
-          tma_load(sm.resident[j], &wm, &sm.res_full, 64 * (d0 + j), v0);
-        else
-          tma_load(sm.resident[j], &wm, &sm.res_full, v0, 64 * (d0 + j));
-      }
+      mbar_expect_tx(&sm.res_full, 2 * Smem::GROUP_BYTES);
 #pragma unroll 1
-      for (int t = 0; t < n_stripes; ++t)
-#pragma unroll 1
-        for (int c = 0; c < 2; ++c) {
-          const int grp = 2 * (t & 1) + c;
-          mbar_wait(&sm.empty[grp], ((t >> 1) & 1) ^ 1);
-          mbar_expect_tx(&sm.full[grp], GROUP_BYTES);
-          for (int q = 0; q < HC; ++q)
-            tma_load(sm.ring[grp][q], &hm, &sm.full[grp], 64 * (d0 + c * HC + q), t * DW_BM);
-        }
+      for (int j = 0; j < 2 * HC; ++j)
+        tma_load(sm.resident[j], &wm, &sm.res_full, VD ? 64 * (d0 + j) : v0,
+                 VD ? v0 : 64 * (d0 + j));
     }
+    if (threadIdx.x % 32 == 0 && threadIdx.x < 64)
+      pair_produce(sm, &hm, n_stripes + 1, threadIdx.x / 32, d0,
+                   [](int t, int dc, int& c0, int& c1) {
+                     c0 = 64 * dc;
+                     c1 = t * DW_BM;
+                   });
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int col = (lane % 4) * 2;
     const int r = warp * 16 + lane / 4;
+    // This thread's columns' bias, -inf past v (p = 0).
     float bias[4][2], db_part[4][2];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -1238,18 +1463,30 @@ xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
         bias[q][e] = vv >= v ? -INFINITY : b != nullptr ? b[vv] : 0.f;
         db_part[q][e] = 0.f;
       }
+    // The stripe's lse (times log2 e) and g of rows r and r + 8, read a
+    // stripe ahead and taken over at the stripe, so no load's latency lies
+    // in the walk.
     float row_lse2[2], row_g[2], next_lse2[2], next_g[2];
     bool ok[2], next_ok[2];
-    auto read_rows = [&](int t, float (&l2)[2], float (&gg)[2], bool (&in)[2]) {
+    auto read_rows = [&](int t) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int row = t * DW_BM + r + 8 * i;
-        in[i] = row < n;
-        l2[i] = in[i] ? lse[row] * LOG2E : 0.f;
-        gg[i] = in[i] ? g[row] : 0.f;
+        row_lse2[i] = next_lse2[i];
+        row_g[i] = next_g[i];
+        ok[i] = next_ok[i];
+        const int row = (t + 1) * DW_BM + r + 8 * i;
+        next_ok[i] = row < n;
+        next_lse2[i] = next_ok[i] ? lse[row] * LOG2E : 0.f;
+        next_g[i] = next_ok[i] ? g[row] : 0.f;
       }
     };
-    read_rows(0, next_lse2, next_g, next_ok);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r + 8 * i;
+      next_ok[i] = row < n;
+      next_lse2[i] = next_ok[i] ? lse[row] * LOG2E : 0.f;
+      next_g[i] = next_ok[i] ? g[row] : 0.f;
+    }
     float acc[8 * HC][4];  // dw^T: vocab rows r (+8), d columns of this quarter
 #pragma unroll
     for (int nt = 0; nt < 8 * HC; ++nt)
@@ -1258,9 +1495,10 @@ xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
     float s[8][4], z[4][4];
     const uint64_t dp = sw128_desc(sm.p);
     mbar_wait(&sm.res_full, 0);
-    for (int t = 0; t < n_stripes; ++t) {
-      const int grp = 2 * (t & 1) + c;
-      mbar_wait(&sm.full[grp], (t >> 1) & 1);
+    // Partial scores of stripe t over this consumer's quarter of d, into out.
+    auto scores = [&](int t, float (&out)[8][4]) {
+      const int grp = 2 * (t % T) + c;
+      mbar_wait(&sm.full[grp], (t / T) & 1);
       wgmma_fence();
 #pragma unroll
       for (int q = 0; q < HC; ++q) {
@@ -1269,49 +1507,75 @@ xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           if (VD)
-            wgmma_m64n64k16_ss<0>(s, da + 2 * kk, dbw + 2 * kk, q | kk);
+            wgmma_m64n64k16_ss<0>(out, da + 2 * kk, dbw + 2 * kk, q | kk);
           else
-            wgmma_m64n64k16_ss<1>(s, da + 2 * kk, dbw + 128 * kk, q | kk);
+            wgmma_m64n64k16_ss<1>(out, da + 2 * kk, dbw + 128 * kk, q | kk);
         }
       }
       wgmma_commit();
-      wgmma_wait<1>();  // the last stripe's dw product: its group is free
-      fence_regs(acc);
-      if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) & 1) + c]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        row_lse2[i] = next_lse2[i];
-        row_g[i] = next_g[i];
-        ok[i] = next_ok[i];
-      }
-      read_rows(t + 1, next_lse2, next_g, next_ok);
-      wgmma_wait<0>();
-      fence_regs(s);
-      pair_scores(sm, s, c, tid, t, partner, z);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int kcol = 32 * c + 8 * q + col;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float pv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float y = ex2(fmaf(z[q][2 * i + e] + bias[q][e], LOG2E, -row_lse2[i]));
-            pv[e] = ok[i] && bias[q][e] != -INFINITY ? row_g[i] * y : 0.f;
-            db_part[q][e] += pv[e];
-          }
-          store_p(sm.p, r + 8 * i, kcol, pv[0], pv[1]);
-        }
-      }
-      fence_proxy_async();
-      named_sync(2);
-      if (tid == 0) mbar_arrive_cluster(&sm.rempty[c], partner);
-      // dw^T[:, this quarter] += P^T h, as the D = 512 kernel.
+    };
+    // dw^T[:, this quarter] += P^T h, as the D = 512 kernel.
+    auto product = [&](int t) {
+      const int grp = 2 * (t % T) + c;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_wide_ss<1, 1>(acc, dp + 128 * kk, sw128_desc(sm.ring[grp][0], 8192) + 128 * kk, 1);
       wgmma_commit();
+    };
+    // The walk, as dh's.
+    float sn[T == 3 ? 8 : 1][4];
+    scores(0, s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    for (int t = 0; t < n_stripes; ++t) {
+      XENT_WALK_STAMP(1, 0);
+      if constexpr (T == 3) scores(t + 1, sn);  // the producer loads one stripe past the last
+      XENT_WALK_STAMP(1, 1);
+      read_rows(t);
+      pair_scores(sm, s, c, tid, t, partner, z, [&] {
+        // The last stripe's dw product has landed: its group is free.
+        XENT_WALK_STAMP(1, 2);
+        wgmma_wait<T == 3 ? 1 : 0>();
+        fence_regs(acc);
+        XENT_WALK_STAMP(1, 3);
+        if (t > 0 && lane == 0) mbar_arrive(&sm.empty[2 * ((t - 1) % T) + c]);
+      });
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ok[e >> 1] ? pair_p(z[q][e], bias[q][e & 1], row_lse2[e >> 1],
+                                              row_g[e >> 1])
+                                     : 0.f;
+          db_part[q][e & 1] += p;
+          z[q][e] = p;
+        }
+      XENT_WALK_STAMP(1, 4);
+      named_sync(4);  // both consumers' last dw product has landed: the P tile is free
+      XENT_WALK_STAMP(1, 5);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          store_p(sm.p, r + 8 * i, 32 * c + 8 * q + col, z[q][2 * i], z[q][2 * i + 1]);
+      pair_publish_p(sm, c, tid, partner);
+      XENT_WALK_STAMP(1, 6);
+      if constexpr (T == 2) scores(t + 1, s);  // the producer loads one stripe past the last
+      XENT_WALK_STAMP(1, 7);
+      product(t);
+      XENT_WALK_STAMP(1, 8);
+      wgmma_wait<1>();  // stripe t + 1's scores
+      if constexpr (T == 3) {
+        fence_regs(sn);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = sn[nt][e];
+      } else {
+        fence_regs(s);
+      }
+      XENT_WALK_STAMP(1, 9);
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1336,7 +1600,8 @@ xent_dwdb_wide_kernel(const __grid_constant__ CUtensorMap hm,
       }
     }
     // db, as the D = 512 kernel (x is free after the walk's last named
-    // barrier): both blocks hold the same p, rank 0 writes.
+    // barrier): both blocks of a d pair hold the same p, the half-0 block
+    // writes.
     float(&part)[2][4][32] = *reinterpret_cast<float(*)[2][4][32]>(&sm.x[0][0]);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -1405,6 +1670,11 @@ int launch_fwd(const void* h, const void* wp, const float* b, float* lse, int n,
   return int(cudaGetLastError());
 }
 
+// Whether wide dh at D = 256 HC runs the D = 512 order
+// (xent_dh_wide_plain_kernel) in place of the overlapped walk: the "dv"
+// table at D = 1,024, the shapes where it measured faster or level.
+constexpr bool dh_d512_order(bool vd, int hc) { return !vd && hc == 4; }
+
 template <bool VD, int CH>
 int launch_dh(const void* h, const void* wp, const float* b, const float* lse, const float* g,
               bf16* dh, int n, int v, cudaStream_t stream) {
@@ -1417,11 +1687,19 @@ int launch_dh(const void* h, const void* wp, const float* b, const float* lse, c
     if (err != cudaSuccess) return int(err);
     kernel<<<row_blocks, DH_THREADS, DH_SMEM, stream>>>(hm, wm, b, lse, g, dh, n, v);
   } else {
-    auto kernel = xent_dh_wide_kernel<VD, CH / 4>;
     constexpr size_t smem = sizeof(PairSmem<CH / 4>) + 1024;
-    const cudaError_t err = set_smem(kernel, smem);
+    auto launch = [&](auto kernel) {
+      const cudaError_t err = set_smem(kernel, smem);
+      if (err == cudaSuccess)
+        kernel<<<2 * row_blocks, DH_THREADS, smem, stream>>>(hm, wm, b, lse, g, dh, n, v);
+      return err;
+    };
+    cudaError_t err;
+    if constexpr (dh_d512_order(VD, CH / 4))
+      err = launch(xent_dh_wide_plain_kernel);
+    else
+      err = launch(xent_dh_wide_kernel<VD, CH / 4>);
     if (err != cudaSuccess) return int(err);
-    kernel<<<2 * row_blocks, DH_THREADS, smem, stream>>>(hm, wm, b, lse, g, dh, n, v);
   }
   return int(cudaGetLastError());
 }
@@ -1519,15 +1797,49 @@ extern "C" int xent_dwdb(const void* h, const void* wp, const float* b, const fl
   });
 }
 
+namespace {
+
+// How many clusters of `kernel` (`cluster` blocks of DW_THREADS threads, `smem`
+// bytes each) the card holds at once; -1 if the query fails.
+template <typename Kernel>
+int active_clusters(Kernel kernel, size_t smem, int cluster) {
+  if (set_smem(kernel, smem) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};  // the cluster size is the kernel's own
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess ? clusters : -1;
+}
+
+// The wide dh (or, given dwdb, dw/db) kernel's clusters, as launch_dh and
+// launch_dwdb pick the kernel.
+template <bool VD, int HC>
+int wide_active_clusters(bool dwdb) {
+  constexpr size_t smem = sizeof(PairSmem<HC>) + 1024;
+  if (dwdb) return active_clusters(xent_dwdb_wide_kernel<VD, HC>, smem, 2);
+  if constexpr (dh_d512_order(VD, HC)) return active_clusters(xent_dh_wide_plain_kernel, smem, 2);
+  return active_clusters(xent_dh_wide_kernel<VD, HC>, smem, 2);
+}
+
+}  // namespace
+
 // How many clusters of the dw/db kernel the card holds at once (its waves
 // are ceil(clusters launched / this)); -1 if the query fails.
 extern "C" int xent_dwdb_active_clusters() {
-  auto kernel = xent_dwdb_kernel<false>;
-  if (set_smem(kernel, DW_SMEM) != cudaSuccess) return -1;
-  cudaLaunchConfig_t cfg = {};  // the cluster size is the kernel's own
-  cfg.gridDim = dim3(DW_CLUSTER);
-  cfg.blockDim = dim3(DW_THREADS);
-  cfg.dynamicSmemBytes = DW_SMEM;
-  int clusters = 0;
-  return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess ? clusters : -1;
+  return active_clusters(xent_dwdb_kernel<false>, DW_SMEM, DW_CLUSTER);
+}
+
+// The same for the wide dh (dwdb == 0) or dw/db (dwdb != 0) kernel that a
+// "vd" (vd != 0) or "dv" table launches at D = 768 or 1,024, clusters of
+// two; -1 at another width.
+extern "C" int xent_wide_active_clusters(int dwdb, int d, int vd) {
+  switch (d) {
+    case 768:
+      return vd ? wide_active_clusters<true, 3>(dwdb) : wide_active_clusters<false, 3>(dwdb);
+    case 1024:
+      return vd ? wide_active_clusters<true, 4>(dwdb) : wide_active_clusters<false, 4>(dwdb);
+    default:
+      return -1;
+  }
 }

@@ -163,8 +163,9 @@ def _lib() -> ctypes.CDLL:
     lib.xent_dh.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.xent_dwdb.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.xent_dwdb_active_clusters.argtypes = []
+    lib.xent_wide_active_clusters.argtypes = [i, i, i]
     for fn in (lib.xent_pack_w, lib.xent_fwd, lib.xent_dh, lib.xent_dwdb,
-               lib.xent_dwdb_active_clusters):
+               lib.xent_dwdb_active_clusters, lib.xent_wide_active_clusters):
         fn.restype = ctypes.c_int
     return lib
 

@@ -25,7 +25,8 @@ exits non-zero without them, or when any phase fails. Phases:
    each kernel's registers, barriers, stack and spills from ``-Xptxas -v``,
    any ptxas warning, and the forward kernels' dynamic shared memory. A
    serialized-wgmma warning (C7518-C7520, C7512, ...) fails the phase, and
-   so does a spill in the dw/db kernel. The native data loader
+   so does a spill in a kernel of ``NO_SPILL`` (the dw/db kernels, the
+   wide dh kernel, the hd-128 flash backward). The native data loader
    (``data/native/loader.cc``) is built with ``g++`` beside them; a failed
    build fails the phase.
 3. Each fused-LM-head kernel against its plain version on the same inputs:
@@ -41,10 +42,14 @@ exits non-zero without them, or when any phase fails. Phases:
    flagship micro-batch here) and 65,536 (the long-context step). The pack
    kernel must equal its plain version bit for bit. The same at the wide
    widths, D = 768 and 1,024 (``XENT_WIDE``): both layouts, with and
-   without a bias, 1,000 x 4,001 and the same N/V edges; and lm1b's full
-   softmax, f32 h at D = 1,024, "vd" with a bias, N = 2,048 by V = 793,471,
-   held against the plain version fed the bf16 rounding of h and against
-   the plain version at f32 h. Tolerance: lse within
+   without a bias, 1,000 x 4,001 and the edges of the wide dh and dw/db
+   kernels' clusters (``XENT_WIDE_EDGES``: every N of 1, 63, 65, 127 and
+   129 with every V of 63, 65, 127, 129, 193 and 257, where the first,
+   second or third cluster's stripe or vocab tile holds no row or column,
+   or one); and lm1b's full softmax, f32 h at D = 1,024, "vd" with a bias, N
+   = 2,048 by V = 793,471, held against the plain version fed the bf16
+   rounding of h and against the plain version at f32 h, and dh, dw and db
+   the same bits over two calls. Tolerance: lse within
    0.01 absolute; dh, dw and db within TILE_RTOL in every tile (see
    ``worst_tile``). Then each kernel is timed at the flagship micro-batch
    (N = 98,304) beside its plain version, the one PyTorch call computing
@@ -53,11 +58,16 @@ exits non-zero without them, or when any phase fails. Phases:
    bound. dw/db must give the same bits twice on those inputs; it is also
    timed on a table packed beforehand, beside cuBLAS's products of the same
    work (``h @ wp`` into a materialised bf16 [N, V] S, then ``h.T @ S``), a
-   yardstick for the text only. At D = 1,024 each kernel is timed at
-   ``scale_lm``'s d1024 x 12 head (N = 32,768, V = 32,000, "dv"), the
-   forward beside ``logsumexp(h @ w.to(bf16))``, and at lm1b's full
-   softmax (N = 32,768, V = 793,471, "vd", a bias, f32 h), beside the
-   bounds; no library call there (its logits would be about 104 GB).
+   yardstick for the text only. At D = 768 and 1,024 each kernel is timed
+   at ``scale_lm``'s default head (d768: N = 49,152, V = 32,000, "dv") and
+   its d1024 x 12 head (N = 32,768), the forward beside ``logsumexp(h @
+   w.to(bf16))``, and at lm1b's full softmax (D = 1,024, N = 32,768, V =
+   793,471, "vd", a bias, f32 h), beside the bounds; no library call there
+   (its logits would be about 104 GB). At both scale_lm heads the lse, dh,
+   dw and db are held against the plain versions, TILE_RTOL in every tile
+   (the grid in many waves of clusters); dh, dw and db must give the same
+   bits twice at the d1024 head; the clusters of the wide dh and dw/db
+   kernels that the card holds at once are printed.
 4. The flagship at full width (d512 x 6 layers, 8 heads, d_ff 2048, vocab
    32,000, seq 256, untied fused head, bf16 activations, f32 params) through
    ``AutoDist(resource_info=..., strategy_builder=AllReduce()).function``
@@ -410,10 +420,11 @@ exits non-zero without them, or when any phase fails. Phases:
    and 7): ``long_context_lm --d_model 1024`` (8 heads of 128, d_ff 4,096,
    vocab 32,000, seq 8,192, 6 layers, flash, every block rematerialized,
    the fused head at D = 1,024, bf16, Adam 1e-3) at 8 sequences: 3 counted
-   steps (the hd-128 forward, dK/dV and dQ must launch and no hd-64 flash
-   kernel; losses finite), tokens/s and MFU over 4 steady steps with peak
+   steps (the hd-128 forward and the one-pass backward ``flash_bwd``
+   must launch, the backward 6 times a step, and no hd-64 flash kernel;
+   losses finite), tokens/s and MFU over 4 steady steps with peak
    memory, a profiler window over 2; then phase 8's ring of one card at
-   the same width, 3 counted steps (the hd-128 carry and backward pair at
+   the same width, 3 counted steps (the hd-128 carry and ``flash_bwd`` at
    f32 parts must launch and no other flash kernel); then phase 7b's
    one-card ring replay at hd 128, a check only.
 24. The port's optimizers (``--only optimizers``): (a) the flagship at
@@ -430,8 +441,7 @@ exits non-zero without them, or when any phase fails. Phases:
    hd-128 instantiations, their launches by phase with ``unroll``, ``moe``,
    ``async_ps``, ``lm_family``, ``telemetry``, ``serving``,
    ``long_context_128``, ``sequence_parallel_128`` and ``optimizers``; the
-   fused head's also at D =
-   1,024), then the result line.
+   fused head's also at D = 768 and 1,024), then the result line.
 
 ``python3 chip_smoke.py --only unroll`` (or ``--only moe_pipe``, ``--only
 async_ps``, ``--only lm_family``, ``--only telemetry``, ``--only serving``,
@@ -512,13 +522,21 @@ XENT_EDGES = ((127, 129), (129, 65), (63, 129), (65, 65))
 # and 65 (the first cluster's second block holds no column, or one), 129
 # (the second cluster's second block holds none) and 193 (one).
 XENT_DWDB_EDGES = tuple((n, v) for n in (1, 63, 65) for v in (63, 65, 129, 193))
-# The wide kernels' widths (D = 768 and 1,024): the same cases as at 512,
-# and lm1b's full softmax (f32 h, "vd", a bias) at N rows by its vocabulary.
+# The wide kernels' widths (D = 768 and 1,024), and lm1b's full softmax (f32
+# h, "vd", a bias) at N rows by its vocabulary.
 XENT_WIDE = (768, 1024)
+# The wide dh and dw/db kernels run clusters of two, the d halves of a
+# 64-row stripe (dh) or 64-column vocab tile (dw/db): N of 1, 63, 65, 127
+# and 129 (the second or third stripe holds no row or one) with V of 63,
+# 65, 127, 129, 193 and 257 (the second, third or fifth tile holds no
+# column or one), every V odd.
+XENT_WIDE_EDGES = tuple((n, v) for n in (1, 63, 65, 127, 129)
+                        for v in (63, 65, 127, 129, 193, 257))
 LM1B_VOCAB = 793471
 LM1B_CHECK_ROWS = 2048
 # A spill in these kernels fails phase 2.
-NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel", "flash_bwd_kernel")
+NO_SPILL = ("xent_dwdb_kernel", "xent_dwdb_wide_kernel", "xent_dh_wide_kernel",
+            "xent_dh_wide_plain_kernel", "flash_bwd_kernel")
 # Phase 12: the Ulysses replay's shards (4 seq ranks: 2 of the 8 heads each).
 ULYSSES_SHARDS = 4
 # Phase 14: ResNet-50 benchmark runs (strategy, images a card, timed steps).
@@ -637,6 +655,7 @@ def ptxas_summary(build_log: str):
                                        "flash_bwd_kernel", "flash_bwd_dq_convert_kernel",
                                        "flash_bwd_dd_kernel",
                                        "xent_fwd_wide_kernel", "xent_dh_wide_kernel",
+                                       "xent_dh_wide_plain_kernel",
                                        "xent_dwdb_wide_kernel", "xent_fwd_kernel",
                                        "xent_dh_kernel", "xent_dwdb_kernel",
                                        "xent_pack_kernel", "lstm_fwd_kernel",
@@ -739,7 +758,7 @@ def check_kernels(fx, dev):
     cases = [(D, torch.bfloat16) + c for c in cases]
     for d in XENT_WIDE:
         cases += [(d, torch.bfloat16, n, v, layout, bias)
-                  for n, v in ((1000, 4001),) + XENT_EDGES + XENT_DWDB_EDGES
+                  for n, v in ((1000, 4001),) + XENT_WIDE_EDGES
                   for layout in ("dv", "vd") for bias in (True, False)]
     cases.append((1024, torch.float32, LM1B_CHECK_ROWS, LM1B_VOCAB, "vd", True))
     for d, h_dtype, n, v, layout, bias in cases:
@@ -766,6 +785,7 @@ def check_kernels(fx, dev):
             log(f"check d={d} f32 h: lse against the plain version at f32 h {e_f32:.3g}")
             if not e_f32 <= LSE_ATOL:
                 raise AssertionError(f"f32 h: lse {e_f32} from the f32 plain version")
+            same_bits(fx, h, w, b, lse, g, layout, (dh, dw, db), f"d={d} f32 h n={n} v={v}")
         v_dim = 0 if layout == "vd" else 1
         e = {name: compare(got, want, dim)
              for name, got, want, dim in (("dh", dh, ref_dh, 0), ("dw", dw, ref_dw, v_dim),
@@ -782,6 +802,17 @@ def check_kernels(fx, dev):
         errs["xent_dh"] = max(errs["xent_dh"], e["dh"][0])
         errs["xent_dwdb"] = max(errs["xent_dwdb"], e["dw"][0], e["db"][0])
     return errs
+
+
+def same_bits(fx, h, w, b, lse, g, layout, first, label):
+    """dh, dw and db of a second call equal ``first`` bit for bit: no
+    backward kernel sums in an order that changes from call to call."""
+    second = (fx.xent_dh(h, w, b, lse, g, layout), *fx.xent_dwdb(h, w, b, lse, g, layout))
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(first, second)]
+    log(f"check {label}: dh, dw and db bit-identical over two calls: {same}")
+    if not all(same):
+        raise AssertionError(f"{label}: the backward kernels gave other bits on a second call")
 
 
 def worst_tile(got, want, dim):
@@ -867,20 +898,33 @@ def time_kernels(fx, dev):
 
 
 def time_wide(fx, dev):
-    """Phase 3b at D = 1,024: each kernel at scale_lm's d1024 head (N =
-    32,768, V = 32,000, "dv", no bias; the forward beside the library call)
-    and at lm1b's full softmax (N = 32,768, V = 793,471, "vd", a bias, f32
-    h: the wrappers' bf16 rounding of h is in their times; no library call,
-    whose logits would be about 104 GB). ``{label: {kernel: row}}``."""
+    """Phase 3b at D = 768 and 1,024: each kernel at scale_lm's default head
+    (d768: N = 49,152, V = 32,000, "dv", no bias) and its d1024 head (N =
+    32,768; the forward beside the library call at both), and at lm1b's full
+    softmax (D = 1,024, N = 32,768, V = 793,471, "vd", a bias, f32 h: the
+    wrappers' bf16 rounding of h is in their times; no library call, whose
+    logits would be about 104 GB). At both scale_lm heads the lse, dh, dw
+    and db are held against the plain versions (``check_at_size``), and dh,
+    dw and db must give the same bits twice at the d1024 head. ``{label:
+    {kernel: row}}``, each row with its width ``d``."""
     gen = torch.Generator().manual_seed(2)
+    lib = fx._lib()
+    log("wide dh and dw/db kernels: clusters resident at once: "
+        + ", ".join(f"D={d} {layout} {name} {lib.xent_wide_active_clusters(k, d, vd)}"
+                    for d in XENT_WIDE for vd, layout in ((0, "dv"), (1, "vd"))
+                    for k, name in ((0, "dh"), (1, "dw/db"))))
     out = {}
-    for label, n, v, layout, bias, h_dtype in (
-            ("scale_lm d1024", 32768, V, "dv", False, torch.bfloat16),
-            ("lm1b full softmax", 32768, LM1B_VOCAB, "vd", True, torch.float32)):
-        d = 1024
+    for label, d, n, v, layout, bias, h_dtype in (
+            ("scale_lm d768", 768, 49152, V, "dv", False, torch.bfloat16),
+            ("scale_lm d1024", 1024, 32768, V, "dv", False, torch.bfloat16),
+            ("lm1b full softmax", 1024, 32768, LM1B_VOCAB, "vd", True, torch.float32)):
         h, w, b, _ = inputs(n, v, layout, bias, gen, dev, d, h_dtype)
         g = torch.full((n,), 1.0 / n, device=dev)
         lse = fx.xent_fwd(h, w, b, layout)
+        if label == "scale_lm d1024":
+            same_bits(fx, h, w, b, lse, g, layout,
+                      (fx.xent_dh(h, w, b, lse, g, layout), *fx.xent_dwdb(h, w, b, lse, g, layout)),
+                      label)
         hb = h.element_size()
         in_bytes = n * d * hb + d * v * 4 + (v * 4 if bias else 0)
         ops = 2.0 * n * d * v
@@ -904,10 +948,12 @@ def time_wide(fx, dev):
                 lambda: fx.matmul_logsumexp_plain(h, w, b, layout), 1)
             plain_bwd = time_ms(lambda: fx.lse_backward_plain(h, w, b, lse, g, layout), 1)
             rows["xent_dh"]["plain_ms"] = rows["xent_dwdb"]["plain_ms"] = plain_bwd
+            check_at_size(fx, h, w, b, lse, g, layout, label)
             if not rows["xent_fwd"]["ms"] < rows["xent_fwd"]["library_ms"]:
                 raise AssertionError(f"{label}: the forward kernel is slower than the "
                                      f"library call: {rows['xent_fwd']}")
         for name, r in rows.items():
+            r["d"] = d
             log(f"time {name} D={d} N={n} V={v} {layout} bias={bias} h={str(h.dtype)[6:]} "
                 f"({label}): kernel {r['ms']:.3f} ms ({rate(r)}), plain {r.get('plain_ms')} ms, "
                 f"library {r['library_ms']} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); "
@@ -916,6 +962,25 @@ def time_wide(fx, dev):
         del h, w, b, g, lse
         free_card()
     return out
+
+
+def check_at_size(fx, h, w, b, lse, g, layout, label):
+    """The lse, dh, dw and db at a head the main path runs, against the plain
+    versions on the same inputs, TILE_RTOL in every tile: the grid in many
+    waves of clusters, as the checks' small shapes are not."""
+    ref_lse = fx.matmul_logsumexp_plain(h, w, b, layout)
+    ref = fx.lse_backward_plain(h, w, b, lse, g, layout)
+    got = (fx.xent_dh(h, w, b, lse, g, layout), *fx.xent_dwdb(h, w, b, lse, g, layout))
+    torch.cuda.synchronize()
+    e_lse = (lse - ref_lse).abs().max().item()
+    v_dim = 0 if layout == "vd" else 1
+    e = {name: compare(x, y, dim) for name, x, y, dim in zip(
+        ("dh", "dw", "db"), got, ref, (0, v_dim, 0))}
+    log(f"check {label} at size: lse {e_lse:.3g}; "
+        + "; ".join(f"{k} {describe(c)}" for k, c in e.items()))
+    if not (math.isfinite(e_lse) and e_lse <= LSE_ATOL
+            and all(c[2] <= TILE_RTOL for c in e.values())):
+        raise AssertionError(f"{label}: a kernel disagrees with its plain version at size")
 
 
 def dwdb_yardstick(fx, h, w, lse, g, row):
@@ -3544,9 +3609,10 @@ def telemetry_path(kernels, dev):
                     f"the same kernels by name: {quiet_names == off_names}; card "
                     f"{card_line()}")
                 if quiet_names != off_names:
-                    diff = (quiet_names - off_names) + (off_names - quiet_names)
                     raise AssertionError(f"telemetry (a): with health off the armed planes "
-                                         f"change the step's kernels: {dict(diff)}")
+                                         f"change the step's kernels: armed only "
+                                         f"{dict(quiet_names - off_names)}, off only "
+                                         f"{dict(off_names - quiet_names)}")
                 on = tel_runner(model, params, dev)
                 on_state = on.init(params)
                 on.run(on_state, batches(0))
@@ -4748,7 +4814,7 @@ def main(argv=None) -> int:
                 "bound_by": timing[fn]["bound"][1],
                 "library_ms": timing[fn]["library_ms"],
                 "tflops": timing[fn]["tflops"], "bound_share": timing[fn]["bound_share"],
-                **({"by_width": {label: {"d": 1024, "ms": r["ms"], "bound_ms": r["bound"][0],
+                **({"by_width": {label: {"d": r["d"], "ms": r["ms"], "bound_ms": r["bound"][0],
                                          "bound_by": r["bound"][1],
                                          "plain_ms": r.get("plain_ms"),
                                          "library_ms": r["library_ms"]}

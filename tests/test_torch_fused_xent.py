@@ -87,19 +87,28 @@ def test_grads_match_jax(layout, bias):
         np.testing.assert_allclose(got, want, **GRAD)
 
 
-# The CUDA kernels' tiling edges at their one width, D = 512: the forward's
-# blocks hold 128 rows and walk 128-column vocab tiles, dh's 64 rows and
-# 64-column tiles; V odd is the packed "dv" table's padded stride. The last
-# three: dw/db's blocks own 64 vocab columns in clusters of two and walk
+# The CUDA kernels' tiling edges at each width they are built for. At D =
+# 512 the forward's blocks hold 128 rows and walk 128-column vocab tiles,
+# dh's 64 rows and 64-column tiles; V odd is the packed "dv" table's padded
+# stride; dw/db's blocks own 64 vocab columns in clusters of two and walk
 # 64-row stripes (one row; one past and one short of a stripe; the first
 # cluster's second block holds one column at V = 65 and none at V = 63, the
-# second cluster's second block one at V = 193).
-@pytest.mark.parametrize("n,v,layout,bias", [(127, 129, "dv", True), (129, 129, "vd", False),
-                                             (63, 65, "vd", True), (65, 65, "dv", False),
-                                             (1, 65, "vd", True), (65, 63, "dv", False),
-                                             (63, 193, "dv", True)])
-def test_grads_at_kernel_tiling_edges_match_jax(n, v, layout, bias):
-    h, w, b = _data(n, 512, v, seed=21)
+# second cluster's second block one at V = 193). At D = 768 and 1,024 dh and
+# dw/db split d over a cluster's blocks and walk the same tiles: N = 127
+# and 129 (the second or third stripe holds 63 rows or one), V = 127 and 257
+# (the second or fifth tile holds 63 columns or one). The D = 512 cases
+# keep their ids.
+_EDGES = [(127, 129, "dv", True), (129, 129, "vd", False), (63, 65, "vd", True),
+          (65, 65, "dv", False), (1, 65, "vd", True), (65, 63, "dv", False),
+          (63, 193, "dv", True), (127, 257, "vd", True), (129, 127, "dv", False),
+          (1, 257, "dv", True)]
+
+
+@pytest.mark.parametrize("n,v,layout,bias,d", [
+    pytest.param(*edge, d, id="-".join(map(str, edge)) + ("" if d == 512 else f"-d{d}"))
+    for d in (512, 768, 1024) for edge in _EDGES])
+def test_grads_at_kernel_tiling_edges_match_jax(n, v, layout, bias, d):
+    h, w, b = _data(n, d, v, seed=21)
     w = _stored(w, layout)
     b = b if bias else None
     coef = np.random.RandomState(22).rand(n).astype(np.float32) * 0.01
